@@ -1,0 +1,86 @@
+"""Build the port's CUDA kernel with ``nvcc`` and load it with ctypes.
+
+``csrc/<name>.cu`` compiles on first use into a shared library with a
+plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
+
+The library goes to ``cimba_tpu_torch/build/`` (ignored by git), named
+by a hash of every source under ``csrc/`` and the flags, so a checkout
+builds its own kernel once and an edited source rebuilds.  ``--fmad=false``
+keeps the kernel's float arithmetic separately rounded, like the plain
+PyTorch engine it is held against.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+ARCH = "arch=compute_90a,code=sm_90a"
+FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: name -> loaded library (one load per process and source hash)
+_loaded: dict = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> tuple:
+    """Compile ``csrc/<name>.cu`` unless its library for the current
+    sources exists.  Returns ``(seconds, ptxas report)``; ``(0.0, "")``
+    when nothing was compiled."""
+    out = _target(name)
+    if out.exists():
+        return 0.0, ""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)
+    return time.perf_counter() - t0, proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built first if needed."""
+    path = _target(name)
+    lib = _loaded.get(path)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(path))
+        _loaded[path] = lib
+    return lib

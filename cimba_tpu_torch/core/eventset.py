@@ -1,0 +1,206 @@
+"""The future-event set, flat table only (torch port).
+
+Counterpart of :mod:`cimba_tpu.core.eventset` without the hierarchical
+``BlockMin`` minima (``blk`` is always ``None``, as it is in the
+reference for every capacity below two blocks).  Two tables:
+
+* the general table (``EventSet``, ``[L, CAP]``): timers and user events;
+* the dense wakes (``Wakes``, ``[L, P]``): at most one pending resume per
+  process, priority read live from ``procs.prio``.
+
+Both order events by (time asc, prio DESC, seq asc) with the lowest
+index winning a tie, and both draw seqs from ``EventSet.next_seq``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from cimba_tpu_torch.config import INDEX
+from cimba_tpu_torch.core import ix
+
+NEVER = float("inf")
+NULL_HANDLE = -1
+_GEN_SHIFT = 16
+_I32_MIN = -(2**31)
+_I32_MAX = 2**31 - 1
+
+
+class EventSet(NamedTuple):
+    time: torch.Tensor      # [L, CAP] TIME, +inf = free
+    prio: torch.Tensor      # [L, CAP] i32
+    seq: torch.Tensor       # [L, CAP] i32
+    kind: torch.Tensor      # [L, CAP] i32
+    subj: torch.Tensor      # [L, CAP] i32
+    arg: torch.Tensor       # [L, CAP] i32
+    gen: torch.Tensor       # [L, CAP] i32 slot generation
+    next_seq: torch.Tensor  # [L] i32
+    overflow: torch.Tensor  # [L] bool
+    blk: Any = None         # hierarchical minima: not ported
+
+
+class Event(NamedTuple):
+    time: torch.Tensor
+    prio: torch.Tensor
+    kind: torch.Tensor
+    subj: torch.Tensor
+    arg: torch.Tensor
+    found: torch.Tensor
+    handle: torch.Tensor
+
+
+class Wakes(NamedTuple):
+    time: torch.Tensor  # [L, P] TIME
+    sig: torch.Tensor   # [L, P] i32
+    seq: torch.Tensor   # [L, P] i32
+
+
+def create(capacity: int, lanes: int, device, time_dtype) -> EventSet:
+    if capacity > 1 << _GEN_SHIFT:
+        raise ValueError(f"event capacity {capacity} exceeds {1 << _GEN_SHIFT}")
+
+    def z():
+        return torch.zeros((lanes, capacity), dtype=INDEX, device=device)
+
+    return EventSet(
+        time=torch.full((lanes, capacity), NEVER, dtype=time_dtype,
+                        device=device),
+        prio=z(), seq=z(), kind=z(), subj=z(), arg=z(), gen=z(),
+        next_seq=torch.zeros((lanes,), dtype=INDEX, device=device),
+        overflow=torch.zeros((lanes,), dtype=torch.bool, device=device),
+    )
+
+
+def schedule(es: EventSet, t, prio, kind, subj, arg):
+    """Insert an event into the first free slot; returns (es, handle).
+    A non-finite time or a full table sets ``overflow`` and returns
+    NULL_HANDLE (the caller fails the replication)."""
+    lanes = es.time.shape[0]
+    t = torch.as_tensor(t, dtype=es.time.dtype, device=es.time.device)
+    free = torch.isinf(es.time)
+    slot = ix.first_true(free)
+    ok = free.any(dim=1) & torch.isfinite(t).expand(lanes)
+    s = slot.clamp(max=es.time.shape[1] - 1)
+    gen_at = ix.get(es.gen, s)
+    es2 = es._replace(
+        time=ix.put(es.time, s, t, ok),
+        prio=ix.put(es.prio, s, prio, ok),
+        seq=ix.put(es.seq, s, es.next_seq, ok),
+        kind=ix.put(es.kind, s, kind, ok),
+        subj=ix.put(es.subj, s, subj, ok),
+        arg=ix.put(es.arg, s, arg, ok),
+        next_seq=es.next_seq + ok.to(INDEX),
+        overflow=es.overflow | ~ok,
+    )
+    handle = torch.where(ok, (gen_at << _GEN_SHIFT) | s, NULL_HANDLE)
+    return es2, handle.to(INDEX)
+
+
+def _lexmin(time, prio, seq):
+    """Row-wise (time asc, prio desc, seq asc) argnext: (one-hot mask,
+    found, t_min, p_max, s_min) with the reference's fold identities for
+    an empty row (+inf, int32 min, int32 max)."""
+    t_min = time.amin(dim=1)
+    found = torch.isfinite(t_min)
+    m1 = (time == t_min[:, None]) & found[:, None]
+    p_max = torch.where(m1, prio, _I32_MIN).amax(dim=1)
+    m2 = m1 & (prio == p_max[:, None])
+    s_min = torch.where(m2, seq, _I32_MAX).amin(dim=1)
+    m3 = m2 & (seq == s_min[:, None])
+    return m3, found, t_min, p_max, s_min
+
+
+def _pick(mask, arr):
+    """Value at the (one-hot) mask; 0 where the row has no hit."""
+    return torch.where(mask, arr, torch.zeros((), dtype=arr.dtype,
+                                              device=arr.device)).sum(
+        dim=1, dtype=arr.dtype)
+
+
+def wakes_create(n: int, lanes: int, device, time_dtype) -> Wakes:
+    return Wakes(
+        time=torch.full((lanes, n), NEVER, dtype=time_dtype, device=device),
+        sig=torch.zeros((lanes, n), dtype=INDEX, device=device),
+        seq=torch.zeros((lanes, n), dtype=INDEX, device=device),
+    )
+
+
+def wake_set(wk: Wakes, p, t, sig, seq, pred=True):
+    """Arm process p's resume; returns (wk, ok).  Nothing is written, and
+    ok is false, for a non-finite time."""
+    t = torch.as_tensor(t, dtype=wk.time.dtype, device=wk.time.device)
+    ok = torch.isfinite(t).expand(wk.time.shape[0])
+    if pred is not True:
+        ok = ok & pred
+    return (
+        Wakes(
+            time=ix.put(wk.time, p, t, ok),
+            sig=ix.put(wk.sig, p, sig, ok),
+            seq=ix.put(wk.seq, p, seq, ok),
+        ),
+        ok,
+    )
+
+
+def wake_clear(wk: Wakes, p, pred=True) -> Wakes:
+    return wk._replace(time=ix.put(wk.time, p, NEVER, pred))
+
+
+def is_empty(es: EventSet):
+    return ~torch.isfinite(es.time).any(dim=1)
+
+
+def wakes_empty(wk: Wakes):
+    return ~torch.isfinite(wk.time).any(dim=1)
+
+
+def min_time(es: EventSet):
+    return es.time.amin(dim=1)
+
+
+def peek_merged(es: EventSet, wk: Wakes, prio, wake_kind):
+    """Next event across the general table and the dense wakes, not yet
+    consumed.  Returns (Event, take_e, take_w): one-hot consume masks for
+    :func:`consume_merged`."""
+    m_e, found_e, t_e, p_e, s_e = _lexmin(es.time, es.prio, es.seq)
+    slot_e = ix.first_true(m_e).clamp(max=es.time.shape[1] - 1)
+    kind_e = _pick(m_e, es.kind)
+    subj_e = _pick(m_e, es.subj)
+    arg_e = _pick(m_e, es.arg)
+    gen_e = _pick(m_e, es.gen)
+    m_w, found_w, t_w, p_w, s_w = _lexmin(wk.time, prio, wk.seq)
+    wake_first = found_w & (
+        ~found_e
+        | (t_w < t_e)
+        | ((t_w == t_e) & ((p_w > p_e) | ((p_w == p_e) & (s_w < s_e))))
+    )
+    found = found_e | found_w
+    pid_w = ix.first_true(m_w).clamp(max=wk.time.shape[1] - 1).to(INDEX)
+    event = Event(
+        time=torch.where(wake_first, t_w, t_e),
+        prio=torch.where(wake_first, p_w, p_e),
+        kind=torch.where(wake_first, wake_kind, kind_e),
+        subj=torch.where(wake_first, pid_w, subj_e),
+        arg=torch.where(wake_first, _pick(m_w, wk.sig), arg_e),
+        found=found,
+        handle=torch.where(
+            found & ~wake_first, (gen_e << _GEN_SHIFT) | slot_e.to(INDEX),
+            NULL_HANDLE,
+        ).to(INDEX),
+    )
+    return event, m_e & ~wake_first[:, None], m_w & wake_first[:, None]
+
+
+def consume_merged(es: EventSet, wk: Wakes, take_e, take_w, pred=True):
+    """Remove the peeked event (``pred`` gates the removal)."""
+    if pred is not True:
+        take_e = take_e & pred[:, None]
+        take_w = take_w & pred[:, None]
+    es2 = es._replace(
+        time=torch.where(take_e, NEVER, es.time),
+        gen=es.gen + take_e.to(INDEX),
+    )
+    wk2 = wk._replace(time=torch.where(take_w, NEVER, wk.time))
+    return es2, wk2

@@ -1,0 +1,527 @@
+"""The event loop, lane-batched (torch port of :mod:`cimba_tpu.core.loop`).
+
+Every Sim leaf carries the replication lane as its leading dimension —
+the layout ``jax.vmap(init_sim)`` gives the reference — and every
+function here advances all lanes at once, in eager PyTorch:
+
+* ``step`` pops each lane's next event (``eventset.peek_merged``),
+  advances its clock and resumes the subject process;
+* ``resume`` retries or abandons a pended command, then chains blocks
+  until the process yields — the batched ``while`` runs the body on every
+  lane and keeps the new state only where the lane's condition held, as a
+  vmapped ``lax.while_loop`` does;
+* blocks are evaluated for the lanes whose pc selects them and merged
+  per leaf; command handlers are composed in sequence, each gating its own
+  writes with ``torch.where`` (the reference's ``_gated`` handlers).
+
+This engine is the plain version of the CUDA chunk kernel
+(:mod:`cimba_tpu_torch.core.kernel_run`): ``make_run(spec,
+max_steps=k)`` is exactly one kernel chunk of ``k`` events per lane.
+
+Ported subset: the commands mm1 issues — hold, exit, jump, and the
+object-queue put/get with their fused ``*_hold`` verbs — with the guard
+pend/retry protocol, failure codes and ``api.stop``.  Other commands fail
+the replication with ERR_USER, as the reference's unknown-tag handler
+does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from cimba_tpu_torch import config, tree
+from cimba_tpu_torch.config import INDEX
+from cimba_tpu_torch.core import eventset as ev
+from cimba_tpu_torch.core import guard as gd
+from cimba_tpu_torch.core import ix
+from cimba_tpu_torch.core import process as pr
+from cimba_tpu_torch.core.model import ModelSpec
+from cimba_tpu_torch.random import bits as rb
+
+K_PROC = 0
+K_TIMER = 1
+N_KINDS = 2
+
+#: a process may not execute more blocks than this without yielding
+MAX_CHAIN = 1024
+
+ERR_NONE = 0
+ERR_EVENT_OVERFLOW = 1
+ERR_GUARD_OVERFLOW = 2
+ERR_CHAIN_RUNAWAY = 3
+ERR_USER = 4
+ERR_BAD_RELEASE = 5
+ERR_BOUNDARY = 6
+
+
+class Queues(NamedTuple):
+    items: torch.Tensor  # [L, NQ, QCAP] REAL ring buffers
+    head: torch.Tensor   # [L, NQ] i32
+    size: torch.Tensor   # [L, NQ] i32
+    acc: Any = None      # queue-length recording: not ported
+
+
+class Sim(NamedTuple):
+    """Every replication lane's full state (leaves ``[L, ...]``); the
+    field order is the reference's, so leaf lists line up."""
+
+    clock: torch.Tensor
+    rep: torch.Tensor
+    rng: rb.RandomState
+    events: ev.EventSet
+    wakes: ev.Wakes
+    procs: pr.Procs
+    guards: gd.Guards
+    queues: Any
+    resources: Any
+    pools: Any
+    buffers: Any
+    pqueues: Any
+    user: Any
+    done: torch.Tensor
+    err: torch.Tensor
+    n_events: torch.Tensor
+    boundary_pending: torch.Tensor
+    trace: Any = None
+    metrics: Any = None
+    t_stop: Any = None
+
+
+def _broadcast_params(params, lanes: int, device):
+    """Scalar params broadcast to ``[lanes]``; leaves already ``[lanes,
+    ...]`` pass through."""
+    def bc(x):
+        # Python floats stay f64 until the model casts them (torch's
+        # default float dtype would round them to f32 first)
+        t = torch.as_tensor(
+            x, dtype=torch.float64 if isinstance(x, float) else None,
+            device=device)
+        if t.dim() > 0 and t.shape[0] == lanes:
+            return t
+        return t.expand((lanes,) + tuple(t.shape)).contiguous()
+
+    if isinstance(params, (tuple, list)):
+        return type(params)(bc(x) for x in params)
+    if isinstance(params, dict):
+        return {k: bc(v) for k, v in params.items()}
+    return bc(params)
+
+
+def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
+             device="cuda") -> Sim:
+    """Initial state of the replications ``replications`` (a 1-D integer
+    array) under the active dtype profile, every process started at
+    ``t0`` (parity: ``jax.vmap(cimba_tpu.core.loop.init_sim)``)."""
+    dev = config.resolve_device(device)
+    real, tdt = config.real(), config.time()
+    reps = torch.as_tensor(replications, device=dev).to(torch.int64)
+    if reps.dim() != 1:
+        raise ValueError("replications must be a 1-D array of indices")
+    lanes = reps.shape[0]
+    n = spec.n_procs
+    # process starts are dense wakes at t0 with seqs 0..P-1 in pid order
+    wakes = ev.wakes_create(n, lanes, dev, tdt)._replace(
+        time=torch.full((lanes, n), float(t0), dtype=tdt, device=dev),
+        seq=torch.arange(n, dtype=INDEX, device=dev).expand(lanes, n)
+        .contiguous(),
+    )
+    events = ev.create(spec.event_cap, lanes, dev, tdt)
+    events = events._replace(next_seq=torch.full((lanes,), n, dtype=INDEX,
+                                                 device=dev))
+    procs = pr.create(spec.proc_entry, spec.proc_prio, spec.n_flocals,
+                      spec.n_ilocals, lanes, dev, real)
+    procs = procs._replace(status=torch.full_like(procs.status, pr.RUNNING))
+    nq = max(len(spec.queues), 1)
+    user = (spec.user_init(_broadcast_params(params, lanes, dev))
+            if spec.user_init else torch.zeros((lanes,), device=dev))
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return Sim(
+        clock=torch.full((lanes,), float(t0), dtype=tdt, device=dev),
+        rep=reps.to(INDEX),
+        rng=rb.initialize(seed, reps),
+        events=events,
+        wakes=wakes,
+        procs=procs,
+        guards=gd.create(spec.n_guards, lanes, dev),
+        queues=Queues(
+            items=zeros((lanes, nq, spec.queue_cap_max), real),
+            head=zeros((lanes, nq), INDEX),
+            size=zeros((lanes, nq), INDEX),
+        ) if spec.queues else None,
+        resources=None,
+        pools=None,
+        buffers=None,
+        pqueues=None,
+        user=user,
+        done=zeros((lanes,), torch.bool),
+        err=zeros((lanes,), INDEX),
+        n_events=zeros((lanes,), config.count()),
+        boundary_pending=zeros((lanes,), torch.bool),
+    )
+
+
+# --- lane-batched control flow -------------------------------------------
+
+
+def _where(pred, a, b):
+    """Leafwise lane select; leaves shared by both trees pass through."""
+    def sel(x, y):
+        if x is y:
+            return x
+        return torch.where(pred.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+
+    return tree.map(sel, a, b)
+
+
+def _while(cond, body, carry):
+    """Batched ``lax.while_loop``: ``body(carry, active)`` runs while any
+    lane's ``cond`` holds, and only those lanes keep its result."""
+    active = cond(carry)
+    while bool(active.any()):
+        carry = _where(active, body(carry, active), carry)
+        active = cond(carry)
+    return carry
+
+
+def _merge(sel_masks, outs, base):
+    """Per-leaf merge of branch outputs: ``outs[j]`` where
+    ``sel_masks[j]``, ``base`` elsewhere; a leaf a branch left untouched
+    costs nothing."""
+    base_leaves = tree.leaves(base)
+    out_leaves = [tree.leaves(o) for o in outs]
+    merged = []
+    for pos, b in enumerate(base_leaves):
+        res = b
+        for m, ol in zip(sel_masks, out_leaves):
+            if ol[pos] is not b:
+                res = torch.where(
+                    m.reshape((-1,) + (1,) * (b.dim() - 1)), ol[pos], res
+                )
+        merged.append(res)
+    return tree.unflatten(base, merged)
+
+
+def _set_err(sim: Sim, pred, code) -> Sim:
+    return sim._replace(
+        err=torch.where((sim.err == 0) & pred, code, sim.err).to(INDEX)
+    )
+
+
+def _schedule_wake(sim: Sim, pred, p, sig, t=None) -> Sim:
+    """Arm a resume for process p at ``t`` (default: now); a non-finite
+    time fails the replication."""
+    t = sim.clock if t is None else t
+    wk2, ok = ev.wake_set(sim.wakes, p, t, sig, sim.events.next_seq, pred)
+    sim = sim._replace(
+        wakes=wk2,
+        events=sim.events._replace(
+            next_seq=sim.events.next_seq + ok.to(INDEX)),
+    )
+    armed = torch.ones_like(ok) if pred is True else pred
+    return _set_err(sim, armed & ~ok, ERR_EVENT_OVERFLOW)
+
+
+def _guard_signal(sim: Sim, gid, pred=True) -> Sim:
+    """Wake the best waiter of guard ``gid`` (if any) with SUCCESS at the
+    current time; ``pred`` gates the whole signal."""
+    pid, found = gd.best_waiter(
+        sim.procs.pend_guard, sim.procs.pend_seq, sim.procs.prio, gid
+    )
+    woke = found if pred is True else (found & pred)
+    p = pid.clamp(min=0)
+    sim = sim._replace(procs=sim.procs._replace(
+        pend_guard=ix.put(sim.procs.pend_guard, p, -1, woke)))
+    return _schedule_wake(sim, woke, p, pr.SUCCESS)
+
+
+def _guard_wait(sim: Sim, p, gid, cmd: pr.Command, is_retry, pred) -> Sim:
+    """Pend the blocked command on guard ``gid`` and advance pc to the
+    continuation; a retry keeps its FIFO sequence."""
+    seq_override = torch.where(is_retry, ix.get(sim.procs.pend_seq, p), -1)
+    g2, seq = gd.alloc_seq(sim.guards, gid, seq_override, pred)
+    pc = sim.procs
+    return sim._replace(
+        procs=pc._replace(
+            pend_tag=ix.put(pc.pend_tag, p, cmd.tag, pred),
+            pend_f=ix.put(pc.pend_f, p, cmd.f, pred),
+            pend_f2=ix.put(pc.pend_f2, p, cmd.f2, pred),
+            pend_f3=ix.put(pc.pend_f3, p, cmd.f3, pred),
+            pend_i=ix.put(pc.pend_i, p, cmd.i, pred),
+            pend_pc=ix.put(pc.pend_pc, p, cmd.next_pc, pred),
+            pend_guard=ix.put(pc.pend_guard, p, gid, pred),
+            pend_seq=ix.put(pc.pend_seq, p, seq, pred),
+            pc=ix.put(pc.pc, p, cmd.next_pc, pred),
+        ),
+        guards=g2,
+    )
+
+
+def _clear_pend(sim: Sim, p, pred=True) -> Sim:
+    return sim._replace(procs=sim.procs._replace(
+        pend_tag=ix.put(sim.procs.pend_tag, p, pr.NO_PEND, pred),
+        pend_guard=ix.put(sim.procs.pend_guard, p, -1, pred),
+    ))
+
+
+def _cancel_wake(sim: Sim, p, pred=True) -> Sim:
+    return sim._replace(wakes=ev.wake_clear(sim.wakes, p, pred))
+
+
+def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
+    """Terminate process p: drop its pend and wake, cancel its timers,
+    mark it FINISHED (parity: the reference's kill semantics, restricted
+    to the ported components)."""
+    sim = _clear_pend(sim, p, pred)
+    sim = _cancel_wake(sim, p, pred)
+    es = sim.events
+    hit = (torch.isfinite(es.time) & (es.kind == K_TIMER)
+           & (es.subj == p[:, None]) & pred[:, None])
+    sim = sim._replace(events=es._replace(
+        time=torch.where(hit, ev.NEVER, es.time),
+        gen=es.gen + hit.to(INDEX),
+    ))
+    return sim._replace(procs=sim.procs._replace(
+        status=ix.put(sim.procs.status, p, pr.FINISHED, pred),
+        exit_sig=ix.put(sim.procs.exit_sig, p, exit_sig, pred),
+    ))
+
+
+def _nanmax0(x):
+    # jnp.maximum(x, 0.0): NaN propagates
+    return torch.where(torch.isnan(x) | (x > 0), x, torch.zeros_like(x))
+
+
+def _make_apply(spec: ModelSpec):
+    q_cap = [q.capacity for q in spec.queues] or [1]
+    q_front = [q.front_guard for q in spec.queues] or [0]
+    q_rear = [q.rear_guard for q in spec.queues] or [0]
+
+    def set_pc(sim, p, pc, pred):
+        return sim._replace(procs=sim.procs._replace(
+            pc=ix.put(sim.procs.pc, p, pc, pred)))
+
+    def h_hold(sim, p, cmd, is_retry, gate):
+        sim = _schedule_wake(sim, gate, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f))
+        return set_pc(sim, p, cmd.next_pc, gate), torch.ones_like(gate)
+
+    def h_exit(sim, p, cmd, is_retry, gate):
+        return (finish_process(spec, sim, p, pr.SUCCESS, gate),
+                torch.ones_like(gate))
+
+    def h_jump(sim, p, cmd, is_retry, gate):
+        return set_pc(sim, p, cmd.next_pc, gate), torch.zeros_like(gate)
+
+    def h_queue(sim, p, cmd, is_retry, gate):
+        """PUT and GET (and their fused ``*_hold`` twins) as one handler,
+        in the reference's order: ring op, rear then front signal, the
+        fused hold, the pc write, and the pend of a blocked verb."""
+        dev = gate.device
+        nq = len(q_cap)
+        qid = cmd.i.clamp(0, nq - 1).to(torch.int64) if nq > 1 else \
+            torch.zeros_like(cmd.i, dtype=torch.int64)
+        is_put = (cmd.tag == pr.C_PUT) | (cmd.tag == pr.C_PUT_HOLD)
+        fused = (cmd.tag == pr.C_PUT_HOLD) | (cmd.tag == pr.C_GET_HOLD)
+        q = sim.queues
+        size = ix.get(q.size, qid)
+        head = ix.get(q.head, qid)
+        cap = torch.tensor(q_cap, dtype=INDEX, device=dev)[qid]
+        rear = torch.tensor(q_rear, dtype=INDEX, device=dev)[qid]
+        front = torch.tensor(q_front, dtype=INDEX, device=dev)[qid]
+        own_gid = torch.where(is_put, rear, front)
+        may = is_retry | gd.is_empty(sim.procs.pend_guard, own_gid)
+        blocked = torch.where(is_put, size >= cap, size <= 0) | ~may
+        ok = ~blocked & gate
+        ok_get = ok & ~is_put
+
+        width = q.items.shape[2]
+        flat = q.items.reshape(q.items.shape[0], -1)
+        slot = qid * width + torch.where(is_put, (head + size) % cap, head)
+        item = torch.where(ok, ix.get(flat, slot),
+                           torch.zeros((), dtype=flat.dtype, device=dev))
+        flat2 = ix.put(flat, slot, cmd.f, ok & is_put)
+        dsz = torch.where(is_put, 1, -1).to(INDEX)
+        sim = sim._replace(
+            queues=q._replace(
+                items=flat2.reshape(q.items.shape),
+                head=ix.put(q.head, qid, (head + 1) % cap, ok_get),
+                size=ix.add(q.size, qid, dsz, ok),
+            ),
+            procs=sim.procs._replace(
+                got=ix.put(sim.procs.got, p, item, ok_get)),
+        )
+        sim = _guard_signal(sim, rear, pred=ok_get)
+        sim = _guard_signal(sim, front, pred=ok)
+        sim = _schedule_wake(sim, fused & ok, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f3))
+        sim = set_pc(sim, p, cmd.next_pc, gate)
+        sim = _guard_wait(sim, p, own_gid, cmd, is_retry,
+                          pred=blocked & gate)
+        return sim, blocked | fused
+
+    def h_invalid(sim, p, cmd, is_retry, gate):
+        return _set_err(sim, gate, ERR_USER), torch.ones_like(gate)
+
+    queue = h_queue if spec.queues else h_invalid
+    table = [
+        (h_hold, (pr.C_HOLD,)),
+        (h_exit, (pr.C_EXIT,)),
+        (h_jump, (pr.C_JUMP,)),
+        (queue, (pr.C_PUT, pr.C_GET, pr.C_PUT_HOLD, pr.C_GET_HOLD)),
+    ]
+    handled = [t for _, tags in table for t in tags]
+
+    def apply_command(sim, p, cmd, is_retry, active):
+        tag = cmd.tag.clamp(0, pr.N_COMMANDS - 1)
+        yielded = torch.zeros_like(active)
+        sels = [(h, torch.isin(tag, torch.tensor(tags, device=tag.device)))
+                for h, tags in table]
+        sels.append((h_invalid, ~torch.isin(
+            tag, torch.tensor(handled, device=tag.device))))
+        for h, sel in sels:
+            gate = sel & active
+            if not bool(gate.any()):
+                continue  # every write of h is gated off on every lane
+            sim, y = h(sim, p, cmd, is_retry, gate)
+            yielded = torch.where(gate, y, yielded)
+        return sim, yielded
+
+    return apply_command
+
+
+def make_step(spec: ModelSpec):
+    """Build ``step(sim) -> sim`` dispatching exactly one event per lane."""
+    blocks = list(spec.blocks)
+    apply_command = _make_apply(spec)
+    n_procs = spec.n_procs
+
+    def run_block(sim, p, sig, need):
+        pc = ix.get(sim.procs.pc, p).clamp(0, len(blocks) - 1)
+        lanes = pc.shape[0]
+        real = sim.clock.dtype
+        masks, outs = [], []
+        cmd = None
+        for j, blk in enumerate(blocks):
+            m = (pc == j) & need
+            if not bool(m.any()):
+                continue
+            s_j, c_j = blk(sim, p, sig)
+            c_j = pr.normalize(c_j, lanes, pc.device, real)
+            masks.append(m)
+            outs.append(s_j)
+            cmd = c_j if cmd is None else pr.select(m, c_j, cmd)
+        if cmd is None:
+            cmd = pr.normalize(pr.exit_(), lanes, pc.device, real)
+        return _merge(masks, outs, sim), cmd
+
+    def resume(sim, p, sig, gate):
+        """Resume process p (per lane) with signal sig where ``gate``:
+        retry a pended command on a SUCCESS wake, then chain blocks until
+        the process yields."""
+        sim = _cancel_wake(sim, p, gate)
+        pc = sim.procs
+        pend = pr.Command(
+            ix.get(pc.pend_tag, p), ix.get(pc.pend_f, p),
+            ix.get(pc.pend_f2, p), ix.get(pc.pend_f3, p),
+            ix.get(pc.pend_i, p), ix.get(pc.pend_pc, p),
+        )
+        has_pend = pend.tag != pr.NO_PEND
+        sim = _clear_pend(sim, p, gate)
+        # a non-SUCCESS wake aborts the pend: its clear above is the whole
+        # abort for the ported components (no pool/buffer cleanup exists)
+        use_pend0 = has_pend & (sig == pr.SUCCESS)
+
+        def cond(c):
+            s, _, yielded, n, _ = c
+            alive = (ix.get(s.procs.status, p) == pr.RUNNING) & (s.err == 0)
+            return ~yielded & alive & (n < MAX_CHAIN)
+
+        def body(c, active):
+            s, sg, _, n, use_pend = c
+            s_blk, c_blk = run_block(s, p, sg, active & ~use_pend)
+            s2 = _where(use_pend, s, s_blk)
+            cmd = pr.Command(*[torch.where(use_pend, a, b)
+                               for a, b in zip(pend, c_blk)])
+            s2, yielded = apply_command(s2, p, cmd, use_pend, active)
+            return (s2, torch.full_like(sg, pr.SUCCESS), yielded, n + 1,
+                    torch.zeros_like(use_pend))
+
+        carry = (sim, sig.to(INDEX), ~gate,
+                 torch.zeros_like(sig, dtype=INDEX), use_pend0)
+        sim, _, _, n, _ = _while(cond, body, carry)
+        return _set_err(sim, n >= MAX_CHAIN, ERR_CHAIN_RUNAWAY)
+
+    def step(sim: Sim) -> Sim:
+        event, take_e, take_w = ev.peek_merged(
+            sim.events, sim.wakes, sim.procs.prio, K_PROC)
+        proceed = event.found
+        es2, wk2 = ev.consume_merged(sim.events, sim.wakes, take_e, take_w,
+                                     proceed)
+        sim = sim._replace(
+            events=es2,
+            wakes=wk2,
+            clock=torch.where(proceed, event.time, sim.clock),
+            n_events=sim.n_events + proceed.to(sim.n_events.dtype),
+            done=sim.done | ~event.found,
+        )
+        # kinds K_PROC and K_TIMER resume the subject (no user handlers
+        # are ported); an out-of-range subject reads as not RUNNING
+        subj = event.subj
+        in_range = (subj >= 0) & (subj < n_procs)
+        p = subj.clamp(0, n_procs - 1)
+        alive = in_range & (ix.get(sim.procs.status, p) == pr.RUNNING)
+        return resume(sim, p, event.arg, alive & proceed)
+
+    return step
+
+
+def make_cond(spec: ModelSpec, t_end: Optional[float] = None):
+    """Per-lane liveness ``cond(sim) -> [L] bool`` (parity:
+    ``cimba_tpu.core.loop.make_cond`` without wait-event stranding)."""
+
+    def cond(sim: Sim):
+        empty = ev.is_empty(sim.events) & ev.wakes_empty(sim.wakes)
+        live = ~sim.done & (sim.err == 0) & ~empty
+        if sim.t_stop is not None:
+            raise NotImplementedError(
+                "cimba_tpu_torch: per-lane horizons (Sim.t_stop) are not "
+                "ported yet")
+        if t_end is not None:
+            nxt = torch.minimum(ev.min_time(sim.events),
+                                sim.wakes.time.amin(dim=1))
+            live = live & (nxt <= t_end)
+        return live
+
+    return cond
+
+
+def make_run(spec: ModelSpec, t_end: Optional[float] = None,
+             max_steps: Optional[int] = None):
+    """Build ``run(sim) -> sim``: dispatch events until every lane stops,
+    fails, runs out of events or passes ``t_end``.  ``max_steps`` bounds
+    one call to that many dispatches per lane; truncation is exact, so a
+    host loop that calls again until :func:`make_cond` reports every lane
+    done reproduces the unbounded run bit for bit."""
+    step = make_step(spec)
+    cond = make_cond(spec, t_end)
+    if max_steps is not None and max_steps <= 0:
+        raise ValueError(f"max_steps must be positive, got {max_steps}")
+    bound = max_steps if max_steps is not None else float("inf")
+
+    def run(sim: Sim) -> Sim:
+        k = torch.zeros_like(sim.err)
+
+        def kcond(c):
+            return cond(c[1]) & (c[0] < bound)
+
+        def kbody(c, active):
+            return c[0] + 1, step(c[1])
+
+        return _while(kcond, kbody, (k, sim))[1]
+
+    return run

@@ -1,0 +1,187 @@
+"""Model definition: the static structure a simulation is built from
+(torch port of :mod:`cimba_tpu.core.model`).
+
+A :class:`Model` collects blocks, process types, object queues and the
+user-state initialiser at Python time; :meth:`Model.build` freezes them into
+a :class:`ModelSpec`.  Block registration is the reference's::
+
+    m = Model("mm1", n_ilocals=1)
+    q = m.objectqueue("buffer", capacity=128, record=False)
+
+    @m.block
+    def a_hold(sim, p, sig):
+        sim, t = api.draw(sim, random.exponential, sim.user["arr_mean"])
+        return sim, cmd.hold(t, next_pc=a_put.pc)
+
+    m.process("arrival", entry=a_hold)
+
+Blocks run on every replication lane at once: ``p`` and ``sig`` are
+``[L]`` tensors.  The components mm1 does not use (resources, pools,
+buffers, priority queues, conditions, user event handlers, spawn pools,
+boundary blocks) and queue-length recording are still to port and raise
+``NotImplementedError`` naming the feature.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class QueueRef:
+    id: int
+    name: str
+    capacity: int
+    front_guard: int  # getters wait here
+    rear_guard: int   # putters wait here
+    record: bool = False
+
+
+@dataclasses.dataclass
+class ProcessType:
+    name: str
+    entry_pc: int
+    prio: int
+    count: int
+    first_pid: int = -1
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    """Frozen model structure."""
+
+    name: str
+    blocks: List[Callable]
+    proc_entry: np.ndarray  # [P] i32
+    proc_prio: np.ndarray   # [P] i32
+    proc_names: List[str]
+    queues: List[QueueRef]
+    n_guards: int
+    event_cap: int
+    queue_cap_max: int
+    n_flocals: int
+    n_ilocals: int
+    user_init: Optional[Callable[..., Any]]
+
+    @property
+    def n_procs(self) -> int:
+        return len(self.proc_entry)
+
+
+def _not_ported(feature: str):
+    raise NotImplementedError(
+        f"cimba_tpu_torch: {feature} is not ported yet (see ROADMAP.md, "
+        "queue A)"
+    )
+
+
+class Model:
+    """A model under construction (Python-time only)."""
+
+    def __init__(self, name: str, *, n_flocals: int = 0, n_ilocals: int = 0,
+                 event_cap: int = 16, guard_cap: int = 8,
+                 max_chain: int = 16):
+        # guard_cap and max_chain are accepted for signature parity: dense
+        # guards cannot overflow, and the port's chain bound is the
+        # engine's MAX_CHAIN
+        self.name = name
+        self.n_flocals = n_flocals
+        self.n_ilocals = n_ilocals
+        self.event_cap = event_cap
+        self._blocks: List[Callable] = []
+        self._types: List[ProcessType] = []
+        self._queues: List[QueueRef] = []
+        self._n_guards = 0
+        self._user_init: Optional[Callable] = None
+
+    def block(self, fn: Callable) -> Callable:
+        """Register a block; sets ``fn.pc`` to its global index."""
+        fn.pc = len(self._blocks)
+        self._blocks.append(fn)
+        return fn
+
+    def process(self, name: str, entry, *, prio: int = 0, count: int = 1,
+                start: bool = True):
+        """Declare ``count`` instances of a process type starting at
+        block ``entry``."""
+        if not start:
+            _not_ported("spawn pools (process(start=False))")
+        pt = ProcessType(name, entry.pc, prio, count)
+        self._types.append(pt)
+        return pt
+
+    def _guard(self) -> int:
+        g = self._n_guards
+        self._n_guards += 1
+        return g
+
+    def objectqueue(self, name: str, capacity: int,
+                    record: bool = True) -> QueueRef:
+        """FIFO of REAL payloads (parity: cmb_objectqueue)."""
+        if record:
+            _not_ported(
+                "queue-length recording (objectqueue(record=True), "
+                "stats/timeseries.py)"
+            )
+        q = QueueRef(
+            id=len(self._queues), name=name, capacity=capacity,
+            front_guard=self._guard(), rear_guard=self._guard(),
+            record=False,
+        )
+        self._queues.append(q)
+        return q
+
+    def resource(self, *a, **k):
+        _not_ported("resources")
+
+    def resourcepool(self, *a, **k):
+        _not_ported("resource pools")
+
+    def buffer(self, *a, **k):
+        _not_ported("buffers")
+
+    def priorityqueue(self, *a, **k):
+        _not_ported("priority queues")
+
+    def condition(self, *a, **k):
+        _not_ported("conditions")
+
+    def handler(self, *a, **k):
+        _not_ported("user event handlers")
+
+    def boundary_block(self, *a, **k):
+        _not_ported("boundary blocks")
+
+    def user_state(self, fn: Callable) -> Callable:
+        """Register ``fn(params) -> pytree`` building the user state; the
+        params arrive as ``[L]`` tensors, one row per replication."""
+        self._user_init = fn
+        return fn
+
+    def build(self) -> ModelSpec:
+        if not self._types:
+            raise ValueError("model has no processes")
+        entries, prios, names = [], [], []
+        for pt in self._types:
+            pt.first_pid = len(entries)
+            for k in range(pt.count):
+                entries.append(pt.entry_pc)
+                prios.append(pt.prio)
+                names.append(pt.name if pt.count == 1 else f"{pt.name}[{k}]")
+        return ModelSpec(
+            name=self.name,
+            blocks=list(self._blocks),
+            proc_entry=np.asarray(entries, np.int32),
+            proc_prio=np.asarray(prios, np.int32),
+            proc_names=names,
+            queues=list(self._queues),
+            n_guards=max(self._n_guards, 1),
+            event_cap=self.event_cap,
+            queue_cap_max=max([q.capacity for q in self._queues], default=1),
+            n_flocals=self.n_flocals,
+            n_ilocals=self.n_ilocals,
+            user_init=self._user_init,
+        )

@@ -1,0 +1,186 @@
+"""Processes as state machines: commands and process rows (torch port).
+
+Counterpart of :mod:`cimba_tpu.core.process`.  Signal codes, statuses and
+command tags keep the reference's values (the CUDA kernel and the state
+carried across by :mod:`cimba_tpu_torch.interop` rely on them).  A
+command's fields are tensors over the replication lanes or plain Python
+numbers; the engine broadcasts them.  The port implements the handlers
+mm1 reaches (hold, exit, jump and the object-queue verbs with their fused
+``*_hold`` twins); the constructors of the other verbs are still to port.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cimba_tpu_torch import config
+from cimba_tpu_torch.config import INDEX
+
+# --- signal protocol (parity: include/cmb_process.h:59-99) ----------------
+SUCCESS = 0
+PREEMPTED = -1
+INTERRUPTED = -2
+STOPPED = -3
+CANCELLED = -4
+TIMEOUT = -5
+
+# --- process status ---------------------------------------------------------
+CREATED = 0
+RUNNING = 1
+FINISHED = 2
+
+# --- command tags (values shared with cimba_tpu.core.process) --------------
+C_HOLD = 0
+C_EXIT = 1
+C_JUMP = 2
+C_PUT = 3
+C_GET = 4
+C_PUT_HOLD = 18
+C_GET_HOLD = 19
+N_COMMANDS = 28
+
+#: no pending command
+NO_PEND = -1
+
+
+class Command(NamedTuple):
+    """Uniform command (every block returns one)."""
+
+    tag: object      # i32
+    f: object        # REAL payload (duration, item)
+    f2: object       # REAL second payload
+    f3: object       # REAL fused hold duration (``*_hold`` verbs)
+    i: object        # i32 payload (queue id)
+    next_pc: object  # i32 block to continue at
+
+
+def _cmd(tag, f=0.0, f2=0.0, f3=0.0, i=0, next_pc=0) -> Command:
+    return Command(tag, f, f2, f3, i, next_pc)
+
+
+def hold(duration, next_pc) -> Command:
+    """Yield for ``duration`` sim time (parity: cmb_process_hold)."""
+    return _cmd(C_HOLD, f=duration, next_pc=next_pc)
+
+
+def exit_() -> Command:
+    """Terminate the process."""
+    return _cmd(C_EXIT)
+
+
+def jump(next_pc) -> Command:
+    """Continue at another block without yielding."""
+    return _cmd(C_JUMP, next_pc=next_pc)
+
+
+def put(queue, item, next_pc) -> Command:
+    """Blocking put into an object queue."""
+    return _cmd(C_PUT, f=item, i=queue, next_pc=next_pc)
+
+
+def get(queue, next_pc) -> Command:
+    """Blocking get; the item lands in the result register (api.got)."""
+    return _cmd(C_GET, i=queue, next_pc=next_pc)
+
+
+def put_hold(queue, item, duration, next_pc) -> Command:
+    """Fused ``put; hold(duration)``: one chain iteration per event."""
+    return _cmd(C_PUT_HOLD, f=item, f3=duration, i=queue, next_pc=next_pc)
+
+
+def get_hold(queue, duration, next_pc) -> Command:
+    """Fused ``get; hold(duration)``: the M/M/1 service cycle."""
+    return _cmd(C_GET_HOLD, f3=duration, i=queue, next_pc=next_pc)
+
+
+_REAL_FIELDS = (1, 2, 3)
+
+
+def _as_field(v, k, like, device):
+    if isinstance(v, torch.Tensor):
+        return v
+    if k in _REAL_FIELDS:
+        dt = like.dtype if isinstance(like, torch.Tensor) else config.real()
+    else:
+        dt = INDEX
+    return torch.tensor(v, dtype=dt, device=device)
+
+
+def select(pred, a: Command, b: Command) -> Command:
+    """Lane-wise ``pred ? a : b``.  Fields that are the same object on
+    both sides pass through unselected."""
+    out = []
+    for k, (x, y) in enumerate(zip(a, b)):
+        if x is y:
+            out.append(x)
+            continue
+        xt = _as_field(x, k, y, pred.device)
+        yt = _as_field(y, k, xt, pred.device)
+        out.append(torch.where(pred, xt, yt))
+    return Command(*out)
+
+
+def normalize(cmd: Command, lanes: int, device, real) -> Command:
+    """Every field as a ``[lanes]`` tensor of its dtype."""
+    out = []
+    for k, v in enumerate(cmd):
+        dt = real if k in _REAL_FIELDS else INDEX
+        t = torch.as_tensor(v, dtype=dt, device=device)
+        out.append(t.expand(lanes) if t.dim() == 0 else t)
+    return Command(*out)
+
+
+class Procs(NamedTuple):
+    """All processes of every lane, struct-of-arrays ``[L, P]``."""
+
+    pc: torch.Tensor
+    status: torch.Tensor
+    prio: torch.Tensor
+    pend_tag: torch.Tensor
+    pend_f: torch.Tensor
+    pend_f2: torch.Tensor
+    pend_f3: torch.Tensor
+    pend_i: torch.Tensor
+    pend_pc: torch.Tensor
+    pend_guard: torch.Tensor
+    pend_seq: torch.Tensor
+    await_pid: torch.Tensor
+    await_evt: torch.Tensor
+    exit_sig: torch.Tensor
+    got: torch.Tensor
+    locals_f: torch.Tensor  # [L, P, NF]
+    locals_i: torch.Tensor  # [L, P, NI]
+
+
+def create(entry_pcs, prios, n_flocals: int, n_ilocals: int, lanes: int,
+           device, real) -> Procs:
+    entry = torch.as_tensor(entry_pcs, dtype=INDEX, device=device)
+    p = entry.shape[0]
+
+    def full(v, dt=INDEX):
+        return torch.full((lanes, p), v, dtype=dt, device=device)
+
+    return Procs(
+        pc=entry.expand(lanes, p).contiguous(),
+        status=full(CREATED),
+        prio=torch.as_tensor(prios, dtype=INDEX, device=device)
+        .expand(lanes, p).contiguous(),
+        pend_tag=full(NO_PEND),
+        pend_f=full(0.0, real),
+        pend_f2=full(0.0, real),
+        pend_f3=full(0.0, real),
+        pend_i=full(0),
+        pend_pc=full(0),
+        pend_guard=full(-1),
+        pend_seq=full(-1),
+        await_pid=full(-1),
+        await_evt=full(-1),
+        exit_sig=full(SUCCESS),
+        got=full(0.0, real),
+        locals_f=torch.zeros((lanes, p, max(n_flocals, 1)), dtype=real,
+                             device=device),
+        locals_i=torch.zeros((lanes, p, max(n_ilocals, 1)), dtype=INDEX,
+                             device=device),
+    )

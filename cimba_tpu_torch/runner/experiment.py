@@ -1,0 +1,66 @@
+"""The experiment runner: replications as lanes (torch port of
+:mod:`cimba_tpu.runner.experiment`, the ``run_experiment`` /
+``pooled_summary`` pair).
+
+Replication r is lane r of one batched Sim.  On the card the lanes go
+through the CUDA chunk kernel (:mod:`cimba_tpu_torch.core.kernel_run`);
+on ``device="cpu"`` through the plain engine.  A failed replication
+freezes with ``sim.err`` set and is counted, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from cimba_tpu_torch import config
+from cimba_tpu_torch.core import kernel_run
+from cimba_tpu_torch.core.loop import Sim, init_sim, make_run
+from cimba_tpu_torch.core.model import ModelSpec
+from cimba_tpu_torch.stats import summary as sm
+
+
+class ExperimentResult(NamedTuple):
+    sims: Sim                    # batched: every leaf has leading axis [R]
+    n_failed: torch.Tensor       # replications with err != 0
+    total_events: torch.Tensor   # dispatched events across replications
+    launches: int                # CUDA chunk-kernel launches (0 on CPU)
+
+
+def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
+                   seed: int = 0, t_end: Optional[float] = None,
+                   device="cuda", chunk_steps: int = 512,
+                   max_chunks: int = 10_000) -> ExperimentResult:
+    """Run ``n_replications`` independent replications of ``spec``.
+
+    ``params`` holds scalars (shared) or arrays with leading axis
+    ``n_replications`` (a sweep).  ``device`` defaults to ``"cuda"``;
+    without a card only ``device="cpu"`` runs, and it runs the plain
+    PyTorch engine.  On the card every chunk of ``chunk_steps`` events
+    per lane is one launch of the CUDA kernel, which implements the mm1
+    spec only: other specs raise there."""
+    dev = config.resolve_device(device)
+    sims = init_sim(spec, seed, torch.arange(n_replications), params,
+                    device=dev)
+    launches = 0
+    if dev.type == "cuda":
+        run = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                         chunk_steps=chunk_steps,
+                                         max_chunks=max_chunks)
+        sims = run(sims)
+        launches = run.launches
+    else:
+        sims = make_run(spec, t_end=t_end)(sims)
+    return ExperimentResult(
+        sims=sims,
+        n_failed=(sims.err != 0).sum(),
+        total_events=sims.n_events.sum(),
+        launches=launches,
+    )
+
+
+def pooled_summary(batched: sm.Summary) -> sm.Summary:
+    """Merge per-replication summaries into one (the reference's binary
+    tree order)."""
+    return sm.merge_tree(batched)

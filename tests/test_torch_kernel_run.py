@@ -1,0 +1,87 @@
+"""The port's chunked run (core/kernel_run.py) on CPU tensors.
+
+On the CPU ``make_kernel_run`` runs its plain chunk — the version the
+CUDA kernel is held against on the card — so here it is held against
+the reference's Pallas chunk kernel in interpret mode, under the f32
+profile, as tests/test_pallas_run.py runs it.  Integer and bool leaves
+must be equal; floats within 64 ulp of each leaf's scale (the log1p
+differences of test_torch_random.py, accumulated).  The CUDA kernel
+itself is tested on the card (test_torch_cuda.py, chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cimba_tpu import config as jconfig
+from cimba_tpu.core import loop as jloop
+from cimba_tpu.core import pallas_run
+from cimba_tpu.models import mm1 as jmm1
+from cimba_tpu_torch import config as tconfig
+from cimba_tpu_torch import interop
+from cimba_tpu_torch.core import kernel_run
+from cimba_tpu_torch.core import loop as tloop
+from cimba_tpu_torch.core.model import Model
+from cimba_tpu_torch.models import mm1 as tmm1
+
+
+def test_plain_chunk_matches_pallas_interpret():
+    lanes, n_objects = 16, 40
+    with jconfig.profile("f32"), tconfig.profile("f32"):
+        jspec, _ = jmm1.build(record=False)
+        js = jax.jit(jax.vmap(
+            lambda r: jloop.init_sim(jspec, 2026, r, jmm1.params(n_objects))
+        ))(jnp.arange(lanes))
+        jout = pallas_run.make_kernel_run(jspec, chunk_steps=64,
+                                          interpret=True)(js)
+        tspec, _ = tmm1.build(record=False)
+        ts = tloop.init_sim(tspec, 2026, torch.arange(lanes),
+                            tmm1.params(n_objects), device="cpu")
+        run = kernel_run.make_kernel_run(tspec, chunk_steps=64)
+        tout = run(ts)
+    assert interop.diff_leaves(jax.tree.leaves(jout),
+                               interop.sim_to_numpy(tout),
+                               64 * 2.0**-23) == []
+    assert run.launches == 0  # the plain chunk launches nothing
+    assert int(tout.err.abs().sum()) == 0 and bool(tout.done.all())
+
+
+def test_chunk_size_does_not_change_results():
+    spec, _ = tmm1.build(record=False)
+    s0 = tloop.init_sim(spec, 3, torch.arange(8), tmm1.params(30),
+                        device="cpu")
+    a = kernel_run.make_kernel_run(spec, chunk_steps=7)(s0)
+    b = tloop.make_run(spec)(s0)
+    assert interop.diff_leaves(interop.sim_to_numpy(b),
+                               interop.sim_to_numpy(a), 0.0) == []
+
+
+def test_refuses_other_specs_and_cpu_launch():
+    m = Model("other")
+
+    @m.block
+    def only(sim, p, sig):
+        from cimba_tpu_torch.core import process as cmd
+
+        return sim, cmd.exit_()
+
+    m.process("p", entry=only)
+    with pytest.raises(NotImplementedError, match="M/M/1"):
+        kernel_run.make_kernel_run(m.build())
+    spec, _ = tmm1.build(record=False)
+    lay = kernel_run.mm1_layout(spec)
+    s0 = tloop.init_sim(spec, 3, torch.arange(4), tmm1.params(10),
+                        device="cpu")
+    before = kernel_run.mm1_chunk.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel_run.mm1_chunk(s0, lay, 8)
+    assert kernel_run.mm1_chunk.launches == before
+
+
+def test_max_chunks_exhaustion_raises():
+    spec, _ = tmm1.build(record=False)
+    s0 = tloop.init_sim(spec, 3, torch.arange(4), tmm1.params(50),
+                        device="cpu")
+    with pytest.raises(RuntimeError, match="still live"):
+        kernel_run.make_kernel_run(spec, chunk_steps=4, max_chunks=2)(s0)
