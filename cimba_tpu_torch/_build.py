@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernel with ``nvcc`` and load it with ctypes.
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 ``csrc/<name>.cu`` compiles on first use into a shared library with a
 plain C interface::
@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -29,7 +30,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: name -> loaded library (one load per process and source hash)
+#: name -> loaded library (one load per process)
 _loaded: dict = {}
 
 
@@ -75,12 +76,20 @@ def build(name: str) -> tuple:
     return time.perf_counter() - t0, proc.stdout
 
 
+def build_all(names) -> dict:
+    """:func:`build` for several sources at once, one ``nvcc`` each, all
+    started together.  Returns ``{name: (seconds, ptxas report)}``."""
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if needed."""
-    path = _target(name)
-    lib = _loaded.get(path)
+    """The kernel library ``name``, built first if needed.  The sources
+    are hashed at the first load only: a launch pays a dict lookup."""
+    lib = _loaded.get(name)
     if lib is None:
         build(name)
-        lib = ctypes.CDLL(str(path))
-        _loaded[path] = lib
+        lib = ctypes.CDLL(str(_target(name)))
+        _loaded[name] = lib
     return lib

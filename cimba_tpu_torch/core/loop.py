@@ -143,7 +143,7 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
     return Sim(
         clock=torch.full((lanes,), float(t0), dtype=tdt, device=dev),
         rep=reps.to(INDEX),
-        rng=rb.initialize(seed, reps),
+        rng=rb.initialize(seed, reps, device=dev),
         events=events,
         wakes=wakes,
         procs=procs,

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from cimba_tpu_torch import config
 from cimba_tpu_torch.config import BITS, MASK32
 
 _ROT_A = (13, 15, 26, 6)
@@ -91,11 +92,16 @@ class RandomState(NamedTuple):
     ctr_hi: torch.Tensor
 
 
-def initialize(seed, replication) -> RandomState:
+def initialize(seed, replication, *, device="cuda") -> RandomState:
     """Stream of each replication: key = fmix64(seed + c * replication)
     in u64 arithmetic.  ``replication`` is an integer tensor (any shape);
-    ``seed`` a Python int (taken mod 2**64) or an integer tensor."""
-    rep = torch.as_tensor(replication).to(torch.int64)
+    ``seed`` a Python int (taken mod 2**64) or an integer tensor.  The
+    streams live on ``device`` (the card unless the caller asks for the
+    CPU), whatever device ``replication`` came on."""
+    dev = config.resolve_device(device)
+    rep = torch.as_tensor(replication, device=dev).to(torch.int64)
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(dev)
     if isinstance(seed, int):
         seed = _as_i64(seed)
     mixed = fmix64(seed + _as_i64(0x9E3779B97F4A7C15) * rep)

@@ -1,12 +1,14 @@
-"""The CUDA chunk kernel on the card (skips without one).
+"""The port's CUDA kernels on the card (skips without one).
 
 Run on a machine with an NVIDIA card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The kernel (csrc/mm1_chunk.cu) and the plain engine run the same IEEE
-operations on the same lanes (the kernel is built with --fmad=false and
-both take log1p from CUDA's math library), so every leaf must be equal.
+The chunk kernel (csrc/mm1_chunk.cu) and the plain engine, and the bulk
+samplers (csrc/bulk_samplers.cu) and their plain versions, run the same
+IEEE operations on the same inputs (the kernels are built with
+--fmad=false and take log1p, exp and sqrt from CUDA's math library, as
+torch does on the card), so every leaf and every sample must be equal.
 """
 
 import pytest
@@ -15,6 +17,7 @@ import torch
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
 from cimba_tpu_torch.models import mm1
+from cimba_tpu_torch.random import bits, block_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -43,3 +46,27 @@ def test_kernel_matches_plain_engine(card, prof, t_end):
     if t_end is not None:  # the horizon cut the run short
         assert bool((ker.clock <= t_end).all())
         assert not bool(ker.done.all())
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["exponential_block", "normal_block",
+                                  "exponential_block_zig"])
+def test_block_kernels_match_plain(card, name, prof):
+    """K2-K4 against their plain versions on the card, bit for bit, on
+    streams of which every third one's counter crosses 2**32 in the
+    block."""
+    rows, n = 1000, 777
+    with config.profile(prof):
+        st = bits.initialize(2026, torch.arange(rows), device=card)
+        wrap = torch.arange(rows, device=card) % 3 == 0
+        st = st._replace(ctr_lo=torch.where(wrap, 0xFFFFFF00, st.ctr_lo))
+        kernel = getattr(block_kernels, name)
+        before = kernel.launches
+        ks, kx = kernel(st, n)
+        ps, px = getattr(block_kernels, f"{name}_plain")(st, n)
+        torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(ks, ps))
+    assert kx.dtype == px.dtype and kx.device.type == "cuda"
+    assert torch.equal(kx, px)
+    assert bool(torch.isfinite(kx).all())

@@ -23,6 +23,9 @@ from cimba_tpu_torch import config as tconfig
 from cimba_tpu_torch import interop
 from cimba_tpu_torch.core import loop as tloop
 from cimba_tpu_torch.models import mm1 as tmm1
+from cimba_tpu_torch.random import alias as talias
+from cimba_tpu_torch.random import bits as tbits
+from cimba_tpu_torch.random import block_kernels as tbk
 from cimba_tpu_torch.runner import experiment as texp
 from cimba_tpu_torch.stats import summary as tsm
 
@@ -91,4 +94,19 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         tloop.init_sim(spec, 1, torch.arange(2), tmm1.params(10))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsm.empty((2,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbits.initialize(1, torch.arange(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        talias.alias_create([1.0, 2.0])
     assert tconfig.resolve_device("cpu").type == "cpu"
+    # the block samplers: the default streams never reach them without a
+    # card, and CPU streams (asked for) run the plain version, no launch
+    cpu = tbits.initialize(1, torch.arange(2), device="cpu")
+    for block in (tbk.exponential_block, tbk.normal_block,
+                  tbk.exponential_block_zig):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            block(tbits.initialize(1, torch.arange(2)), 4)
+        before = block.launches
+        st, x = block(cpu, 4)
+        assert x.device.type == st.ctr_lo.device.type == "cpu"
+        assert block.launches == before

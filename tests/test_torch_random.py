@@ -44,7 +44,8 @@ def test_initialize_matches(seed):
     reps = np.array([0, 1, 7, 4095, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 1,
                      3 * 2**31], dtype=np.uint64)
     want = jax.vmap(lambda r: jbits.initialize(seed, r))(jnp.asarray(reps))
-    got = tbits.initialize(seed, torch.from_numpy(reps.astype(np.int64)))
+    got = tbits.initialize(seed, torch.from_numpy(reps.astype(np.int64)),
+                           device="cpu")
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w).astype(np.int64), g.numpy())
 
@@ -76,7 +77,7 @@ def test_samplers_match(prof, name, ulps):
     n = 20000
     with jconfig.profile(prof), tconfig.profile(prof):
         js = jax.vmap(lambda r: jbits.initialize(99, r))(jnp.arange(n))
-        ts = tbits.initialize(99, torch.arange(n))
+        ts = tbits.initialize(99, torch.arange(n), device="cpu")
         args = (1.7,) if name == "exponential" else ()
         js2, x = jax.vmap(lambda s: getattr(jdist, name)(s, *args))(js)
         ts2, y = getattr(tdist, name)(ts, *args)
@@ -96,7 +97,8 @@ def test_exponential_within_one_ulp_of_libm(prof):
     with jconfig.profile(prof), tconfig.profile(prof):
         js = jax.vmap(lambda r: jbits.initialize(5, r))(jnp.arange(n))
         _, u = jax.vmap(jdist.uniform01_53)(js)
-        _, y = tdist.std_exponential(tbits.initialize(5, torch.arange(n)))
+        _, y = tdist.std_exponential(
+            tbits.initialize(5, torch.arange(n), device="cpu"))
     u = np.asarray(u)
     want = -np.log1p(-u)
     assert want.dtype == y.numpy().dtype
