@@ -46,3 +46,15 @@ def first_true(mask):
     n = mask.shape[1]
     ramp = torch.arange(n, device=mask.device, dtype=torch.int32)
     return torch.where(mask, ramp, n).amin(dim=1)
+
+
+def get_tree(arrs, i):
+    """:func:`get` of several ``[L, N]`` columns at the same index
+    (parity: ``dyn.dget_tree``)."""
+    return tuple(get(a, i) for a in arrs)
+
+
+def put_tree(arrs, i, vals, pred=True):
+    """:func:`put` of one value into each column at the same index
+    (parity: ``dyn.dset_tree``)."""
+    return tuple(put(a, i, v, pred) for a, v in zip(arrs, vals))

@@ -1,17 +1,30 @@
-"""The chunked event loop on the card: the host loop of the CUDA chunk kernel.
+"""The chunked event loop on the card: the host loop of the CUDA chunk kernels.
 
 Counterpart of :mod:`cimba_tpu.core.pallas_run` (``make_kernel_run``,
 whose Pallas body ``_kernel_body`` advances every live lane by up to
-``chunk_steps`` events per call).  Here the chunk is the hand-written
-CUDA kernel ``csrc/mm1_chunk.cu``: one thread per replication lane, the
-lane's state in registers, in place on the Sim's tensors.
+``chunk_steps`` events per call).  Here a chunk is one launch of a
+hand-written CUDA kernel specialised to one spec, in place on the Sim's
+tensors:
 
-The kernel is specialised to the M/M/1 fused-verb cycle
-(``models.mm1.build(record=False)``); :func:`make_kernel_run` refuses
-any other spec rather than switching to the plain engine.  On CPU
-tensors the chunk is the plain engine, ``loop.make_run(spec,
-max_steps=chunk_steps)`` — the version the kernel is held against —
-driven by the same host loop.
+* ``csrc/mm1_chunk.cu`` — the M/M/1 fused-verb cycle
+  (``models.mm1.build(record=False)``), one thread per lane, the lane's
+  state in registers;
+* ``csrc/awacs_chunk.cu`` — the AWACS target legs
+  (``models.awacs.build(n)``), one warp per lane, the per-pid columns in
+  device memory.
+
+:func:`make_kernel_run` refuses any other spec rather than switching to
+the plain engine.  On CPU tensors the chunk is the plain engine,
+``loop.make_run(spec, max_steps=chunk_steps, defer_boundary=True)`` —
+the version the kernels are held against — driven by the same host loop.
+
+Boundary protocol (parity: ``pallas_run.py`` ``_boundary_apply``).  A
+chunk freezes a lane whose next dispatch targets a boundary block
+(``Model.boundary_block``) with ``boundary_pending`` set; after such a
+chunk the host applies one ordinary engine step (``loop.make_step``,
+defer off) to exactly the frozen lanes and clears the flag.  For AWACS
+that step is the radar dwell, whose detection MLP runs as K5
+(``models.awacs.nn_forward``) on the card.
 """
 
 from __future__ import annotations
@@ -26,12 +39,12 @@ from cimba_tpu_torch.config import BITS, INDEX
 from cimba_tpu_torch.core import loop
 from cimba_tpu_torch.core.model import ModelSpec
 
-#: the Sim leaves the kernel takes, in the reference's leaf order, with
-#: their dtype role and per-lane shape; roles: T time/real, I int32,
-#: B u32-in-int64 word, ? bool, C event count.  Shapes name the spec's
-#: dims: P processes, E event slots, G guards, Q queues, W ring width,
-#: F/N float/int locals.
-LEAVES = (
+# The Sim leaves a kernel takes, in the reference's leaf order, with their
+# dtype role and per-lane shape; roles: T time/real, I int32, B
+# u32-in-int64 word, ? bool, C event count.  Shapes name the spec's dims:
+# P processes, E event slots, G guards, Q queues, W ring width, F/N
+# float/int locals, X targets.
+_HEAD = (
     ("clock", "T", ()), ("rep", "I", ()),
     ("rng.key0", "B", ()), ("rng.key1", "B", ()),
     ("rng.ctr_lo", "B", ()), ("rng.ctr_hi", "B", ()),
@@ -52,29 +65,39 @@ LEAVES = (
     ("procs.got", "T", ("P",)), ("procs.locals_f", "T", ("P", "F")),
     ("procs.locals_i", "I", ("P", "N")),
     ("guards.next_seq", "I", ("G",)),
+)
+_TAIL = (
+    ("done", "?", ()), ("err", "I", ()), ("n_events", "C", ()),
+    ("boundary_pending", "?", ()),
+)
+_SUMMARY = tuple((f"{{}}.{f}", "T", ()) for f in
+                 ("n", "w", "mn", "mx", "m1", "m2", "m3", "m4"))
+
+#: the mm1 kernel's leaves
+LEAVES = _HEAD + (
     ("queues.items", "T", ("Q", "W")), ("queues.head", "I", ("Q",)),
     ("queues.size", "I", ("Q",)),
     ("user.arr_mean", "T", ()), ("user.n_objects", "I", ()),
     ("user.srv_mean", "T", ()),
-    ("user.wait.n", "T", ()), ("user.wait.w", "T", ()),
-    ("user.wait.mn", "T", ()), ("user.wait.mx", "T", ()),
-    ("user.wait.m1", "T", ()), ("user.wait.m2", "T", ()),
-    ("user.wait.m3", "T", ()), ("user.wait.m4", "T", ()),
-    ("done", "?", ()), ("err", "I", ()), ("n_events", "C", ()),
-    ("boundary_pending", "?", ()),
-)
+) + tuple((n.format("user.wait"), r, d) for n, r, d in _SUMMARY) + _TAIL
+
+#: the AWACS kernel's leaves (no queues; user keys in sorted order)
+AWACS_LEAVES = _HEAD + tuple(
+    (n.format("user.detections"), r, d) for n, r, d in _SUMMARY) + (
+    ("user.dwells", "I", ()),
+    ("user.pos_x", "T", ("X",)), ("user.pos_y", "T", ("X",)),
+    ("user.t_end", "T", ()), ("user.t_mark", "T", ("X",)),
+    ("user.vel_x", "T", ("X",)), ("user.vel_y", "T", ("X",)),
+) + _TAIL
 
 
-def mm1_layout(spec: ModelSpec) -> dict:
-    """The static shape the chunk kernel needs, or NotImplementedError
-    when ``spec`` is not the mm1 fused-verb model the kernel implements
-    (``cimba_tpu_torch.models.mm1.build(record=False)``)."""
+def _is_mm1(spec: ModelSpec) -> bool:
     from cimba_tpu_torch.models import mm1
 
     names = tuple(getattr(b, "__name__", "") for b in spec.blocks)
     mods = {getattr(b, "__module__", "") for b in spec.blocks}
     q = spec.queues[0] if len(spec.queues) == 1 else None
-    ok = (
+    return (
         names == mm1.BLOCK_NAMES
         and mods == {mm1.__name__}
         and list(spec.proc_entry) == [0, 3]
@@ -83,26 +106,67 @@ def mm1_layout(spec: ModelSpec) -> dict:
         and spec.n_guards == 2
         and {q.front_guard, q.rear_guard} == {0, 1}
         and spec.n_ilocals >= 1
+        and not spec.boundary_pcs
     )
-    if not ok:
-        raise NotImplementedError(
-            f"the CUDA chunk kernel implements only the M/M/1 fused-verb "
-            f"model (models.mm1.build(record=False)); spec {spec.name!r} "
-            "needs a kernel of its own (ROADMAP.md, queue B)"
-        )
+
+
+def _is_awacs(spec: ModelSpec) -> bool:
+    from cimba_tpu_torch.models import awacs
+
+    names = tuple(getattr(b, "__name__", "") for b in spec.blocks)
+    mods = {getattr(b, "__module__", "") for b in spec.blocks}
+    n = spec.n_procs - 1
+    return (
+        names == awacs.BLOCK_NAMES
+        and mods == {awacs.__name__}
+        and n >= 1
+        and list(spec.proc_entry) == [0] * n + [1]
+        and list(spec.proc_prio) == [0] * n + [1]
+        and not spec.queues
+        and spec.boundary_pcs == (1,)
+    )
+
+
+def _refuse(spec: ModelSpec):
+    raise NotImplementedError(
+        f"CUDA chunk kernels exist for the M/M/1 fused-verb model "
+        f"(models.mm1.build(record=False)) and the AWACS model "
+        f"(models.awacs.build(n)) only; spec {spec.name!r} needs a kernel "
+        "of its own (ROADMAP.md, queue B)"
+    )
+
+
+def mm1_layout(spec: ModelSpec) -> dict:
+    """The static shape the mm1 chunk kernel needs, or
+    NotImplementedError when ``spec`` is not the mm1 fused-verb model
+    the kernel implements."""
+    if not _is_mm1(spec):
+        _refuse(spec)
+    q = spec.queues[0]
     return dict(E=spec.event_cap, P=2, G=2, Q=1, W=spec.queue_cap_max,
                 F=max(spec.n_flocals, 1), N=max(spec.n_ilocals, 1),
                 cap=q.capacity, front=q.front_guard, rear=q.rear_guard)
 
 
-def _check_leaves(leaves, lay: dict, real, count):
-    if len(leaves) != len(LEAVES):
-        raise ValueError(f"Sim has {len(leaves)} leaves, the mm1 kernel "
-                         f"takes {len(LEAVES)}")
+def awacs_layout(spec: ModelSpec) -> dict:
+    """The static shape the AWACS chunk kernel needs, or
+    NotImplementedError when ``spec`` is not ``models.awacs.build(n)``
+    (either scoring: the sensor's block never runs in the kernel)."""
+    if not _is_awacs(spec):
+        _refuse(spec)
+    return dict(E=spec.event_cap, P=spec.n_procs, X=spec.n_procs - 1,
+                G=spec.n_guards, F=max(spec.n_flocals, 1),
+                N=max(spec.n_ilocals, 1))
+
+
+def _check_leaves(leaves, table, lay: dict, real, count):
+    if len(leaves) != len(table):
+        raise ValueError(f"Sim has {len(leaves)} leaves, the kernel takes "
+                         f"{len(table)}")
     dtypes = {"T": real, "I": INDEX, "B": BITS, "?": torch.bool, "C": count}
     lanes = leaves[0].shape[0]
     dev = leaves[0].device
-    for (name, role, dims), x in zip(LEAVES, leaves):
+    for (name, role, dims), x in zip(table, leaves):
         shape = (lanes,) + tuple(lay[d] for d in dims)
         if x.dtype != dtypes[role] or tuple(x.shape) != shape:
             raise ValueError(f"Sim leaf {name}: {x.dtype} {tuple(x.shape)}, "
@@ -113,80 +177,144 @@ def _check_leaves(leaves, lay: dict, real, count):
     return lanes
 
 
-def mm1_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
-              t_end: Optional[float] = None) -> loop.Sim:
-    """Launch the CUDA chunk kernel on a lane-first Sim on the card:
-    every live lane advances by up to ``chunk_steps`` events, IN PLACE
-    (the Sim's tensors are the kernel's inputs and outputs, as the
-    Pallas call aliases them).  Launches on the current stream without
-    synchronising.  ``mm1_chunk.launches`` counts launches."""
+def _launch(lib_name: str, table, sims: loop.Sim, lay: dict, shape_args,
+            chunk_steps: int, t_end: Optional[float]) -> None:
+    """One launch of ``cimba_<lib_name>_<f32|f64>`` on the current
+    stream: (leaf pointers, count, lanes, *shape_args, chunk_steps,
+    has_t_end, t_end, stream)."""
     from cimba_tpu_torch import _build
 
     leaves = tree.leaves(sims)
     if not leaves[0].is_cuda:
-        raise ValueError("mm1_chunk takes a Sim on a CUDA device")
+        raise ValueError(f"{lib_name} takes a Sim on a CUDA device")
     real, count = sims.clock.dtype, sims.n_events.dtype
     if (real, count) not in ((torch.float32, torch.int32),
                              (torch.float64, torch.int64)):
         raise ValueError(f"no kernel instance for {real}/{count} Sims")
-    lanes = _check_leaves(leaves, lay, real, count)
-    lib = _build.load("mm1_chunk")
-    fn = (lib.cimba_mm1_chunk_f32 if real == torch.float32
-          else lib.cimba_mm1_chunk_f64)
+    lanes = _check_leaves(leaves, table, lay, real, count)
+    lib = _build.load(lib_name)
+    fn = getattr(lib, f"cimba_{lib_name}_"
+                      f"{'f32' if real == torch.float32 else 'f64'}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 8
-                   + [ctypes.c_int, ctypes.c_double, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_int] * len(shape_args)
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                      ctypes.c_void_p])
     ptrs = (ctypes.c_void_p * len(leaves))(*[x.data_ptr() for x in leaves])
     with torch.cuda.device(leaves[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ptrs, len(leaves), lanes, lay["E"], lay["W"], lay["cap"],
-                lay["front"], lay["rear"], lay["N"], chunk_steps,
+        rc = fn(ptrs, len(leaves), lanes, *shape_args, chunk_steps,
                 int(t_end is not None),
                 float(t_end) if t_end is not None else 0.0, stream)
     if rc != 0:
-        raise RuntimeError(f"mm1_chunk kernel launch failed (code {rc})")
+        raise RuntimeError(f"{lib_name} kernel launch failed (code {rc})")
+
+
+def mm1_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
+              t_end: Optional[float] = None) -> loop.Sim:
+    """Launch the mm1 chunk kernel on a lane-first Sim on the card: every
+    live lane advances by up to ``chunk_steps`` events, IN PLACE (the
+    Sim's tensors are the kernel's inputs and outputs, as the Pallas call
+    aliases them).  Launches on the current stream without
+    synchronising.  ``mm1_chunk.launches`` counts launches."""
+    _launch("mm1_chunk", LEAVES, sims, lay,
+            (lay["E"], lay["W"], lay["cap"], lay["front"], lay["rear"],
+             lay["N"]), chunk_steps, t_end)
     mm1_chunk.launches += 1
     return sims
 
 
+def awacs_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
+                t_end: Optional[float] = None) -> loop.Sim:
+    """Launch the AWACS chunk kernel, in place, as :func:`mm1_chunk`
+    does: up to ``chunk_steps`` target legs per live lane; a lane whose
+    next dispatch is the sensor freezes with ``boundary_pending`` set.
+    ``awacs_chunk.launches`` counts launches."""
+    _launch("awacs_chunk", AWACS_LEAVES, sims, lay,
+            (lay["E"], lay["P"]), chunk_steps, t_end)
+    awacs_chunk.launches += 1
+    return sims
+
+
 mm1_chunk.launches = 0
+awacs_chunk.launches = 0
+
+
+def make_boundary_step(spec: ModelSpec):
+    """``apply(sims) -> sims``: one ordinary engine step (defer off) on
+    exactly the lanes with ``boundary_pending`` set, which it clears;
+    the other lanes are untouched.  Returns new tensors."""
+    step = loop.make_step(spec)
+
+    def apply(sims: loop.Sim) -> loop.Sim:
+        pending = sims.boundary_pending
+        idx = pending.nonzero().squeeze(1)
+        cleared = sims._replace(boundary_pending=torch.zeros_like(pending))
+        stepped = step(tree.map(lambda x: x.index_select(0, idx), cleared))
+        return tree.map(lambda x, y: x.index_copy(0, idx, y), cleared,
+                        stepped)
+
+    return apply
 
 
 def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
                     chunk_steps: int = 512, max_chunks: int = 10_000):
     """Build ``run(sims) -> sims`` over a lane-first Sim: call the chunk
-    until no lane is live.  On the card each chunk is one launch of the
-    CUDA kernel; on CPU tensors it is the plain engine.  After a call,
-    ``run.launches`` is the number of kernel launches it made (read off
-    ``mm1_chunk.launches``, the one counter).  Raises if lanes are still
-    live after ``max_chunks`` chunks — a silent partial run would
-    corrupt statistics."""
-    lay = mm1_layout(spec)
+    until no lane is live, with a boundary round after every chunk that
+    leaves a lane frozen at a boundary block.  On the card each chunk is
+    one launch of the spec's CUDA kernel; on CPU tensors it is the plain
+    engine.  After a call, ``run.launches`` is the number of chunk
+    launches it made (read off the kernel wrapper's counter) and
+    ``run.boundary_rounds`` the number of boundary rounds; K5's launches
+    are counted where it launches, ``models.awacs.nn_forward.launches``.
+
+    Budget (parity: ``pallas_run``): a boundary freeze can cut a chunk
+    short, so a chunk followed by a boundary round does not count against
+    ``max_chunks``; boundary rounds have their own budget of ``max_chunks
+    x chunk_steps`` (each dispatches at least one event per frozen lane).
+    Raises if lanes are still live when a budget runs out — a silent
+    partial run would corrupt statistics."""
+    if _is_mm1(spec):
+        lay, kernel = mm1_layout(spec), mm1_chunk
+    elif _is_awacs(spec):
+        lay, kernel = awacs_layout(spec), awacs_chunk
+    else:
+        _refuse(spec)
     if chunk_steps <= 0:
         raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
-    plain = loop.make_run(spec, t_end=t_end, max_steps=chunk_steps)
-    cond = loop.make_cond(spec, t_end)
+    plain = loop.make_run(spec, t_end=t_end, max_steps=chunk_steps,
+                          defer_boundary=True)
+    cond = loop.make_cond(spec, t_end, defer_boundary=True)
+    boundary = make_boundary_step(spec) if spec.boundary_pcs else None
 
     def run(sims: loop.Sim) -> loop.Sim:
-        if sims.clock.is_cuda:
+        on_card = sims.clock.is_cuda
+        if on_card:
             # the kernel works in place: keep the caller's Sim intact
             sims = tree.map(
                 lambda x: x.clone(memory_format=torch.contiguous_format),
                 sims)
-        it, before = 0, mm1_chunk.launches
+        it = rounds = 0
+        max_rounds = max_chunks * chunk_steps
+        before = kernel.launches
         while bool(cond(sims).any()) and it < max_chunks:
-            if sims.clock.is_cuda:
-                sims = mm1_chunk(sims, lay, chunk_steps, t_end)
+            sims = (kernel(sims, lay, chunk_steps, t_end) if on_card
+                    else plain(sims))
+            if boundary is not None and bool(sims.boundary_pending.any()):
+                sims = boundary(sims)
+                rounds += 1
+                if rounds >= max_rounds:
+                    break
             else:
-                sims = plain(sims)
-            it += 1
-        run.launches = mm1_chunk.launches - before
+                it += 1
+        run.launches = kernel.launches - before
+        run.boundary_rounds = rounds
         if bool(cond(sims).any()):
             raise RuntimeError(
-                f"make_kernel_run: lanes still live after {it} chunks "
-                f"(max {max_chunks} x {chunk_steps} events) — raise "
-                "chunk_steps/max_chunks")
+                f"make_kernel_run: lanes still live after {it} full chunks "
+                f"(max {max_chunks} x {chunk_steps} events) and {rounds} "
+                "boundary rounds — raise chunk_steps/max_chunks")
         return sims
 
-    run.launches = 0
+    run.launches = run.boundary_rounds = 0
     return run

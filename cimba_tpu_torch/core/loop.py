@@ -14,13 +14,20 @@ function here advances all lanes at once, in eager PyTorch:
   per leaf; command handlers are composed in sequence, each gating its own
   writes with ``torch.where`` (the reference's ``_gated`` handlers).
 
-This engine is the plain version of the CUDA chunk kernel
+This engine is the plain version of the CUDA chunk kernels
 (:mod:`cimba_tpu_torch.core.kernel_run`): ``make_run(spec,
-max_steps=k)`` is exactly one kernel chunk of ``k`` events per lane.
+max_steps=k, defer_boundary=...)`` is exactly one kernel chunk of ``k``
+events per lane.  ``defer_boundary=True`` is the boundary protocol of
+the reference's kernel mode: a lane whose next dispatch targets a
+boundary block (``Model.boundary_block``) freezes with
+``boundary_pending`` set and the event left in its table, for the host
+loop to step between chunks.  Off (the default), the engine is the
+reference's XLA path and ignores the marker.
 
-Ported subset: the commands mm1 issues — hold, exit, jump, and the
-object-queue put/get with their fused ``*_hold`` verbs — with the guard
-pend/retry protocol, failure codes and ``api.stop``.  Other commands fail
+Ported subset: the commands mm1 and awacs issue — hold, exit, jump, and
+the object-queue put/get with their fused ``*_hold`` verbs — with the
+guard pend/retry protocol, boundary blocks, failure codes and
+``api.stop``.  Other commands fail
 the replication with ERR_USER, as the reference's unknown-tag handler
 does.
 """
@@ -394,11 +401,27 @@ def _make_apply(spec: ModelSpec):
     return apply_command
 
 
-def make_step(spec: ModelSpec):
-    """Build ``step(sim) -> sim`` dispatching exactly one event per lane."""
-    blocks = list(spec.blocks)
+def _boundary_stub(sim, p, sig):
+    # a boundary block under defer_boundary: never dispatched (the step
+    # defers it), and a mid-chain entry has failed the lane already
+    return sim, pr.exit_()
+
+
+def make_step(spec: ModelSpec, defer_boundary: bool = False):
+    """Build ``step(sim) -> sim`` dispatching exactly one event per lane.
+    With ``defer_boundary`` (and a spec that has boundary blocks) an
+    event whose subject sits at a boundary pc is peeked, not consumed:
+    the lane's ``boundary_pending`` is set instead (parity: the
+    reference's step in kernel mode)."""
+    defer = defer_boundary and bool(spec.boundary_pcs)
+    blocks = [_boundary_stub if defer and pc in spec.boundary_pcs else b
+              for pc, b in enumerate(spec.blocks)]
     apply_command = _make_apply(spec)
     n_procs = spec.n_procs
+
+    def at_boundary(pc):
+        return torch.isin(pc, torch.tensor(spec.boundary_pcs, dtype=INDEX,
+                                           device=pc.device))
 
     def run_block(sim, p, sig, need):
         pc = ix.get(sim.procs.pc, p).clamp(0, len(blocks) - 1)
@@ -443,6 +466,12 @@ def make_step(spec: ModelSpec):
 
         def body(c, active):
             s, sg, _, n, use_pend = c
+            if defer:
+                # boundary blocks are entered by dispatch only: reaching
+                # one mid-chain fails the lane (its stub then exits)
+                s = _set_err(s, active & ~use_pend
+                             & at_boundary(ix.get(s.procs.pc, p)),
+                             ERR_BOUNDARY)
             s_blk, c_blk = run_block(s, p, sg, active & ~use_pend)
             s2 = _where(use_pend, s, s_blk)
             cmd = pr.Command(*[torch.where(use_pend, a, b)
@@ -460,6 +489,11 @@ def make_step(spec: ModelSpec):
         event, take_e, take_w = ev.peek_merged(
             sim.events, sim.wakes, sim.procs.prio, K_PROC)
         proceed = event.found
+        if defer:
+            pc_t = ix.get(sim.procs.pc, event.subj.clamp(0, n_procs - 1))
+            boundary = proceed & (event.kind <= K_TIMER) & at_boundary(pc_t)
+            proceed = proceed & ~boundary
+            sim = sim._replace(boundary_pending=boundary)
         es2, wk2 = ev.consume_merged(sim.events, sim.wakes, take_e, take_w,
                                      proceed)
         sim = sim._replace(
@@ -480,13 +514,19 @@ def make_step(spec: ModelSpec):
     return step
 
 
-def make_cond(spec: ModelSpec, t_end: Optional[float] = None):
+def make_cond(spec: ModelSpec, t_end: Optional[float] = None,
+              defer_boundary: bool = False):
     """Per-lane liveness ``cond(sim) -> [L] bool`` (parity:
-    ``cimba_tpu.core.loop.make_cond`` without wait-event stranding)."""
+    ``cimba_tpu.core.loop.make_cond`` without wait-event stranding).
+    With ``defer_boundary`` a lane waiting on a boundary step is not
+    live."""
+    defer = defer_boundary and bool(spec.boundary_pcs)
 
     def cond(sim: Sim):
         empty = ev.is_empty(sim.events) & ev.wakes_empty(sim.wakes)
         live = ~sim.done & (sim.err == 0) & ~empty
+        if defer:
+            live = live & ~sim.boundary_pending
         if sim.t_stop is not None:
             raise NotImplementedError(
                 "cimba_tpu_torch: per-lane horizons (Sim.t_stop) are not "
@@ -501,14 +541,16 @@ def make_cond(spec: ModelSpec, t_end: Optional[float] = None):
 
 
 def make_run(spec: ModelSpec, t_end: Optional[float] = None,
-             max_steps: Optional[int] = None):
+             max_steps: Optional[int] = None, defer_boundary: bool = False):
     """Build ``run(sim) -> sim``: dispatch events until every lane stops,
     fails, runs out of events or passes ``t_end``.  ``max_steps`` bounds
     one call to that many dispatches per lane; truncation is exact, so a
     host loop that calls again until :func:`make_cond` reports every lane
-    done reproduces the unbounded run bit for bit."""
-    step = make_step(spec)
-    cond = make_cond(spec, t_end)
+    done reproduces the unbounded run bit for bit.  ``defer_boundary``
+    also stops a lane at its next boundary dispatch (the chunk of the
+    boundary protocol, see :mod:`cimba_tpu_torch.core.kernel_run`)."""
+    step = make_step(spec, defer_boundary)
+    cond = make_cond(spec, t_end, defer_boundary)
     if max_steps is not None and max_steps <= 0:
         raise ValueError(f"max_steps must be positive, got {max_steps}")
     bound = max_steps if max_steps is not None else float("inf")

@@ -17,8 +17,8 @@ a :class:`ModelSpec`.  Block registration is the reference's::
 
 Blocks run on every replication lane at once: ``p`` and ``sig`` are
 ``[L]`` tensors.  The components mm1 does not use (resources, pools,
-buffers, priority queues, conditions, user event handlers, spawn pools,
-boundary blocks) and queue-length recording are still to port and raise
+buffers, priority queues, conditions, user event handlers, spawn pools)
+and queue-length recording are still to port and raise
 ``NotImplementedError`` naming the feature.
 """
 
@@ -65,6 +65,9 @@ class ModelSpec:
     n_flocals: int
     n_ilocals: int
     user_init: Optional[Callable[..., Any]]
+    #: pcs of blocks dispatched outside the chunk kernel, between chunks
+    #: (see Model.boundary_block); empty for most models
+    boundary_pcs: tuple = ()
 
     @property
     def n_procs(self) -> int:
@@ -96,6 +99,7 @@ class Model:
         self._queues: List[QueueRef] = []
         self._n_guards = 0
         self._user_init: Optional[Callable] = None
+        self._boundary_pcs: List[int] = []
 
     def block(self, fn: Callable) -> Callable:
         """Register a block; sets ``fn.pc`` to its global index."""
@@ -152,8 +156,20 @@ class Model:
     def handler(self, *a, **k):
         _not_ported("user event handlers")
 
-    def boundary_block(self, *a, **k):
-        _not_ported("boundary blocks")
+    def boundary_block(self, fn: Callable) -> Callable:
+        """Register a block whose dispatch runs outside the chunk kernel:
+        the kernel freezes a lane whose next dispatch targets it, and the
+        host loop applies one ordinary engine step to the frozen lanes
+        between chunks (parity: ``cimba_tpu.core.model.Model.
+        boundary_block``).  Semantics are those of a normal block; the
+        plain engine ignores the marker unless it runs with
+        ``defer_boundary=True``.  A boundary block must be entered by
+        resumes (process entry, hold continuations), never mid-chain by a
+        jump or a command's ``next_pc``: under ``defer_boundary`` such an
+        entry fails the lane with ERR_BOUNDARY."""
+        fn = self.block(fn)
+        self._boundary_pcs.append(fn.pc)
+        return fn
 
     def user_state(self, fn: Callable) -> Callable:
         """Register ``fn(params) -> pytree`` building the user state; the
@@ -184,4 +200,5 @@ class Model:
             n_flocals=self.n_flocals,
             n_ilocals=self.n_ilocals,
             user_init=self._user_init,
+            boundary_pcs=tuple(self._boundary_pcs),
         )

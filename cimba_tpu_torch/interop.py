@@ -46,6 +46,27 @@ def sim_from_numpy(leaves, spec: ModelSpec, params=None, *,
     return tree.unflatten(tmpl, out)
 
 
+def nn_weights_from_numpy(w1, b1, w2, b2, w3, b3, *,
+                          device="cuda") -> tuple:
+    """The AWACS detection MLP's parameters as f32 tensors, in the order
+    of the port's own (``models.awacs._weights``), from numpy arrays such
+    as ``[np.asarray(w) for w in cimba_tpu.models.awacs._NN_WEIGHTS]``, so
+    that the two packages' scorers can be checked to share them; shapes
+    as the reference's: w1 [8, 32], b1 [32], w2 [32, 32], b2 [32], w3
+    [33, 1], b3 [1].  The tensors go to ``device``, the card unless the
+    caller asks for the CPU."""
+    dev = config.resolve_device(device)
+    shapes = ((8, 32), (32,), (32, 32), (32,), (33, 1), (1,))
+    out = []
+    for a, shape in zip((w1, b1, w2, b2, w3, b3), shapes):
+        a = np.asarray(a)
+        if a.dtype != np.float32 or a.shape != shape:
+            raise ValueError(f"weight {a.dtype} {a.shape}, want float32 "
+                             f"{shape}")
+        out.append(torch.from_numpy(np.array(a, copy=True)).to(dev))
+    return tuple(out)
+
+
 def diff_leaves(ref, port, rtol: float) -> list:
     """Leaf-by-leaf parity of two leaf lists (numpy or tensors, e.g. the
     reference's and ``sim_to_numpy``'s): integer and bool leaves must be

@@ -3,8 +3,10 @@
 ``pooled_summary`` pair).
 
 Replication r is lane r of one batched Sim.  On the card the lanes go
-through the CUDA chunk kernel (:mod:`cimba_tpu_torch.core.kernel_run`);
-on ``device="cpu"`` through the plain engine.  A failed replication
+through the spec's CUDA chunk kernel and the host loop of
+:mod:`cimba_tpu_torch.core.kernel_run` (mm1; AWACS, whose radar dwells
+run between chunks with the K5 scorer); on ``device="cpu"`` through the
+plain engine.  A failed replication
 freezes with ``sim.err`` set and is counted, as in the reference.
 """
 
@@ -26,6 +28,7 @@ class ExperimentResult(NamedTuple):
     n_failed: torch.Tensor       # replications with err != 0
     total_events: torch.Tensor   # dispatched events across replications
     launches: int                # CUDA chunk-kernel launches (0 on CPU)
+    boundary_rounds: int = 0     # host steps of boundary blocks, on the card
 
 
 def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
@@ -38,25 +41,26 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
     ``n_replications`` (a sweep).  ``device`` defaults to ``"cuda"``;
     without a card only ``device="cpu"`` runs, and it runs the plain
     PyTorch engine.  On the card every chunk of ``chunk_steps`` events
-    per lane is one launch of the CUDA kernel, which implements the mm1
-    spec only: other specs raise there."""
+    per lane is one launch of the spec's CUDA kernel; kernels exist for
+    ``models.mm1.build(record=False)`` and ``models.awacs.build(n)``, and
+    other specs raise there."""
     dev = config.resolve_device(device)
     sims = init_sim(spec, seed, torch.arange(n_replications), params,
                     device=dev)
-    launches = 0
-    if dev.type == "cuda":
-        run = kernel_run.make_kernel_run(spec, t_end=t_end,
-                                         chunk_steps=chunk_steps,
-                                         max_chunks=max_chunks)
-        sims = run(sims)
-        launches = run.launches
-    else:
+    if dev.type != "cuda":
         sims = make_run(spec, t_end=t_end)(sims)
+        return ExperimentResult(sims=sims, n_failed=(sims.err != 0).sum(),
+                                total_events=sims.n_events.sum(), launches=0)
+    run = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                     chunk_steps=chunk_steps,
+                                     max_chunks=max_chunks)
+    sims = run(sims)
     return ExperimentResult(
         sims=sims,
         n_failed=(sims.err != 0).sum(),
         total_events=sims.n_events.sum(),
-        launches=launches,
+        launches=run.launches,
+        boundary_rounds=run.boundary_rounds,
     )
 
 

@@ -4,11 +4,15 @@ Run on a machine with an NVIDIA card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The chunk kernel (csrc/mm1_chunk.cu) and the plain engine, and the bulk
-samplers (csrc/bulk_samplers.cu) and their plain versions, run the same
-IEEE operations on the same inputs (the kernels are built with
---fmad=false and take log1p, exp and sqrt from CUDA's math library, as
-torch does on the card), so every leaf and every sample must be equal.
+The chunk kernels (csrc/mm1_chunk.cu, csrc/awacs_chunk.cu) and the
+plain engine, and the bulk samplers (csrc/bulk_samplers.cu) and their
+plain versions, run the same IEEE operations on the same inputs (the
+kernels are built with --fmad=false and take log1p, exp, sqrt, cos and
+sin from CUDA's math library, as torch does on the card), so every leaf
+and every sample must be equal.  K5 (csrc/nn_scores.cu) sums the MLP's
+products in another order than the plain version's cuBLAS products, so
+it is held to f32 roundoff, 1e-6, as the reference holds its own
+kernel.
 """
 
 import pytest
@@ -16,7 +20,7 @@ import torch
 
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
-from cimba_tpu_torch.models import mm1
+from cimba_tpu_torch.models import awacs, mm1
 from cimba_tpu_torch.random import bits, block_kernels
 
 pytestmark = pytest.mark.cuda
@@ -70,3 +74,47 @@ def test_block_kernels_match_plain(card, name, prof):
     assert kx.dtype == px.dtype and kx.device.type == "cuda"
     assert torch.equal(kx, px)
     assert bool(torch.isfinite(kx).all())
+
+
+def test_nn_scores_kernel_matches_plain(card):
+    rng = torch.Generator().manual_seed(7)
+    for m in (137, 40_000):
+        pos = (torch.rand((m, 2), generator=rng) * 160 - 80).to(card)
+        vel = (torch.randn((m, 2), generator=rng) * awacs.SPEED).to(card)
+        before = awacs.nn_forward.launches
+        ker = awacs.nn_scores(pos, vel)
+        pla = awacs.nn_scores_plain(pos, vel)
+        torch.cuda.synchronize()
+        assert awacs.nn_forward.launches == before + 1
+        assert ker.dtype == torch.float32 and ker.device.type == "cuda"
+        torch.testing.assert_close(ker, pla, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+def test_awacs_kernel_matches_plain_engine(card, prof):
+    """One chunk after the first dwell, then the whole host loop (chunks
+    and boundary rounds, K5 in the dwells of both) against the plain
+    engine run to the end."""
+    with config.profile(prof):
+        spec, _ = awacs.build(64)
+        lay = kernel_run.awacs_layout(spec)
+        s0 = loop.init_sim(spec, 2026, torch.arange(256), awacs.params(6.0),
+                           device=card)
+        plain = loop.make_run(spec, max_steps=64, defer_boundary=True)
+        s1 = kernel_run.make_boundary_step(spec)(plain(s0))
+        ker = kernel_run.awacs_chunk(tree.map(lambda x: x.clone(), s1), lay,
+                                     64)
+        pla = plain(s1)
+        torch.cuda.synchronize()
+        assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker),
+                                   0.0) == []
+        run = kernel_run.make_kernel_run(spec, chunk_steps=64)
+        nn_before = awacs.nn_forward.launches
+        ker = run(s0)
+        nn_launches = awacs.nn_forward.launches - nn_before
+        pla = loop.make_run(spec)(s0)
+        torch.cuda.synchronize()
+    assert run.launches > 0 and nn_launches > 0
+    assert run.boundary_rounds > 0
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert int(ker.err.abs().sum()) == 0

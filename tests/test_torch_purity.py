@@ -34,6 +34,7 @@ def test_importing_every_module_loads_no_jax():
     assert res["bad"] == []
     assert "cimba_tpu_torch.random.block_kernels" in res["mods"]
     assert "cimba_tpu_torch.random.sampler_bench" in res["mods"]
+    assert "cimba_tpu_torch.models.awacs" in res["mods"]
 
 
 def _imports(path):
