@@ -56,14 +56,17 @@ def _target(name: str) -> Path:
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> tuple:
+def build(name: str, into=None) -> tuple:
     """Compile ``csrc/<name>.cu`` unless its library for the current
-    sources exists.  Returns ``(seconds, ptxas report)``; ``(0.0, "")``
-    when nothing was compiled."""
+    sources exists (in ``into``, a directory, instead of ``build/`` when
+    given).  Returns ``(seconds, ptxas report)``; ``(0.0, "")`` when
+    nothing was compiled."""
     out = _target(name)
+    if into is not None:
+        out = Path(into) / out.name
     if out.exists():
         return 0.0, ""
-    BUILD.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(

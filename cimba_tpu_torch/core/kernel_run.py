@@ -6,9 +6,10 @@ whose Pallas body ``_kernel_body`` advances every live lane by up to
 hand-written CUDA kernel specialised to one spec, in place on the Sim's
 tensors:
 
-* ``csrc/mm1_chunk.cu`` — the M/M/1 fused-verb cycle
-  (``models.mm1.build(record=False)``), one thread per lane, the lane's
-  state in registers;
+* ``csrc/queue_chunk.cu`` — the single-queue fused-verb cycle that
+  ``models.mm1.build`` and ``models.mmc.build(c)`` share, one thread per
+  lane, the lane's state in registers; instances for (servers, queue
+  recording) in :data:`QUEUE_INSTANCES`;
 * ``csrc/awacs_chunk.cu`` — the AWACS target legs
   (``models.awacs.build(n)``), one warp per lane, the per-pid columns in
   device memory.
@@ -73,13 +74,29 @@ _TAIL = (
 _SUMMARY = tuple((f"{{}}.{f}", "T", ()) for f in
                  ("n", "w", "mn", "mx", "m1", "m2", "m3", "m4"))
 
-#: the mm1 kernel's leaves
-LEAVES = _HEAD + (
-    ("queues.items", "T", ("Q", "W")), ("queues.head", "I", ("Q",)),
-    ("queues.size", "I", ("Q",)),
-    ("user.arr_mean", "T", ()), ("user.n_objects", "I", ()),
-    ("user.srv_mean", "T", ()),
-) + tuple((n.format("user.wait"), r, d) for n, r, d in _SUMMARY) + _TAIL
+#: the queue's StepAccum (``Sim.queues.acc``), one row per queue
+_ACC = tuple((f"queues.acc.summary.{f}", "T", ("Q",)) for f in
+             ("n", "w", "mn", "mx", "m1", "m2", "m3", "m4")) + (
+    ("queues.acc.last_t", "T", ("Q",)), ("queues.acc.last_v", "T", ("Q",)),
+    ("queues.acc.started", "?", ("Q",)),
+)
+
+
+def queue_leaves(record: bool) -> tuple:
+    """The single-queue kernel's leaves, with the queue's recording
+    accumulator when ``record``."""
+    return _HEAD + (
+        ("queues.items", "T", ("Q", "W")), ("queues.head", "I", ("Q",)),
+        ("queues.size", "I", ("Q",)),
+    ) + (_ACC if record else ()) + (
+        ("user.arr_mean", "T", ()), ("user.n_objects", "I", ()),
+        ("user.srv_mean", "T", ()),
+    ) + tuple((n.format("user.wait"), r, d) for n, r, d in _SUMMARY) + _TAIL
+
+
+#: (servers, queue recording) of the single-queue kernel's instances:
+#: mm1.build(record=False); mm1.build() and mmc.build(1); mmc.build(2..4)
+QUEUE_INSTANCES = ((1, False), (1, True), (2, True), (3, True), (4, True))
 
 #: the AWACS kernel's leaves (no queues; user keys in sorted order)
 AWACS_LEAVES = _HEAD + tuple(
@@ -91,23 +108,29 @@ AWACS_LEAVES = _HEAD + tuple(
 ) + _TAIL
 
 
-def _is_mm1(spec: ModelSpec) -> bool:
-    from cimba_tpu_torch.models import mm1
+def _single_queue(spec: ModelSpec):
+    """``(servers, record)`` when ``spec`` is the fused-verb single-queue
+    model of ``models.mm1`` or ``models.mmc`` (one arrival, ``servers``
+    service processes, one queue), else None."""
+    from cimba_tpu_torch.models import mm1, mmc
 
     names = tuple(getattr(b, "__name__", "") for b in spec.blocks)
     mods = {getattr(b, "__module__", "") for b in spec.blocks}
     q = spec.queues[0] if len(spec.queues) == 1 else None
-    return (
-        names == mm1.BLOCK_NAMES
-        and mods == {mm1.__name__}
-        and list(spec.proc_entry) == [0, 3]
-        and list(spec.proc_prio) == [0, 0]
-        and q is not None and not q.record
+    ns = spec.n_procs - 1
+    ok = (
+        names == mm1.BLOCK_NAMES == mmc.BLOCK_NAMES
+        and mods in ({mm1.__name__}, {mmc.__name__})
+        and ns >= 1
+        and list(spec.proc_entry) == [0] + [3] * ns
+        and list(spec.proc_prio) == [0] * (ns + 1)
+        and q is not None
         and spec.n_guards == 2
         and {q.front_guard, q.rear_guard} == {0, 1}
         and spec.n_ilocals >= 1
         and not spec.boundary_pcs
     )
+    return (ns, bool(q.record)) if ok else None
 
 
 def _is_awacs(spec: ModelSpec) -> bool:
@@ -129,23 +152,36 @@ def _is_awacs(spec: ModelSpec) -> bool:
 
 def _refuse(spec: ModelSpec):
     raise NotImplementedError(
-        f"CUDA chunk kernels exist for the M/M/1 fused-verb model "
-        f"(models.mm1.build(record=False)) and the AWACS model "
-        f"(models.awacs.build(n)) only; spec {spec.name!r} needs a kernel "
-        "of its own (ROADMAP.md, queue B)"
+        f"CUDA chunk kernels exist for the single-queue fused-verb models "
+        f"(models.mm1.build, the M/M/1, and models.mmc.build(c), the M/M/c) "
+        f"and the AWACS model (models.awacs.build(n)) only; spec "
+        f"{spec.name!r} needs a kernel of its own (ROADMAP.md, queue B)"
     )
 
 
-def mm1_layout(spec: ModelSpec) -> dict:
-    """The static shape the mm1 chunk kernel needs, or
-    NotImplementedError when ``spec`` is not the mm1 fused-verb model
-    the kernel implements."""
-    if not _is_mm1(spec):
+def queue_layout(spec: ModelSpec) -> dict:
+    """The static shape the single-queue chunk kernel needs: the server
+    count ``NS`` and recording flag ``REC`` select its instance.  Raises
+    NotImplementedError when ``spec`` is not the mm1/mmc fused-verb
+    model, or has a server count no instance serves."""
+    shape = _single_queue(spec)
+    if shape is None:
         _refuse(spec)
+    if shape not in QUEUE_INSTANCES:
+        have = ", ".join(f"{n} server{'s' * (n > 1)}"
+                         f"{' recording' if r else ''}"
+                         for n, r in QUEUE_INSTANCES)
+        raise NotImplementedError(
+            f"spec {spec.name!r} has {shape[0]} servers"
+            f"{' and records its queue' if shape[1] else ''}: the CUDA "
+            f"single-queue chunk kernel has instances for {have} only "
+            "(csrc/queue_chunk.cu)")
+    ns, rec = shape
     q = spec.queues[0]
-    return dict(E=spec.event_cap, P=2, G=2, Q=1, W=spec.queue_cap_max,
-                F=max(spec.n_flocals, 1), N=max(spec.n_ilocals, 1),
-                cap=q.capacity, front=q.front_guard, rear=q.rear_guard)
+    return dict(NS=ns, REC=rec, E=spec.event_cap, P=1 + ns, G=2, Q=1,
+                W=spec.queue_cap_max, F=max(spec.n_flocals, 1),
+                N=max(spec.n_ilocals, 1), cap=q.capacity,
+                front=q.front_guard, rear=q.rear_guard)
 
 
 def awacs_layout(spec: ModelSpec) -> dict:
@@ -210,23 +246,24 @@ def _launch(lib_name: str, table, sims: loop.Sim, lay: dict, shape_args,
         raise RuntimeError(f"{lib_name} kernel launch failed (code {rc})")
 
 
-def mm1_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
-              t_end: Optional[float] = None) -> loop.Sim:
-    """Launch the mm1 chunk kernel on a lane-first Sim on the card: every
-    live lane advances by up to ``chunk_steps`` events, IN PLACE (the
-    Sim's tensors are the kernel's inputs and outputs, as the Pallas call
+def queue_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
+                t_end: Optional[float] = None) -> loop.Sim:
+    """Launch the single-queue chunk kernel's instance for ``lay``
+    (:func:`queue_layout`) on a lane-first Sim on the card: every live
+    lane advances by up to ``chunk_steps`` events, IN PLACE (the Sim's
+    tensors are the kernel's inputs and outputs, as the Pallas call
     aliases them).  Launches on the current stream without
-    synchronising.  ``mm1_chunk.launches`` counts launches."""
-    _launch("mm1_chunk", LEAVES, sims, lay,
-            (lay["E"], lay["W"], lay["cap"], lay["front"], lay["rear"],
-             lay["N"]), chunk_steps, t_end)
-    mm1_chunk.launches += 1
+    synchronising.  ``queue_chunk.launches`` counts launches."""
+    _launch("queue_chunk", queue_leaves(lay["REC"]), sims, lay,
+            (lay["NS"], int(lay["REC"]), lay["E"], lay["W"], lay["cap"],
+             lay["front"], lay["rear"], lay["N"]), chunk_steps, t_end)
+    queue_chunk.launches += 1
     return sims
 
 
 def awacs_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
                 t_end: Optional[float] = None) -> loop.Sim:
-    """Launch the AWACS chunk kernel, in place, as :func:`mm1_chunk`
+    """Launch the AWACS chunk kernel, in place, as :func:`queue_chunk`
     does: up to ``chunk_steps`` target legs per live lane; a lane whose
     next dispatch is the sensor freezes with ``boundary_pending`` set.
     ``awacs_chunk.launches`` counts launches."""
@@ -236,8 +273,19 @@ def awacs_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
     return sims
 
 
-mm1_chunk.launches = 0
+queue_chunk.launches = 0
 awacs_chunk.launches = 0
+
+
+def kernel_for(spec: ModelSpec):
+    """``(layout, chunk wrapper, leaf table)`` of the spec's CUDA chunk
+    kernel; NotImplementedError for a spec that has none."""
+    if _single_queue(spec) is not None:
+        lay = queue_layout(spec)
+        return lay, queue_chunk, queue_leaves(lay["REC"])
+    if _is_awacs(spec):
+        return awacs_layout(spec), awacs_chunk, AWACS_LEAVES
+    _refuse(spec)
 
 
 def make_boundary_step(spec: ModelSpec):
@@ -274,12 +322,7 @@ def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
     x chunk_steps`` (each dispatches at least one event per frozen lane).
     Raises if lanes are still live when a budget runs out — a silent
     partial run would corrupt statistics."""
-    if _is_mm1(spec):
-        lay, kernel = mm1_layout(spec), mm1_chunk
-    elif _is_awacs(spec):
-        lay, kernel = awacs_layout(spec), awacs_chunk
-    else:
-        _refuse(spec)
+    lay, kernel, _ = kernel_for(spec)
     if chunk_steps <= 0:
         raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
     plain = loop.make_run(spec, t_end=t_end, max_steps=chunk_steps,

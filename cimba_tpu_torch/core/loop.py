@@ -24,10 +24,10 @@ boundary block (``Model.boundary_block``) freezes with
 loop to step between chunks.  Off (the default), the engine is the
 reference's XLA path and ignores the marker.
 
-Ported subset: the commands mm1 and awacs issue — hold, exit, jump, and
-the object-queue put/get with their fused ``*_hold`` verbs — with the
-guard pend/retry protocol, boundary blocks, failure codes and
-``api.stop``.  Other commands fail
+Ported subset: the commands mm1, mmc and awacs issue — hold, exit,
+jump, and the object-queue put/get with their fused ``*_hold`` verbs and
+queue-length recording — with the guard pend/retry protocol, boundary
+blocks, failure codes and ``api.stop``.  Other commands fail
 the replication with ERR_USER, as the reference's unknown-tag handler
 does.
 """
@@ -46,6 +46,7 @@ from cimba_tpu_torch.core import ix
 from cimba_tpu_torch.core import process as pr
 from cimba_tpu_torch.core.model import ModelSpec
 from cimba_tpu_torch.random import bits as rb
+from cimba_tpu_torch.stats import timeseries as ts
 
 K_PROC = 0
 K_TIMER = 1
@@ -67,7 +68,8 @@ class Queues(NamedTuple):
     items: torch.Tensor  # [L, NQ, QCAP] REAL ring buffers
     head: torch.Tensor   # [L, NQ] i32
     size: torch.Tensor   # [L, NQ] i32
-    acc: Any = None      # queue-length recording: not ported
+    acc: Any = None      # StepAccum, leaves [L, NQ]: queue-length
+                         # recording (None unless some queue records)
 
 
 class Sim(NamedTuple):
@@ -159,6 +161,8 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
             items=zeros((lanes, nq, spec.queue_cap_max), real),
             head=zeros((lanes, nq), INDEX),
             size=zeros((lanes, nq), INDEX),
+            acc=ts.step_create(t0, 0.0, (lanes, nq), dev, real)
+            if any(q.record for q in spec.queues) else None,
         ) if spec.queues else None,
         resources=None,
         pools=None,
@@ -298,6 +302,14 @@ def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
     ))
 
 
+def _record_row(acc: ts.StepAccum, row, t, v, pred) -> ts.StepAccum:
+    """``step_record`` on row ``row`` of a batched StepAccum, gated by
+    ``pred`` (parity: the reference's ``_record_row``)."""
+    one = tree.map(lambda x: ix.get(x, row), acc)
+    upd = ts.step_record(one, t, v)
+    return tree.map(lambda x, u: ix.put(x, row, u, pred), acc, upd)
+
+
 def _nanmax0(x):
     # jnp.maximum(x, 0.0): NaN propagates
     return torch.where(torch.isnan(x) | (x > 0), x, torch.zeros_like(x))
@@ -307,6 +319,7 @@ def _make_apply(spec: ModelSpec):
     q_cap = [q.capacity for q in spec.queues] or [1]
     q_front = [q.front_guard for q in spec.queues] or [0]
     q_rear = [q.rear_guard for q in spec.queues] or [0]
+    q_rec = [q.record for q in spec.queues] or [False]
 
     def set_pc(sim, p, pc, pred):
         return sim._replace(procs=sim.procs._replace(
@@ -353,11 +366,20 @@ def _make_apply(spec: ModelSpec):
                            torch.zeros((), dtype=flat.dtype, device=dev))
         flat2 = ix.put(flat, slot, cmd.f, ok & is_put)
         dsz = torch.where(is_put, 1, -1).to(INDEX)
+        acc = q.acc
+        if acc is not None and any(q_rec):
+            # the length after the verb, from the clock on, gated by the
+            # same ok as the size write (and by the queue's own flag)
+            rec = ok if all(q_rec) else ok & torch.tensor(
+                q_rec, device=dev)[qid]
+            acc = _record_row(acc, qid, sim.clock,
+                              (size + dsz).to(flat.dtype), rec)
         sim = sim._replace(
             queues=q._replace(
                 items=flat2.reshape(q.items.shape),
                 head=ix.put(q.head, qid, (head + 1) % cap, ok_get),
                 size=ix.add(q.size, qid, dsz, ok),
+                acc=acc,
             ),
             procs=sim.procs._replace(
                 got=ix.put(sim.procs.got, p, item, ok_get)),

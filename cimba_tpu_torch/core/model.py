@@ -16,9 +16,9 @@ a :class:`ModelSpec`.  Block registration is the reference's::
     m.process("arrival", entry=a_hold)
 
 Blocks run on every replication lane at once: ``p`` and ``sig`` are
-``[L]`` tensors.  The components mm1 does not use (resources, pools,
-buffers, priority queues, conditions, user event handlers, spawn pools)
-and queue-length recording are still to port and raise
+``[L]`` tensors.  The components the ported models do not use
+(resources, pools, buffers, priority queues, conditions, user event
+handlers, spawn pools) are still to port and raise
 ``NotImplementedError`` naming the feature.
 """
 
@@ -124,16 +124,14 @@ class Model:
 
     def objectqueue(self, name: str, capacity: int,
                     record: bool = True) -> QueueRef:
-        """FIFO of REAL payloads (parity: cmb_objectqueue)."""
-        if record:
-            _not_ported(
-                "queue-length recording (objectqueue(record=True), "
-                "stats/timeseries.py)"
-            )
+        """FIFO of REAL payloads (parity: cmb_objectqueue).  With
+        ``record`` the engine keeps the queue's length as a time-weighted
+        series (``Sim.queues.acc``, a ``stats.timeseries.StepAccum`` row
+        per queue)."""
         q = QueueRef(
             id=len(self._queues), name=name, capacity=capacity,
             front_guard=self._guard(), rear_guard=self._guard(),
-            record=False,
+            record=record,
         )
         self._queues.append(q)
         return q

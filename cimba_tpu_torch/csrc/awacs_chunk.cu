@@ -4,7 +4,8 @@
 // package (cimba_tpu/core/pallas_run.py: make_kernel_run ->
 // build_chunk_call, body _kernel_body), which advances every live lane
 // by up to chunk_steps engine steps and defers boundary-block dispatches
-// to its host loop.  Its mm1 instance is csrc/mm1_chunk.cu.
+// to its host loop.  Its single-queue instances (M/M/1, M/M/c) are
+// csrc/queue_chunk.cu.
 //
 // What one lane computes: exactly what cimba_tpu_torch.core.loop.make_run
 // (spec, max_steps=chunk_steps, defer_boundary=True) computes for the

@@ -138,7 +138,7 @@ def test_kernels_refuse_other_specs():
     with pytest.raises(NotImplementedError):
         kernel_run.awacs_layout(mm)
     with pytest.raises(NotImplementedError):
-        kernel_run.mm1_layout(aw)
+        kernel_run.queue_layout(aw)
     lay = kernel_run.awacs_layout(aw)
     assert (lay["P"], lay["X"], lay["E"]) == (9, 8, 8)
     s0 = tloop.init_sim(aw, 3, torch.arange(2), awacs.params(2.0),

@@ -4,12 +4,13 @@ Run on a machine with an NVIDIA card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The chunk kernels (csrc/mm1_chunk.cu, csrc/awacs_chunk.cu) and the
-plain engine, and the bulk samplers (csrc/bulk_samplers.cu) and their
-plain versions, run the same IEEE operations on the same inputs (the
-kernels are built with --fmad=false and take log1p, exp, sqrt, cos and
-sin from CUDA's math library, as torch does on the card), so every leaf
-and every sample must be equal.  K5 (csrc/nn_scores.cu) sums the MLP's
+The chunk kernels (csrc/queue_chunk.cu, every instance, and
+csrc/awacs_chunk.cu) and the plain engine, the bulk samplers
+(csrc/bulk_samplers.cu) and their plain versions, and the bisect kernels
+(csrc/bisect_stages.cu) and theirs, run the same IEEE operations on the
+same inputs (the kernels are built with --fmad=false and take log1p, exp,
+sqrt, cos and sin from CUDA's math library, as torch does on the card),
+so every leaf, sample and event field must be equal.  K5 (csrc/nn_scores.cu) sums the MLP's
 products in another order than the plain version's cuBLAS products, so
 it is held to f32 roundoff, 1e-6, as the reference holds its own
 kernel.
@@ -20,8 +21,9 @@ import torch
 
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
-from cimba_tpu_torch.models import awacs, mm1
+from cimba_tpu_torch.models import awacs, mm1, mmc
 from cimba_tpu_torch.random import bits, block_kernels
+from cimba_tpu_torch.tools import bisect_kernels, cuda_bisect
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +120,59 @@ def test_awacs_kernel_matches_plain_engine(card, prof):
     assert run.boundary_rounds > 0
     assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
     assert int(ker.err.abs().sum()) == 0
+
+
+def _queue_spec(name):
+    if name == "mm1_record":
+        return mm1.build()[0], mm1.params(40)
+    c = int(name[-1])
+    return mmc.build(c)[0], mmc.params(40, 0.83 * c, 1.0)
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["mm1_record", "mmc1", "mmc2", "mmc3",
+                                  "mmc4"])
+def test_queue_instances_match_plain_engine(card, name, prof):
+    """Every recording instance of the single-queue kernel: one chunk,
+    then the whole run, the queue's length accumulator included."""
+    with config.profile(prof):
+        spec, params = _queue_spec(name)
+        lay = kernel_run.queue_layout(spec)
+        s0 = loop.init_sim(spec, 2026, torch.arange(512), params,
+                           device=card)
+        ker = kernel_run.queue_chunk(tree.map(lambda x: x.clone(), s0), lay,
+                                     16)
+        pla = loop.make_run(spec, max_steps=16)(s0)
+        torch.cuda.synchronize()
+        assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker),
+                                   0.0) == []
+        run = kernel_run.make_kernel_run(spec, chunk_steps=32)
+        ker = run(s0)
+        pla = loop.make_run(spec)(s0)
+        torch.cuda.synchronize()
+    assert run.launches > 0 and bool(ker.done.all())
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert bool(ker.queues.acc.started.all())
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "awacs"])
+def test_bisect_kernels_match_plain(card, model, prof):
+    """K6: the copy byte for byte, the peek equal to peek_merged, at the
+    start and a few events in."""
+    with config.profile(prof):
+        st = cuda_bisect.Setup(model, card, lanes=300, size=16)
+        for sims in (st.start, st.plain(st.start, 7)):
+            n_copy, n_peek = (bisect_kernels.sim_copy.launches,
+                              bisect_kernels.peek.launches)
+            cp = bisect_kernels.sim_copy(sims, st.table, st.lay)
+            got = bisect_kernels.peek(sims, st.table, st.lay)
+            want = bisect_kernels.peek_plain(sims)
+            torch.cuda.synchronize()
+            assert bisect_kernels.sim_copy.launches == n_copy + 1
+            assert bisect_kernels.peek.launches == n_peek + 1
+            for a, b in zip(tree.leaves(sims), tree.leaves(cp)):
+                assert torch.equal(cuda_bisect.bits(a), cuda_bisect.bits(b))
+            for a, b in zip(want, got):
+                assert a.dtype == b.dtype
+                assert torch.equal(cuda_bisect.bits(a), cuda_bisect.bits(b))

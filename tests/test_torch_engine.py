@@ -89,8 +89,7 @@ def test_horizon_matches():
 def test_unported_features_raise():
     from cimba_tpu_torch.core.model import Model
 
-    with pytest.raises(NotImplementedError, match="recording"):
-        tmm1.build()  # record=True: queue-length recording
+    tmm1.build()  # record=True: queue-length recording is ported
     m = Model("x")
     for call in (lambda: m.resource("r"), lambda: m.buffer("b", 1.0),
                  lambda: m.condition("c", None)):

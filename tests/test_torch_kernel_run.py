@@ -70,13 +70,13 @@ def test_refuses_other_specs_and_cpu_launch():
     with pytest.raises(NotImplementedError, match="M/M/1"):
         kernel_run.make_kernel_run(m.build())
     spec, _ = tmm1.build(record=False)
-    lay = kernel_run.mm1_layout(spec)
+    lay = kernel_run.queue_layout(spec)
     s0 = tloop.init_sim(spec, 3, torch.arange(4), tmm1.params(10),
                         device="cpu")
-    before = kernel_run.mm1_chunk.launches
+    before = kernel_run.queue_chunk.launches
     with pytest.raises(ValueError, match="CUDA"):
-        kernel_run.mm1_chunk(s0, lay, 8)
-    assert kernel_run.mm1_chunk.launches == before
+        kernel_run.queue_chunk(s0, lay, 8)
+    assert kernel_run.queue_chunk.launches == before
 
 
 def test_max_chunks_exhaustion_raises():
@@ -85,3 +85,49 @@ def test_max_chunks_exhaustion_raises():
                         device="cpu")
     with pytest.raises(RuntimeError, match="still live"):
         kernel_run.make_kernel_run(spec, chunk_steps=4, max_chunks=2)(s0)
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+@pytest.mark.parametrize("model", ["mm1", "mmc3"])
+def test_recording_specs_match_plain_run(model, prof):
+    """The host loop over recording specs (mm1.build(), mmc.build(3)) on
+    CPU tensors equals the plain engine run to the end, leaf for leaf,
+    the queue's length accumulator included."""
+    from cimba_tpu_torch.models import mmc as tmmc
+
+    with tconfig.profile(prof):
+        spec, params = ((tmm1.build()[0], tmm1.params(30)) if model == "mm1"
+                        else (tmmc.build(3)[0], tmmc.params(30, 2.5, 1.0)))
+        s0 = tloop.init_sim(spec, 4, torch.arange(6), params, device="cpu")
+        run = kernel_run.make_kernel_run(spec, chunk_steps=9)
+        a = run(s0)
+        b = tloop.make_run(spec)(s0)
+    assert s0.queues.acc is not None
+    assert interop.diff_leaves(interop.sim_to_numpy(b),
+                               interop.sim_to_numpy(a), 0.0) == []
+    assert run.launches == 0 and bool(a.done.all())
+
+
+def test_queue_instances_and_layouts():
+    """Every single-queue spec with an instance gets its layout and the
+    leaf table of its Sim; a server count without one is refused with the
+    counts that have one."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.models import mmc as tmmc
+
+    cases = [(tmm1.build(record=False)[0], 1, False),
+             (tmm1.build()[0], 1, True)]
+    cases += [(tmmc.build(c)[0], c, True) for c in (1, 2, 3, 4)]
+    for spec, ns, rec in cases:
+        lay, kernel, table = kernel_run.kernel_for(spec)
+        assert kernel is kernel_run.queue_chunk
+        assert (lay["NS"], lay["REC"], lay["P"]) == (ns, rec, 1 + ns)
+        s = tloop.init_sim(spec, 1, torch.arange(3), tmm1.params(5),
+                           device="cpu")
+        assert kernel_run._check_leaves(tree.leaves(s), table, lay,
+                                        s.clock.dtype,
+                                        s.n_events.dtype) == 3
+    for c in (5, 8):
+        with pytest.raises(NotImplementedError, match="1 server, 1 server "
+                           "recording, 2 servers recording"):
+            kernel_run.make_kernel_run(tmmc.build(c)[0])
