@@ -19,9 +19,17 @@
 //   event times, because in its engine that argmin is the pick; in the
 //   port the pick is peek_merged, so this kernel computes that.
 //
-// One thread per lane; a thread loops over its lane's leaves and table
-// rows (AWACS's 1001 wake rows included).  Simple and right before
-// fast: the lane-first rows are uncoalesced across a warp.
+// What bounds them on this card: bytes.  sim_copy moves the whole Sim
+// (each byte read once and written once), so it is one launch over all
+// leaves as flat bytes: the host cuts every leaf into 16-byte words
+// (its 16-byte-aligned body) and single bytes (an unaligned head and
+// tail, e.g. a bool leaf of an odd lane count), gives each leaf its run
+// of thread blocks (a prefix sum of blocks over the leaves), and in a
+// block neighbouring threads take neighbouring words, four words a
+// thread loaded before any is stored.  The peek is one thread per lane,
+// which loops over its lane's table rows (AWACS's 1001 wake rows
+// included): the lane-first rows are uncoalesced across a warp, and at
+// ~0.01 ms a call on a tool's path that is left as it is.
 
 #include <cuda_runtime.h>
 
@@ -46,32 +54,58 @@ enum Head {
   N_HEAD
 };
 
+// the copy: each leaf's body in 16-byte words, then its head and tail
+// bytes; leaf k owns blocks first_block[k] .. first_block[k + 1] - 1
+constexpr int COPY_THREADS = 256;
+constexpr int COPY_WORDS = 4;  // units a thread
+constexpr int COPY_UNITS = COPY_THREADS * COPY_WORDS;  // units a block
+
 struct CopyArgs {
-  const void* in[MAX_LEAVES];
-  void* out[MAX_LEAVES];
-  int row[MAX_LEAVES];            // elements a lane
-  unsigned char size[MAX_LEAVES]; // bytes an element: 1, 4 or 8
+  const unsigned char* in[MAX_LEAVES];
+  unsigned char* out[MAX_LEAVES];
+  long long words[MAX_LEAVES];  // 16-byte words of the aligned body
+  long long bytes[MAX_LEAVES];  // the leaf's bytes
+  unsigned char head[MAX_LEAVES];  // bytes before the body (0-15)
+  int first_block[MAX_LEAVES + 1];
   int n;
 };
 
-template <typename T>
-__device__ void copy_row(const void* in, void* out, size_t first, int n) {
-  const T* a = static_cast<const T*>(in) + first;
-  T* b = static_cast<T*>(out) + first;
-  for (int i = 0; i < n; ++i) b[i] = a[i];
-}
-
-__global__ void __launch_bounds__(128)
-copy_kernel(CopyArgs a, int lanes) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  for (int k = 0; k < a.n; ++k) {
-    const int n = a.row[k];
-    const size_t first = size_t(l) * n;
-    switch (a.size[k]) {
-      case 1: copy_row<uint8_t>(a.in[k], a.out[k], first, n); break;
-      case 4: copy_row<uint32_t>(a.in[k], a.out[k], first, n); break;
-      default: copy_row<uint64_t>(a.in[k], a.out[k], first, n); break;
+__global__ void __launch_bounds__(COPY_THREADS)
+copy_kernel(const __grid_constant__ CopyArgs a) {
+  // this block's leaf: the k with first_block[k] <= b < first_block[k+1]
+  const int b = blockIdx.x;
+  int lo = 0, hi = a.n;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (a.first_block[mid] <= b)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  const unsigned char* in = a.in[lo];
+  unsigned char* out = a.out[lo];
+  const long long words = a.words[lo];
+  const long long head = a.head[lo];
+  const long long units = words + (a.bytes[lo] - 16 * words);
+  const long long u0 =
+      (long long)(b - a.first_block[lo]) * COPY_UNITS + threadIdx.x;
+  const uint4* src = reinterpret_cast<const uint4*>(in + head);
+  uint4* dst = reinterpret_cast<uint4*>(out + head);
+  uint4 v[COPY_WORDS];
+#pragma unroll
+  for (int i = 0; i < COPY_WORDS; ++i) {
+    const long long u = u0 + i * COPY_THREADS;
+    if (u < words) v[i] = src[u];
+  }
+#pragma unroll
+  for (int i = 0; i < COPY_WORDS; ++i) {
+    const long long u = u0 + i * COPY_THREADS;
+    if (u < words) {
+      dst[u] = v[i];
+    } else if (u < units) {  // a head or tail byte
+      const long long e = u - words;
+      const long long off = e < head ? e : head + 16 * words + (e - head);
+      out[off] = in[off];
     }
   }
 }
@@ -208,7 +242,9 @@ int peek(void* const* leaves, int n_leaves, int lanes, int event_cap,
 // (0 = ok), or -1 / -2 for a bad leaf count / an empty launch.
 //
 // cimba_sim_copy: ins/outs the leaves' device pointers, row the elements
-// a lane of each leaf, size its element bytes (1, 4 or 8).
+// a lane of each leaf, size its element bytes (1, 4 or 8).  A leaf whose
+// in and out pointers differ in their offset from 16 bytes is copied
+// bytewise.
 extern "C" int cimba_sim_copy(void* const* ins, void* const* outs,
                               const int* row, const int* size, int n_leaves,
                               int lanes, void* stream) {
@@ -217,16 +253,31 @@ extern "C" int cimba_sim_copy(void* const* ins, void* const* outs,
   if (lanes <= 0) return -2;
   CopyArgs a{};
   a.n = n_leaves;
+  long long blocks = 0;
   for (int k = 0; k < n_leaves; ++k) {
     if (size[k] != 1 && size[k] != 4 && size[k] != 8) return -1;
-    a.in[k] = ins[k];
-    a.out[k] = outs[k];
-    a.row[k] = row[k];
-    a.size[k] = static_cast<unsigned char>(size[k]);
+    const long long bytes = (long long)lanes * row[k] * size[k];
+    const uintptr_t pi = reinterpret_cast<uintptr_t>(ins[k]);
+    const uintptr_t po = reinterpret_cast<uintptr_t>(outs[k]);
+    long long head = 0, words = 0;
+    if (pi % 16 == po % 16) {
+      head = (16 - (long long)(pi % 16)) % 16;
+      head = head < bytes ? head : bytes;
+      words = (bytes - head) / 16;
+    }
+    a.in[k] = static_cast<const unsigned char*>(ins[k]);
+    a.out[k] = static_cast<unsigned char*>(outs[k]);
+    a.words[k] = words;
+    a.bytes[k] = bytes;
+    a.head[k] = static_cast<unsigned char>(head);
+    a.first_block[k] = static_cast<int>(blocks);
+    blocks += (words + (bytes - 16 * words) + COPY_UNITS - 1) / COPY_UNITS;
+    if (blocks > INT32_MAX) return -2;
   }
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  copy_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, lanes);
+  a.first_block[n_leaves] = static_cast<int>(blocks);
+  if (blocks == 0) return 0;
+  copy_kernel<<<static_cast<int>(blocks), COPY_THREADS, 0,
+                static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,14 +6,9 @@
 // body _kernel_body), which advances every live lane by up to
 // chunk_steps engine steps with the whole Sim resident on the chip.
 //
-// Design: one thread per replication lane.  The thread loads its lane's
-// Sim into registers (clock, RNG words, the wake table of its NP = 1 + NS
-// processes, process rows, pend fields, guard counters, queue head and
-// size, the queue-length accumulator, the wait summary, done/err/
-// n_events), runs up to chunk_steps events while its own lane is live
-// (make_cond), and writes the state back in place.  No lockstep masking:
-// each thread stops on its own.  The queue ring and the general event
-// table stay in device memory.
+// One thread per replication lane: the thread loads its lane's state,
+// runs up to chunk_steps events while its lane is live (make_cond) and
+// stores the state back in place.  Each thread stops on its own.
 //
 // Specialised to the fused-verb single-queue cycle that
 // cimba_tpu_torch.models.mm1 and cimba_tpu_torch.models.mmc share (one
@@ -23,37 +18,89 @@
 // get).  Instances: (1, false) is mm1.build(record=False), (1, true)
 // mm1.build() and mmc.build(1), (c, true) mmc.build(c) for c = 2..4.  The
 // TPU kernel re-evaluates any model's traced step; this one hard-codes
-// the blocks (struct Lane below), and its host loop
-// (cimba_tpu_torch/core/kernel_run.py) refuses any other spec.  A kernel
-// generated per model from its blocks is an open item (ROADMAP.md).
+// the blocks, and its host loop (cimba_tpu_torch/core/kernel_run.py)
+// refuses any other spec.
 //
-// What bounds it on this card: per-event dependent latency — each event
-// is one serial chain of ~400 dependent integer and float operations
-// (a 20-round Threefry block, a log1p, the Pébay merge, the table
-// scans) that no other lane's work can shorten — plus ring traffic of
-// about one 4- or 8-byte read or write per queue verb.  The lane-first
-// ring row of 128 slots is uncoalesced across a warp; coalesced
-// lane-last rings, the ring in shared memory and persistent blocks are
-// later work.
+// What bounds it on this card.  Each event is one serial chain of
+// dependent operations (the pick, a 20-round Threefry block, a log1p,
+// the command, a Pébay merge for a service or a record), and the lanes
+// of a warp sit in different blocks, so the warp issues each block's
+// code once for each branch it takes.  With ~1,000 lanes on each SM the
+// SM's issue slots, not the lane's latency, set the pace: the time is
+// the instructions a warp issues per event.  What the design does:
+//
+// 1. The lane's hot state lives in registers, with no local-memory
+//    frame: the clock, the counter, the dense wakes and the processes'
+//    small fields, the queue's head and size, the queue-length
+//    accumulator.  Every per-process register field is an array [NP]
+//    (NP = 1 + NS, a template parameter) indexed only by compile-time
+//    constants: a read by a run-time pid is an unrolled select (pick), a
+//    write an unrolled predicated move (put).  The state is a plain
+//    struct handled by inlined free functions, so nothing takes its
+//    address.  What the blocks only compare or clamp is packed in one
+//    word a process (pc, status, pend_tag, pend_guard, wakes.sig), mapped
+//    on load to a value that reads the same, and stored back only where
+//    it was written (a bit a field and process in one mask).  The cold
+//    part (the wait summary, the queue-length accumulator, a pended
+//    command's payload, got, L_PRODUCED, pend_seq, prio) lives in
+//    shared-memory columns of the block, one a thread, where a run-time
+//    pid costs one access.
+//    pend_f2 and pend_i are written only with 0, by a block's command
+//    that pends, which a bit of the mask records; exit_sig is written
+//    through to memory by the exit.  The row addresses are computed where
+//    they are used from a lane index the compiler cannot see through
+//    (opaque), not kept live across the event loop.  The launch bounds
+//    (queue_minb) give each instance the least register cap under which
+//    it does not spill.
+// 2. The general event table's minimum is cached.  mm1 and mmc start
+//    with the table empty (loop.init_sim puts the process starts in the
+//    dense wakes) and never schedule into it, yet the pick and the
+//    liveness check scanned all its E slots every event.  Now each lane
+//    scans its slots once at chunk start and keeps the minimum's time and
+//    slot and whether any slot is finite (the slot's prio and seq are
+//    read on a tie with a wake, its subject and argument on a pop); it
+//    scans again only after the kernel writes the table (a pop of a
+//    general-table event, or an exit that cancels a timer).
+//    E stays a run-time value: mm1.build() (E = 1) and mmc.build(1)
+//    (E = 10) share an instance.
+// 3. One warp-converged draw per event.  Every block of the cycle draws
+//    at most once and every event runs at most one drawing block
+//    (tests/test_torch_queue_invariants.py), so right after the pick the
+//    lane computes the Threefry block at its current counter, the
+//    uniform and -log1p(-u), in code all lanes of the warp run together
+//    (pinned there, so the compiler cannot sink it into the branches).
+//    A block that draws multiplies by its mean and advances the counter;
+//    one that does not leaves the counter alone.  Threefry is counter-
+//    based, so this is exact; a second draw in one event (no reachable
+//    state of these models makes one) takes a fresh block inline.  One
+//    apply serves the retried command and a block's, so the handlers
+//    (and the record's merge) are issued once for both kinds of lane.
+//
+// What is left: the ring stays lane-first in device memory (a lane-last
+// ring would not coalesce either, since each lane's head differs; the
+// few slots near the head stay in L2); the Pébay merge's divisions are
+// kept as they are, since the result must equal the plain engine's bit
+// for bit; and lanes that finish early leave their warp's slots idle
+// until the chunk's longest lane ends.
 //
 // Built with --fmad=false so float results follow the plain PyTorch
 // engine's separately rounded multiplies and adds.
 //
-// What one lane computes (struct Lane, run as a sequential state
-// machine): exactly what cimba_tpu.core.loop.make_step computes for
-// the specs of cimba_tpu.models.mm1.build and cimba_tpu.models.mmc.build
-// (and their ports): the (time, prio desc, seq) pick over the dense wake
-// table and the general event table with the lowest index winning ties;
-// the blocks a_start, a_cycle, a_exit, s_start, s_cycle with one counter
-// tick per draw; the fused put_hold/get_hold verbs; the guard pend on a
-// full or empty queue (the pended command keeps its pre-drawn duration
-// in pend_f3), the best waiter by (prio desc, pend_seq asc, pid asc) and
-// the SUCCESS-wake retry; the queue-length record at (clock, size after
-// the verb); the error codes; api.stop; and the n_events count.  The
-// order of every state write follows the reference, because wake seqs
-// are assigned in that order and decide ties: a successful get signals
-// the rear guard, then the front guard (the cascade to the next waiting
-// server), and only then arms its own fused hold.
+// What one lane computes: exactly what cimba_tpu.core.loop.make_step
+// computes for the specs of cimba_tpu.models.mm1.build and
+// cimba_tpu.models.mmc.build (and their ports): the (time, prio desc,
+// seq) pick over the dense wake table and the general event table with
+// the lowest index winning ties; the blocks a_start, a_cycle, a_exit,
+// s_start, s_cycle with one counter tick per draw; the fused
+// put_hold/get_hold verbs; the guard pend on a full or empty queue (the
+// pended command keeps its pre-drawn duration in pend_f3), the best
+// waiter by (prio desc, pend_seq asc, pid asc) and the SUCCESS-wake
+// retry; the queue-length record at (clock, size after the verb); the
+// error codes; api.stop; and the n_events count.  The order of every
+// state write follows the reference, because wake seqs are assigned in
+// that order and decide ties: a successful get signals the rear guard,
+// then the front guard (the cascade to the next waiting server), and
+// only then arms its own fused hold.
 
 #include <cuda_runtime.h>
 
@@ -69,12 +116,13 @@ namespace queue {
 // is the arrival, pids 1..NS the servers (template parameter NS)
 constexpr int NG = 2;  // the queue's front (getters) and rear (putters)
 constexpr int MAX_CHAIN = 1024;
+constexpr int kThreads = 128;
 
 // command tags, statuses, signals, kinds, error codes: the reference's
 constexpr int C_HOLD = 0, C_EXIT = 1, C_JUMP = 2, C_PUT = 3, C_GET = 4;
 constexpr int C_PUT_HOLD = 18, C_GET_HOLD = 19, N_COMMANDS = 28;
 constexpr int NO_PEND = -1, SUCCESS = 0, RUNNING = 1, FINISHED = 2;
-constexpr int K_PROC = 0, K_TIMER = 1;
+constexpr int K_TIMER = 1;
 constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4;
 constexpr int32_t I32_MIN = INT32_MIN, I32_MAX = INT32_MAX;
 
@@ -134,41 +182,95 @@ struct Shape {
   int n_ilocals;
 };
 
+// blocks of 128 threads an SM that an instance's register cap allows
+// (the second __launch_bounds__ argument; ptxas caps a thread at the
+// multiple of 8 registers at most 65536 / (128 x minb)): the least cap
+// under which the instance does not spill.  ptxas takes 80 and 96
+// registers for the f32 single-server instances (96 cap), 94-124 for the
+// f32 multi-server ones and 118 for f64 mm1 (128 cap), 133-160 for the
+// other f64 instances (168 cap); a 64-register cap spills in every
+// single-server instance, a 96-register cap in the f64 ones (PERF.md)
+template <typename R, int NS, bool RECORD>
+constexpr int queue_minb() {
+  return sizeof(R) == 4 ? (NS == 1 ? 5 : 4) : (NS == 1 && !RECORD ? 4 : 3);
+}
+
+// a command as the blocks issue it; pend_f2 and pend_i are 0 in every
+// one of them and no handler reads them
 template <typename R>
 struct Cmd {
   int32_t tag;
-  R f, f2, f3;
-  int32_t i;
+  R f, f3;
   int32_t next_pc;
 };
 
 template <typename R>
-__device__ R inf_of() {
+__device__ __forceinline__ R inf_of() {
   return R(INFINITY);
 }
 
 // jnp.isfinite
 template <typename R>
-__device__ bool finite(R x) {
+__device__ __forceinline__ bool finite(R x) {
   return x == x && x != inf_of<R>() && x != -inf_of<R>();
 }
 
-__device__ float log1p_of(float x) { return log1pf(x); }
-__device__ double log1p_of(double x) { return log1p(x); }
+__device__ __forceinline__ float log1p_of(float x) { return log1pf(x); }
+__device__ __forceinline__ double log1p_of(double x) { return log1p(x); }
+
+// keep a value's computation where it stands: the converged draw must
+// not be sunk into the blocks that use it
+__device__ __forceinline__ void pin(float& x) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+f"(x));
+#endif
+}
+__device__ __forceinline__ void pin(double& x) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+d"(x));
+#endif
+}
 
 // uniform01_53: f32 takes 24 bits of the high word, f64 a 53-bit
 // significand from both words
-__device__ float u53_of(uint32_t, uint32_t b1, float) {
+__device__ __forceinline__ float u53_of(uint32_t, uint32_t b1, float) {
   return float(int32_t(b1 >> 8)) * 0x1p-24f;
 }
-__device__ double u53_of(uint32_t b0, uint32_t b1, double) {
+__device__ __forceinline__ double u53_of(uint32_t b0, uint32_t b1, double) {
   return double(b1) * 0x1p-32 + double(b0 >> 11) * 0x1p-53;
+}
+
+// the standard exponential of the Threefry block at counter (lo, hi):
+// cr.exponential without its mean, -log1p(-u)
+template <typename R>
+__device__ __forceinline__ R std_exponential(uint32_t k0, uint32_t k1,
+                                             uint32_t lo, uint32_t hi) {
+  uint32_t b0, b1;
+  threefry2x32(k0, k1, lo, hi, b0, b1);
+  return -log1p_of(-u53_of(b0, b1, R(0)));
 }
 
 // jnp.maximum(x, 0): NaN propagates
 template <typename R>
-__device__ R nanmax0(R x) {
+__device__ __forceinline__ R nanmax0(R x) {
   return (x != x || x > R(0)) ? x : R(0);
+}
+
+// a register array read and written by a run-time index: unrolled over
+// the compile-time indices, so the array never needs an address
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+  T v = a[0];
+#pragma unroll
+  for (int q = 1; q < N; ++q) v = i == q ? a[q] : v;
+  return v;
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void put(T (&a)[N], int i, T v) {
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    if (i == q) a[q] = v;
 }
 
 // a stats.summary.Summary of one lane
@@ -181,7 +283,7 @@ struct Sum {
 // (1, bw, x, x, x, 0, 0, 0), in the reference's operation order (x**3 =
 // x*(x*x), x**4 = (x*x)*(x*x) as XLA evaluates integer powers)
 template <typename R>
-__device__ Sum<R> add(const Sum<R>& a, R x, R bw) {
+__device__ __forceinline__ Sum<R> add(const Sum<R>& a, R x, R bw) {
   const R bn = R(1), bm1 = x, bm2 = R(0), bm3 = R(0), bm4 = R(0);
   const R w = a.w + bw;
   const R safe_w = w > R(0) ? w : R(1);
@@ -213,485 +315,677 @@ __device__ Sum<R> add(const Sum<R>& a, R x, R bw) {
   return o;
 }
 
-// the queue-length accumulator (stats.timeseries.StepAccum) of a
-// recording instance; an instance that does not record carries none, so
-// that its lane state is what it was before recording existed
-template <typename R, bool RECORD>
-struct Acc {};
+// the small per-process fields, packed in a process's word (pc,
+// status, pend_tag, pend_guard, wakes.sig: offset and width in bits,
+// each read sign-extended), and the bits of the lane's `dirty` mask: bit
+// f * NP + q when field f of process q was written here (F_BLOCK: q
+// pended a block's command, which writes pend_f2 = pend_i = 0)
+enum Field { F_PC, F_STATUS, F_TAG, F_GUARD, F_SIG, F_BLOCK };
 
-template <typename R>
-struct Acc<R, true> {
-  Sum<R> acc;
-  R acc_last_t, acc_last_v;
-  bool acc_started;
+__host__ __device__ constexpr int f_off(int f) {
+  return f < F_SIG ? 8 * f : 28;
+}
+__host__ __device__ constexpr int f_width(int f) {
+  return f < F_GUARD ? 8 : 4;
+}
+
+__device__ __forceinline__ int32_t field(uint32_t word, int f) {
+  return int32_t(word << (32 - f_off(f) - f_width(f))) >> (32 - f_width(f));
+}
+
+__device__ __forceinline__ uint32_t with(uint32_t word, int f, int32_t v) {
+  const uint32_t m = ((1u << f_width(f)) - 1u) << f_off(f);
+  return (word & ~m) | ((uint32_t(v) << f_off(f)) & m);
+}
+
+// a loaded process's fields in its word: a value outside its field reads
+// the same in every use the blocks make of it (pc is clamped to a block,
+// status and the wake's signal only compared with RUNNING and SUCCESS,
+// pend_tag clamped to a command or NO_PEND, pend_guard compared with the
+// queue's guards 0 and 1), and a field is stored back only where it was
+// written
+__device__ __forceinline__ uint32_t pack(int32_t pc, int32_t status,
+                                         int32_t tag, int32_t guard,
+                                         int32_t sig) {
+  pc = pc < 0 ? 0 : (pc > N_BLOCKS - 1 ? N_BLOCKS - 1 : pc);
+  status = status == RUNNING ? RUNNING : (status == FINISHED ? FINISHED : 0);
+  tag = tag < NO_PEND ? 0 : (tag > N_COMMANDS - 1 ? N_COMMANDS - 1 : tag);
+  guard = guard == 0 || guard == 1 ? guard : -1;
+  sig = sig == SUCCESS ? SUCCESS : -1;
+  uint32_t w = 0u;
+  w = with(w, F_PC, pc);
+  w = with(w, F_STATUS, status);
+  w = with(w, F_TAG, tag);
+  w = with(w, F_GUARD, guard);
+  return with(w, F_SIG, sig);
+}
+
+// The cold part of a lane's state, in the block's shared memory: per
+// field a column a thread ([field][thread], so a warp's accesses fall in
+// distinct banks), read and written by a run-time pid with one access.
+// The wait summary is touched once a service, the pending command's
+// payload on a pend or a retry, prio and pend_seq only for the
+// candidates of a pick or a guard's wake.
+template <typename R, int NP>
+struct Cold {
+  R wait[8][kThreads];
+  R pend_f[NP][kThreads], pend_f3[NP][kThreads], got[NP][kThreads];
+  int32_t pend_pc[NP][kThreads], pend_seq[NP][kThreads];
+  int32_t prio[NP][kThreads], produced[NP][kThreads];
 };
 
-template <typename R, typename C, int NS, bool RECORD>
-struct Lane : Acc<R, RECORD> {
-  static constexpr int NP = 1 + NS;
+// the queue-length accumulator (stats.timeseries.StepAccum) of a
+// recording instance, touched once a put or get: the summary's eight
+// moments, last_t, last_v, and started (0 or 1)
+template <typename R, bool RECORD>
+struct ColdAcc {
+  R acc[10][kThreads];
+  bool started[1][kThreads];
+};
 
-  Shape sh;
+template <typename R>
+struct ColdAcc<R, false> {};
+
+// One lane's working state: the hot part in registers, the cold part in
+// the block's shared memory.
+template <typename R_, typename C_, int NS, bool RECORD_>
+struct State {
+  using R = R_;
+  using C = C_;
+  static constexpr int NP = 1 + NS;
+  static constexpr bool RECORD = RECORD_;
+
+  Cold<R, NP>* cold;  // the block's
+  ColdAcc<R, RECORD>* cold_acc;
+  int t;              // this thread's column
   R clock;
   uint32_t k0, k1, lo, hi;
-  // general event table: read and written in place
-  R* ev_time;
-  int32_t *ev_prio, *ev_seq, *ev_kind, *ev_subj, *ev_arg, *ev_gen;
   int32_t next_seq;
-  // dense wakes and process rows
+  // dense wakes and the processes' small fields
   R wt[NP];
-  int32_t wsig[NP], wseq[NP];
-  int32_t pc[NP], status[NP], prio[NP], pend_tag[NP], pend_i[NP];
-  int32_t pend_pc[NP], pend_guard[NP], pend_seq[NP], exit_sig[NP];
-  R pend_f[NP], pend_f2[NP], pend_f3[NP], got[NP];
-  int32_t produced[NP];  // ilocal L_PRODUCED
+  int32_t wseq[NP];
+  uint32_t word[NP];  // pc, status, pend_tag, pend_guard, wakes.sig
+  uint32_t dirty;
   int32_t gseq[NG];
-  // the queue: ring in place, head and size here
-  R* ring;
+  // the queue: head and size here, the ring in device memory
   int32_t head, size;
-  // user state
   // user state
   R arr_mean, srv_mean;
   int32_t n_objects;
-  Sum<R> wait;
   bool done;
   int32_t err;
   C n_events;
-
-  __device__ void set_err(int32_t code) {
-    if (err == 0) err = code;
-  }
-
-  __device__ R draw_exponential(R mean) {
-    uint32_t b0, b1;
-    threefry2x32(k0, k1, lo, hi, b0, b1);
-    lo += 1u;
-    if (lo == 0u) hi += 1u;
-    const R u = u53_of(b0, b1, R(0));
-    const R x = -log1p_of(-u);
-    return mean * x;
-  }
-
-  // timeseries.step_record(acc, clock, v): the previous length is
-  // credited with the time since the last record; a zero-length segment
-  // leaves the summary as it was
-  __device__ void record(R v) {
-    const R dur = nanmax0(clock - this->acc_last_t);
-    const Sum<R> upd = add(this->acc, this->acc_last_v, dur);
-    if (dur > R(0)) this->acc = upd;
-    this->acc_last_t = clock;
-    this->acc_last_v = v;
-    this->acc_started = true;
-  }
-
-  __device__ void schedule_wake(int p, int32_t sig, R t) {
-    if (finite(t)) {
-      wt[p] = t;
-      wsig[p] = sig;
-      wseq[p] = next_seq;
-      next_seq += 1;
-    } else {
-      set_err(ERR_EVENT_OVERFLOW);
-    }
-  }
-
-  // wake the best waiter of guard gid: highest live prio, then lowest
-  // pend_seq, then lowest pid
-  __device__ void guard_signal(int gid) {
-    bool found = false;
-    int32_t pmax = I32_MIN;
-    for (int q = 0; q < NP; ++q)
-      if (pend_guard[q] == gid) {
-        found = true;
-        pmax = prio[q] > pmax ? prio[q] : pmax;
-      }
-    if (!found) return;
-    int32_t smin = I32_MAX;
-    for (int q = 0; q < NP; ++q)
-      if (pend_guard[q] == gid && prio[q] == pmax && pend_seq[q] < smin)
-        smin = pend_seq[q];
-    int pid = 0;
-    for (int q = 0; q < NP; ++q)
-      if (pend_guard[q] == gid && prio[q] == pmax && pend_seq[q] == smin) {
-        pid = q;
-        break;
-      }
-    pend_guard[pid] = -1;
-    schedule_wake(pid, SUCCESS, clock);
-  }
-
-  __device__ void guard_wait(int p, int gid, const Cmd<R>& c, bool is_retry) {
-    const int32_t so = is_retry ? pend_seq[p] : -1;
-    const int32_t fresh = gseq[gid];
-    const int32_t seq = so >= 0 ? so : fresh;
-    if (seq == fresh) gseq[gid] += 1;
-    pend_tag[p] = c.tag;
-    pend_f[p] = c.f;
-    pend_f2[p] = c.f2;
-    pend_f3[p] = c.f3;
-    pend_i[p] = c.i;
-    pend_pc[p] = c.next_pc;
-    pend_guard[p] = gid;
-    pend_seq[p] = seq;
-    pc[p] = c.next_pc;
-  }
-
-  __device__ bool any_waiting(int gid) const {
-    for (int q = 0; q < NP; ++q)
-      if (pend_guard[q] == gid) return true;
-    return false;
-  }
-
-  // put/get and their fused *_hold twins, in the reference's order
-  __device__ bool h_queue(int p, const Cmd<R>& c, int tag, bool is_retry) {
-    const bool is_put = tag == C_PUT || tag == C_PUT_HOLD;
-    const bool fused = tag == C_PUT_HOLD || tag == C_GET_HOLD;
-    const int cap = sh.queue_cap;
-    const int own = is_put ? sh.rear : sh.front;
-    const bool may = is_retry || !any_waiting(own);
-    const bool blocked = (is_put ? size >= cap : size <= 0) || !may;
-    const bool ok = !blocked;
-    if (ok) {
-      if (is_put) {
-        ring[(head + size) % cap] = c.f;
-        size += 1;
-      } else {
-        got[p] = ring[head];
-        head = (head + 1) % cap;
-        size -= 1;
-      }
-      if constexpr (RECORD) record(R(size));
-      if (!is_put) guard_signal(sh.rear);
-      guard_signal(sh.front);
-      if (fused) schedule_wake(p, SUCCESS, clock + nanmax0(c.f3));
-    }
-    pc[p] = c.next_pc;
-    if (blocked) guard_wait(p, own, c, is_retry);
-    return blocked || fused;
-  }
-
-  __device__ void finish(int p) {
-    pend_tag[p] = NO_PEND;
-    pend_guard[p] = -1;
-    wt[p] = inf_of<R>();
-    for (int i = 0; i < sh.event_cap; ++i)
-      if (finite(ev_time[i]) && ev_kind[i] == K_TIMER && ev_subj[i] == p) {
-        ev_time[i] = inf_of<R>();
-        ev_gen[i] += 1;
-      }
-    status[p] = FINISHED;
-    exit_sig[p] = SUCCESS;
-  }
-
-  // returns "yielded"
-  __device__ bool apply(int p, const Cmd<R>& c, bool is_retry) {
-    const int tag = c.tag < 0 ? 0 : (c.tag > N_COMMANDS - 1 ? N_COMMANDS - 1
-                                                            : c.tag);
-    switch (tag) {
-      case C_HOLD:
-        schedule_wake(p, SUCCESS, clock + nanmax0(c.f));
-        pc[p] = c.next_pc;
-        return true;
-      case C_EXIT:
-        finish(p);
-        return true;
-      case C_JUMP:
-        pc[p] = c.next_pc;
-        return false;
-      case C_PUT:
-      case C_GET:
-      case C_PUT_HOLD:
-      case C_GET_HOLD:
-        return h_queue(p, c, tag, is_retry);
-      default:
-        set_err(ERR_USER);
-        return true;
-    }
-  }
-
-  __device__ Cmd<R> run_block(int p) {
-    int b = pc[p];
-    b = b < 0 ? 0 : (b > N_BLOCKS - 1 ? N_BLOCKS - 1 : b);
-    switch (b) {
-      case A_START: {
-        const R t = draw_exponential(arr_mean);
-        return Cmd<R>{C_HOLD, t, R(0), R(0), 0, A_CYCLE};
-      }
-      case A_CYCLE: {
-        produced[p] += 1;
-        const bool finished = produced[p] >= n_objects;
-        const R t = draw_exponential(arr_mean);
-        if (finished) return Cmd<R>{C_PUT, clock, R(0), R(0), 0, A_EXIT};
-        return Cmd<R>{C_PUT_HOLD, clock, R(0), t, 0, A_CYCLE};
-      }
-      case A_EXIT:
-        return Cmd<R>{C_EXIT, R(0), R(0), R(0), 0, 0};
-      case S_START: {
-        const R t = draw_exponential(srv_mean);
-        return Cmd<R>{C_GET_HOLD, R(0), R(0), t, 0, S_CYCLE};
-      }
-      default: {  // S_CYCLE
-        wait = add(wait, clock - got[p], R(1));
-        if (wait.n >= R(n_objects)) done = true;
-        const R t = draw_exponential(srv_mean);
-        return Cmd<R>{C_GET_HOLD, R(0), R(0), t, 0, S_CYCLE};
-      }
-    }
-  }
-
-  __device__ void resume(int p, int32_t sig) {
-    wt[p] = inf_of<R>();
-    const Cmd<R> pend{pend_tag[p], pend_f[p], pend_f2[p],
-                      pend_f3[p],  pend_i[p], pend_pc[p]};
-    const bool has_pend = pend.tag != NO_PEND;
-    pend_tag[p] = NO_PEND;
-    pend_guard[p] = -1;
-    bool use_pend = has_pend && sig == SUCCESS;
-    bool yielded = false;
-    int n = 0;
-    while (!yielded && status[p] == RUNNING && err == 0 && n < MAX_CHAIN) {
-      if (use_pend) {
-        yielded = apply(p, pend, true);
-      } else {
-        const Cmd<R> c = run_block(p);
-        yielded = apply(p, c, false);
-      }
-      use_pend = false;
-      ++n;
-    }
-    if (n >= MAX_CHAIN) set_err(ERR_CHAIN_RUNAWAY);
-  }
-
-  __device__ bool live(bool has_t_end, R t_end) const {
-    bool empty = true;
-    R nxt = inf_of<R>();
-    for (int i = 0; i < sh.event_cap; ++i) {
-      if (finite(ev_time[i])) empty = false;
-      nxt = ev_time[i] < nxt ? ev_time[i] : nxt;
-    }
-    for (int q = 0; q < NP; ++q) {
-      if (finite(wt[q])) empty = false;
-      nxt = wt[q] < nxt ? wt[q] : nxt;
-    }
-    bool l = !done && err == 0 && !empty;
-    if (has_t_end) l = l && nxt <= t_end;
-    return l;
-  }
-
-  __device__ void step() {
-    // general table: (time asc, prio desc, seq asc), lowest slot wins
-    R t_e = inf_of<R>();
-    for (int i = 0; i < sh.event_cap; ++i) t_e = ev_time[i] < t_e ? ev_time[i] : t_e;
-    const bool found_e = finite(t_e);
-    int32_t p_e = I32_MIN, s_e = I32_MAX;
-    int slot_e = 0;
-    int32_t kind_e = 0, subj_e = 0, arg_e = 0;
-    if (found_e) {
-      for (int i = 0; i < sh.event_cap; ++i)
-        if (ev_time[i] == t_e && ev_prio[i] > p_e) p_e = ev_prio[i];
-      for (int i = 0; i < sh.event_cap; ++i)
-        if (ev_time[i] == t_e && ev_prio[i] == p_e && ev_seq[i] < s_e)
-          s_e = ev_seq[i];
-      for (int i = 0; i < sh.event_cap; ++i)
-        if (ev_time[i] == t_e && ev_prio[i] == p_e && ev_seq[i] == s_e) {
-          slot_e = i;
-          break;
-        }
-      kind_e = ev_kind[slot_e];
-      subj_e = ev_subj[slot_e];
-      arg_e = ev_arg[slot_e];
-    }
-    // dense wakes: the same order, priority read live from procs.prio
-    R t_w = inf_of<R>();
-    for (int q = 0; q < NP; ++q) t_w = wt[q] < t_w ? wt[q] : t_w;
-    const bool found_w = finite(t_w);
-    int32_t p_w = I32_MIN, s_w = I32_MAX;
-    int pid_w = 0;
-    if (found_w) {
-      for (int q = 0; q < NP; ++q)
-        if (wt[q] == t_w && prio[q] > p_w) p_w = prio[q];
-      for (int q = 0; q < NP; ++q)
-        if (wt[q] == t_w && prio[q] == p_w && wseq[q] < s_w) s_w = wseq[q];
-      for (int q = 0; q < NP; ++q)
-        if (wt[q] == t_w && prio[q] == p_w && wseq[q] == s_w) {
-          pid_w = q;
-          break;
-        }
-    }
-    const bool wake_first =
-        found_w &&
-        (!found_e || t_w < t_e ||
-         (t_w == t_e && (p_w > p_e || (p_w == p_e && s_w < s_e))));
-    if (!(found_e || found_w)) {
-      done = true;
-      return;
-    }
-    int32_t subj, arg;
-    if (wake_first) {
-      clock = t_w;
-      subj = pid_w;
-      arg = wsig[pid_w];
-      wt[pid_w] = inf_of<R>();
-    } else {
-      clock = t_e;
-      subj = subj_e;
-      arg = arg_e;
-      ev_time[slot_e] = inf_of<R>();
-      ev_gen[slot_e] += 1;
-    }
-    (void)kind_e;  // K_PROC and K_TIMER both resume; mm1 has no handlers
-    n_events += 1;
-    if (subj >= 0 && subj < NP && status[subj] == RUNNING) resume(subj, arg);
-  }
+  // the general event table's minimum (time asc, prio desc, seq asc,
+  // lowest slot: its time and slot), and whether any slot holds a finite
+  // time; the slot's other fields are read when needed
+  R t_e;
+  bool any_e;
+  int32_t slot_e;
 };
 
+// a cold field of process p (or summary moment p) of this lane
+#define COLD(s, f, p) ((s).cold->f[p][(s).t])
+
+// where a lane's rows live: the kernel's parameters and the lane
+struct Where {
+  const Ptrs& ps;
+  const Shape& sh;
+  int l;
+};
+
+// the lane index as a value the compiler cannot see through: a row
+// address computed from it is computed where it is used, not kept in
+// registers across the event loop
+__device__ __forceinline__ int opaque(int x) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+r"(x));
+#endif
+  return x;
+}
 
 template <typename T, bool RECORD>
-__device__ T* leaf(const Ptrs& ps, Leaf k) {
+__device__ __forceinline__ T* leaf(const Ptrs& ps, Leaf k) {
   return static_cast<T*>(ps.p[at<RECORD>(k)]);
 }
 
-template <typename R, bool RECORD>
-__device__ Sum<R> load_sum(const Ptrs& ps, Leaf first, int l) {
-  Sum<R> s;
-  s.n = leaf<R, RECORD>(ps, Leaf(first + 0))[l];
-  s.w = leaf<R, RECORD>(ps, Leaf(first + 1))[l];
-  s.mn = leaf<R, RECORD>(ps, Leaf(first + 2))[l];
-  s.mx = leaf<R, RECORD>(ps, Leaf(first + 3))[l];
-  s.m1 = leaf<R, RECORD>(ps, Leaf(first + 4))[l];
-  s.m2 = leaf<R, RECORD>(ps, Leaf(first + 5))[l];
-  s.m3 = leaf<R, RECORD>(ps, Leaf(first + 6))[l];
-  s.m4 = leaf<R, RECORD>(ps, Leaf(first + 7))[l];
-  return s;
+// a lane's row of a [L, n] leaf
+template <typename T, class S>
+__device__ __forceinline__ T* row(const Where& at_, Leaf k, int n) {
+  return leaf<T, S::RECORD>(at_.ps, k) + size_t(at_.l) * n;
 }
 
-template <typename R, bool RECORD>
-__device__ void store_sum(const Ptrs& ps, Leaf first, int l, const Sum<R>& s) {
-  leaf<R, RECORD>(ps, Leaf(first + 0))[l] = s.n;
-  leaf<R, RECORD>(ps, Leaf(first + 1))[l] = s.w;
-  leaf<R, RECORD>(ps, Leaf(first + 2))[l] = s.mn;
-  leaf<R, RECORD>(ps, Leaf(first + 3))[l] = s.mx;
-  leaf<R, RECORD>(ps, Leaf(first + 4))[l] = s.m1;
-  leaf<R, RECORD>(ps, Leaf(first + 5))[l] = s.m2;
-  leaf<R, RECORD>(ps, Leaf(first + 6))[l] = s.m3;
-  leaf<R, RECORD>(ps, Leaf(first + 7))[l] = s.m4;
+template <class S>
+__device__ __forceinline__ int32_t get(const S& s, int f, int p) {
+  return field(pick(s.word, p), f);
+}
+
+template <class S>
+__device__ __forceinline__ void set(S& s, int f, int p, int32_t v) {
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q)
+    if (p == q) s.word[q] = with(s.word[q], f, v);
+  s.dirty |= 1u << (f * S::NP + p);
+}
+
+template <class S>
+__device__ __forceinline__ void set_err(S& s, int32_t code) {
+  if (s.err == 0) s.err = code;
+}
+
+// the general table's minimum, read from device memory (chunk start,
+// and after the kernel wrote the table)
+template <class S>
+__device__ __forceinline__ void scan_table(S& s, const Where& w) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap;
+  const R* time = row<R, S>(w, EV_TIME, E);
+  const int32_t* prio = row<int32_t, S>(w, EV_PRIO, E);
+  const int32_t* seq = row<int32_t, S>(w, EV_SEQ, E);
+  R t = inf_of<R>();
+  bool any = false;
+  for (int i = 0; i < E; ++i) {
+    const R x = time[i];
+    any = any || finite(x);
+    t = x < t ? x : t;
+  }
+  int32_t slot = 0;
+  if (finite(t)) {
+    int32_t p = I32_MIN, sq = I32_MAX;
+    for (int i = 0; i < E; ++i)
+      if (time[i] == t && prio[i] > p) p = prio[i];
+    for (int i = 0; i < E; ++i)
+      if (time[i] == t && prio[i] == p && seq[i] < sq) sq = seq[i];
+    for (int i = 0; i < E; ++i)
+      if (time[i] == t && prio[i] == p && seq[i] == sq) {
+        slot = i;
+        break;
+      }
+  }
+  s.t_e = t;
+  s.any_e = any;
+  s.slot_e = slot;
+}
+
+// timeseries.step_record(acc, clock, v): the previous length is
+// credited with the time since the last record; a zero-length segment
+// leaves the summary as it was
+#define ACC(s, i) ((s).cold_acc->acc[i][(s).t])
+
+template <class S>
+__device__ __forceinline__ void record(S& s, typename S::R v) {
+  using R = typename S::R;
+  const R dur = nanmax0(s.clock - ACC(s, 8));
+  const Sum<R> a{ACC(s, 0), ACC(s, 1), ACC(s, 2), ACC(s, 3),
+                 ACC(s, 4), ACC(s, 5), ACC(s, 6), ACC(s, 7)};
+  const Sum<R> upd = add(a, ACC(s, 9), dur);
+  if (dur > R(0)) {
+    ACC(s, 0) = upd.n;
+    ACC(s, 1) = upd.w;
+    ACC(s, 2) = upd.mn;
+    ACC(s, 3) = upd.mx;
+    ACC(s, 4) = upd.m1;
+    ACC(s, 5) = upd.m2;
+    ACC(s, 6) = upd.m3;
+    ACC(s, 7) = upd.m4;
+  }
+  ACC(s, 8) = s.clock;
+  ACC(s, 9) = v;
+  s.cold_acc->started[0][s.t] = true;
+}
+
+// arm a SUCCESS wake of process p at t (every wake these blocks arm)
+template <class S>
+__device__ __forceinline__ void schedule_wake(S& s, int p, typename S::R t) {
+  if (finite(t)) {
+    put(s.wt, p, t);
+    set(s, F_SIG, p, SUCCESS);
+    put(s.wseq, p, s.next_seq);
+    s.next_seq += 1;
+  } else {
+    set_err(s, ERR_EVENT_OVERFLOW);
+  }
+}
+
+// wake the best waiter of guard gid: highest live prio, then lowest
+// pend_seq, then lowest pid
+template <class S>
+__device__ __forceinline__ void guard_signal(S& s, int gid) {
+  bool found = false;
+  int32_t bp = I32_MIN, bs = I32_MAX;
+  int pid = 0;
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q)
+    if (field(s.word[q], F_GUARD) == gid) {
+      const int32_t pq = COLD(s, prio, q), sq = COLD(s, pend_seq, q);
+      if (!found || pq > bp || (pq == bp && sq < bs)) {
+        found = true;
+        bp = pq;
+        bs = sq;
+        pid = q;
+      }
+    }
+  if (!found) return;
+  set(s, F_GUARD, pid, -1);
+  schedule_wake(s, pid, s.clock);
+}
+
+template <class S>
+__device__ __forceinline__ void guard_wait(S& s, int p, int gid,
+                                           const Cmd<typename S::R>& c,
+                                           bool is_retry) {
+  const int32_t so = is_retry ? COLD(s, pend_seq, p) : -1;
+  const int32_t fresh = pick(s.gseq, gid);
+  const int32_t seq = so >= 0 ? so : fresh;
+  if (seq == fresh) put(s.gseq, gid, fresh + 1);
+  set(s, F_TAG, p, c.tag);
+  COLD(s, pend_f, p) = c.f;
+  COLD(s, pend_f3, p) = c.f3;
+  COLD(s, pend_pc, p) = c.next_pc;
+  set(s, F_GUARD, p, gid);
+  COLD(s, pend_seq, p) = seq;
+  set(s, F_PC, p, c.next_pc);
+  // a retry re-pends the pended command as it was: its pend_f2 and
+  // pend_i stay; a block's command writes its 0s
+  if (!is_retry) s.dirty |= 1u << (F_BLOCK * S::NP + p);
+}
+
+template <class S>
+__device__ __forceinline__ bool any_waiting(const S& s, int gid) {
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q)
+    any = any || field(s.word[q], F_GUARD) == gid;
+  return any;
+}
+
+// (head + size) % cap and (head + 1) % cap, without a division in range
+__device__ __forceinline__ int32_t wrap(int32_t x, int32_t cap) {
+  return uint32_t(x) < uint32_t(cap) ? x
+         : (x >= cap && x - cap < cap) ? x - cap
+                                      : x % cap;
+}
+
+// put/get and their fused *_hold twins, in the reference's order;
+// returns "yielded"
+template <class S>
+__device__ __forceinline__ bool h_queue(S& s, const Where& w, int p,
+                                        const Cmd<typename S::R>& c, int tag,
+                                        bool is_retry) {
+  using R = typename S::R;
+  const bool is_put = tag == C_PUT || tag == C_PUT_HOLD;
+  const bool fused = tag == C_PUT_HOLD || tag == C_GET_HOLD;
+  const int cap = w.sh.queue_cap;
+  const int own = is_put ? w.sh.rear : w.sh.front;
+  const bool may = is_retry || !any_waiting(s, own);
+  const bool blocked = (is_put ? s.size >= cap : s.size <= 0) || !may;
+  if (!blocked) {
+    R* ring = row<R, S>(w, Q_ITEMS, w.sh.ring_width);
+    if (is_put) {
+      ring[wrap(s.head + s.size, cap)] = c.f;
+      s.size += 1;
+    } else {
+      COLD(s, got, p) = ring[s.head];
+      s.head = wrap(s.head + 1, cap);
+      s.size -= 1;
+    }
+    if constexpr (S::RECORD) record(s, R(s.size));
+    if (!is_put) guard_signal(s, w.sh.rear);
+    guard_signal(s, w.sh.front);
+    if (fused) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  }
+  set(s, F_PC, p, c.next_pc);
+  if (blocked) guard_wait(s, p, own, c, is_retry);
+  return blocked || fused;
+}
+
+template <class S>
+__device__ __forceinline__ void finish(S& s, const Where& w, int p) {
+  using R = typename S::R;
+  set(s, F_TAG, p, NO_PEND);
+  set(s, F_GUARD, p, -1);
+  put(s.wt, p, inf_of<R>());
+  if (s.any_e) {  // cancel p's timers
+    const int E = w.sh.event_cap;
+    R* time = row<R, S>(w, EV_TIME, E);
+    const int32_t* kind = row<int32_t, S>(w, EV_KIND, E);
+    const int32_t* subj = row<int32_t, S>(w, EV_SUBJ, E);
+    int32_t* gen = row<int32_t, S>(w, EV_GEN, E);
+    for (int i = 0; i < E; ++i)
+      if (finite(time[i]) && kind[i] == K_TIMER && subj[i] == p) {
+        time[i] = inf_of<R>();
+        gen[i] += 1;
+      }
+    scan_table(s, w);
+  }
+  set(s, F_STATUS, p, FINISHED);
+  row<int32_t, S>(w, EXIT_SIG, S::NP)[p] = SUCCESS;
+}
+
+// returns "yielded"
+template <class S>
+__device__ __forceinline__ bool apply(S& s, const Where& w, int p,
+                                      const Cmd<typename S::R>& c,
+                                      bool is_retry) {
+  const int tag = c.tag < 0 ? 0 : (c.tag > N_COMMANDS - 1 ? N_COMMANDS - 1
+                                                          : c.tag);
+  switch (tag) {
+    case C_HOLD:
+      schedule_wake(s, p, s.clock + nanmax0(c.f));
+      set(s, F_PC, p, c.next_pc);
+      return true;
+    case C_EXIT:
+      finish(s, w, p);
+      return true;
+    case C_JUMP:
+      set(s, F_PC, p, c.next_pc);
+      return false;
+    case C_PUT:
+    case C_GET:
+    case C_PUT_HOLD:
+    case C_GET_HOLD:
+      return h_queue(s, w, p, c, tag, is_retry);
+    default:
+      set_err(s, ERR_USER);
+      return true;
+  }
+}
+
+template <class S>
+__device__ __forceinline__ Sum<typename S::R> load_wait(const S& s) {
+  return {COLD(s, wait, 0), COLD(s, wait, 1), COLD(s, wait, 2),
+          COLD(s, wait, 3), COLD(s, wait, 4), COLD(s, wait, 5),
+          COLD(s, wait, 6), COLD(s, wait, 7)};
+}
+
+template <class S>
+__device__ __forceinline__ void store_wait(S& s,
+                                           const Sum<typename S::R>& m) {
+  COLD(s, wait, 0) = m.n;
+  COLD(s, wait, 1) = m.w;
+  COLD(s, wait, 2) = m.mn;
+  COLD(s, wait, 3) = m.mx;
+  COLD(s, wait, 4) = m.m1;
+  COLD(s, wait, 5) = m.m2;
+  COLD(s, wait, 6) = m.m3;
+  COLD(s, wait, 7) = m.m4;
+}
+
+// one block of process p; x is the event's standard exponential while
+// `fresh` (no block of this event has drawn yet)
+template <class S>
+__device__ __forceinline__ Cmd<typename S::R> run_block(
+    S& s, const Where& w, int p, typename S::R x, bool& fresh) {
+  using R = typename S::R;
+  const int b = get(s, F_PC, p);  // clamped to a block when loaded
+  // every block but a_exit draws once, from its process's mean
+  R t = R(0);
+  if (b != A_EXIT) {
+    if (!fresh) x = std_exponential<R>(s.k0, s.k1, s.lo, s.hi);
+    fresh = false;
+    s.lo += 1u;
+    if (s.lo == 0u) s.hi += 1u;
+    t = (b < A_EXIT ? s.arr_mean : s.srv_mean) * x;
+  }
+  switch (b) {
+    case A_START:
+      return Cmd<R>{C_HOLD, t, R(0), A_CYCLE};
+    case A_CYCLE: {
+      const int32_t n = COLD(s, produced, p) += 1;
+      if (n >= s.n_objects) return Cmd<R>{C_PUT, s.clock, R(0), A_EXIT};
+      return Cmd<R>{C_PUT_HOLD, s.clock, t, A_CYCLE};
+    }
+    case A_EXIT:
+      return Cmd<R>{C_EXIT, R(0), R(0), 0};
+    case S_START:
+      return Cmd<R>{C_GET_HOLD, R(0), t, S_CYCLE};
+    default: {  // S_CYCLE
+      const Sum<R> wait =
+          add(load_wait(s), s.clock - COLD(s, got, p), R(1));
+      store_wait(s, wait);
+      if (wait.n >= R(s.n_objects)) s.done = true;
+      return Cmd<R>{C_GET_HOLD, R(0), t, S_CYCLE};
+    }
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void resume(S& s, const Where& w, int p,
+                                       int32_t sig, typename S::R x) {
+  using R = typename S::R;
+  put(s.wt, p, inf_of<R>());
+  const int32_t tag = get(s, F_TAG, p);
+  const bool has_pend = tag != NO_PEND;
+  bool use_pend = has_pend && sig == SUCCESS;
+  Cmd<R> pend{tag, R(0), R(0), 0};
+  if (use_pend) {
+    pend.f = COLD(s, pend_f, p);
+    pend.f3 = COLD(s, pend_f3, p);
+    pend.next_pc = COLD(s, pend_pc, p);
+  }
+  set(s, F_TAG, p, NO_PEND);
+  set(s, F_GUARD, p, -1);
+  bool yielded = false, fresh = true;
+  int n = 0;
+  while (!yielded && get(s, F_STATUS, p) == RUNNING && s.err == 0 &&
+         n < MAX_CHAIN) {
+    // one apply for the retried command and a block's: the lanes of a
+    // warp that take either run the handlers together
+    const Cmd<R> c = use_pend ? pend : run_block(s, w, p, x, fresh);
+    yielded = apply(s, w, p, c, use_pend);
+    use_pend = false;
+    ++n;
+  }
+  if (n >= MAX_CHAIN) set_err(s, ERR_CHAIN_RUNAWAY);
+}
+
+// one event: the pick over the cached general-table minimum and the
+// dense wakes (whose minimum t_w the liveness check computed), the
+// converged draw, the resume
+template <class S>
+__device__ __forceinline__ void step(S& s, const Where& w,
+                                     typename S::R t_w) {
+  using R = typename S::R;
+  const bool found_e = finite(s.t_e);
+  const bool found_w = finite(t_w);
+  if (!(found_e || found_w)) {
+    s.done = true;
+    return;
+  }
+  // dense wakes at t_w: prio desc (read live from procs.prio), seq asc,
+  // lowest pid
+  bool g = false;
+  int32_t p_w = I32_MIN, s_w = I32_MAX;
+  int pid_w = 0;
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q)
+    if (s.wt[q] == t_w) {
+      const int32_t pq = COLD(s, prio, q);
+      if (!g || pq > p_w || (pq == p_w && s.wseq[q] < s_w)) {
+        g = true;
+        p_w = pq;
+        s_w = s.wseq[q];
+        pid_w = q;
+      }
+    }
+  const int E = w.sh.event_cap;
+  bool wake_first = found_w && (!found_e || t_w < s.t_e);
+  if (found_w && found_e && t_w == s.t_e) {  // a tie: the slot's prio, seq
+    const int32_t p_e = row<int32_t, S>(w, EV_PRIO, E)[s.slot_e];
+    const int32_t s_e = row<int32_t, S>(w, EV_SEQ, E)[s.slot_e];
+    wake_first = p_w > p_e || (p_w == p_e && s_w < s_e);
+  }
+  int32_t subj, arg;
+  if (wake_first) {
+    s.clock = t_w;
+    subj = pid_w;
+    arg = get(s, F_SIG, pid_w);
+    put(s.wt, pid_w, inf_of<R>());
+  } else {
+    s.clock = s.t_e;
+    subj = row<int32_t, S>(w, EV_SUBJ, E)[s.slot_e];
+    arg = row<int32_t, S>(w, EV_ARG, E)[s.slot_e];
+    row<R, S>(w, EV_TIME, E)[s.slot_e] = inf_of<R>();
+    row<int32_t, S>(w, EV_GEN, E)[s.slot_e] += 1;
+    scan_table(s, w);
+  }
+  s.n_events += 1;  // K_PROC and K_TIMER both resume; no handlers
+  // the converged draw, at the counter as the event found it
+  R x = std_exponential<R>(s.k0, s.k1, s.lo, s.hi);
+  pin(x);
+  if (subj >= 0 && subj < S::NP && get(s, F_STATUS, subj) == RUNNING)
+    resume(s, w, subj, arg, x);
+}
+
+template <class S>
+__device__ __forceinline__ void load(S& s, const Where& w) {
+  using R = typename S::R;
+  using C = typename S::C;
+  constexpr int NP = S::NP;
+  s.clock = row<R, S>(w, CLOCK, 1)[0];
+  s.k0 = uint32_t(row<int64_t, S>(w, KEY0, 1)[0]);
+  s.k1 = uint32_t(row<int64_t, S>(w, KEY1, 1)[0]);
+  s.lo = uint32_t(row<int64_t, S>(w, CTR_LO, 1)[0]);
+  s.hi = uint32_t(row<int64_t, S>(w, CTR_HI, 1)[0]);
+  s.next_seq = row<int32_t, S>(w, EV_NEXT_SEQ, 1)[0];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    s.wt[q] = row<R, S>(w, WK_TIME, NP)[q];
+    s.wseq[q] = row<int32_t, S>(w, WK_SEQ, NP)[q];
+    s.word[q] = pack(row<int32_t, S>(w, PC, NP)[q],
+                     row<int32_t, S>(w, STATUS, NP)[q],
+                     row<int32_t, S>(w, PEND_TAG, NP)[q],
+                     row<int32_t, S>(w, PEND_GUARD, NP)[q],
+                     row<int32_t, S>(w, WK_SIG, NP)[q]);
+    COLD(s, prio, q) = row<int32_t, S>(w, PRIO, NP)[q];
+    COLD(s, pend_pc, q) = row<int32_t, S>(w, PEND_PC, NP)[q];
+    COLD(s, pend_seq, q) = row<int32_t, S>(w, PEND_SEQ, NP)[q];
+    COLD(s, pend_f, q) = row<R, S>(w, PEND_F, NP)[q];
+    COLD(s, pend_f3, q) = row<R, S>(w, PEND_F3, NP)[q];
+    COLD(s, got, q) = row<R, S>(w, GOT, NP)[q];
+    COLD(s, produced, q) =
+        row<int32_t, S>(w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals];
+  }
+  s.dirty = 0u;
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+    s.gseq[g] = row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g];
+  s.head = row<int32_t, S>(w, Q_HEAD, 1)[0];
+  s.size = row<int32_t, S>(w, Q_SIZE, 1)[0];
+  s.arr_mean = row<R, S>(w, U_ARR_MEAN, 1)[0];
+  s.srv_mean = row<R, S>(w, U_SRV_MEAN, 1)[0];
+  s.n_objects = row<int32_t, S>(w, U_N_OBJECTS, 1)[0];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    COLD(s, wait, i) = row<R, S>(w, Leaf(W_N + i), 1)[0];
+  if constexpr (S::RECORD) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i)
+      ACC(s, i) = row<R, S>(w, Leaf(A_N + i), 1)[0];
+    s.cold_acc->started[0][s.t] = row<bool, S>(w, A_STARTED, 1)[0];
+  }
+  s.done = row<bool, S>(w, DONE, 1)[0];
+  s.err = row<int32_t, S>(w, ERR, 1)[0];
+  s.n_events = row<C, S>(w, N_EVENTS, 1)[0];
+}
+
+// the fields a chunk can change (the packed ones where they were
+// written); prio, the keys, the parameters and the general table's
+// other columns are only read
+template <class S>
+__device__ __forceinline__ void store(const S& s, const Where& w) {
+  using R = typename S::R;
+  using C = typename S::C;
+  constexpr int NP = S::NP;
+  row<R, S>(w, CLOCK, 1)[0] = s.clock;
+  row<int64_t, S>(w, CTR_LO, 1)[0] = int64_t(s.lo);
+  row<int64_t, S>(w, CTR_HI, 1)[0] = int64_t(s.hi);
+  row<int32_t, S>(w, EV_NEXT_SEQ, 1)[0] = s.next_seq;
+  constexpr Leaf packed[5] = {PC, STATUS, PEND_TAG, PEND_GUARD, WK_SIG};
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    row<R, S>(w, WK_TIME, NP)[q] = s.wt[q];
+    row<int32_t, S>(w, WK_SEQ, NP)[q] = s.wseq[q];
+#pragma unroll
+    for (int f = 0; f < 5; ++f)
+      if (s.dirty & (1u << (f * NP + q)))
+        row<int32_t, S>(w, packed[f], NP)[q] = field(s.word[q], f);
+    row<int32_t, S>(w, PEND_PC, NP)[q] = COLD(s, pend_pc, q);
+    row<int32_t, S>(w, PEND_SEQ, NP)[q] = COLD(s, pend_seq, q);
+    row<R, S>(w, PEND_F, NP)[q] = COLD(s, pend_f, q);
+    row<R, S>(w, PEND_F3, NP)[q] = COLD(s, pend_f3, q);
+    row<R, S>(w, GOT, NP)[q] = COLD(s, got, q);
+    row<int32_t, S>(w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals] =
+        COLD(s, produced, q);
+    if (s.dirty & (1u << (F_BLOCK * NP + q))) {
+      row<R, S>(w, PEND_F2, NP)[q] = R(0);
+      row<int32_t, S>(w, PEND_I, NP)[q] = 0;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+    row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g] = s.gseq[g];
+  row<int32_t, S>(w, Q_HEAD, 1)[0] = s.head;
+  row<int32_t, S>(w, Q_SIZE, 1)[0] = s.size;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    row<R, S>(w, Leaf(W_N + i), 1)[0] = COLD(s, wait, i);
+  if constexpr (S::RECORD) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i)
+      row<R, S>(w, Leaf(A_N + i), 1)[0] = ACC(s, i);
+    row<bool, S>(w, A_STARTED, 1)[0] = s.cold_acc->started[0][s.t];
+  }
+  row<bool, S>(w, DONE, 1)[0] = s.done;
+  row<int32_t, S>(w, ERR, 1)[0] = s.err;
+  row<C, S>(w, N_EVENTS, 1)[0] = s.n_events;
 }
 
 // Load lane l's state, run up to chunk_steps events while the lane is
 // live (make_cond), and store it back.  Leaves are lane-first; the
 // queue's accumulator rows are [L, 1].
 template <typename R, typename C, int NS, bool RECORD>
-__device__ void run_lane(const Ptrs& ps, int l, const Shape& sh,
-                       int chunk_steps, bool has_t_end, R t_end) {
-  constexpr int NP = 1 + NS;
-  const int E = sh.event_cap;
-  const int NI = sh.n_ilocals;
-
-  Lane<R, C, NS, RECORD> s;
-  s.sh = sh;
-  s.clock = leaf<R, RECORD>(ps, CLOCK)[l];
-  s.k0 = uint32_t(leaf<int64_t, RECORD>(ps, KEY0)[l]);
-  s.k1 = uint32_t(leaf<int64_t, RECORD>(ps, KEY1)[l]);
-  s.lo = uint32_t(leaf<int64_t, RECORD>(ps, CTR_LO)[l]);
-  s.hi = uint32_t(leaf<int64_t, RECORD>(ps, CTR_HI)[l]);
-  s.ev_time = leaf<R, RECORD>(ps, EV_TIME) + size_t(l) * E;
-  s.ev_prio = leaf<int32_t, RECORD>(ps, EV_PRIO) + size_t(l) * E;
-  s.ev_seq = leaf<int32_t, RECORD>(ps, EV_SEQ) + size_t(l) * E;
-  s.ev_kind = leaf<int32_t, RECORD>(ps, EV_KIND) + size_t(l) * E;
-  s.ev_subj = leaf<int32_t, RECORD>(ps, EV_SUBJ) + size_t(l) * E;
-  s.ev_arg = leaf<int32_t, RECORD>(ps, EV_ARG) + size_t(l) * E;
-  s.ev_gen = leaf<int32_t, RECORD>(ps, EV_GEN) + size_t(l) * E;
-  s.next_seq = leaf<int32_t, RECORD>(ps, EV_NEXT_SEQ)[l];
+__device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
+                                         const Shape& sh, int chunk_steps,
+                                         bool has_t_end, R t_end,
+                                         Cold<R, 1 + NS>& cold,
+                                         ColdAcc<R, RECORD>& cold_acc) {
+  using S = State<R, C, NS, RECORD>;
+  S s;
+  s.cold = &cold;
+  s.cold_acc = &cold_acc;
+  s.t = threadIdx.x;
+  load(s, Where{ps, sh, l});
+  scan_table(s, Where{ps, sh, l});
+  for (int k = 0; k < chunk_steps; ++k) {
+    // liveness: a finite time in either table, not done, no error,
+    // and the next time within the horizon
+    R t_w = inf_of<R>();
+    bool any_w = false;
 #pragma unroll
-  for (int q = 0; q < NP; ++q) {
-    const size_t i = size_t(l) * NP + q;
-    s.wt[q] = leaf<R, RECORD>(ps, WK_TIME)[i];
-    s.wsig[q] = leaf<int32_t, RECORD>(ps, WK_SIG)[i];
-    s.wseq[q] = leaf<int32_t, RECORD>(ps, WK_SEQ)[i];
-    s.pc[q] = leaf<int32_t, RECORD>(ps, PC)[i];
-    s.status[q] = leaf<int32_t, RECORD>(ps, STATUS)[i];
-    s.prio[q] = leaf<int32_t, RECORD>(ps, PRIO)[i];
-    s.pend_tag[q] = leaf<int32_t, RECORD>(ps, PEND_TAG)[i];
-    s.pend_f[q] = leaf<R, RECORD>(ps, PEND_F)[i];
-    s.pend_f2[q] = leaf<R, RECORD>(ps, PEND_F2)[i];
-    s.pend_f3[q] = leaf<R, RECORD>(ps, PEND_F3)[i];
-    s.pend_i[q] = leaf<int32_t, RECORD>(ps, PEND_I)[i];
-    s.pend_pc[q] = leaf<int32_t, RECORD>(ps, PEND_PC)[i];
-    s.pend_guard[q] = leaf<int32_t, RECORD>(ps, PEND_GUARD)[i];
-    s.pend_seq[q] = leaf<int32_t, RECORD>(ps, PEND_SEQ)[i];
-    s.exit_sig[q] = leaf<int32_t, RECORD>(ps, EXIT_SIG)[i];
-    s.got[q] = leaf<R, RECORD>(ps, GOT)[i];
-    s.produced[q] = leaf<int32_t, RECORD>(ps, LOCALS_I)[i * NI];
+    for (int q = 0; q < S::NP; ++q) {
+      any_w = any_w || finite(s.wt[q]);
+      t_w = s.wt[q] < t_w ? s.wt[q] : t_w;
+    }
+    const R nxt = t_w < s.t_e ? t_w : s.t_e;
+    const bool live = !s.done && s.err == 0 && (s.any_e || any_w) &&
+                      (!has_t_end || nxt <= t_end);
+    if (!live) break;
+    step(s, Where{ps, sh, opaque(l)}, t_w);
   }
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-    s.gseq[g] = leaf<int32_t, RECORD>(ps, GUARD_NEXT_SEQ)[size_t(l) * NG + g];
-  s.ring = leaf<R, RECORD>(ps, Q_ITEMS) + size_t(l) * sh.ring_width;
-  s.head = leaf<int32_t, RECORD>(ps, Q_HEAD)[l];
-  s.size = leaf<int32_t, RECORD>(ps, Q_SIZE)[l];
-  s.arr_mean = leaf<R, RECORD>(ps, U_ARR_MEAN)[l];
-  s.srv_mean = leaf<R, RECORD>(ps, U_SRV_MEAN)[l];
-  s.n_objects = leaf<int32_t, RECORD>(ps, U_N_OBJECTS)[l];
-  s.wait = load_sum<R, RECORD>(ps, W_N, l);
-  if constexpr (RECORD) {
-    s.acc = load_sum<R, RECORD>(ps, A_N, l);
-    s.acc_last_t = leaf<R, RECORD>(ps, A_LAST_T)[l];
-    s.acc_last_v = leaf<R, RECORD>(ps, A_LAST_V)[l];
-    s.acc_started = leaf<bool, RECORD>(ps, A_STARTED)[l];
-  }
-  s.done = leaf<bool, RECORD>(ps, DONE)[l];
-  s.err = leaf<int32_t, RECORD>(ps, ERR)[l];
-  s.n_events = leaf<C, RECORD>(ps, N_EVENTS)[l];
-
-  for (int k = 0; k < chunk_steps && s.live(has_t_end, t_end); ++k) s.step();
-
-  leaf<R, RECORD>(ps, CLOCK)[l] = s.clock;
-  leaf<int64_t, RECORD>(ps, CTR_LO)[l] = int64_t(s.lo);
-  leaf<int64_t, RECORD>(ps, CTR_HI)[l] = int64_t(s.hi);
-  leaf<int32_t, RECORD>(ps, EV_NEXT_SEQ)[l] = s.next_seq;
-#pragma unroll
-  for (int q = 0; q < NP; ++q) {
-    const size_t i = size_t(l) * NP + q;
-    leaf<R, RECORD>(ps, WK_TIME)[i] = s.wt[q];
-    leaf<int32_t, RECORD>(ps, WK_SIG)[i] = s.wsig[q];
-    leaf<int32_t, RECORD>(ps, WK_SEQ)[i] = s.wseq[q];
-    leaf<int32_t, RECORD>(ps, PC)[i] = s.pc[q];
-    leaf<int32_t, RECORD>(ps, STATUS)[i] = s.status[q];
-    leaf<int32_t, RECORD>(ps, PEND_TAG)[i] = s.pend_tag[q];
-    leaf<R, RECORD>(ps, PEND_F)[i] = s.pend_f[q];
-    leaf<R, RECORD>(ps, PEND_F2)[i] = s.pend_f2[q];
-    leaf<R, RECORD>(ps, PEND_F3)[i] = s.pend_f3[q];
-    leaf<int32_t, RECORD>(ps, PEND_I)[i] = s.pend_i[q];
-    leaf<int32_t, RECORD>(ps, PEND_PC)[i] = s.pend_pc[q];
-    leaf<int32_t, RECORD>(ps, PEND_GUARD)[i] = s.pend_guard[q];
-    leaf<int32_t, RECORD>(ps, PEND_SEQ)[i] = s.pend_seq[q];
-    leaf<int32_t, RECORD>(ps, EXIT_SIG)[i] = s.exit_sig[q];
-    leaf<R, RECORD>(ps, GOT)[i] = s.got[q];
-    leaf<int32_t, RECORD>(ps, LOCALS_I)[i * NI] = s.produced[q];
-  }
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-    leaf<int32_t, RECORD>(ps, GUARD_NEXT_SEQ)[size_t(l) * NG + g] = s.gseq[g];
-  leaf<int32_t, RECORD>(ps, Q_HEAD)[l] = s.head;
-  leaf<int32_t, RECORD>(ps, Q_SIZE)[l] = s.size;
-  store_sum<R, RECORD>(ps, W_N, l, s.wait);
-  if constexpr (RECORD) {
-    store_sum<R, RECORD>(ps, A_N, l, s.acc);
-    leaf<R, RECORD>(ps, A_LAST_T)[l] = s.acc_last_t;
-    leaf<R, RECORD>(ps, A_LAST_V)[l] = s.acc_last_v;
-    leaf<bool, RECORD>(ps, A_STARTED)[l] = s.acc_started;
-  }
-  leaf<bool, RECORD>(ps, DONE)[l] = s.done;
-  leaf<int32_t, RECORD>(ps, ERR)[l] = s.err;
-  leaf<C, RECORD>(ps, N_EVENTS)[l] = s.n_events;
+  store(s, Where{ps, sh, opaque(l)});
 }
 
 template <typename R, typename C, int NS, bool RECORD>
-__global__ void __launch_bounds__(128)
-chunk_kernel(Ptrs ps, int lanes, Shape sh, int chunk_steps, bool has_t_end,
-             R t_end) {
+__global__ void __launch_bounds__(kThreads, queue_minb<R, NS, RECORD>())
+chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
+             const __grid_constant__ Shape sh, int chunk_steps,
+             bool has_t_end, R t_end) {
+  __shared__ Cold<R, 1 + NS> cold;
+  __shared__ ColdAcc<R, RECORD> cold_acc;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < lanes)
-    run_lane<R, C, NS, RECORD>(ps, l, sh, chunk_steps, has_t_end, t_end);
+    run_lane<R, C, NS, RECORD>(ps, l, sh, chunk_steps, has_t_end, t_end,
+                               cold, cold_acc);
 }
 
 template <typename R, typename C, int NS, bool RECORD>
@@ -701,7 +995,6 @@ int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
   if (lanes <= 0 || chunk_steps <= 0) return -2;
   Ptrs ps{};
   for (int i = 0; i < n_leaves; ++i) ps.p[i] = leaves[i];
-  constexpr int kThreads = 128;
   const int blocks = (lanes + kThreads - 1) / kThreads;
   chunk_kernel<R, C, NS, RECORD><<<blocks, kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(

@@ -159,20 +159,87 @@ def test_queue_instances_match_plain_engine(card, name, prof):
 @pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "awacs"])
 def test_bisect_kernels_match_plain(card, model, prof):
     """K6: the copy byte for byte, the peek equal to peek_merged, at the
-    start and a few events in."""
+    start and a few events in; an odd lane count puts the end of every
+    bool leaf off a 16-byte boundary (the copy's byte path)."""
+    for lanes in (300, 301):
+        with config.profile(prof):
+            st = cuda_bisect.Setup(model, card, lanes=lanes, size=16)
+            for sims in (st.start, st.plain(st.start, 7)):
+                n_copy, n_peek = (bisect_kernels.sim_copy.launches,
+                                  bisect_kernels.peek.launches)
+                cp = bisect_kernels.sim_copy(sims, st.table, st.lay)
+                got = bisect_kernels.peek(sims, st.table, st.lay)
+                want = bisect_kernels.peek_plain(sims)
+                torch.cuda.synchronize()
+                assert bisect_kernels.sim_copy.launches == n_copy + 1
+                assert bisect_kernels.peek.launches == n_peek + 1
+                for a, b in zip(tree.leaves(sims), tree.leaves(cp)):
+                    assert torch.equal(cuda_bisect.bits(a),
+                                       cuda_bisect.bits(b))
+                for a, b in zip(want, got):
+                    assert a.dtype == b.dtype
+                    assert torch.equal(cuda_bisect.bits(a),
+                                       cuda_bisect.bits(b))
+
+
+def _plant(sims):
+    """Events in the general event table, which mm1 and mmc never use: an
+    early K_PROC wake of the arrival, an arrival timer that its exit
+    cancels, ties at t=0 with the process starts (by prio and by seq), an
+    out-of-range subject, a server's wake.  The chunk kernel caches the
+    table's minimum; these make it pop from the table and rescan."""
+    ev = sims.events
+    lanes = torch.arange(ev.time.shape[0], device=ev.time.device)
+    cols = {f: getattr(ev, f).clone()
+            for f in ("time", "prio", "seq", "kind", "subj", "arg")}
+    rows = ((0, 1, 0.5, 0, 50, 0, 0), (0, 2, 1e6, 0, 51, 1, 0),
+            (0, 3, 0.0, 0, 1, 0, 7), (1, 0, 0.0, 1, 60, 0, 1),
+            (2, 0, 2.0, 0, 61, 1, 0), (3, 0, 3.0, 0, 62, 0, 1))
+    for slot, phase, t, prio, seq, kind, subj in rows:
+        if slot >= ev.time.shape[1]:
+            continue
+        m = lanes % (4 if slot == 0 else slot + 1) == phase
+        for f, v in zip(("time", "prio", "seq", "kind", "subj", "arg"),
+                        (t, prio, seq, kind, subj, 0)):
+            cols[f][m, slot] = v
+    return sims._replace(events=ev._replace(**cols))
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["mm1", "mm1_record", "mmc1", "mmc2",
+                                  "mmc3", "mmc4"])
+def test_queue_kernel_general_table(card, name, prof):
+    """Every single-queue instance with events planted in the general
+    table: one chunk, and the whole run, equal to the plain engine."""
     with config.profile(prof):
-        st = cuda_bisect.Setup(model, card, lanes=300, size=16)
-        for sims in (st.start, st.plain(st.start, 7)):
-            n_copy, n_peek = (bisect_kernels.sim_copy.launches,
-                              bisect_kernels.peek.launches)
-            cp = bisect_kernels.sim_copy(sims, st.table, st.lay)
-            got = bisect_kernels.peek(sims, st.table, st.lay)
-            want = bisect_kernels.peek_plain(sims)
-            torch.cuda.synchronize()
-            assert bisect_kernels.sim_copy.launches == n_copy + 1
-            assert bisect_kernels.peek.launches == n_peek + 1
-            for a, b in zip(tree.leaves(sims), tree.leaves(cp)):
-                assert torch.equal(cuda_bisect.bits(a), cuda_bisect.bits(b))
-            for a, b in zip(want, got):
-                assert a.dtype == b.dtype
-                assert torch.equal(cuda_bisect.bits(a), cuda_bisect.bits(b))
+        if name == "mm1":
+            spec, params = mm1.build(record=False)[0], mm1.params(40)
+        else:
+            spec, params = _queue_spec(name)
+        lay = kernel_run.queue_layout(spec)
+        s0 = _plant(loop.init_sim(spec, 2026, torch.arange(512), params,
+                                  device=card))
+        ker = kernel_run.queue_chunk(tree.map(lambda x: x.clone(), s0), lay,
+                                     16)
+        pla = loop.make_run(spec, max_steps=16)(s0)
+        torch.cuda.synchronize()
+        assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker),
+                                   0.0) == []
+        ker = kernel_run.make_kernel_run(spec, chunk_steps=32)(s0)
+        pla = loop.make_run(spec)(s0)
+        torch.cuda.synchronize()
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+
+
+def test_queue_chunk_has_no_stack_frame(card):
+    """ptxas' report of csrc/queue_chunk.cu: the (1, false), (1, true)
+    and (3, true) instances keep no stack frame and spill nothing, in
+    either profile (chip_smoke.py checks the same)."""
+    import chip_smoke
+    from cimba_tpu_torch import _build
+
+    _, report = _build.build("queue_chunk")
+    figs, faults = chip_smoke.queue_frames(
+        chip_smoke.build_report("queue_chunk", report))
+    assert faults == []
+    assert len(figs) >= 10  # every instance in both profiles
