@@ -11,8 +11,9 @@ tensors:
   lane, the lane's state in registers; instances for (servers, queue
   recording) in :data:`QUEUE_INSTANCES`;
 * ``csrc/awacs_chunk.cu`` — the AWACS target legs
-  (``models.awacs.build(n)``), one warp per lane, the per-pid columns in
-  device memory.
+  (``models.awacs.build(n)``), 16 threads a lane, the per-pid columns in
+  device memory; and its boundary round, the dwell kernel (a warp a
+  lane).
 
 :func:`make_kernel_run` refuses any other spec rather than switching to
 the plain engine.  On CPU tensors the chunk is the plain engine,
@@ -23,9 +24,12 @@ Boundary protocol (parity: ``pallas_run.py`` ``_boundary_apply``).  A
 chunk freezes a lane whose next dispatch targets a boundary block
 (``Model.boundary_block``) with ``boundary_pending`` set; after such a
 chunk the host applies one ordinary engine step (``loop.make_step``,
-defer off) to exactly the frozen lanes and clears the flag.  For AWACS
-that step is the radar dwell, whose detection MLP runs as K5
-(``models.awacs.nn_forward``) on the card.
+defer off) to exactly the frozen lanes and clears the flag
+(:func:`make_boundary_step`).  For AWACS that step is the radar dwell:
+on the card one launch of the dwell kernel (:func:`awacs_dwell`), which
+runs the step, the features and the detection MLP of every frozen lane;
+on CPU tensors its plain version, the gathered lanes stepped by the
+plain engine (:func:`make_boundary_step_plain`).
 """
 
 from __future__ import annotations
@@ -185,14 +189,16 @@ def queue_layout(spec: ModelSpec) -> dict:
 
 
 def awacs_layout(spec: ModelSpec) -> dict:
-    """The static shape the AWACS chunk kernel needs, or
-    NotImplementedError when ``spec`` is not ``models.awacs.build(n)``
-    (either scoring: the sensor's block never runs in the kernel)."""
+    """The static shape the AWACS chunk and dwell kernels need, with the
+    sensor's scoring (``"nn"`` or ``"threshold"``, which the dwell
+    computes), or NotImplementedError when ``spec`` is not
+    ``models.awacs.build(n)``."""
     if not _is_awacs(spec):
         _refuse(spec)
     return dict(E=spec.event_cap, P=spec.n_procs, X=spec.n_procs - 1,
                 G=spec.n_guards, F=max(spec.n_flocals, 1),
-                N=max(spec.n_ilocals, 1))
+                N=max(spec.n_ilocals, 1),
+                scoring=spec.blocks[1].scoring)
 
 
 def _check_leaves(leaves, table, lay: dict, real, count):
@@ -213,37 +219,41 @@ def _check_leaves(leaves, table, lay: dict, real, count):
     return lanes
 
 
-def _launch(lib_name: str, table, sims: loop.Sim, lay: dict, shape_args,
-            chunk_steps: int, t_end: Optional[float]) -> None:
-    """One launch of ``cimba_<lib_name>_<f32|f64>`` on the current
-    stream: (leaf pointers, count, lanes, *shape_args, chunk_steps,
-    has_t_end, t_end, stream)."""
+def _launch(lib_name: str, entry: str, table, sims: loop.Sim, lay: dict,
+            args) -> None:
+    """One launch of ``cimba_<entry>_<f32|f64>`` of ``csrc/<lib_name>.cu``
+    on the current stream: (leaf pointers, count, lanes, *args, stream),
+    ``args`` as (ctypes type, value) pairs."""
     from cimba_tpu_torch import _build
 
     leaves = tree.leaves(sims)
     if not leaves[0].is_cuda:
-        raise ValueError(f"{lib_name} takes a Sim on a CUDA device")
+        raise ValueError(f"{entry} takes a Sim on a CUDA device")
     real, count = sims.clock.dtype, sims.n_events.dtype
     if (real, count) not in ((torch.float32, torch.int32),
                              (torch.float64, torch.int64)):
         raise ValueError(f"no kernel instance for {real}/{count} Sims")
     lanes = _check_leaves(leaves, table, lay, real, count)
     lib = _build.load(lib_name)
-    fn = getattr(lib, f"cimba_{lib_name}_"
+    fn = getattr(lib, f"cimba_{entry}_"
                       f"{'f32' if real == torch.float32 else 'f64'}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_int] * len(shape_args)
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                      ctypes.c_void_p])
+                   + [t for t, _ in args] + [ctypes.c_void_p])
     ptrs = (ctypes.c_void_p * len(leaves))(*[x.data_ptr() for x in leaves])
     with torch.cuda.device(leaves[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ptrs, len(leaves), lanes, *shape_args, chunk_steps,
-                int(t_end is not None),
-                float(t_end) if t_end is not None else 0.0, stream)
+        rc = fn(ptrs, len(leaves), lanes, *[v for _, v in args], stream)
     if rc != 0:
-        raise RuntimeError(f"{lib_name} kernel launch failed (code {rc})")
+        raise RuntimeError(f"{entry} kernel launch failed (code {rc})")
+
+
+def _chunk_args(shape_args, chunk_steps: int, t_end: Optional[float]):
+    return ([(ctypes.c_int, a) for a in shape_args]
+            + [(ctypes.c_int, chunk_steps),
+               (ctypes.c_int, int(t_end is not None)),
+               (ctypes.c_double,
+                float(t_end) if t_end is not None else 0.0)])
 
 
 def queue_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
@@ -254,9 +264,10 @@ def queue_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
     tensors are the kernel's inputs and outputs, as the Pallas call
     aliases them).  Launches on the current stream without
     synchronising.  ``queue_chunk.launches`` counts launches."""
-    _launch("queue_chunk", queue_leaves(lay["REC"]), sims, lay,
-            (lay["NS"], int(lay["REC"]), lay["E"], lay["W"], lay["cap"],
-             lay["front"], lay["rear"], lay["N"]), chunk_steps, t_end)
+    _launch("queue_chunk", "queue_chunk", queue_leaves(lay["REC"]), sims,
+            lay, _chunk_args((lay["NS"], int(lay["REC"]), lay["E"], lay["W"],
+                              lay["cap"], lay["front"], lay["rear"],
+                              lay["N"]), chunk_steps, t_end))
     queue_chunk.launches += 1
     return sims
 
@@ -267,14 +278,33 @@ def awacs_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
     does: up to ``chunk_steps`` target legs per live lane; a lane whose
     next dispatch is the sensor freezes with ``boundary_pending`` set.
     ``awacs_chunk.launches`` counts launches."""
-    _launch("awacs_chunk", AWACS_LEAVES, sims, lay,
-            (lay["E"], lay["P"]), chunk_steps, t_end)
+    _launch("awacs_chunk", "awacs_chunk", AWACS_LEAVES, sims, lay,
+            _chunk_args((lay["E"], lay["P"]), chunk_steps, t_end))
     awacs_chunk.launches += 1
+    return sims
+
+
+def awacs_dwell(sims: loop.Sim, lay: dict) -> loop.Sim:
+    """The AWACS boundary round on the card: one launch of the dwell
+    kernel of ``csrc/awacs_chunk.cu``, IN PLACE, which gives every lane
+    with ``boundary_pending`` set one ordinary engine step (the sensor's
+    dwell, its detection MLP fused in with scoring "nn") and clears the
+    flag; the other lanes are untouched.  Launches on the current stream
+    without synchronising.  ``awacs_dwell.launches`` counts launches."""
+    from cimba_tpu_torch.models import awacs
+
+    nn = lay["scoring"] == "nn"
+    weights = awacs._weights(sims.clock.device)[1].data_ptr() if nn else None
+    _launch("awacs_chunk", "awacs_dwell", AWACS_LEAVES, sims, lay,
+            [(ctypes.c_int, lay["E"]), (ctypes.c_int, lay["P"]),
+             (ctypes.c_void_p, weights), (ctypes.c_int, int(nn))])
+    awacs_dwell.launches += 1
     return sims
 
 
 queue_chunk.launches = 0
 awacs_chunk.launches = 0
+awacs_dwell.launches = 0
 
 
 def kernel_for(spec: ModelSpec):
@@ -288,10 +318,12 @@ def kernel_for(spec: ModelSpec):
     _refuse(spec)
 
 
-def make_boundary_step(spec: ModelSpec):
-    """``apply(sims) -> sims``: one ordinary engine step (defer off) on
-    exactly the lanes with ``boundary_pending`` set, which it clears;
-    the other lanes are untouched.  Returns new tensors."""
+def make_boundary_step_plain(spec: ModelSpec):
+    """The boundary round's plain version: ``apply(sims) -> sims``, one
+    ordinary engine step (``loop.make_step``, defer off) on exactly the
+    lanes with ``boundary_pending`` set, gathered and scattered back,
+    the flag cleared; the other lanes are untouched.  Returns new
+    tensors, on any device."""
     step = loop.make_step(spec)
 
     def apply(sims: loop.Sim) -> loop.Sim:
@@ -305,6 +337,29 @@ def make_boundary_step(spec: ModelSpec):
     return apply
 
 
+def make_boundary_step(spec: ModelSpec):
+    """``apply(sims) -> sims``: the boundary round, one ordinary engine
+    step on exactly the lanes with ``boundary_pending`` set, which it
+    clears.  On the card it is one launch of the spec's dwell kernel
+    (:func:`awacs_dwell`, AWACS only), IN PLACE; a Sim of another spec
+    with boundary blocks raises there.  On CPU tensors it is the plain
+    version, :func:`make_boundary_step_plain`."""
+    plain = make_boundary_step_plain(spec)
+    lay = awacs_layout(spec) if _is_awacs(spec) else None
+
+    def apply(sims: loop.Sim) -> loop.Sim:
+        if not sims.clock.is_cuda:
+            return plain(sims)
+        if lay is None:
+            raise NotImplementedError(
+                f"spec {spec.name!r}: a CUDA boundary round (dwell kernel) "
+                "exists for models.awacs.build(n) only (ROADMAP.md, queue "
+                "B)")
+        return awacs_dwell(sims, lay)
+
+    return apply
+
+
 def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
                     chunk_steps: int = 512, max_chunks: int = 10_000):
     """Build ``run(sims) -> sims`` over a lane-first Sim: call the chunk
@@ -313,8 +368,9 @@ def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
     one launch of the spec's CUDA kernel; on CPU tensors it is the plain
     engine.  After a call, ``run.launches`` is the number of chunk
     launches it made (read off the kernel wrapper's counter) and
-    ``run.boundary_rounds`` the number of boundary rounds; K5's launches
-    are counted where it launches, ``models.awacs.nn_forward.launches``.
+    ``run.boundary_rounds`` the number of boundary rounds, each one
+    launch of the dwell kernel on the card (counted where it launches,
+    :func:`awacs_dwell`).
 
     Budget (parity: ``pallas_run``): a boundary freeze can cut a chunk
     short, so a chunk followed by a boundary round does not count against

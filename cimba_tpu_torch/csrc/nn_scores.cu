@@ -11,12 +11,12 @@
 //
 // Design: one thread per row.  The 1378 weight and bias floats are
 // loaded once per block into shared memory (every thread of a warp reads
-// the same word: a broadcast, no bank conflict); the row's 8 features
-// and h1[32], h2[32] stay in registers (the loops are unrolled).  All
-// f32 on the CUDA cores, no TF32 and no tensor cores: the reference
-// holds its kernel to f32 roundoff.  Each output sums its terms in
-// index order and adds its bias last, as a dot product followed by the
-// bias add.
+// the same words: a broadcast, no bank conflict); the row's 8 features
+// and h1[32], h2[32] stay in registers.  The row's arithmetic is
+// csrc/nn_row.cuh, which the AWACS dwell kernel (csrc/awacs_chunk.cu)
+// shares: on the AWACS path the MLP runs inside that kernel, and this
+// standalone launch serves models.awacs.nn_forward (nn_scores, and the
+// plain engine's dwell on the card).
 //
 // What bounds it on this card: operations.  Per row 2 x (8x32 + 32x32
 // + 33) = 2626 multiply-add operations, 65 bias adds, 64 relu compares
@@ -31,19 +31,10 @@
 
 #include <cstdint>
 
+#include "nn_row.cuh"
+
 namespace cimba {
 namespace nn {
-
-constexpr int F = 8;    // features per row
-constexpr int H = 32;   // hidden width
-// packed weights: w1 [F][H], b1 [H], w2 [H][H], b2 [H], w3 [H + 1], b3
-constexpr int OFF_W1 = 0;
-constexpr int OFF_B1 = OFF_W1 + F * H;
-constexpr int OFF_W2 = OFF_B1 + H;
-constexpr int OFF_B2 = OFF_W2 + H * H;
-constexpr int OFF_W3 = OFF_B2 + H;
-constexpr int OFF_B3 = OFF_W3 + H + 1;
-constexpr int N_WEIGHTS = OFF_B3 + 1;  // 1378
 
 constexpr int kThreads = 256;
 
@@ -51,40 +42,15 @@ __global__ void __launch_bounds__(kThreads)
 nn_kernel(const float* __restrict__ feats, const float* __restrict__ g,
           const float* __restrict__ weights, float* __restrict__ out,
           int64_t m) {
-  __shared__ float w[N_WEIGHTS];
+  __shared__ __align__(16) float w[N_WEIGHTS];
   for (int i = threadIdx.x; i < N_WEIGHTS; i += blockDim.x) w[i] = weights[i];
   __syncthreads();
-  const int64_t row = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-
+  const int64_t r = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= m) return;
   float f[F];
 #pragma unroll
-  for (int k = 0; k < F; ++k) f[k] = feats[row * F + k];
-
-  float h1[H];
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    float acc = f[0] * w[OFF_W1 + j];
-#pragma unroll
-    for (int k = 1; k < F; ++k) acc = acc + f[k] * w[OFF_W1 + k * H + j];
-    acc = acc + w[OFF_B1 + j];
-    h1[j] = acc > 0.0f ? acc : 0.0f;
-  }
-  float h2[H];
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    float acc = h1[0] * w[OFF_W2 + j];
-#pragma unroll
-    for (int k = 1; k < H; ++k) acc = acc + h1[k] * w[OFF_W2 + k * H + j];
-    acc = acc + w[OFF_B2 + j];
-    h2[j] = acc > 0.0f ? acc : 0.0f;
-  }
-  float logit = h2[0] * w[OFF_W3];
-#pragma unroll
-  for (int k = 1; k < H; ++k) logit = logit + h2[k] * w[OFF_W3 + k];
-  logit = logit + g[row] * w[OFF_W3 + H];
-  logit = logit + w[OFF_B3];
-  out[row] = 1.0f / (1.0f + expf(-logit));
+  for (int k = 0; k < F; ++k) f[k] = feats[r * F + k];
+  out[r] = row(w, f, g[r]);
 }
 
 }  // namespace nn

@@ -14,11 +14,12 @@ t_mark)``.
 
 ``sensor_dwell`` is a boundary block: on the card the AWACS chunk kernel
 (``csrc/awacs_chunk.cu``) runs the target legs and freezes a lane whose
-next dispatch is the sensor, and the host loop runs that dispatch as one
-ordinary engine step between chunks.  There, with ``scoring="nn"``, the
-detection MLP runs as K5, the CUDA kernel of ``csrc/nn_scores.cu``
-(:func:`nn_forward`), for every target of every frozen lane in one
-launch.
+next dispatch is the sensor, and the host loop runs that dispatch
+between chunks as one launch of the dwell kernel of the same file, which
+computes this block (features and, with ``scoring="nn"``, the detection
+MLP) for every target of every frozen lane.  The standalone MLP, K5
+(``csrc/nn_scores.cu``, :func:`nn_forward`), serves :func:`nn_scores`,
+and so the plain engine's dwell on the card.
 """
 
 from __future__ import annotations
@@ -265,6 +266,8 @@ def build(n_targets: int, scoring: str = "nn"):
         return sim, cmd.select(done, cmd.exit_(),
                                cmd.hold(DWELL, next_pc=sensor_dwell.pc))
 
+    # the dwell kernel (csrc/awacs_chunk.cu) computes the scoring itself
+    sensor_dwell.scoring = scoring
     m.process("target", entry=tgt_leg, count=n_targets)  # pids 0..N-1
     m.process("sensor", entry=sensor_dwell, prio=1)      # pid N
     return m.build(), {}

@@ -171,7 +171,8 @@ def run_stage(model: str, profile: str, device: str, stage: int,
             torch.cuda.synchronize()
     launches = {"sim_copy": bk.sim_copy.launches, "peek": bk.peek.launches,
                 "queue_chunk": kernel_run.queue_chunk.launches,
-                "awacs_chunk": kernel_run.awacs_chunk.launches}
+                "awacs_chunk": kernel_run.awacs_chunk.launches,
+                "awacs_dwell": kernel_run.awacs_dwell.launches}
     return {"ok": not bad, "differs": [str(b) for b in bad][:8],
             "launches": launches}
 

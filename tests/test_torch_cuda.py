@@ -5,7 +5,8 @@ Run on a machine with an NVIDIA card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 The chunk kernels (csrc/queue_chunk.cu, every instance, and
-csrc/awacs_chunk.cu) and the plain engine, the bulk samplers
+csrc/awacs_chunk.cu) and the plain engine, the AWACS dwell kernel and
+the plain boundary round (whose MLP is K5, the same row code), the bulk samplers
 (csrc/bulk_samplers.cu) and their plain versions, and the bisect kernels
 (csrc/bisect_stages.cu) and theirs, run the same IEEE operations on the
 same inputs (the kernels are built with --fmad=false and take log1p, exp,
@@ -15,6 +16,8 @@ products in another order than the plain version's cuBLAS products, so
 it is held to f32 roundoff, 1e-6, as the reference holds its own
 kernel.
 """
+
+import math
 
 import pytest
 import torch
@@ -95,8 +98,8 @@ def test_nn_scores_kernel_matches_plain(card):
 @pytest.mark.parametrize("prof", ["f32", "f64"])
 def test_awacs_kernel_matches_plain_engine(card, prof):
     """One chunk after the first dwell, then the whole host loop (chunks
-    and boundary rounds, K5 in the dwells of both) against the plain
-    engine run to the end."""
+    and dwell launches) against the plain engine run to the end (whose
+    dwells run K5)."""
     with config.profile(prof):
         spec, _ = awacs.build(64)
         lay = kernel_run.awacs_layout(spec)
@@ -112,14 +115,113 @@ def test_awacs_kernel_matches_plain_engine(card, prof):
                                    0.0) == []
         run = kernel_run.make_kernel_run(spec, chunk_steps=64)
         nn_before = awacs.nn_forward.launches
+        dw_before = kernel_run.awacs_dwell.launches
         ker = run(s0)
         nn_launches = awacs.nn_forward.launches - nn_before
+        dw_launches = kernel_run.awacs_dwell.launches - dw_before
         pla = loop.make_run(spec)(s0)
         torch.cuda.synchronize()
-    assert run.launches > 0 and nn_launches > 0
-    assert run.boundary_rounds > 0
+    # each boundary round is one dwell launch; the MLP runs inside it
+    assert run.launches > 0 and run.boundary_rounds > 0
+    assert dw_launches == run.boundary_rounds and nn_launches == 0
     assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
     assert int(ker.err.abs().sum()) == 0
+
+
+def _awacs_after_first_dwell(spec, card, lanes=256):
+    """An AWACS Sim after its first dwell (every lane live)."""
+    s0 = loop.init_sim(spec, 2026, torch.arange(lanes), awacs.params(6.0),
+                       device=card)
+    return kernel_run.make_boundary_step_plain(spec)(
+        loop.make_run(spec, max_steps=64, defer_boundary=True)(s0))
+
+
+@pytest.mark.parametrize("scoring", ["nn", "threshold"])
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+def test_awacs_dwell_matches_plain_round(card, prof, scoring):
+    """The dwell kernel against the plain round (the plain engine's step
+    on the gathered pending lanes, K5 in its MLP), bit for bit, on a Sim
+    where only some lanes are pending: those get the step, the others
+    keep every leaf."""
+    import chip_smoke
+
+    with config.profile(prof):
+        spec, _ = awacs.build(64, scoring=scoring)
+        lay = kernel_run.awacs_layout(spec)
+        _, part = chip_smoke.partly_pending(
+            spec, _awacs_after_first_dwell(spec, card), 256)
+        pending = part.boundary_pending.clone()
+        assert 0 < int(pending.sum()) < pending.numel()
+        before = kernel_run.awacs_dwell.launches
+        ker = kernel_run.awacs_dwell(tree.map(lambda x: x.clone(), part),
+                                     lay)
+        pla = kernel_run.make_boundary_step_plain(spec)(part)
+        torch.cuda.synchronize()
+    assert kernel_run.awacs_dwell.launches == before + 1
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert not bool(ker.boundary_pending.any())
+    for x, y in zip(tree.leaves(part), tree.leaves(ker)):
+        if x is not part.boundary_pending:
+            assert torch.equal(x[~pending], y[~pending])
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+def test_awacs_chunk_with_planted_ties(card, prof):
+    """The chunk's two-level wake pick on ties: three targets at the
+    least target wake time (different seqs), a fourth on every other
+    lane, and a fifth at the sensor's wake time, where the sensor's prio
+    wins; one chunk, and a chunk of three events, equal the plain
+    chunk."""
+    import chip_smoke
+
+    with config.profile(prof):
+        spec, _ = awacs.build(64)
+        lay = kernel_run.awacs_layout(spec)
+        s1 = chip_smoke.plant_ties(_awacs_after_first_dwell(spec, card), 64)
+        for k in (3, 64):
+            ker = kernel_run.awacs_chunk(tree.map(lambda x: x.clone(), s1),
+                                         lay, k)
+            pla = loop.make_run(spec, max_steps=k, defer_boundary=True)(s1)
+            torch.cuda.synchronize()
+            assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker),
+                                       0.0) == []
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_awacs_heading_trig_matches_torch(card, dt):
+    """The chunk's cos and sin (csrc/trig.cuh, no slow path) equal
+    torch.cos and torch.sin on headings 2 pi u: every f32 u, and 2^24
+    f64 ones spread over [0, 1) (chip_smoke.py takes all 2^32)."""
+    import chip_smoke
+
+    bits = 24 if dt == torch.float32 else 32
+    k = torch.arange(1 << 24, dtype=torch.int64, device=card)
+    if dt == torch.float64:
+        k = k * 256 + (k * 97) % 256
+    heading = 0.0 + 2.0 * math.pi * (k.to(dt) * 2.0**-bits)
+    c, s = chip_smoke.heading_trig(heading)
+    torch.cuda.synchronize()
+    as_int = torch.int32 if dt == torch.float32 else torch.int64
+    assert torch.equal(c.view(as_int), torch.cos(heading).view(as_int))
+    assert torch.equal(s.view(as_int), torch.sin(heading).view(as_int))
+
+
+def test_boundary_round_on_card_refuses_other_specs(card):
+    """A CUDA Sim of a spec with boundary blocks but no dwell kernel."""
+    from cimba_tpu_torch.core import process as cmd
+    from cimba_tpu_torch.core.model import Model
+
+    m = Model("jumpy")
+
+    @m.boundary_block
+    def dwell(sim, p, sig):
+        return sim, cmd.hold(1.0, next_pc=dwell.pc)
+
+    m.process("p", entry=dwell)
+    spec = m.build()
+    s0 = loop.init_sim(spec, 1, torch.arange(2), device=card)
+    with pytest.raises(NotImplementedError, match="dwell"):
+        kernel_run.make_boundary_step(spec)(s0)
 
 
 def _queue_spec(name):
@@ -229,6 +331,19 @@ def test_queue_kernel_general_table(card, name, prof):
         pla = loop.make_run(spec)(s0)
         torch.cuda.synchronize()
     assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+
+
+def test_awacs_kernels_have_no_stack_frame(card):
+    """ptxas' report of csrc/awacs_chunk.cu: the chunk and dwell
+    instances keep no stack frame and spill nothing, in either profile
+    (chip_smoke.py checks the same)."""
+    import chip_smoke
+    from cimba_tpu_torch import _build
+
+    _, report = _build.build("awacs_chunk")
+    figs, faults = chip_smoke.awacs_frames(
+        chip_smoke.build_report("awacs_chunk", report))
+    assert faults == [] and len(figs) == 4
 
 
 def test_queue_chunk_has_no_stack_frame(card):

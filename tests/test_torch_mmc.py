@@ -36,6 +36,7 @@ MODELS = {
     "mm1_record": (lambda m: m.build(), lambda m, n: m.params(n)),
     "mmc3": (lambda m: m.build(3), lambda m, n: m.params(n, 2.5, 1.0)),
     "mmc2": (lambda m: m.build(2), lambda m, n: m.params(n, 1.7, 1.0)),
+    "mmc4": (lambda m: m.build(4), lambda m, n: m.params(n, 0.83 * 4, 1.0)),
 }
 
 
@@ -59,7 +60,7 @@ def _port(prof, name, n):
 
 
 @pytest.mark.parametrize("prof", ["f64", "f32"])
-@pytest.mark.parametrize("name", ["mmc3"])
+@pytest.mark.parametrize("name", ["mmc2", "mmc3", "mmc4"])
 def test_matches_reference(name, prof):
     lanes, n = 8, 100
     js, jout = _ref_run(prof, name, lanes, n)
