@@ -6,15 +6,18 @@ whose Pallas body ``_kernel_body`` advances every live lane by up to
 hand-written CUDA kernel specialised to one spec, in place on the Sim's
 tensors:
 
-* ``csrc/queue_chunk.cu`` — the single-queue fused-verb cycle that
-  ``models.mm1.build`` and ``models.mmc.build(c)`` share, one thread per
-  lane, the lane's state in registers; instances for (servers, queue
-  recording) in :data:`QUEUE_INSTANCES`;
+* ``csrc/queue_chunk.cu`` — the object-queue models, one thread per
+  lane, the lane's state in registers: the fused-verb single-queue
+  cycle that ``models.mm1.build`` and ``models.mmc.build(c)`` share, the
+  same cycle with lognormal service (``models.mg1.build``) and the
+  two-station network ``models.tandem.build``; instances for (family,
+  servers, queue recording) in :data:`QUEUE_INSTANCES`;
 * ``csrc/awacs_chunk.cu`` — the AWACS target legs
   (``models.awacs.build(n)``), 16 threads a lane, the per-pid columns in
   device memory; and its boundary round, the dwell kernel (a warp a
   lane).
 
+Five model families in all: M/M/1, M/M/c, M/G/1, tandem and AWACS.
 :func:`make_kernel_run` refuses any other spec rather than switching to
 the plain engine.  On CPU tensors the chunk is the plain engine,
 ``loop.make_run(spec, max_steps=chunk_steps, defer_boundary=True)`` —
@@ -35,6 +38,7 @@ plain engine (:func:`make_boundary_step_plain`).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -86,25 +90,51 @@ _ACC = tuple((f"queues.acc.summary.{f}", "T", ("Q",)) for f in
 )
 
 
-def queue_leaves(record: bool) -> tuple:
-    """The single-queue kernel's leaves, with the queue's recording
-    accumulator when ``record``."""
+def _summary(key: str) -> tuple:
+    return tuple((n.format(f"user.{key}"), r, d) for n, r, d in _SUMMARY)
+
+
+def _scalars(*keys: str) -> tuple:
+    return tuple((f"user.{k}", "I" if k == "n_objects" else "T", ())
+                 for k in keys)
+
+
+#: the user leaves of each model family of the object-queue kernel, in
+#: sorted key order
+_USER = {
+    "mm": _scalars("arr_mean", "n_objects", "srv_mean") + _summary("wait"),
+    "mg1": (_scalars("arr_mean", "ln_mu", "ln_sigma", "n_objects")
+            + _summary("wait")),
+    "tandem": (_scalars("arr_mean", "n_objects", "p_back", "s1_mean",
+                        "s2_mean")
+               + _summary("w1") + _summary("w2") + _summary("wait")),
+}
+#: the user state's keys a family's spec must have (from its user_init)
+_USER_KEYS = {f: tuple(sorted({n.split(".")[1] for n, _, _ in leaves}))
+              for f, leaves in _USER.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def queue_leaves(family: str, record: bool) -> tuple:
+    """The object-queue kernel's leaves for a model ``family`` ("mm",
+    "mg1" or "tandem"), with the queues' recording accumulators when
+    ``record``."""
     return _HEAD + (
         ("queues.items", "T", ("Q", "W")), ("queues.head", "I", ("Q",)),
         ("queues.size", "I", ("Q",)),
-    ) + (_ACC if record else ()) + (
-        ("user.arr_mean", "T", ()), ("user.n_objects", "I", ()),
-        ("user.srv_mean", "T", ()),
-    ) + tuple((n.format("user.wait"), r, d) for n, r, d in _SUMMARY) + _TAIL
+    ) + (_ACC if record else ()) + _USER[family] + _TAIL
 
 
-#: (servers, queue recording) of the single-queue kernel's instances:
-#: mm1.build(record=False); mm1.build() and mmc.build(1); mmc.build(2..4)
-QUEUE_INSTANCES = ((1, False), (1, True), (2, True), (3, True), (4, True))
+#: (family, servers, queue recording) of the object-queue kernel's
+#: instances: mm1.build(record=False); mm1.build() and mmc.build(1);
+#: mmc.build(2..4); mg1.build() (lognormal service); tandem.build() (two
+#: servers, two recording queues)
+QUEUE_INSTANCES = (("mm", 1, False), ("mm", 1, True), ("mm", 2, True),
+                   ("mm", 3, True), ("mm", 4, True), ("mg1", 1, True),
+                   ("tandem", 2, True))
 
 #: the AWACS kernel's leaves (no queues; user keys in sorted order)
-AWACS_LEAVES = _HEAD + tuple(
-    (n.format("user.detections"), r, d) for n, r, d in _SUMMARY) + (
+AWACS_LEAVES = _HEAD + _summary("detections") + (
     ("user.dwells", "I", ()),
     ("user.pos_x", "T", ("X",)), ("user.pos_y", "T", ("X",)),
     ("user.t_end", "T", ()), ("user.t_mark", "T", ("X",)),
@@ -112,29 +142,65 @@ AWACS_LEAVES = _HEAD + tuple(
 ) + _TAIL
 
 
-def _single_queue(spec: ModelSpec):
-    """``(servers, record)`` when ``spec`` is the fused-verb single-queue
-    model of ``models.mm1`` or ``models.mmc`` (one arrival, ``servers``
-    service processes, one queue), else None."""
-    from cimba_tpu_torch.models import mm1, mmc
+def _user_keys(spec: ModelSpec, arity: int):
+    """The sorted keys of the user state ``spec.user_init`` makes from
+    one lane of ``arity`` placeholder parameters (reals, then an integer
+    count), or None when it takes no such parameters."""
+    if spec.user_init is None:
+        return None
+    params = tuple(torch.ones(1, dtype=torch.float64)
+                   for _ in range(arity - 1)) + (
+        torch.ones(1, dtype=torch.int32),)
+    try:
+        user = spec.user_init(params)
+    except (TypeError, ValueError, KeyError, IndexError, RuntimeError):
+        return None
+    return tuple(sorted(user)) if isinstance(user, dict) else None
+
+
+def _queue_family(spec: ModelSpec):
+    """``(family, servers, record)`` when ``spec`` is a model the
+    object-queue kernel restates: the fused-verb single-queue cycle of
+    ``models.mm1`` or ``models.mmc`` (family "mm", one arrival and
+    ``servers`` service processes) or of ``models.mg1`` (lognormal
+    service), or the network of ``models.tandem``; else None.  A family
+    is told by the blocks' module and the user state's keys, not by the
+    block names alone (mg1 shares mm1's)."""
+    from cimba_tpu_torch.models import mg1, mm1, mmc, tandem
 
     names = tuple(getattr(b, "__name__", "") for b in spec.blocks)
-    mods = {getattr(b, "__module__", "") for b in spec.blocks}
-    q = spec.queues[0] if len(spec.queues) == 1 else None
-    ns = spec.n_procs - 1
+    mods = frozenset(getattr(b, "__module__", "") for b in spec.blocks)
+    if (spec.boundary_pcs or spec.n_ilocals < 1
+            or any(p != 0 for p in spec.proc_prio)):
+        return None
+    qs = spec.queues
+    if names == mm1.BLOCK_NAMES == mmc.BLOCK_NAMES == mg1.BLOCK_NAMES:
+        family = {frozenset({mm1.__name__}): "mm",
+                  frozenset({mmc.__name__}): "mm",
+                  frozenset({mg1.__name__}): "mg1"}.get(mods)
+        ns = spec.n_procs - 1
+        ok = (
+            family is not None
+            and ns >= 1
+            and list(spec.proc_entry) == [0] + [3] * ns
+            and len(qs) == 1
+            and spec.n_guards == 2
+            and {qs[0].front_guard, qs[0].rear_guard} == {0, 1}
+            and _user_keys(spec, 4 if family == "mg1" else 3)
+            == _USER_KEYS[family]
+        )
+        return (family, ns, bool(qs[0].record)) if ok else None
     ok = (
-        names == mm1.BLOCK_NAMES == mmc.BLOCK_NAMES
-        and mods in ({mm1.__name__}, {mmc.__name__})
-        and ns >= 1
-        and list(spec.proc_entry) == [0] + [3] * ns
-        and list(spec.proc_prio) == [0] * (ns + 1)
-        and q is not None
-        and spec.n_guards == 2
-        and {q.front_guard, q.rear_guard} == {0, 1}
-        and spec.n_ilocals >= 1
-        and not spec.boundary_pcs
+        names == tandem.BLOCK_NAMES
+        and mods == {tandem.__name__}
+        and list(spec.proc_entry) == [0, 3, 6]
+        and len(qs) == 2
+        and spec.n_guards == 4
+        and [(q.front_guard, q.rear_guard) for q in qs] == [(0, 1), (2, 3)]
+        and all(q.record for q in qs)
+        and _user_keys(spec, 5) == _USER_KEYS["tandem"]
     )
-    return (ns, bool(q.record)) if ok else None
+    return ("tandem", 2, True) if ok else None
 
 
 def _is_awacs(spec: ModelSpec) -> bool:
@@ -156,36 +222,41 @@ def _is_awacs(spec: ModelSpec) -> bool:
 
 def _refuse(spec: ModelSpec):
     raise NotImplementedError(
-        f"CUDA chunk kernels exist for the single-queue fused-verb models "
-        f"(models.mm1.build, the M/M/1, and models.mmc.build(c), the M/M/c) "
-        f"and the AWACS model (models.awacs.build(n)) only; spec "
+        f"CUDA chunk kernels exist for five model families only: the "
+        f"M/M/1 (models.mm1.build), the M/M/c (models.mmc.build(c)), the "
+        f"M/G/1 (models.mg1.build), the tandem network "
+        f"(models.tandem.build) and AWACS (models.awacs.build(n)); spec "
         f"{spec.name!r} needs a kernel of its own (ROADMAP.md, queue B)"
     )
 
 
 def queue_layout(spec: ModelSpec) -> dict:
-    """The static shape the single-queue chunk kernel needs: the server
-    count ``NS`` and recording flag ``REC`` select its instance.  Raises
-    NotImplementedError when ``spec`` is not the mm1/mmc fused-verb
-    model, or has a server count no instance serves."""
-    shape = _single_queue(spec)
+    """The static shape the object-queue chunk kernel needs: the model
+    ``family``, the server count ``NS`` and recording flag ``REC`` select
+    its instance; per queue its capacity and guards.  Raises
+    NotImplementedError when ``spec`` is none of the families, or has a
+    server count no instance serves."""
+    shape = _queue_family(spec)
     if shape is None:
         _refuse(spec)
     if shape not in QUEUE_INSTANCES:
         have = ", ".join(f"{n} server{'s' * (n > 1)}"
                          f"{' recording' if r else ''}"
-                         for n, r in QUEUE_INSTANCES)
+                         for f, n, r in QUEUE_INSTANCES if f == "mm")
         raise NotImplementedError(
-            f"spec {spec.name!r} has {shape[0]} servers"
-            f"{' and records its queue' if shape[1] else ''}: the CUDA "
+            f"spec {spec.name!r} has {shape[1]} servers"
+            f"{' and records its queue' if shape[2] else ''}: the CUDA "
             f"single-queue chunk kernel has instances for {have} only "
             "(csrc/queue_chunk.cu)")
-    ns, rec = shape
-    q = spec.queues[0]
-    return dict(NS=ns, REC=rec, E=spec.event_cap, P=1 + ns, G=2, Q=1,
+    family, ns, rec = shape
+    qs = spec.queues
+    return dict(family=family, NS=ns, REC=rec, E=spec.event_cap,
+                P=spec.n_procs, G=spec.n_guards, Q=len(qs),
                 W=spec.queue_cap_max, F=max(spec.n_flocals, 1),
-                N=max(spec.n_ilocals, 1), cap=q.capacity,
-                front=q.front_guard, rear=q.rear_guard)
+                N=max(spec.n_ilocals, 1),
+                caps=tuple(q.capacity for q in qs),
+                fronts=tuple(q.front_guard for q in qs),
+                rears=tuple(q.rear_guard for q in qs))
 
 
 def awacs_layout(spec: ModelSpec) -> dict:
@@ -256,18 +327,30 @@ def _chunk_args(shape_args, chunk_steps: int, t_end: Optional[float]):
                 float(t_end) if t_end is not None else 0.0)])
 
 
+def queue_entry(lay: dict) -> tuple:
+    """``(entry, shape)``: the C entry of the object-queue kernel's
+    instance for ``lay`` (``cimba_<entry>_<f32|f64>``) and the integers
+    of its shape that it takes after the lane count."""
+    q = tuple(x for cfg in zip(lay["caps"], lay["fronts"], lay["rears"])
+              for x in cfg)
+    if lay["family"] == "mm":
+        return "queue_chunk", (lay["NS"], int(lay["REC"]), lay["E"],
+                               lay["W"]) + q + (lay["N"],)
+    return f"{lay['family']}_chunk", (lay["E"], lay["W"]) + q + (lay["N"],)
+
+
 def queue_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
                 t_end: Optional[float] = None) -> loop.Sim:
-    """Launch the single-queue chunk kernel's instance for ``lay``
+    """Launch the object-queue chunk kernel's instance for ``lay``
     (:func:`queue_layout`) on a lane-first Sim on the card: every live
     lane advances by up to ``chunk_steps`` events, IN PLACE (the Sim's
     tensors are the kernel's inputs and outputs, as the Pallas call
     aliases them).  Launches on the current stream without
-    synchronising.  ``queue_chunk.launches`` counts launches."""
-    _launch("queue_chunk", "queue_chunk", queue_leaves(lay["REC"]), sims,
-            lay, _chunk_args((lay["NS"], int(lay["REC"]), lay["E"], lay["W"],
-                              lay["cap"], lay["front"], lay["rear"],
-                              lay["N"]), chunk_steps, t_end))
+    synchronising.  ``queue_chunk.launches`` counts launches, of every
+    family's instances."""
+    entry, shape = queue_entry(lay)
+    _launch("queue_chunk", entry, queue_leaves(lay["family"], lay["REC"]),
+            sims, lay, _chunk_args(shape, chunk_steps, t_end))
     queue_chunk.launches += 1
     return sims
 
@@ -310,9 +393,9 @@ awacs_dwell.launches = 0
 def kernel_for(spec: ModelSpec):
     """``(layout, chunk wrapper, leaf table)`` of the spec's CUDA chunk
     kernel; NotImplementedError for a spec that has none."""
-    if _single_queue(spec) is not None:
+    if _queue_family(spec) is not None:
         lay = queue_layout(spec)
-        return lay, queue_chunk, queue_leaves(lay["REC"])
+        return lay, queue_chunk, queue_leaves(lay["family"], lay["REC"])
     if _is_awacs(spec):
         return awacs_layout(spec), awacs_chunk, AWACS_LEAVES
     _refuse(spec)

@@ -1,5 +1,5 @@
-// The single-queue event-loop chunk kernel for Hopper (sm_90a): the M/M/1
-// and M/M/c instances of K1.
+// The object-queue event-loop chunk kernel for Hopper (sm_90a): the M/M/1,
+// M/M/c, M/G/1 and tandem-network instances of K1.
 //
 // Replaces the Pallas chunk mega-kernel of the JAX package
 // (cimba_tpu/core/pallas_run.py: make_kernel_run -> build_chunk_call,
@@ -10,14 +10,22 @@
 // runs up to chunk_steps events while its lane is live (make_cond) and
 // stores the state back in place.  Each thread stops on its own.
 //
-// Specialised to the fused-verb single-queue cycle that
-// cimba_tpu_torch.models.mm1 and cimba_tpu_torch.models.mmc share (one
-// arrival process, NS server processes, one FIFO), with two compile-time
-// parameters: the server count NS and RECORD, the queue's length
-// recording (stats.timeseries.step_record on every successful put or
-// get).  Instances: (1, false) is mm1.build(record=False), (1, true)
-// mm1.build() and mmc.build(1), (c, true) mmc.build(c) for c = 2..4.  The
-// TPU kernel re-evaluates any model's traced step; this one hard-codes
+// One engine, specialised at compile time to a model family (a struct
+// below that restates the model's blocks, its user state's leaves and
+// its draws) and, within a family, to the server count NS and RECORD,
+// the queues' length recording (stats.timeseries.step_record on every
+// successful put or get):
+//   MM      the fused-verb single-queue cycle that
+//           cimba_tpu_torch.models.mm1 and models.mmc share (one arrival
+//           process, NS server processes, one FIFO): (1, false) is
+//           mm1.build(record=False), (1, true) mm1.build() and
+//           mmc.build(1), (c, true) mmc.build(c) for c = 2..4;
+//   MG1     models.mg1.build(): mm1's cycle with a lognormal service
+//           time (1 server, recording);
+//   TANDEM  models.tandem.build(): three processes, two recording
+//           queues, four guards, three summaries (wait, w1, w2), and
+//           feedback routing at station 2.
+// The TPU kernel re-evaluates any model's traced step; this one hard-codes
 // the blocks, and its host loop (cimba_tpu_torch/core/kernel_run.py)
 // refuses any other spec.
 //
@@ -31,28 +39,28 @@
 //
 // 1. The lane's hot state lives in registers, with no local-memory
 //    frame: the clock, the counter, the dense wakes and the processes'
-//    small fields, the queue's head and size, the queue-length
-//    accumulator.  Every per-process register field is an array [NP]
-//    (NP = 1 + NS, a template parameter) indexed only by compile-time
-//    constants: a read by a run-time pid is an unrolled select (pick), a
-//    write an unrolled predicated move (put).  The state is a plain
-//    struct handled by inlined free functions, so nothing takes its
-//    address.  What the blocks only compare or clamp is packed in one
-//    word a process (pc, status, pend_tag, pend_guard, wakes.sig), mapped
-//    on load to a value that reads the same, and stored back only where
-//    it was written (a bit a field and process in one mask).  The cold
-//    part (the wait summary, the queue-length accumulator, a pended
-//    command's payload, got, L_PRODUCED, pend_seq, prio) lives in
-//    shared-memory columns of the block, one a thread, where a run-time
-//    pid costs one access.
-//    pend_f2 and pend_i are written only with 0, by a block's command
-//    that pends, which a bit of the mask records; exit_sig is written
-//    through to memory by the exit.  The row addresses are computed where
-//    they are used from a lane index the compiler cannot see through
-//    (opaque), not kept live across the event loop.  The launch bounds
-//    (queue_minb) give each instance the least register cap under which
-//    it does not spill.
-// 2. The general event table's minimum is cached.  mm1 and mmc start
+//    small fields, the queues' heads and sizes, the model's parameters.
+//    Every per-process register field is an array [NP] indexed only by
+//    compile-time constants: a read by a run-time pid is an unrolled
+//    select (pick), a write an unrolled predicated move (put); the same
+//    holds for the per-queue fields [NQ].  The state is a plain struct
+//    handled by inlined free functions, so nothing takes its address.
+//    What the blocks only compare or clamp is packed in one word a
+//    process (pc, status, pend_tag, pend_guard, wakes.sig), mapped on
+//    load to a value that reads the same, and stored back only where it
+//    was written (a bit a field and process in one mask).  The cold part
+//    (the summaries, the queue-length accumulators, a pended command's
+//    payload, got, ilocal 0, pend_seq, prio) lives in shared-memory
+//    columns of the block, one a thread, where a run-time pid costs one
+//    access.  pend_f2 is written only with 0, by a block's command that
+//    pends, which a bit of the mask records; so is pend_i (the queue id)
+//    where the model has one queue, and where it has two it is a cold
+//    column; exit_sig is written through to memory by the exit.  The row
+//    addresses are computed where they are used from a lane index the
+//    compiler cannot see through (opaque), not kept live across the event
+//    loop.  The launch bounds (Model::minb) give each instance the least
+//    register cap under which it does not spill.
+// 2. The general event table's minimum is cached.  These models start
 //    with the table empty (loop.init_sim puts the process starts in the
 //    dense wakes) and never schedule into it, yet the pick and the
 //    liveness check scanned all its E slots every event.  Now each lane
@@ -63,18 +71,24 @@
 //    general-table event, or an exit that cancels a timer).
 //    E stays a run-time value: mm1.build() (E = 1) and mmc.build(1)
 //    (E = 10) share an instance.
-// 3. One warp-converged draw per event.  Every block of the cycle draws
-//    at most once and every event runs at most one drawing block
-//    (tests/test_torch_queue_invariants.py), so right after the pick the
-//    lane computes the Threefry block at its current counter, the
-//    uniform and -log1p(-u), in code all lanes of the warp run together
-//    (pinned there, so the compiler cannot sink it into the branches).
-//    A block that draws multiplies by its mean and advances the counter;
-//    one that does not leaves the counter alone.  Threefry is counter-
-//    based, so this is exact; a second draw in one event (no reachable
-//    state of these models makes one) takes a fresh block inline.  One
-//    apply serves the retried command and a block's, so the handlers
-//    (and the record's merge) are issued once for both kinds of lane.
+// 3. One warp-converged draw per event.  Right after the pick the lane
+//    computes the Threefry block at its current counter and the variate
+//    the event's first drawing block will take, in code all lanes of the
+//    warp run together (pinned there, so the compiler cannot sink it into
+//    the branches).  The variate's kind follows the event's subject (and,
+//    in tandem, the subject's pc): the standard exponential
+//    -log1p(-u) (times the block's mean), the lognormal exp(mu + sigma
+//    sqrt2 erf_inv(clip(2u - 1))) of mg1's server, or tandem's routing
+//    uniform.  mg1's two kinds share one log1p (its argument is -u or
+//    -x^2), so a warp of arrivals and services issues it once.  A block
+//    that draws advances the counter; one that does not leaves it alone.
+//    Threefry is counter-based, so this is exact; a later draw of the same
+//    event (tandem's s2_take after s2_cycle's uniform; no other reachable
+//    state of these models makes one, tests/test_torch_queue_invariants.py
+//    and tests/test_torch_network_invariants.py) takes a fresh block
+//    inline.  One apply serves the retried command and a block's, so the
+//    handlers (and the record's merge) are issued once for both kinds of
+//    lane.
 //
 // What is left: the ring stays lane-first in device memory (a lane-last
 // ring would not coalesce either, since each lane's head differs; the
@@ -87,37 +101,41 @@
 // engine's separately rounded multiplies and adds.
 //
 // What one lane computes: exactly what cimba_tpu.core.loop.make_step
-// computes for the specs of cimba_tpu.models.mm1.build and
-// cimba_tpu.models.mmc.build (and their ports): the (time, prio desc,
+// computes for the specs of cimba_tpu.models.mm1.build,
+// cimba_tpu.models.mmc.build, cimba_tpu.models.mg1.build and
+// cimba_tpu.models.tandem.build (and their ports): the (time, prio desc,
 // seq) pick over the dense wake table and the general event table with
-// the lowest index winning ties; the blocks a_start, a_cycle, a_exit,
-// s_start, s_cycle with one counter tick per draw; the fused
-// put_hold/get_hold verbs; the guard pend on a full or empty queue (the
-// pended command keeps its pre-drawn duration in pend_f3), the best
-// waiter by (prio desc, pend_seq asc, pid asc) and the SUCCESS-wake
-// retry; the queue-length record at (clock, size after the verb); the
-// error codes; api.stop; and the n_events count.  The order of every
-// state write follows the reference, because wake seqs are assigned in
-// that order and decide ties: a successful get signals the rear guard,
-// then the front guard (the cascade to the next waiting server), and
-// only then arms its own fused hold.
+// the lowest index winning ties; the model's blocks with one counter tick
+// per draw; the fused put_hold/get_hold verbs; the guard pend on a full
+// or empty queue (the pended command keeps its pre-drawn duration in
+// pend_f3), the best waiter by (prio desc, pend_seq asc, pid asc) and the
+// SUCCESS-wake retry; the queue-length record at (clock, size after the
+// verb); the error codes; api.stop; and the n_events count.  The order of
+// every state write follows the reference, because wake seqs are assigned
+// in that order and decide ties: a successful get signals its queue's
+// rear guard, then its front guard (the cascade to the next waiting
+// server), and only then arms its own fused hold; a put signals its
+// queue's front guard (in tandem, server 1's put into q2 wakes server 2,
+// server 2's feedback put into q1 wakes server 1).  A resume's chain is
+// bounded at MAX_CHAIN = 1024 commands, the reference's XLA-path rule
+// (cimba_tpu/core/loop.py), not its kernel mode's spec.max_chain: the
+// parity tests hold the port against make_run, and no chain of these
+// models is longer than two commands.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
+#include "erfinv.cuh"
 #include "summary.cuh"
 #include "threefry.cuh"
 
 namespace cimba {
 namespace queue {
 
-// the spec's shape (checked in cimba_tpu_torch/core/kernel_run.py): pid 0
-// is the arrival, pids 1..NS the servers (template parameter NS)
-constexpr int NG = 2;  // the queue's front (getters) and rear (putters)
 constexpr int MAX_CHAIN = 1024;
-constexpr int kThreads = 128;
 
 // command tags, statuses, signals, kinds, error codes: the reference's
 constexpr int C_HOLD = 0, C_EXIT = 1, C_JUMP = 2, C_PUT = 3, C_GET = 4;
@@ -127,12 +145,15 @@ constexpr int K_TIMER = 1;
 constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4;
 constexpr int32_t I32_MIN = INT32_MIN, I32_MAX = INT32_MAX;
 
-// block pcs in registration order (mm1.BLOCK_NAMES)
-constexpr int A_START = 0, A_CYCLE = 1, A_EXIT = 2, S_START = 3,
-              S_CYCLE = 4, N_BLOCKS = 5;
+// model families (the kernel's template argument; each has its C entry
+// below)
+constexpr int F_MM = 0, F_MG1 = 1, F_TANDEM = 2;
 
-// Sim leaves in the reference's jax.tree.leaves order; the eleven
-// queues.acc leaves (A_N..A_STARTED) exist only in a recording Sim
+// Sim leaves in the reference's jax.tree.leaves order, up to the queues;
+// the eleven queues.acc leaves (A_N..A_STARTED) exist only in a recording
+// Sim.  The user leaves follow from U0 (the model's, in sorted key
+// order), then the four tail leaves (DONE, ERR, N_EVENTS,
+// BOUNDARY_PENDING).
 enum Leaf {
   CLOCK, REP, KEY0, KEY1, CTR_LO, CTR_HI,
   EV_TIME, EV_PRIO, EV_SEQ, EV_KIND, EV_SUBJ, EV_ARG, EV_GEN, EV_NEXT_SEQ,
@@ -145,64 +166,45 @@ enum Leaf {
   Q_ITEMS, Q_HEAD, Q_SIZE,
   A_N, A_W, A_MN, A_MX, A_M1, A_M2, A_M3, A_M4, A_LAST_T, A_LAST_V,
   A_STARTED,
-  U_ARR_MEAN, U_N_OBJECTS, U_SRV_MEAN,
-  W_N, W_W, W_MN, W_MX, W_M1, W_M2, W_M3, W_M4,
-  DONE, ERR, N_EVENTS, BOUNDARY_PENDING,
-  N_LEAVES_RECORD
+  U0
 };
 constexpr int N_ACC = A_STARTED - A_N + 1;
+constexpr int DONE = 0, ERR = 1, N_EVENTS = 2, N_TAIL = 4;  // after the user
+constexpr int MAX_LEAVES = U0 + 29 + N_TAIL;                // tandem's
 
 // a leaf's position in the pointer array of a (non-)recording Sim
 template <bool RECORD>
-__host__ __device__ constexpr int at(Leaf k) {
-  return (!RECORD && k > A_STARTED) ? int(k) - N_ACC : int(k);
-}
-
-template <bool RECORD>
-constexpr int leaf_count() {
-  return RECORD ? N_LEAVES_RECORD : N_LEAVES_RECORD - N_ACC;
+__host__ __device__ constexpr int at(int k) {
+  return (!RECORD && k > A_STARTED) ? k - N_ACC : k;
 }
 
 struct Ptrs {
-  void* p[N_LEAVES_RECORD];
+  void* p[MAX_LEAVES];
 };
 
-template <int NS, bool RECORD>
-struct Inst {
-  static constexpr int ns = NS;
-  static constexpr bool rec = RECORD;
-};
-
-// static layout of one lane's tables
+// static layout of one lane's tables; per queue its capacity and guards
 struct Shape {
   int event_cap;   // general event table slots
-  int ring_width;  // queue ring slots per lane (queue_cap_max)
-  int queue_cap;   // the queue's capacity
-  int front;       // guard ids
-  int rear;
+  int ring_width;  // queue ring slots per lane and queue (queue_cap_max)
+  int queue_cap[2];
+  int front[2];    // guard ids
+  int rear[2];
   int n_ilocals;
 };
 
-// blocks of 128 threads an SM that an instance's register cap allows
-// (the second __launch_bounds__ argument; ptxas caps a thread at the
-// multiple of 8 registers at most 65536 / (128 x minb)): the least cap
-// under which the instance does not spill.  ptxas takes 80 and 96
-// registers for the f32 single-server instances (96 cap), 94-124 for the
-// f32 multi-server ones and 118 for f64 mm1 (128 cap), 133-160 for the
-// other f64 instances (168 cap); a 64-register cap spills in every
-// single-server instance, a 96-register cap in the f64 ones (PERF.md)
-template <typename R, int NS, bool RECORD>
-constexpr int queue_minb() {
-  return sizeof(R) == 4 ? (NS == 1 ? 5 : 4) : (NS == 1 && !RECORD ? 4 : 3);
-}
+// the kinds of variate a block draws: the standard exponential (the block
+// multiplies by its mean), the lognormal of the lane's (ln_mu, ln_sigma),
+// and uniform01
+constexpr int K_EXP = 0, K_LOGN = 1, K_UNIF = 2;
 
-// a command as the blocks issue it; pend_f2 and pend_i are 0 in every
-// one of them and no handler reads them
+// a command as the blocks issue it; pend_f2 is 0 in every one of them
+// and no handler reads it; q is the queue id (pend_i)
 template <typename R>
 struct Cmd {
   int32_t tag;
   R f, f3;
   int32_t next_pc;
+  int32_t q;
 };
 
 template <typename R>
@@ -218,6 +220,8 @@ __device__ __forceinline__ bool finite(R x) {
 
 __device__ __forceinline__ float log1p_of(float x) { return log1pf(x); }
 __device__ __forceinline__ double log1p_of(double x) { return log1p(x); }
+__device__ __forceinline__ float exp_of(float x) { return expf(x); }
+__device__ __forceinline__ double exp_of(double x) { return exp(x); }
 
 // keep a value's computation where it stands: the converged draw must
 // not be sunk into the blocks that use it
@@ -241,14 +245,12 @@ __device__ __forceinline__ double u53_of(uint32_t b0, uint32_t b1, double) {
   return double(b1) * 0x1p-32 + double(b0 >> 11) * 0x1p-53;
 }
 
-// the standard exponential of the Threefry block at counter (lo, hi):
-// cr.exponential without its mean, -log1p(-u)
-template <typename R>
-__device__ __forceinline__ R std_exponential(uint32_t k0, uint32_t k1,
-                                             uint32_t lo, uint32_t hi) {
-  uint32_t b0, b1;
-  threefry2x32(k0, k1, lo, hi, b0, b1);
-  return -log1p_of(-u53_of(b0, b1, R(0)));
+// uniform01: f32 24 bits of the high word (as uniform01_53), f64 32 bits
+__device__ __forceinline__ float u01_of(uint32_t b1, float) {
+  return float(int32_t(b1 >> 8)) * 0x1p-24f;
+}
+__device__ __forceinline__ double u01_of(uint32_t b1, double) {
+  return double(b1) * 0x1p-32;
 }
 
 // jnp.maximum(x, 0): NaN propagates
@@ -278,7 +280,8 @@ __device__ __forceinline__ void put(T (&a)[N], int i, T v) {
 // status, pend_tag, pend_guard, wakes.sig: offset and width in bits,
 // each read sign-extended), and the bits of the lane's `dirty` mask: bit
 // f * NP + q when field f of process q was written here (F_BLOCK: q
-// pended a block's command, which writes pend_f2 = pend_i = 0)
+// pended a block's command, which writes pend_f2 = 0, and pend_i = 0
+// where the model has one queue)
 enum Field { F_PC, F_STATUS, F_TAG, F_GUARD, F_SIG, F_BLOCK };
 
 __host__ __device__ constexpr int f_off(int f) {
@@ -301,15 +304,16 @@ __device__ __forceinline__ uint32_t with(uint32_t word, int f, int32_t v) {
 // the same in every use the blocks make of it (pc is clamped to a block,
 // status and the wake's signal only compared with RUNNING and SUCCESS,
 // pend_tag clamped to a command or NO_PEND, pend_guard compared with the
-// queue's guards 0 and 1), and a field is stored back only where it was
+// queues' guards 0..NG-1), and a field is stored back only where it was
 // written
+template <int N_BLOCKS, int NG>
 __device__ __forceinline__ uint32_t pack(int32_t pc, int32_t status,
                                          int32_t tag, int32_t guard,
                                          int32_t sig) {
   pc = pc < 0 ? 0 : (pc > N_BLOCKS - 1 ? N_BLOCKS - 1 : pc);
   status = status == RUNNING ? RUNNING : (status == FINISHED ? FINISHED : 0);
   tag = tag < NO_PEND ? 0 : (tag > N_COMMANDS - 1 ? N_COMMANDS - 1 : tag);
-  guard = guard == 0 || guard == 1 ? guard : -1;
+  guard = guard >= 0 && guard < NG ? guard : -1;
   sig = sig == SUCCESS ? SUCCESS : -1;
   uint32_t w = 0u;
   w = with(w, F_PC, pc);
@@ -322,41 +326,53 @@ __device__ __forceinline__ uint32_t pack(int32_t pc, int32_t status,
 // The cold part of a lane's state, in the block's shared memory: per
 // field a column a thread ([field][thread], so a warp's accesses fall in
 // distinct banks), read and written by a run-time pid with one access.
-// The wait summary is touched once a service, the pending command's
+// The summaries are touched once a service, the pending command's
 // payload on a pend or a retry, prio and pend_seq only for the
 // candidates of a pick or a guard's wake.
-template <typename R, int NP>
+template <typename R, class M>
 struct Cold {
-  R wait[8][kThreads];
-  R pend_f[NP][kThreads], pend_f3[NP][kThreads], got[NP][kThreads];
-  int32_t pend_pc[NP][kThreads], pend_seq[NP][kThreads];
-  int32_t prio[NP][kThreads], produced[NP][kThreads];
+  static constexpr int NP = M::NP, T = M::THREADS;
+  R sums[8 * M::NSUM][T];
+  R pend_f[NP][T], pend_f3[NP][T], got[NP][T];
+  int32_t pend_pc[NP][T], pend_seq[NP][T];
+  int32_t prio[NP][T], produced[NP][T];
 };
 
-// the queue-length accumulator (stats.timeseries.StepAccum) of a
-// recording instance, touched once a put or get: the summary's eight
-// moments, last_t, last_v, and started (0 or 1)
-template <typename R, bool RECORD>
+// the queue-length accumulators (stats.timeseries.StepAccum) of a
+// recording instance, touched once a put or get: per queue the summary's
+// eight moments, last_t, last_v, and started (0 or 1)
+template <typename R, class M, bool RECORD = M::RECORD>
 struct ColdAcc {
-  R acc[10][kThreads];
-  bool started[1][kThreads];
+  R acc[10 * M::NQ][M::THREADS];
+  bool started[M::NQ][M::THREADS];
 };
 
-template <typename R>
-struct ColdAcc<R, false> {};
+template <typename R, class M>
+struct ColdAcc<R, M, false> {};
+
+// a pended command's queue id, where the model has more than one queue
+template <class M, bool MANY = (M::NQ > 1)>
+struct ColdQ {
+  int32_t pend_i[M::NP][M::THREADS];
+};
+
+template <class M>
+struct ColdQ<M, false> {};
 
 // One lane's working state: the hot part in registers, the cold part in
 // the block's shared memory.
-template <typename R_, typename C_, int NS, bool RECORD_>
+template <typename R_, typename C_, class M_>
 struct State {
   using R = R_;
   using C = C_;
-  static constexpr int NP = 1 + NS;
-  static constexpr bool RECORD = RECORD_;
+  using M = M_;
+  static constexpr int NP = M::NP, NQ = M::NQ, NG = 2 * M::NQ;
+  static constexpr bool RECORD = M::RECORD;
 
-  Cold<R, NP>* cold;  // the block's
-  ColdAcc<R, RECORD>* cold_acc;
-  int t;              // this thread's column
+  Cold<R, M>* cold;  // the block's
+  ColdAcc<R, M>* cold_acc;
+  ColdQ<M>* cold_q;
+  int t;             // this thread's column
   R clock;
   uint32_t k0, k1, lo, hi;
   int32_t next_seq;
@@ -366,10 +382,10 @@ struct State {
   uint32_t word[NP];  // pc, status, pend_tag, pend_guard, wakes.sig
   uint32_t dirty;
   int32_t gseq[NG];
-  // the queue: head and size here, the ring in device memory
-  int32_t head, size;
-  // user state
-  R arr_mean, srv_mean;
+  // the queues: heads and sizes here, the rings in device memory
+  int32_t head[NQ], size[NQ];
+  // user state: the model's real parameters, n_objects
+  R par[M::NPAR];
   int32_t n_objects;
   bool done;
   int32_t err;
@@ -402,15 +418,17 @@ __device__ __forceinline__ int opaque(int x) {
   return x;
 }
 
-template <typename T, bool RECORD>
-__device__ __forceinline__ T* leaf(const Ptrs& ps, Leaf k) {
-  return static_cast<T*>(ps.p[at<RECORD>(k)]);
-}
-
 // a lane's row of a [L, n] leaf
 template <typename T, class S>
-__device__ __forceinline__ T* row(const Where& at_, Leaf k, int n) {
-  return leaf<T, S::RECORD>(at_.ps, k) + size_t(at_.l) * n;
+__device__ __forceinline__ T* row(const Where& at_, int k, int n) {
+  return static_cast<T*>(at_.ps.p[at<S::RECORD>(k)]) + size_t(at_.l) * n;
+}
+
+// the model's user leaf at offset u, and tail leaf j
+__device__ __forceinline__ constexpr int user(int u) { return U0 + u; }
+template <class S>
+__device__ __forceinline__ constexpr int tail(int j) {
+  return U0 + S::M::N_USER + j;
 }
 
 template <class S>
@@ -429,6 +447,64 @@ __device__ __forceinline__ void set(S& s, int f, int p, int32_t v) {
 template <class S>
 __device__ __forceinline__ void set_err(S& s, int32_t code) {
   if (s.err == 0) s.err = code;
+}
+
+// summary j of the model's user state (stats.summary.add of one sample
+// of weight 1); returns the new summary
+template <class S>
+__device__ __forceinline__ Sum<typename S::R> sum_add(S& s, int j,
+                                                      typename S::R x) {
+  using R = typename S::R;
+  const Sum<R> a{COLD(s, sums, 8 * j), COLD(s, sums, 8 * j + 1),
+                 COLD(s, sums, 8 * j + 2), COLD(s, sums, 8 * j + 3),
+                 COLD(s, sums, 8 * j + 4), COLD(s, sums, 8 * j + 5),
+                 COLD(s, sums, 8 * j + 6), COLD(s, sums, 8 * j + 7)};
+  const Sum<R> m = add(a, x, R(1));
+  COLD(s, sums, 8 * j) = m.n;
+  COLD(s, sums, 8 * j + 1) = m.w;
+  COLD(s, sums, 8 * j + 2) = m.mn;
+  COLD(s, sums, 8 * j + 3) = m.mx;
+  COLD(s, sums, 8 * j + 4) = m.m1;
+  COLD(s, sums, 8 * j + 5) = m.m2;
+  COLD(s, sums, 8 * j + 6) = m.m3;
+  COLD(s, sums, 8 * j + 7) = m.m4;
+  return m;
+}
+
+// The variate of the Threefry block (b0, b1) of kind `kind`
+// (cimba_tpu_torch/random/distributions.py): std_exponential
+// -log1p(-u53); lognormal exp(mu + sigma * (sqrt2 * erf_inv(clip(2 u53 -
+// 1)))) with the lane's (ln_mu, ln_sigma); uniform01.  The exponential and
+// erf_inv's w = -log1p(x * -x) share one log1p.  Only the kinds a model
+// draws are compiled in.
+template <class S>
+__device__ __forceinline__ typename S::R variate(const S& s, int kind,
+                                                 uint32_t b0, uint32_t b1) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const R u = u53_of(b0, b1, R(0));
+  R arg = -u;
+  R xc = R(0);
+  if constexpr (M::LOGN) {
+    // the clip one step of the dtype inside (-1, 1)
+    constexpr double tiny = (sizeof(R) == 4 ? 0x1p-23 : 0x1p-52) / 2.0;
+    const R lo = R(-1.0 + tiny), hi = R(1.0 - tiny);
+    xc = R(2) * u - R(1);
+    xc = xc < lo ? lo : (xc > hi ? hi : xc);
+    if (kind == K_LOGN) arg = xc * -xc;
+  }
+  const R l = log1p_of(arg);
+  R v = -l;
+  if constexpr (M::UNIF) {
+    if (kind == K_UNIF) v = u01_of(b1, R(0));
+  }
+  if constexpr (M::LOGN) {
+    if (kind == K_LOGN) {
+      const R z = R(1.4142135623730951) * erf_inv_w(xc, v);
+      v = exp_of(s.par[M::LN_MU] + s.par[M::LN_SIGMA] * z);
+    }
+  }
+  return v;
 }
 
 // the general table's minimum, read from device memory (chunk start,
@@ -465,31 +541,31 @@ __device__ __forceinline__ void scan_table(S& s, const Where& w) {
   s.slot_e = slot;
 }
 
-// timeseries.step_record(acc, clock, v): the previous length is
-// credited with the time since the last record; a zero-length segment
-// leaves the summary as it was
-#define ACC(s, i) ((s).cold_acc->acc[i][(s).t])
+// timeseries.step_record(acc, clock, v) on queue q's accumulator: the
+// previous length is credited with the time since the last record; a
+// zero-length segment leaves the summary as it was
+#define ACC(s, q, i) ((s).cold_acc->acc[10 * (q) + (i)][(s).t])
 
 template <class S>
-__device__ __forceinline__ void record(S& s, typename S::R v) {
+__device__ __forceinline__ void record(S& s, int q, typename S::R v) {
   using R = typename S::R;
-  const R dur = nanmax0(s.clock - ACC(s, 8));
-  const Sum<R> a{ACC(s, 0), ACC(s, 1), ACC(s, 2), ACC(s, 3),
-                 ACC(s, 4), ACC(s, 5), ACC(s, 6), ACC(s, 7)};
-  const Sum<R> upd = add(a, ACC(s, 9), dur);
+  const R dur = nanmax0(s.clock - ACC(s, q, 8));
+  const Sum<R> a{ACC(s, q, 0), ACC(s, q, 1), ACC(s, q, 2), ACC(s, q, 3),
+                 ACC(s, q, 4), ACC(s, q, 5), ACC(s, q, 6), ACC(s, q, 7)};
+  const Sum<R> upd = add(a, ACC(s, q, 9), dur);
   if (dur > R(0)) {
-    ACC(s, 0) = upd.n;
-    ACC(s, 1) = upd.w;
-    ACC(s, 2) = upd.mn;
-    ACC(s, 3) = upd.mx;
-    ACC(s, 4) = upd.m1;
-    ACC(s, 5) = upd.m2;
-    ACC(s, 6) = upd.m3;
-    ACC(s, 7) = upd.m4;
+    ACC(s, q, 0) = upd.n;
+    ACC(s, q, 1) = upd.w;
+    ACC(s, q, 2) = upd.mn;
+    ACC(s, q, 3) = upd.mx;
+    ACC(s, q, 4) = upd.m1;
+    ACC(s, q, 5) = upd.m2;
+    ACC(s, q, 6) = upd.m3;
+    ACC(s, q, 7) = upd.m4;
   }
-  ACC(s, 8) = s.clock;
-  ACC(s, 9) = v;
-  s.cold_acc->started[0][s.t] = true;
+  ACC(s, q, 8) = s.clock;
+  ACC(s, q, 9) = v;
+  s.cold_acc->started[q][s.t] = true;
 }
 
 // arm a SUCCESS wake of process p at t (every wake these blocks arm)
@@ -539,12 +615,13 @@ __device__ __forceinline__ void guard_wait(S& s, int p, int gid,
   set(s, F_TAG, p, c.tag);
   COLD(s, pend_f, p) = c.f;
   COLD(s, pend_f3, p) = c.f3;
+  if constexpr (S::NQ > 1) s.cold_q->pend_i[p][s.t] = c.q;
   COLD(s, pend_pc, p) = c.next_pc;
   set(s, F_GUARD, p, gid);
   COLD(s, pend_seq, p) = seq;
   set(s, F_PC, p, c.next_pc);
-  // a retry re-pends the pended command as it was: its pend_f2 and
-  // pend_i stay; a block's command writes its 0s
+  // a retry re-pends the pended command as it was: its pend_f2 (and
+  // pend_i) stay; a block's command writes its 0s
   if (!is_retry) s.dirty |= 1u << (F_BLOCK * S::NP + p);
 }
 
@@ -564,37 +641,56 @@ __device__ __forceinline__ int32_t wrap(int32_t x, int32_t cap) {
                                       : x % cap;
 }
 
-// put/get and their fused *_hold twins, in the reference's order;
-// returns "yielded"
-template <class S>
-__device__ __forceinline__ bool h_queue(S& s, const Where& w, int p,
-                                        const Cmd<typename S::R>& c, int tag,
-                                        bool is_retry) {
+// put/get and their fused *_hold twins on queue Q (a compile-time index,
+// so the queue's registers and shape are read without a run-time
+// index), in the reference's order; returns "yielded"
+template <int Q, class S>
+__device__ __forceinline__ bool h_queue_at(S& s, const Where& w, int p,
+                                           const Cmd<typename S::R>& c,
+                                           int tag, bool is_retry) {
   using R = typename S::R;
   const bool is_put = tag == C_PUT || tag == C_PUT_HOLD;
   const bool fused = tag == C_PUT_HOLD || tag == C_GET_HOLD;
-  const int cap = w.sh.queue_cap;
-  const int own = is_put ? w.sh.rear : w.sh.front;
+  const int cap = w.sh.queue_cap[Q];
+  const int front = w.sh.front[Q], rear = w.sh.rear[Q];
+  const int own = is_put ? rear : front;
   const bool may = is_retry || !any_waiting(s, own);
-  const bool blocked = (is_put ? s.size >= cap : s.size <= 0) || !may;
+  const bool blocked =
+      (is_put ? s.size[Q] >= cap : s.size[Q] <= 0) || !may;
   if (!blocked) {
-    R* ring = row<R, S>(w, Q_ITEMS, w.sh.ring_width);
+    R* ring = row<R, S>(w, Q_ITEMS, S::NQ * w.sh.ring_width) +
+              Q * w.sh.ring_width;
     if (is_put) {
-      ring[wrap(s.head + s.size, cap)] = c.f;
-      s.size += 1;
+      ring[wrap(s.head[Q] + s.size[Q], cap)] = c.f;
+      s.size[Q] += 1;
     } else {
-      COLD(s, got, p) = ring[s.head];
-      s.head = wrap(s.head + 1, cap);
-      s.size -= 1;
+      COLD(s, got, p) = ring[s.head[Q]];
+      s.head[Q] = wrap(s.head[Q] + 1, cap);
+      s.size[Q] -= 1;
     }
-    if constexpr (S::RECORD) record(s, R(s.size));
-    if (!is_put) guard_signal(s, w.sh.rear);
-    guard_signal(s, w.sh.front);
+    if constexpr (S::RECORD) record(s, Q, R(s.size[Q]));
+    if (!is_put) guard_signal(s, rear);
+    guard_signal(s, front);
     if (fused) schedule_wake(s, p, s.clock + nanmax0(c.f3));
   }
   set(s, F_PC, p, c.next_pc);
   if (blocked) guard_wait(s, p, own, c, is_retry);
   return blocked || fused;
+}
+
+// the verb on the command's queue, its id clamped into range as the
+// plain engine's gather clamps it
+template <class S>
+__device__ __forceinline__ bool h_queue(S& s, const Where& w, int p,
+                                        const Cmd<typename S::R>& c, int tag,
+                                        bool is_retry) {
+  static_assert(S::NQ == 1 || S::NQ == 2, "one or two queues");
+  if constexpr (S::NQ == 1) {
+    return h_queue_at<0>(s, w, p, c, tag, is_retry);
+  } else {
+    if (c.q <= 0) return h_queue_at<0>(s, w, p, c, tag, is_retry);
+    return h_queue_at<1>(s, w, p, c, tag, is_retry);
+  }
 }
 
 template <class S>
@@ -649,77 +745,240 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
   }
 }
 
-template <class S>
-__device__ __forceinline__ Sum<typename S::R> load_wait(const S& s) {
-  return {COLD(s, wait, 0), COLD(s, wait, 1), COLD(s, wait, 2),
-          COLD(s, wait, 3), COLD(s, wait, 4), COLD(s, wait, 5),
-          COLD(s, wait, 6), COLD(s, wait, 7)};
-}
+// ---------------------------------------------------------------------------
+// The model families: each restates its model's blocks (in pc order, as
+// BLOCK_NAMES in its Python module), its user leaves (offsets from U0 in
+// sorted key order), which blocks draw and of what kind, and the kind the
+// event's first draw takes (the converged draw of design point 3).
 
-template <class S>
-__device__ __forceinline__ void store_wait(S& s,
-                                           const Sum<typename S::R>& m) {
-  COLD(s, wait, 0) = m.n;
-  COLD(s, wait, 1) = m.w;
-  COLD(s, wait, 2) = m.mn;
-  COLD(s, wait, 3) = m.mx;
-  COLD(s, wait, 4) = m.m1;
-  COLD(s, wait, 5) = m.m2;
-  COLD(s, wait, 6) = m.m3;
-  COLD(s, wait, 7) = m.m4;
-}
+// mm1.build(record=RECORD) (NS = 1) and mmc.build(NS): blocks a_start,
+// a_cycle, a_exit, s_start, s_cycle; user leaves arr_mean, n_objects,
+// srv_mean, wait.*
+template <int NS, bool RECORD_>
+struct MM {
+  static constexpr int NP = 1 + NS, NQ = 1, NSUM = 1, N_BLOCKS = 5;
+  static constexpr int NPAR = 2, N_USER = 11, N_OBJ = 1, THREADS = 128;
+  static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
+  static constexpr bool RECORD = RECORD_, LOGN = false, UNIF = false;
+  static constexpr int A_START = 0, A_CYCLE = 1, A_EXIT = 2, S_START = 3;
+  __host__ __device__ static constexpr int par_off(int i) {
+    return i == 0 ? 0 : 2;  // arr_mean, srv_mean
+  }
+  __host__ __device__ static constexpr int sum_off(int) { return 3; }
+  // blocks of 128 threads an SM that an instance's register cap allows
+  // (the second __launch_bounds__ argument; ptxas caps a thread at the
+  // multiple of 8 registers at most 65536 / (128 x minb)): the least cap
+  // under which the instance does not spill.  ptxas takes 80 and 96
+  // registers for the f32 single-server instances (96 cap), 94-124 for
+  // the f32 multi-server ones and 118 for f64 mm1 (128 cap), 133-160 for
+  // the other f64 instances (168 cap); a 64-register cap spills in every
+  // single-server instance, a 96-register cap in the f64 ones (PERF.md)
+  template <typename R>
+  __host__ __device__ static constexpr int minb() {
+    return sizeof(R) == 4 ? (NS == 1 ? 5 : 4) : (NS == 1 && !RECORD ? 4 : 3);
+  }
+  template <class S>
+  __device__ static int conv_kind(const S&, int) {
+    return K_EXP;
+  }
+  __device__ static bool draws(int b) { return b != A_EXIT; }
+  __device__ static int kind(int) { return K_EXP; }
+  template <class S>
+  __device__ static typename S::R mean(const S& s, int b) {
+    return b < A_EXIT ? s.par[0] : s.par[1];
+  }
+  // block b of process p; t is its draw (times its mean)
+  template <class S>
+  __device__ static Cmd<typename S::R> block(S& s, int p, int b,
+                                             typename S::R t) {
+    using R = typename S::R;
+    switch (b) {
+      case A_START:
+        return Cmd<R>{C_HOLD, t, R(0), A_CYCLE, 0};
+      case A_CYCLE: {
+        const int32_t n = COLD(s, produced, p) += 1;
+        if (n >= s.n_objects) return Cmd<R>{C_PUT, s.clock, R(0), A_EXIT, 0};
+        return Cmd<R>{C_PUT_HOLD, s.clock, t, A_CYCLE, 0};
+      }
+      case A_EXIT:
+        return Cmd<R>{C_EXIT, R(0), R(0), 0, 0};
+      case S_START:
+        return Cmd<R>{C_GET_HOLD, R(0), t, S_START + 1, 0};
+      default: {  // s_cycle
+        const Sum<R> wait = sum_add(s, 0, s.clock - COLD(s, got, p));
+        if (wait.n >= R(s.n_objects)) s.done = true;
+        return Cmd<R>{C_GET_HOLD, R(0), t, S_START + 1, 0};
+      }
+    }
+  }
+};
 
-// one block of process p; x is the event's standard exponential while
-// `fresh` (no block of this event has drawn yet)
+// mg1.build(): mm1's blocks with a lognormal service draw; user leaves
+// arr_mean, ln_mu, ln_sigma, n_objects, wait.*
+struct MG1 : MM<1, true> {
+  static constexpr int NPAR = 3, N_USER = 12, N_OBJ = 3;
+  static constexpr int LN_MU = 1, LN_SIGMA = 2;
+  static constexpr bool LOGN = true;
+  __host__ __device__ static constexpr int par_off(int i) {
+    return i;  // arr_mean, ln_mu, ln_sigma
+  }
+  __host__ __device__ static constexpr int sum_off(int) { return 4; }
+  // the f32 instance at a 128-register cap, the f64 one at 168
+  template <typename R>
+  __host__ __device__ static constexpr int minb() {
+    return sizeof(R) == 4 ? 4 : 3;
+  }
+  // the server (pid 1) draws the lognormal, the arrival the exponential
+  template <class S>
+  __device__ static int conv_kind(const S&, int subj) {
+    return subj == 1 ? K_LOGN : K_EXP;
+  }
+  __device__ static int kind(int b) { return b < A_EXIT ? K_EXP : K_LOGN; }
+  template <class S>
+  __device__ static typename S::R mean(const S& s, int) {
+    return s.par[0];  // the arrival's; a lognormal is taken as drawn
+  }
+};
+
+// tandem.build(): blocks a_start, a_cycle, a_exit, s1_start, s1_cycle,
+// s1_take, s2_start, s2_cycle, s2_take; pids 0 arrival, 1 server 1, 2
+// server 2; queues 0 (station 1) and 1 (station 2); user leaves
+// arr_mean, n_objects, p_back, s1_mean, s2_mean, w1.*, w2.*, wait.*
+// (summaries: 0 wait, 1 w1, 2 w2)
+struct Tandem {
+  static constexpr int NP = 3, NQ = 2, NSUM = 3, N_BLOCKS = 9;
+  static constexpr int NPAR = 4, N_USER = 29, N_OBJ = 1, THREADS = 64;
+  static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
+  static constexpr bool RECORD = true, LOGN = false, UNIF = true;
+  static constexpr int A_START = 0, A_CYCLE = 1, A_EXIT = 2, S1_START = 3,
+                       S1_CYCLE = 4, S1_TAKE = 5, S2_START = 6, S2_CYCLE = 7,
+                       S2_TAKE = 8;
+  static constexpr int P_ARR = 0, P_BACK = 1, P_S1 = 2, P_S2 = 3;
+  __host__ __device__ static constexpr int par_off(int i) {
+    // arr_mean, p_back, s1_mean, s2_mean
+    return i == 0 ? 0 : i + 1;
+  }
+  __host__ __device__ static constexpr int sum_off(int j) {
+    return j == 0 ? 21 : (j == 1 ? 5 : 13);  // wait, w1, w2
+  }
+  // 64 threads a block (the f64 cold state of 128 would pass the 48 KB
+  // of static shared memory): 8 blocks an SM at f32's 128-register cap, 6
+  // at f64's 168
+  template <typename R>
+  __host__ __device__ static constexpr int minb() {
+    return sizeof(R) == 4 ? 8 : 6;
+  }
+  // server 2's first draw at s2_cycle is the routing uniform; every
+  // other event's first draw an exponential
+  template <class S>
+  __device__ static int conv_kind(const S& s, int subj) {
+    return subj == 2 && get(s, F_PC, 2) == S2_CYCLE ? K_UNIF : K_EXP;
+  }
+  __device__ static bool draws(int b) {
+    return b != A_EXIT && b != S1_CYCLE;
+  }
+  __device__ static int kind(int b) { return b == S2_CYCLE ? K_UNIF : K_EXP; }
+  template <class S>
+  __device__ static typename S::R mean(const S& s, int b) {
+    return b < A_EXIT ? s.par[P_ARR]
+                      : (b < S2_START ? s.par[P_S1] : s.par[P_S2]);
+  }
+  template <class S>
+  __device__ static Cmd<typename S::R> block(S& s, int p, int b,
+                                             typename S::R t) {
+    using R = typename S::R;
+    switch (b) {
+      case A_START:
+        return Cmd<R>{C_HOLD, t, R(0), A_CYCLE, 0};
+      case A_CYCLE: {
+        const int32_t n = COLD(s, produced, p) += 1;
+        if (n >= s.n_objects) return Cmd<R>{C_PUT, s.clock, R(0), A_EXIT, 0};
+        return Cmd<R>{C_PUT_HOLD, s.clock, t, A_CYCLE, 0};
+      }
+      case A_EXIT:
+        return Cmd<R>{C_EXIT, R(0), R(0), 0, 0};
+      case S1_START:
+      case S1_TAKE:
+        return Cmd<R>{C_GET_HOLD, R(0), t, S1_CYCLE, 0};
+      case S1_CYCLE: {
+        // the item's q1-entry timestamp gives the per-visit sojourn; it
+        // goes on to q2 stamped with its q2 entry
+        const R v = s.clock - COLD(s, got, p);
+        sum_add(s, 0, v);
+        sum_add(s, 1, v);
+        return Cmd<R>{C_PUT, s.clock, R(0), S1_TAKE, 1};
+      }
+      case S2_CYCLE: {
+        const R v = s.clock - COLD(s, got, p);
+        sum_add(s, 0, v);
+        sum_add(s, 2, v);
+        // t is the routing uniform: feedback to q1, or a departure
+        const bool feedback = t < s.par[P_BACK];
+        const int32_t departed = COLD(s, produced, p) += feedback ? 0 : 1;
+        if (departed >= s.n_objects) s.done = true;
+        if (feedback) return Cmd<R>{C_PUT, s.clock, R(0), S2_TAKE, 0};
+        return Cmd<R>{C_JUMP, R(0), R(0), S2_TAKE, 0};
+      }
+      default:  // s2_start, s2_take
+        return Cmd<R>{C_GET_HOLD, R(0), t, S2_CYCLE, 1};
+    }
+  }
+};
+
+template <int FAMILY, int NS, bool RECORD>
+struct ModelOf {
+  using type = MM<NS, RECORD>;
+};
+template <>
+struct ModelOf<F_MG1, 1, true> {
+  using type = MG1;
+};
+template <>
+struct ModelOf<F_TANDEM, 2, true> {
+  using type = Tandem;
+};
+
+// ---------------------------------------------------------------------------
+
+// one block of process p; x is the event's converged variate, of kind
+// xkind, while `fresh` (no block of this event has drawn yet)
 template <class S>
 __device__ __forceinline__ Cmd<typename S::R> run_block(
-    S& s, const Where& w, int p, typename S::R x, bool& fresh) {
+    S& s, int p, typename S::R x, int xkind, bool& fresh) {
   using R = typename S::R;
+  using M = typename S::M;
   const int b = get(s, F_PC, p);  // clamped to a block when loaded
-  // every block but a_exit draws once, from its process's mean
   R t = R(0);
-  if (b != A_EXIT) {
-    if (!fresh) x = std_exponential<R>(s.k0, s.k1, s.lo, s.hi);
+  if (M::draws(b)) {
+    const int kind = M::kind(b);
+    if (!fresh || kind != xkind) {
+      uint32_t b0, b1;
+      threefry2x32(s.k0, s.k1, s.lo, s.hi, b0, b1);
+      x = variate(s, kind, b0, b1);
+    }
     fresh = false;
     s.lo += 1u;
     if (s.lo == 0u) s.hi += 1u;
-    t = (b < A_EXIT ? s.arr_mean : s.srv_mean) * x;
+    t = kind == K_EXP ? M::mean(s, b) * x : x;
   }
-  switch (b) {
-    case A_START:
-      return Cmd<R>{C_HOLD, t, R(0), A_CYCLE};
-    case A_CYCLE: {
-      const int32_t n = COLD(s, produced, p) += 1;
-      if (n >= s.n_objects) return Cmd<R>{C_PUT, s.clock, R(0), A_EXIT};
-      return Cmd<R>{C_PUT_HOLD, s.clock, t, A_CYCLE};
-    }
-    case A_EXIT:
-      return Cmd<R>{C_EXIT, R(0), R(0), 0};
-    case S_START:
-      return Cmd<R>{C_GET_HOLD, R(0), t, S_CYCLE};
-    default: {  // S_CYCLE
-      const Sum<R> wait =
-          add(load_wait(s), s.clock - COLD(s, got, p), R(1));
-      store_wait(s, wait);
-      if (wait.n >= R(s.n_objects)) s.done = true;
-      return Cmd<R>{C_GET_HOLD, R(0), t, S_CYCLE};
-    }
-  }
+  return M::block(s, p, b, t);
 }
 
 template <class S>
 __device__ __forceinline__ void resume(S& s, const Where& w, int p,
-                                       int32_t sig, typename S::R x) {
+                                       int32_t sig, typename S::R x,
+                                       int xkind) {
   using R = typename S::R;
   put(s.wt, p, inf_of<R>());
   const int32_t tag = get(s, F_TAG, p);
   const bool has_pend = tag != NO_PEND;
   bool use_pend = has_pend && sig == SUCCESS;
-  Cmd<R> pend{tag, R(0), R(0), 0};
+  Cmd<R> pend{tag, R(0), R(0), 0, 0};
   if (use_pend) {
     pend.f = COLD(s, pend_f, p);
     pend.f3 = COLD(s, pend_f3, p);
     pend.next_pc = COLD(s, pend_pc, p);
+    if constexpr (S::NQ > 1) pend.q = s.cold_q->pend_i[p][s.t];
   }
   set(s, F_TAG, p, NO_PEND);
   set(s, F_GUARD, p, -1);
@@ -729,7 +988,7 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
          n < MAX_CHAIN) {
     // one apply for the retried command and a block's: the lanes of a
     // warp that take either run the handlers together
-    const Cmd<R> c = use_pend ? pend : run_block(s, w, p, x, fresh);
+    const Cmd<R> c = use_pend ? pend : run_block(s, p, x, xkind, fresh);
     yielded = apply(s, w, p, c, use_pend);
     use_pend = false;
     ++n;
@@ -789,17 +1048,21 @@ __device__ __forceinline__ void step(S& s, const Where& w,
   }
   s.n_events += 1;  // K_PROC and K_TIMER both resume; no handlers
   // the converged draw, at the counter as the event found it
-  R x = std_exponential<R>(s.k0, s.k1, s.lo, s.hi);
+  const int xkind = S::M::conv_kind(s, subj);
+  uint32_t b0, b1;
+  threefry2x32(s.k0, s.k1, s.lo, s.hi, b0, b1);
+  R x = variate(s, xkind, b0, b1);
   pin(x);
   if (subj >= 0 && subj < S::NP && get(s, F_STATUS, subj) == RUNNING)
-    resume(s, w, subj, arg, x);
+    resume(s, w, subj, arg, x, xkind);
 }
 
 template <class S>
 __device__ __forceinline__ void load(S& s, const Where& w) {
   using R = typename S::R;
   using C = typename S::C;
-  constexpr int NP = S::NP;
+  using M = typename S::M;
+  constexpr int NP = S::NP, NQ = S::NQ, NG = S::NG;
   s.clock = row<R, S>(w, CLOCK, 1)[0];
   s.k0 = uint32_t(row<int64_t, S>(w, KEY0, 1)[0]);
   s.k1 = uint32_t(row<int64_t, S>(w, KEY1, 1)[0]);
@@ -810,11 +1073,11 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
   for (int q = 0; q < NP; ++q) {
     s.wt[q] = row<R, S>(w, WK_TIME, NP)[q];
     s.wseq[q] = row<int32_t, S>(w, WK_SEQ, NP)[q];
-    s.word[q] = pack(row<int32_t, S>(w, PC, NP)[q],
-                     row<int32_t, S>(w, STATUS, NP)[q],
-                     row<int32_t, S>(w, PEND_TAG, NP)[q],
-                     row<int32_t, S>(w, PEND_GUARD, NP)[q],
-                     row<int32_t, S>(w, WK_SIG, NP)[q]);
+    s.word[q] = pack<M::N_BLOCKS, NG>(row<int32_t, S>(w, PC, NP)[q],
+                                      row<int32_t, S>(w, STATUS, NP)[q],
+                                      row<int32_t, S>(w, PEND_TAG, NP)[q],
+                                      row<int32_t, S>(w, PEND_GUARD, NP)[q],
+                                      row<int32_t, S>(w, WK_SIG, NP)[q]);
     COLD(s, prio, q) = row<int32_t, S>(w, PRIO, NP)[q];
     COLD(s, pend_pc, q) = row<int32_t, S>(w, PEND_PC, NP)[q];
     COLD(s, pend_seq, q) = row<int32_t, S>(w, PEND_SEQ, NP)[q];
@@ -823,28 +1086,40 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
     COLD(s, got, q) = row<R, S>(w, GOT, NP)[q];
     COLD(s, produced, q) =
         row<int32_t, S>(w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals];
+    if constexpr (NQ > 1)
+      s.cold_q->pend_i[q][s.t] = row<int32_t, S>(w, PEND_I, NP)[q];
   }
   s.dirty = 0u;
 #pragma unroll
   for (int g = 0; g < NG; ++g)
     s.gseq[g] = row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g];
-  s.head = row<int32_t, S>(w, Q_HEAD, 1)[0];
-  s.size = row<int32_t, S>(w, Q_SIZE, 1)[0];
-  s.arr_mean = row<R, S>(w, U_ARR_MEAN, 1)[0];
-  s.srv_mean = row<R, S>(w, U_SRV_MEAN, 1)[0];
-  s.n_objects = row<int32_t, S>(w, U_N_OBJECTS, 1)[0];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    COLD(s, wait, i) = row<R, S>(w, Leaf(W_N + i), 1)[0];
+  for (int q = 0; q < NQ; ++q) {
+    s.head[q] = row<int32_t, S>(w, Q_HEAD, NQ)[q];
+    s.size[q] = row<int32_t, S>(w, Q_SIZE, NQ)[q];
+  }
+#pragma unroll
+  for (int i = 0; i < M::NPAR; ++i)
+    s.par[i] = row<R, S>(w, user(M::par_off(i)), 1)[0];
+  s.n_objects = row<int32_t, S>(w, user(M::N_OBJ), 1)[0];
+#pragma unroll
+  for (int j = 0; j < M::NSUM; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      COLD(s, sums, 8 * j + i) =
+          row<R, S>(w, user(M::sum_off(j) + i), 1)[0];
   if constexpr (S::RECORD) {
 #pragma unroll
-    for (int i = 0; i < 10; ++i)
-      ACC(s, i) = row<R, S>(w, Leaf(A_N + i), 1)[0];
-    s.cold_acc->started[0][s.t] = row<bool, S>(w, A_STARTED, 1)[0];
+    for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+      for (int i = 0; i < 10; ++i)
+        ACC(s, q, i) = row<R, S>(w, A_N + i, NQ)[q];
+      s.cold_acc->started[q][s.t] = row<bool, S>(w, A_STARTED, NQ)[q];
+    }
   }
-  s.done = row<bool, S>(w, DONE, 1)[0];
-  s.err = row<int32_t, S>(w, ERR, 1)[0];
-  s.n_events = row<C, S>(w, N_EVENTS, 1)[0];
+  s.done = row<bool, S>(w, tail<S>(DONE), 1)[0];
+  s.err = row<int32_t, S>(w, tail<S>(ERR), 1)[0];
+  s.n_events = row<C, S>(w, tail<S>(N_EVENTS), 1)[0];
 }
 
 // the fields a chunk can change (the packed ones where they were
@@ -854,7 +1129,8 @@ template <class S>
 __device__ __forceinline__ void store(const S& s, const Where& w) {
   using R = typename S::R;
   using C = typename S::C;
-  constexpr int NP = S::NP;
+  using M = typename S::M;
+  constexpr int NP = S::NP, NQ = S::NQ, NG = S::NG;
   row<R, S>(w, CLOCK, 1)[0] = s.clock;
   row<int64_t, S>(w, CTR_LO, 1)[0] = int64_t(s.lo);
   row<int64_t, S>(w, CTR_HI, 1)[0] = int64_t(s.hi);
@@ -875,43 +1151,56 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
     row<R, S>(w, GOT, NP)[q] = COLD(s, got, q);
     row<int32_t, S>(w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals] =
         COLD(s, produced, q);
+    if constexpr (NQ > 1)
+      row<int32_t, S>(w, PEND_I, NP)[q] = s.cold_q->pend_i[q][s.t];
     if (s.dirty & (1u << (F_BLOCK * NP + q))) {
       row<R, S>(w, PEND_F2, NP)[q] = R(0);
-      row<int32_t, S>(w, PEND_I, NP)[q] = 0;
+      if constexpr (NQ == 1) row<int32_t, S>(w, PEND_I, NP)[q] = 0;
     }
   }
 #pragma unroll
   for (int g = 0; g < NG; ++g)
     row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g] = s.gseq[g];
-  row<int32_t, S>(w, Q_HEAD, 1)[0] = s.head;
-  row<int32_t, S>(w, Q_SIZE, 1)[0] = s.size;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    row<R, S>(w, Leaf(W_N + i), 1)[0] = COLD(s, wait, i);
+  for (int q = 0; q < NQ; ++q) {
+    row<int32_t, S>(w, Q_HEAD, NQ)[q] = s.head[q];
+    row<int32_t, S>(w, Q_SIZE, NQ)[q] = s.size[q];
+  }
+#pragma unroll
+  for (int j = 0; j < M::NSUM; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      row<R, S>(w, user(M::sum_off(j) + i), 1)[0] =
+          COLD(s, sums, 8 * j + i);
   if constexpr (S::RECORD) {
 #pragma unroll
-    for (int i = 0; i < 10; ++i)
-      row<R, S>(w, Leaf(A_N + i), 1)[0] = ACC(s, i);
-    row<bool, S>(w, A_STARTED, 1)[0] = s.cold_acc->started[0][s.t];
+    for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+      for (int i = 0; i < 10; ++i)
+        row<R, S>(w, A_N + i, NQ)[q] = ACC(s, q, i);
+      row<bool, S>(w, A_STARTED, NQ)[q] = s.cold_acc->started[q][s.t];
+    }
   }
-  row<bool, S>(w, DONE, 1)[0] = s.done;
-  row<int32_t, S>(w, ERR, 1)[0] = s.err;
-  row<C, S>(w, N_EVENTS, 1)[0] = s.n_events;
+  row<bool, S>(w, tail<S>(DONE), 1)[0] = s.done;
+  row<int32_t, S>(w, tail<S>(ERR), 1)[0] = s.err;
+  row<C, S>(w, tail<S>(N_EVENTS), 1)[0] = s.n_events;
 }
 
 // Load lane l's state, run up to chunk_steps events while the lane is
 // live (make_cond), and store it back.  Leaves are lane-first; the
-// queue's accumulator rows are [L, 1].
-template <typename R, typename C, int NS, bool RECORD>
+// queues' accumulator rows are [L, NQ].
+template <typename R, typename C, class M>
 __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          const Shape& sh, int chunk_steps,
                                          bool has_t_end, R t_end,
-                                         Cold<R, 1 + NS>& cold,
-                                         ColdAcc<R, RECORD>& cold_acc) {
-  using S = State<R, C, NS, RECORD>;
+                                         Cold<R, M>& cold,
+                                         ColdAcc<R, M>& cold_acc,
+                                         ColdQ<M>& cold_q) {
+  using S = State<R, C, M>;
   S s;
   s.cold = &cold;
   s.cold_acc = &cold_acc;
+  s.cold_q = &cold_q;
   s.t = threadIdx.x;
   load(s, Where{ps, sh, l});
   scan_table(s, Where{ps, sh, l});
@@ -934,49 +1223,58 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
   store(s, Where{ps, sh, opaque(l)});
 }
 
-template <typename R, typename C, int NS, bool RECORD>
-__global__ void __launch_bounds__(kThreads, queue_minb<R, NS, RECORD>())
+template <typename R, typename C, int FAMILY, int NS, bool RECORD>
+__global__ void __launch_bounds__(
+    ModelOf<FAMILY, NS, RECORD>::type::THREADS,
+    ModelOf<FAMILY, NS, RECORD>::type::template minb<R>())
 chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
              const __grid_constant__ Shape sh, int chunk_steps,
              bool has_t_end, R t_end) {
-  __shared__ Cold<R, 1 + NS> cold;
-  __shared__ ColdAcc<R, RECORD> cold_acc;
+  using M = typename ModelOf<FAMILY, NS, RECORD>::type;
+  __shared__ Cold<R, M> cold;
+  __shared__ ColdAcc<R, M> cold_acc;
+  __shared__ ColdQ<M> cold_q;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < lanes)
-    run_lane<R, C, NS, RECORD>(ps, l, sh, chunk_steps, has_t_end, t_end,
-                               cold, cold_acc);
+    run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
+                      cold_acc, cold_q);
 }
 
-template <typename R, typename C, int NS, bool RECORD>
+template <typename R, typename C, int FAMILY, int NS, bool RECORD>
 int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
            int chunk_steps, int has_t_end, double t_end, void* stream) {
-  if (n_leaves != leaf_count<RECORD>()) return -1;
+  using M = typename ModelOf<FAMILY, NS, RECORD>::type;
+  if (n_leaves != at<RECORD>(U0 + M::N_USER + N_TAIL)) return -1;
   if (lanes <= 0 || chunk_steps <= 0) return -2;
   Ptrs ps{};
   for (int i = 0; i < n_leaves; ++i) ps.p[i] = leaves[i];
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  chunk_kernel<R, C, NS, RECORD><<<blocks, kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (lanes + M::THREADS - 1) / M::THREADS;
+  const auto st = static_cast<cudaStream_t>(stream);
+  chunk_kernel<R, C, FAMILY, NS, RECORD><<<blocks, M::THREADS, 0, st>>>(
       ps, lanes, sh, chunk_steps, has_t_end != 0, R(t_end));
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instances: (1, false) mm1.build(record=False); (1, true) mm1.build()
-// and mmc.build(1); (2..4, true) mmc.build(c)
+// the MM instances: (1, false) mm1.build(record=False); (1, true)
+// mm1.build() and mmc.build(1); (2..4, true) mmc.build(c)
 template <typename R, typename C>
 int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
              int record, const Shape& sh, int chunk_steps, int has_t_end,
              double t_end, void* stream) {
-  const auto go = [&](auto inst) {
-    return launch<R, C, decltype(inst)::ns, decltype(inst)::rec>(
+  const auto go = [&](auto ns, auto rec) {
+    return launch<R, C, F_MM, decltype(ns)::value, decltype(rec)::value>(
         leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end, stream);
   };
-  if (!record) return n_servers == 1 ? go(Inst<1, false>{}) : -3;
+  using T = std::true_type;
+  if (!record)
+    return n_servers == 1
+               ? go(std::integral_constant<int, 1>{}, std::false_type{})
+               : -3;
   switch (n_servers) {
-    case 1: return go(Inst<1, true>{});
-    case 2: return go(Inst<2, true>{});
-    case 3: return go(Inst<3, true>{});
-    case 4: return go(Inst<4, true>{});
+    case 1: return go(std::integral_constant<int, 1>{}, T{});
+    case 2: return go(std::integral_constant<int, 2>{}, T{});
+    case 3: return go(std::integral_constant<int, 3>{}, T{});
+    case 4: return go(std::integral_constant<int, 4>{}, T{});
     default: return -3;
   }
 }
@@ -985,19 +1283,19 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
 }  // namespace cimba
 
 // Plain C interface (loaded with ctypes).  leaves: the Sim's device
-// pointers in cimba::queue::Leaf order (without the queues.acc leaves
-// when record is 0).  Launches on ``stream`` without synchronising;
-// returns cudaGetLastError() after the launch (0 = ok), or -1 / -2 / -3
-// for a wrong leaf count / an empty launch / no instance for
-// (n_servers, record).
+// pointers in jax.tree.leaves order (without the queues.acc leaves when
+// record is 0).  Launches on ``stream`` without synchronising; returns
+// cudaGetLastError() after the launch (0 = ok), or -1 / -2 / -3 for a
+// wrong leaf count / an empty launch / no instance for (n_servers,
+// record).
 #define CIMBA_QUEUE_CHUNK(SUFFIX, R, C)                                      \
   extern "C" int cimba_queue_chunk_##SUFFIX(                                 \
       void* const* leaves, int n_leaves, int lanes, int n_servers,          \
       int record, int event_cap, int ring_width, int queue_cap, int front,  \
       int rear, int n_ilocals, int chunk_steps, int has_t_end, double t_end, \
       void* stream) {                                                        \
-    const cimba::queue::Shape sh{event_cap, ring_width, queue_cap,          \
-                                 front,     rear,       n_ilocals};         \
+    const cimba::queue::Shape sh{event_cap,   ring_width, {queue_cap, 0},   \
+                                 {front, 0},  {rear, 0},  n_ilocals};       \
     return cimba::queue::dispatch<R, C>(leaves, n_leaves, lanes, n_servers, \
                                         record, sh, chunk_steps, has_t_end, \
                                         t_end, stream);                     \
@@ -1011,6 +1309,30 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
                                       event_cap, ring_width, queue_cap,     \
                                       front, rear, n_ilocals, chunk_steps,  \
                                       has_t_end, t_end, stream);            \
+  }                                                                          \
+  /* mg1.build(): 1 server, recording, lognormal service */                 \
+  extern "C" int cimba_mg1_chunk_##SUFFIX(                                   \
+      void* const* leaves, int n_leaves, int lanes, int event_cap,          \
+      int ring_width, int queue_cap, int front, int rear, int n_ilocals,    \
+      int chunk_steps, int has_t_end, double t_end, void* stream) {         \
+    const cimba::queue::Shape sh{event_cap,   ring_width, {queue_cap, 0},   \
+                                 {front, 0},  {rear, 0},  n_ilocals};       \
+    return cimba::queue::launch<R, C, cimba::queue::F_MG1, 1, true>(        \
+        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        stream);                                                             \
+  }                                                                          \
+  /* tandem.build(): two recording queues, their caps and guards */         \
+  extern "C" int cimba_tandem_chunk_##SUFFIX(                                \
+      void* const* leaves, int n_leaves, int lanes, int event_cap,          \
+      int ring_width, int cap1, int front1, int rear1, int cap2,            \
+      int front2, int rear2, int n_ilocals, int chunk_steps, int has_t_end, \
+      double t_end, void* stream) {                                          \
+    const cimba::queue::Shape sh{event_cap,        ring_width,              \
+                                 {cap1, cap2},     {front1, front2},        \
+                                 {rear1, rear2},   n_ilocals};              \
+    return cimba::queue::launch<R, C, cimba::queue::F_TANDEM, 2, true>(     \
+        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        stream);                                                             \
   }
 
 CIMBA_QUEUE_CHUNK(f32, float, int32_t)

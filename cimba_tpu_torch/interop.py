@@ -25,12 +25,15 @@ def sim_from_numpy(leaves, spec: ModelSpec, params=None, *,
     """The port's Sim from the reference's batched Sim leaves (numpy
     arrays in ``jax.tree.leaves`` order, e.g.
     ``[np.asarray(x) for x in jax.tree.leaves(sims)]``).  ``params`` is
-    any parameter set the spec's user state accepts: it only shapes the
-    template the leaves are checked against."""
+    any parameter set the spec's user state accepts, shared or a sweep's
+    (leading axis the lane count): it only shapes the template the leaves
+    are checked against."""
     dev = config.resolve_device(device)
     prof = "f32" if np.asarray(leaves[0]).dtype == np.float32 else "f64"
+    lanes = np.asarray(leaves[0]).shape[0]
     with config.profile(prof):
-        tmpl = init_sim(spec, 0, torch.arange(1), params, device="cpu")
+        tmpl = init_sim(spec, 0, torch.arange(1), _one_lane(params, lanes),
+                        device="cpu")
     want = tree.leaves(tmpl)
     if len(leaves) != len(want):
         raise ValueError(f"{len(leaves)} leaves given, spec {spec.name!r} "
@@ -46,6 +49,18 @@ def sim_from_numpy(leaves, spec: ModelSpec, params=None, *,
                              f"{w.dtype} [L, {tuple(w.shape[1:])}]")
         out.append(t.to(dev))
     return tree.unflatten(tmpl, out)
+
+
+def _one_lane(params, lanes: int):
+    """The first lane's row of a sweep's parameters (leaves with leading
+    axis ``lanes``); scalars and other leaves as given."""
+    if isinstance(params, (tuple, list)):
+        return type(params)(_one_lane(x, lanes) for x in params)
+    if isinstance(params, dict):
+        return {k: _one_lane(v, lanes) for k, v in params.items()}
+    if np.ndim(params) > 0 and np.shape(params)[0] == lanes:
+        return params[:1]
+    return params
 
 
 def nn_weights_from_numpy(w1, b1, w2, b2, w3, b3, *,

@@ -4,10 +4,15 @@
 
 Replication r is lane r of one batched Sim.  On the card the lanes go
 through the spec's CUDA chunk kernel and the host loop of
-:mod:`cimba_tpu_torch.core.kernel_run` (mm1 and mmc, with or without
-queue-length recording; AWACS, whose radar dwells run between chunks
-with the K5 scorer); on ``device="cpu"`` through the plain engine.  A failed replication
-freezes with ``sim.err`` set and is counted, as in the reference.
+:mod:`cimba_tpu_torch.core.kernel_run`, for five model families: the
+M/M/1 and M/M/c (with or without queue-length recording), the M/G/1
+sweep, the tandem network, and AWACS, whose radar dwells run between
+chunks as one launch of the dwell kernel a boundary round; on
+``device="cpu"`` through the plain engine.  A sweep's parameters (leaves
+with leading axis ``n_replications``, e.g. ``mg1.sweep_params`` or
+``tandem.sweep_grid(n).rows(r)``) give each lane its own row.  A failed
+replication freezes with ``sim.err`` set and is counted, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
     without a card only ``device="cpu"`` runs, and it runs the plain
     PyTorch engine.  On the card every chunk of ``chunk_steps`` events
     per lane is one launch of the spec's CUDA kernel; kernels exist for
-    ``models.mm1.build(...)``, ``models.mmc.build(c)`` for c in 1..4 and
+    ``models.mm1.build(...)``, ``models.mmc.build(c)`` for c in 1..4,
+    ``models.mg1.build()``, ``models.tandem.build()`` and
     ``models.awacs.build(n)``, and other specs raise there."""
     dev = config.resolve_device(device)
     sims = init_sim(spec, seed, torch.arange(n_replications), params,

@@ -55,11 +55,11 @@ import torch
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
 
-MODELS = ("mm1", "mm1-record", "mmc", "awacs")
+MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "awacs")
 #: float leaves, kernel vs plain (chip_smoke.py's RTOL)
 RTOL = {"f32": 2e-5, "f64": 1e-12}
-#: small default shapes: lanes, objects (mm1, mmc), servers (mmc),
-#: targets and horizon (AWACS)
+#: small default shapes: lanes, objects (mm1, mmc, mg1, tandem), servers
+#: (mmc), targets and horizon (AWACS)
 LANES, N_OBJECTS, SERVERS, N_TARGETS, AW_T_END = 512, 200, 3, 64, 10.0
 CHUNK = {2: 1, 3: 16, 4: 512}
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -73,7 +73,7 @@ class Setup:
 
     def __init__(self, model: str, device, lanes: int = LANES,
                  size=None, seed: int = 2026):
-        from cimba_tpu_torch.models import awacs, mm1, mmc
+        from cimba_tpu_torch.models import awacs, mg1, mm1, mmc, tandem
 
         n = size or (N_TARGETS if model == "awacs" else N_OBJECTS)
         if model == "mm1":
@@ -83,6 +83,14 @@ class Setup:
         elif model == "mmc":
             spec = mmc.build(SERVERS)[0]
             params = mmc.params(n, 2.5 * SERVERS / 3, 1.0)
+        elif model == "mg1":  # the sweep's cells, cell-major, to `lanes`
+            spec = mg1.build()[0]
+            p, _ = mg1.sweep_params(n, reps_per_cell=-(-lanes // 20))
+            params = tuple(x[:lanes] for x in p)
+        elif model == "tandem":  # the grid's cells, cell-major
+            spec = tandem.build()[0]
+            p, _ = tandem.sweep_grid(n).rows(-(-lanes // 6))
+            params = tuple(x[:lanes] for x in p)
         elif model == "awacs":
             spec, params = awacs.build(n)[0], awacs.params(AW_T_END)
         else:

@@ -24,7 +24,7 @@ import torch
 
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
-from cimba_tpu_torch.models import awacs, mm1, mmc
+from cimba_tpu_torch.models import awacs, mg1, mm1, mmc, tandem
 from cimba_tpu_torch.random import bits, block_kernels
 from cimba_tpu_torch.tools import bisect_kernels, cuda_bisect
 
@@ -227,16 +227,22 @@ def test_boundary_round_on_card_refuses_other_specs(card):
 def _queue_spec(name):
     if name == "mm1_record":
         return mm1.build()[0], mm1.params(40)
+    if name == "mg1":  # every cell of the sweep among the 512 lanes
+        p, _ = mg1.sweep_params(40, reps_per_cell=26)
+        return mg1.build()[0], tuple(x[:512] for x in p)
+    if name == "tandem":  # every cell of the grid among the 512 lanes
+        p, _ = tandem.sweep_grid(40).rows(86)
+        return tandem.build()[0], tuple(x[:512] for x in p)
     c = int(name[-1])
     return mmc.build(c)[0], mmc.params(40, 0.83 * c, 1.0)
 
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
 @pytest.mark.parametrize("name", ["mm1_record", "mmc1", "mmc2", "mmc3",
-                                  "mmc4"])
+                                  "mmc4", "mg1", "tandem"])
 def test_queue_instances_match_plain_engine(card, name, prof):
-    """Every recording instance of the single-queue kernel: one chunk,
-    then the whole run, the queue's length accumulator included."""
+    """Every recording instance of the object-queue kernel: one chunk,
+    then the whole run, the queues' length accumulators included."""
     with config.profile(prof):
         spec, params = _queue_spec(name)
         lay = kernel_run.queue_layout(spec)
@@ -309,9 +315,9 @@ def _plant(sims):
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
 @pytest.mark.parametrize("name", ["mm1", "mm1_record", "mmc1", "mmc2",
-                                  "mmc3", "mmc4"])
+                                  "mmc3", "mmc4", "mg1", "tandem"])
 def test_queue_kernel_general_table(card, name, prof):
-    """Every single-queue instance with events planted in the general
+    """Every object-queue instance with events planted in the general
     table: one chunk, and the whole run, equal to the plain engine."""
     with config.profile(prof):
         if name == "mm1":
@@ -347,9 +353,10 @@ def test_awacs_kernels_have_no_stack_frame(card):
 
 
 def test_queue_chunk_has_no_stack_frame(card):
-    """ptxas' report of csrc/queue_chunk.cu: the (1, false), (1, true)
-    and (3, true) instances keep no stack frame and spill nothing, in
-    either profile (chip_smoke.py checks the same)."""
+    """ptxas' report of csrc/queue_chunk.cu: the mm (1, false), (1,
+    true) and (3, true), the mg1 and the tandem instances keep no stack
+    frame and spill nothing, in either profile (chip_smoke.py checks the
+    same)."""
     import chip_smoke
     from cimba_tpu_torch import _build
 
@@ -357,4 +364,4 @@ def test_queue_chunk_has_no_stack_frame(card):
     figs, faults = chip_smoke.queue_frames(
         chip_smoke.build_report("queue_chunk", report))
     assert faults == []
-    assert len(figs) >= 10  # every instance in both profiles
+    assert len(figs) >= 14  # every instance in both profiles

@@ -131,3 +131,47 @@ def test_queue_instances_and_layouts():
         with pytest.raises(NotImplementedError, match="1 server, 1 server "
                            "recording, 2 servers recording"):
             kernel_run.make_kernel_run(tmmc.build(c)[0])
+
+
+def test_mg1_and_tandem_layouts():
+    """mg1.build() and tandem.build() get their own instances, layouts
+    and leaf tables; mg1 (mm1's block names) is told from mm1 by its
+    module and user keys; a spec of another shape is refused with the
+    five families named."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import process as cmd
+    from cimba_tpu_torch.models import mg1 as tmg1
+    from cimba_tpu_torch.models import tandem as ttandem
+
+    cases = [(tmg1.build()[0], tmg1.sweep_params(5, reps_per_cell=1)[0],
+              ("mg1", 1, True), 1),
+             (ttandem.build()[0], ttandem.sweep_grid(5).rows(1)[0],
+              ("tandem", 2, True), 2)]
+    for spec, params, shape, nq in cases:
+        lay, kernel, table = kernel_run.kernel_for(spec)
+        assert kernel is kernel_run.queue_chunk
+        assert (lay["family"], lay["NS"], lay["REC"]) == shape
+        assert kernel_run.queue_entry(lay)[0] == f"{shape[0]}_chunk"
+        assert (lay["Q"], lay["G"], lay["P"]) == (nq, 2 * nq, 1 + shape[1])
+        assert lay["caps"] == tuple(q.capacity for q in spec.queues)
+        assert (lay["fronts"], lay["rears"]) == (
+            tuple(range(0, 2 * nq, 2)), tuple(range(1, 2 * nq, 2)))
+        s = tloop.init_sim(spec, 1, torch.arange(len(params[0])), params,
+                           device="cpu")
+        assert kernel_run._check_leaves(tree.leaves(s), table, lay,
+                                        s.clock.dtype,
+                                        s.n_events.dtype) == len(params[0])
+        assert len(table) == len(tree.leaves(s))
+    # mm1's block names under a module of another family's keys: refused
+    m = Model("fake_mg1", n_ilocals=1, event_cap=1, guard_cap=4)
+    m.objectqueue("buffer", capacity=8)
+    blocks = []
+    for name in tmm1.BLOCK_NAMES:
+        def blk(sim, p, sig):
+            return sim, cmd.exit_()
+        blk.__name__ = name
+        blocks.append(m.block(blk))
+    m.process("arrival", entry=blocks[0])
+    m.process("service", entry=blocks[3])
+    with pytest.raises(NotImplementedError, match="M/G/1.*tandem.*AWACS"):
+        kernel_run.make_kernel_run(m.build())

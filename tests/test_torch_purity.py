@@ -35,7 +35,8 @@ def test_importing_every_module_loads_no_jax():
     assert "cimba_tpu_torch.random.block_kernels" in res["mods"]
     assert "cimba_tpu_torch.random.sampler_bench" in res["mods"]
     assert "cimba_tpu_torch.models.awacs" in res["mods"]
-    for mod in ("models.mmc", "stats.timeseries", "tools.bisect_kernels",
+    for mod in ("models.mmc", "models.mg1", "models.tandem", "sweep.grid",
+                "stats.timeseries", "tools.bisect_kernels",
                 "tools.cuda_bisect", "tools.cuda_event_bisect"):
         assert f"cimba_tpu_torch.{mod}" in res["mods"]
 

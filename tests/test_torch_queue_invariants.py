@@ -5,7 +5,8 @@ counter as the event found it, before it dispatches (the warp-converged
 draw), and it caches the general event table's minimum instead of
 scanning the table every event.  Both are exact only while these models
 keep two invariants, checked here on the plain engine, step by step, for
-every spec that has a kernel instance:
+every spec of the kernel's mm family (mg1 and tandem, whose instances
+draw by other rules: tests/test_torch_network_invariants.py):
 
 * each event advances the lane's Threefry counter ``(ctr_lo, ctr_hi)``
   by 0 or 1 blocks: at most one draw an event;

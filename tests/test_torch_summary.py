@@ -80,3 +80,76 @@ def test_add_merge_tree(prof, dt):
 def test_empty_matches():
     for f, w, g in zip(tsm.Summary._fields, jsm.empty(), tsm.empty(device="cpu")):
         assert float(w) == float(g), f
+
+
+# --- the derived statistics: pop_variance ... halfwidth ---------------------
+# Same formulas, same operation order: the moments' ratios and roots
+# within 64 ulp (the inputs' own 16-ulp bound, divided and raised to
+# 1.5 or 2); ndtri and t_quantile within 1e-12 relative in f64 and 1e-6
+# in f32 (XLA evaluates Cephes' rational functions with its own log and
+# sqrt).
+
+P_GRID = (0.9, 0.95, 0.975, 0.995)
+DOF_GRID = (1.0, 2.0, 3.0, 4.0, 9.0, 30.0, 1e3, 1e6)
+Q_TOL = {"f64": 1e-12, "f32": 1e-6}
+
+
+@pytest.mark.parametrize("prof,dt", [("f64", np.float64), ("f32", np.float32)])
+def test_derived_statistics(prof, dt):
+    rng = np.random.default_rng(11)
+    x = rng.lognormal(0.0, 0.8, size=(29, 90)).astype(dt)
+    tol = 64 * np.finfo(dt).eps
+    with jconfig.profile(prof), tconfig.profile(prof):
+        a, b = _jax_adds(x), _torch_adds(x)
+        for f in ("variance", "pop_variance", "stddev", "skewness",
+                  "kurtosis", "halfwidth"):
+            want = np.asarray(getattr(jsm, f)(a))
+            got = getattr(tsm, f)(b).numpy()
+            assert got.dtype == want.dtype == dt, f
+            np.testing.assert_allclose(got, want, rtol=tol, err_msg=f)
+        for c in (0.9, 0.99):
+            np.testing.assert_allclose(
+                tsm.halfwidth(b, c).numpy(), np.asarray(jsm.halfwidth(a, c)),
+                rtol=max(tol, Q_TOL[prof]))
+
+
+@pytest.mark.parametrize("prof,dt", [("f64", np.float64), ("f32", np.float32)])
+def test_t_quantile_over_the_grid(prof, dt):
+    with jconfig.profile(prof), tconfig.profile(prof):
+        for p in P_GRID:
+            for v in DOF_GRID:
+                want = float(jsm.t_quantile(p, v))
+                got = tsm.t_quantile(p, v)
+                assert got.dtype == torch.from_numpy(np.zeros(1, dt)).dtype
+                assert abs(float(got) - want) <= Q_TOL[prof] * abs(want), (
+                    p, v)
+        # ndtri itself over the whole p-grid, tails and edges included
+        # (the smallest p a normal number of the dtype: XLA flushes
+        # subnormal inputs to zero on the CPU)
+        ps = np.concatenate([np.array([0.0, 1e-300 if dt == np.float64
+                                       else 1e-37, 1e-20, 1e-8, 0.1,
+                                       0.5, 0.8646, 0.9, 1 - 1e-7, 1.0]),
+                             np.linspace(0.001, 0.999, 97)]).astype(dt)
+        from jax.scipy.special import ndtri
+
+        want = np.asarray(ndtri(jnp.asarray(ps)))
+        got = tsm.ndtri(torch.from_numpy(ps)).numpy()
+        fin = np.isfinite(want)
+        assert np.array_equal(fin, np.isfinite(got))
+        assert np.array_equal(want[~fin], got[~fin])
+        np.testing.assert_allclose(got[fin], want[fin], rtol=Q_TOL[prof],
+                                   atol=Q_TOL[prof])
+
+
+def test_halfwidth_edges():
+    with tconfig.profile("f64"):
+        one = tsm.add(tsm.empty((3,), device="cpu"), torch.tensor(
+            [1.0, 2.0, 3.0], dtype=torch.float64))
+        assert bool(torch.isinf(tsm.halfwidth(one)).all())
+        assert bool(torch.isinf(tsm.halfwidth(tsm.empty((), device="cpu"))))
+        two = tsm.add(one, torch.tensor([2.0, 2.0, 5.0], dtype=torch.float64))
+        hw = tsm.halfwidth(two)
+        assert bool(torch.isfinite(hw).all()) and float(hw[1]) == 0.0
+        for bad in (0.0, 1.0, -0.5, 1.5):
+            with pytest.raises(ValueError, match="confidence"):
+                tsm.halfwidth(two, bad)
