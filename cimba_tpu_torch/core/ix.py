@@ -41,6 +41,33 @@ def add(arr, i, dv, pred=True):
     return put(arr, i, get(arr, i) + dv, pred)
 
 
+def get2(arr, i, j):
+    """``arr[l, i[l], j[l]]`` of an ``[L, N, M]`` table (parity:
+    ``dyn.dget2``)."""
+    m = arr.shape[2]
+    return get(arr.reshape(arr.shape[0], -1), _flat2(i, j, m, arr.device))
+
+
+def put2(arr, i, j, v, pred=True):
+    """``arr[l, i[l], j[l]] = v[l]`` where ``pred[l]`` (parity:
+    ``dyn.dset2``)."""
+    m = arr.shape[2]
+    flat = put(arr.reshape(arr.shape[0], -1), _flat2(i, j, m, arr.device),
+               v, pred)
+    return flat.reshape(arr.shape)
+
+
+def add2(arr, i, j, dv, pred=True):
+    """``arr[l, i[l], j[l]] += dv`` where ``pred[l]``."""
+    return put2(arr, i, j, get2(arr, i, j) + dv, pred)
+
+
+def _flat2(i, j, m, device):
+    i = torch.as_tensor(i, device=device).to(torch.int64)
+    j = torch.as_tensor(j, device=device).to(torch.int64)
+    return i * m + j
+
+
 def first_true(mask):
     """Lowest True index along axis 1 (``mask.shape[1]`` when none)."""
     n = mask.shape[1]

@@ -6,18 +6,22 @@ whose Pallas body ``_kernel_body`` advances every live lane by up to
 hand-written CUDA kernel specialised to one spec, in place on the Sim's
 tensors:
 
-* ``csrc/queue_chunk.cu`` — the object-queue models, one thread per
-  lane, the lane's state in registers: the fused-verb single-queue
-  cycle that ``models.mm1.build`` and ``models.mmc.build(c)`` share, the
-  same cycle with lognormal service (``models.mg1.build``) and the
-  two-station network ``models.tandem.build``; instances for (family,
-  servers, queue recording) in :data:`QUEUE_INSTANCES`;
+* ``csrc/queue_chunk.cu`` — the models of the templated single-queue
+  engine, one thread per lane, the lane's state in registers: the
+  fused-verb single-queue cycle that ``models.mm1.build`` and
+  ``models.mmc.build(c)`` share, the same cycle with lognormal service
+  (``models.mg1.build``), the two-station network
+  ``models.tandem.build``, and the job shop ``models.jobshop.build``
+  (a resource pool, a buffer and a condition, no object queue);
+  instances for (family, servers, recording) in
+  :data:`QUEUE_INSTANCES`;
 * ``csrc/awacs_chunk.cu`` — the AWACS target legs
   (``models.awacs.build(n)``), 16 threads a lane, the per-pid columns in
   device memory; and its boundary round, the dwell kernel (a warp a
   lane).
 
-Five model families in all: M/M/1, M/M/c, M/G/1, tandem and AWACS.
+Six model families in all: M/M/1, M/M/c, M/G/1, tandem, the job shop
+and AWACS.
 :func:`make_kernel_run` refuses any other spec rather than switching to
 the plain engine.  On CPU tensors the chunk is the plain engine,
 ``loop.make_run(spec, max_steps=chunk_steps, defer_boundary=True)`` —
@@ -52,7 +56,7 @@ from cimba_tpu_torch.core.model import ModelSpec
 # dtype role and per-lane shape; roles: T time/real, I int32, B
 # u32-in-int64 word, ? bool, C event count.  Shapes name the spec's dims:
 # P processes, E event slots, G guards, Q queues, W ring width, F/N
-# float/int locals, X targets.
+# float/int locals, X targets, K resource pools, V buffers.
 _HEAD = (
     ("clock", "T", ()), ("rep", "I", ()),
     ("rng.key0", "B", ()), ("rng.key1", "B", ()),
@@ -82,12 +86,27 @@ _TAIL = (
 _SUMMARY = tuple((f"{{}}.{f}", "T", ()) for f in
                  ("n", "w", "mn", "mx", "m1", "m2", "m3", "m4"))
 
+
+def _acc(part: str, dim: str) -> tuple:
+    """A component's StepAccum leaves (``Sim.<part>.acc``), one row per
+    component of dimension ``dim``."""
+    return tuple((f"{part}.acc.summary.{f}", "T", (dim,)) for f in
+                 ("n", "w", "mn", "mx", "m1", "m2", "m3", "m4")) + (
+        (f"{part}.acc.last_t", "T", (dim,)),
+        (f"{part}.acc.last_v", "T", (dim,)),
+        (f"{part}.acc.started", "?", (dim,)),
+    )
+
+
 #: the queue's StepAccum (``Sim.queues.acc``), one row per queue
-_ACC = tuple((f"queues.acc.summary.{f}", "T", ("Q",)) for f in
-             ("n", "w", "mn", "mx", "m1", "m2", "m3", "m4")) + (
-    ("queues.acc.last_t", "T", ("Q",)), ("queues.acc.last_v", "T", ("Q",)),
-    ("queues.acc.started", "?", ("Q",)),
-)
+_ACC = _acc("queues", "Q")
+#: the resource pools' and buffers' leaves (``Sim.pools``,
+#: ``Sim.buffers``), their recording accumulators included
+_POOLS = (
+    ("pools.level", "T", ("K",)), ("pools.held", "T", ("K", "P")),
+    ("pools.held_seq", "I", ("K", "P")), ("pools.next_seq", "I", ("K",)),
+) + _acc("pools", "K")
+_BUFFERS = (("buffers.level", "T", ("V",)),) + _acc("buffers", "V")
 
 
 def _summary(key: str) -> tuple:
@@ -95,11 +114,13 @@ def _summary(key: str) -> tuple:
 
 
 def _scalars(*keys: str) -> tuple:
-    return tuple((f"user.{k}", "I" if k == "n_objects" else "T", ())
+    return tuple((f"user.{k}",
+                  "I" if k in ("n_objects", "n_jobs", "maintenance_runs")
+                  else "T", ())
                  for k in keys)
 
 
-#: the user leaves of each model family of the object-queue kernel, in
+#: the user leaves of each model family of the single-queue engine, in
 #: sorted key order
 _USER = {
     "mm": _scalars("arr_mean", "n_objects", "srv_mean") + _summary("wait"),
@@ -108,6 +129,8 @@ _USER = {
     "tandem": (_scalars("arr_mean", "n_objects", "p_back", "s1_mean",
                         "s2_mean")
                + _summary("w1") + _summary("w2") + _summary("wait")),
+    "shop": (_scalars("arr_mean") + _summary("done")
+             + _scalars("maintenance_runs", "n_jobs", "work_mean")),
 }
 #: the user state's keys a family's spec must have (from its user_init)
 _USER_KEYS = {f: tuple(sorted({n.split(".")[1] for n, _, _ in leaves}))
@@ -116,22 +139,26 @@ _USER_KEYS = {f: tuple(sorted({n.split(".")[1] for n, _, _ in leaves}))
 
 @functools.lru_cache(maxsize=None)
 def queue_leaves(family: str, record: bool) -> tuple:
-    """The object-queue kernel's leaves for a model ``family`` ("mm",
-    "mg1" or "tandem"), with the queues' recording accumulators when
-    ``record``."""
+    """The single-queue engine's leaves for a model ``family`` ("mm",
+    "mg1", "tandem" or "shop"), with the queues' recording accumulators
+    when ``record``; the job shop has no object queue, and its pool's
+    and buffer's leaves (always recording) in their place."""
+    if family == "shop":
+        return _HEAD + _POOLS + _BUFFERS + _USER[family] + _TAIL
     return _HEAD + (
         ("queues.items", "T", ("Q", "W")), ("queues.head", "I", ("Q",)),
         ("queues.size", "I", ("Q",)),
     ) + (_ACC if record else ()) + _USER[family] + _TAIL
 
 
-#: (family, servers, queue recording) of the object-queue kernel's
-#: instances: mm1.build(record=False); mm1.build() and mmc.build(1);
+#: (family, servers, recording) of the single-queue engine's instances:
+#: mm1.build(record=False); mm1.build() and mmc.build(1);
 #: mmc.build(2..4); mg1.build() (lognormal service); tandem.build() (two
-#: servers, two recording queues)
+#: servers, two recording queues); jobshop.build() (two stage-B
+#: processes; a recording pool and buffer)
 QUEUE_INSTANCES = (("mm", 1, False), ("mm", 1, True), ("mm", 2, True),
                    ("mm", 3, True), ("mm", 4, True), ("mg1", 1, True),
-                   ("tandem", 2, True))
+                   ("tandem", 2, True), ("shop", 2, True))
 
 #: the AWACS kernel's leaves (no queues; user keys in sorted order)
 AWACS_LEAVES = _HEAD + _summary("detections") + (
@@ -160,13 +187,14 @@ def _user_keys(spec: ModelSpec, arity: int):
 
 def _queue_family(spec: ModelSpec):
     """``(family, servers, record)`` when ``spec`` is a model the
-    object-queue kernel restates: the fused-verb single-queue cycle of
+    single-queue engine restates: the fused-verb single-queue cycle of
     ``models.mm1`` or ``models.mmc`` (family "mm", one arrival and
     ``servers`` service processes) or of ``models.mg1`` (lognormal
-    service), or the network of ``models.tandem``; else None.  A family
-    is told by the blocks' module and the user state's keys, not by the
-    block names alone (mg1 shares mm1's)."""
-    from cimba_tpu_torch.models import mg1, mm1, mmc, tandem
+    service), the network of ``models.tandem``, or the job shop of
+    ``models.jobshop`` (family "shop"); else None.  A family is told by
+    the blocks' module and the user state's keys, not by the block names
+    alone (mg1 shares mm1's)."""
+    from cimba_tpu_torch.models import jobshop, mg1, mm1, mmc, tandem
 
     names = tuple(getattr(b, "__name__", "") for b in spec.blocks)
     mods = frozenset(getattr(b, "__module__", "") for b in spec.blocks)
@@ -174,6 +202,25 @@ def _queue_family(spec: ModelSpec):
             or any(p != 0 for p in spec.proc_prio)):
         return None
     qs = spec.queues
+    if names == jobshop.BLOCK_NAMES:
+        pools, bufs, conds = spec.pools, spec.buffers, spec.conditions
+        ok = (
+            mods == {jobshop.__name__}
+            and list(spec.proc_entry) == [0, 4, 4, 7]
+            and not qs and len(pools) == len(bufs) == len(conds) == 1
+            and spec.n_guards == 4
+            # the guards in the order the model allots them: the buffer's
+            # front and rear, the pool's, the condition's (observing the
+            # buffer's two)
+            and (bufs[0].front_guard, bufs[0].rear_guard, pools[0].guard,
+                 conds[0].guard, conds[0].observes) == (0, 1, 2, 3, (0, 1))
+            and pools[0].record and bufs[0].record
+            and set(spec.constants) >= {"backlog", "b_slow"}
+            and _user_keys(spec, 3) == _USER_KEYS["shop"]
+        )
+        return ("shop", 2, True) if ok else None
+    if spec.pools or spec.buffers or spec.conditions:
+        return None
     if names == mm1.BLOCK_NAMES == mmc.BLOCK_NAMES == mg1.BLOCK_NAMES:
         family = {frozenset({mm1.__name__}): "mm",
                   frozenset({mmc.__name__}): "mm",
@@ -222,18 +269,21 @@ def _is_awacs(spec: ModelSpec) -> bool:
 
 def _refuse(spec: ModelSpec):
     raise NotImplementedError(
-        f"CUDA chunk kernels exist for five model families only: the "
+        f"CUDA chunk kernels exist for six model families only: the "
         f"M/M/1 (models.mm1.build), the M/M/c (models.mmc.build(c)), the "
         f"M/G/1 (models.mg1.build), the tandem network "
-        f"(models.tandem.build) and AWACS (models.awacs.build(n)); spec "
-        f"{spec.name!r} needs a kernel of its own (ROADMAP.md, queue B)"
+        f"(models.tandem.build), the job shop (models.jobshop.build) and "
+        f"AWACS (models.awacs.build(n)); spec {spec.name!r} needs a kernel "
+        f"of its own (ROADMAP.md, queue B)"
     )
 
 
 def queue_layout(spec: ModelSpec) -> dict:
-    """The static shape the object-queue chunk kernel needs: the model
+    """The static shape the single-queue chunk kernel needs: the model
     ``family``, the server count ``NS`` and recording flag ``REC`` select
-    its instance; per queue its capacity and guards.  Raises
+    its instance; per queue its capacity and guards (the job shop: its
+    pool's and buffer's counts ``K``, ``V`` and capacities, and its
+    ``backlog`` and ``b_slow``).  Raises
     NotImplementedError when ``spec`` is none of the families, or has a
     server count no instance serves."""
     shape = _queue_family(spec)
@@ -250,13 +300,22 @@ def queue_layout(spec: ModelSpec) -> dict:
             "(csrc/queue_chunk.cu)")
     family, ns, rec = shape
     qs = spec.queues
-    return dict(family=family, NS=ns, REC=rec, E=spec.event_cap,
-                P=spec.n_procs, G=spec.n_guards, Q=len(qs),
-                W=spec.queue_cap_max, F=max(spec.n_flocals, 1),
-                N=max(spec.n_ilocals, 1),
-                caps=tuple(q.capacity for q in qs),
-                fronts=tuple(q.front_guard for q in qs),
-                rears=tuple(q.rear_guard for q in qs))
+    lay = dict(family=family, NS=ns, REC=rec, E=spec.event_cap,
+               P=spec.n_procs, G=spec.n_guards, Q=len(qs),
+               W=spec.queue_cap_max, F=max(spec.n_flocals, 1),
+               N=max(spec.n_ilocals, 1),
+               caps=tuple(q.capacity for q in qs),
+               fronts=tuple(q.front_guard for q in qs),
+               rears=tuple(q.rear_guard for q in qs))
+    if family == "shop":
+        # the pool's and the buffer's capacities and the blocks' build
+        # constants, which the kernel takes as arguments
+        lay.update(K=len(spec.pools), V=len(spec.buffers),
+                   pool_cap=spec.pools[0].capacity,
+                   buf_cap=spec.buffers[0].capacity,
+                   backlog=float(spec.constants["backlog"]),
+                   b_slow=float(spec.constants["b_slow"]))
+    return lay
 
 
 def awacs_layout(spec: ModelSpec) -> dict:
@@ -320,7 +379,8 @@ def _launch(lib_name: str, entry: str, table, sims: loop.Sim, lay: dict,
 
 
 def _chunk_args(shape_args, chunk_steps: int, t_end: Optional[float]):
-    return ([(ctypes.c_int, a) for a in shape_args]
+    return ([(ctypes.c_double if isinstance(a, float) else ctypes.c_int, a)
+             for a in shape_args]
             + [(ctypes.c_int, chunk_steps),
                (ctypes.c_int, int(t_end is not None)),
                (ctypes.c_double,
@@ -328,11 +388,16 @@ def _chunk_args(shape_args, chunk_steps: int, t_end: Optional[float]):
 
 
 def queue_entry(lay: dict) -> tuple:
-    """``(entry, shape)``: the C entry of the object-queue kernel's
-    instance for ``lay`` (``cimba_<entry>_<f32|f64>``) and the integers
-    of its shape that it takes after the lane count."""
+    """``(entry, shape)``: the C entry of the single-queue engine's
+    instance for ``lay`` (``cimba_<entry>_<f32|f64>``) and the numbers
+    of its shape that it takes after the lane count (ints, and for the
+    job shop floats, which go as doubles)."""
     q = tuple(x for cfg in zip(lay["caps"], lay["fronts"], lay["rears"])
               for x in cfg)
+    if lay["family"] == "shop":
+        return "shop_chunk", (lay["E"], lay["N"], float(lay["pool_cap"]),
+                              float(lay["buf_cap"]), lay["backlog"],
+                              lay["b_slow"])
     if lay["family"] == "mm":
         return "queue_chunk", (lay["NS"], int(lay["REC"]), lay["E"],
                                lay["W"]) + q + (lay["N"],)
@@ -341,7 +406,7 @@ def queue_entry(lay: dict) -> tuple:
 
 def queue_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
                 t_end: Optional[float] = None) -> loop.Sim:
-    """Launch the object-queue chunk kernel's instance for ``lay``
+    """Launch the single-queue chunk kernel's instance for ``lay``
     (:func:`queue_layout`) on a lane-first Sim on the card: every live
     lane advances by up to ``chunk_steps`` events, IN PLACE (the Sim's
     tensors are the kernel's inputs and outputs, as the Pallas call

@@ -24,12 +24,16 @@ boundary block (``Model.boundary_block``) freezes with
 loop to step between chunks.  Off (the default), the engine is the
 reference's XLA path and ignores the marker.
 
-Ported subset: the commands mm1, mmc and awacs issue — hold, exit,
-jump, and the object-queue put/get with their fused ``*_hold`` verbs and
-queue-length recording — with the guard pend/retry protocol, boundary
-blocks, failure codes and ``api.stop``.  Other commands fail
-the replication with ERR_USER, as the reference's unknown-tag handler
-does.
+Ported subset: hold, exit, jump; the object-queue put/get with their
+fused ``*_hold`` verbs and queue-length recording; the resource pool's
+acquire (greedy, FIFO waiters, no preempt) and release, inline from a
+block too (:func:`release_pool`); the buffer's get and put with partial
+fulfilment; the condition wait, :func:`cond_signal` and observer
+forwarding (a guard signal also signals every condition that observes
+the guard); the pools' and buffers' time-weighted recording; the guard
+pend/retry protocol, boundary blocks, failure codes and ``api.stop``.
+Other commands fail the replication with ERR_USER, as the reference's
+unknown-tag handler does.
 """
 
 from __future__ import annotations
@@ -70,6 +74,19 @@ class Queues(NamedTuple):
     size: torch.Tensor   # [L, NQ] i32
     acc: Any = None      # StepAccum, leaves [L, NQ]: queue-length
                          # recording (None unless some queue records)
+
+
+class Pools(NamedTuple):
+    level: torch.Tensor     # [L, NP] REAL units available
+    held: torch.Tensor      # [L, NP, P] REAL units each process holds
+    held_seq: torch.Tensor  # [L, NP, P] i32 grab order
+    next_seq: torch.Tensor  # [L, NP] i32
+    acc: Any = None         # StepAccum, leaves [L, NP]: units in use
+
+
+class Buffers(NamedTuple):
+    level: torch.Tensor  # [L, NB] REAL stored amount
+    acc: Any = None      # StepAccum, leaves [L, NB]: the level
 
 
 class Sim(NamedTuple):
@@ -149,6 +166,11 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=dev)
 
+    np_, nb = len(spec.pools), len(spec.buffers)
+    buf_init = torch.tensor([b.initial for b in spec.buffers] or [0.0],
+                            dtype=real, device=dev).expand(
+                                lanes, max(nb, 1)).contiguous()
+
     return Sim(
         clock=torch.full((lanes,), float(t0), dtype=tdt, device=dev),
         rep=reps.to(INDEX),
@@ -165,8 +187,23 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
             if any(q.record for q in spec.queues) else None,
         ) if spec.queues else None,
         resources=None,
-        pools=None,
-        buffers=None,
+        pools=Pools(
+            level=torch.tensor([pl.capacity for pl in spec.pools],
+                               dtype=real, device=dev)
+            .expand(lanes, np_).contiguous(),
+            held=zeros((lanes, np_, n), real),
+            held_seq=zeros((lanes, np_, n), INDEX),
+            next_seq=zeros((lanes, np_), INDEX),
+            acc=ts.step_create(t0, 0.0, (lanes, np_), dev, real)
+            if any(pl.record for pl in spec.pools) else None,
+        ) if spec.pools else None,
+        buffers=Buffers(
+            level=buf_init,
+            # the recorded level starts at each buffer's initial level
+            acc=ts.step_create(t0, 0.0, (lanes, nb), dev, real)._replace(
+                last_v=buf_init.clone())
+            if any(b.record for b in spec.buffers) else None,
+        ) if spec.buffers else None,
         pqueues=None,
         user=user,
         done=zeros((lanes,), torch.bool),
@@ -237,9 +274,12 @@ def _schedule_wake(sim: Sim, pred, p, sig, t=None) -> Sim:
     return _set_err(sim, armed & ~ok, ERR_EVENT_OVERFLOW)
 
 
-def _guard_signal(sim: Sim, gid, pred=True) -> Sim:
+def _guard_signal(sim: Sim, gid, pred=True, spec=None) -> Sim:
     """Wake the best waiter of guard ``gid`` (if any) with SUCCESS at the
-    current time; ``pred`` gates the whole signal."""
+    current time; ``pred`` gates the whole signal.  With ``spec``, every
+    condition that observes ``gid`` is then signalled too, under the
+    same ``pred`` (parity: the reference's observer forwarding,
+    cmb_resourceguard_register)."""
     pid, found = gd.best_waiter(
         sim.procs.pend_guard, sim.procs.pend_seq, sim.procs.prio, gid
     )
@@ -247,7 +287,59 @@ def _guard_signal(sim: Sim, gid, pred=True) -> Sim:
     p = pid.clamp(min=0)
     sim = sim._replace(procs=sim.procs._replace(
         pend_guard=ix.put(sim.procs.pend_guard, p, -1, woke)))
-    return _schedule_wake(sim, woke, p, pr.SUCCESS)
+    sim = _schedule_wake(sim, woke, p, pr.SUCCESS)
+    if spec is not None:
+        for c in spec.conditions:
+            if not c.observes:
+                continue
+            if isinstance(gid, int):
+                if gid not in c.observes:
+                    continue
+                fire = pred
+            else:
+                fire = torch.isin(gid, torch.tensor(c.observes, dtype=INDEX,
+                                                    device=gid.device))
+                if pred is not True:
+                    fire = fire & pred
+            sim = cond_signal(spec, sim, c.id, pred=fire)
+    return sim
+
+
+def _cond_satisfied(spec: ModelSpec, sim: Sim, cid, p):
+    """Condition ``cid``'s predicate for the ``[L]`` pids ``p``, as an
+    ``[L]`` bool; a tensor ``cid`` selects each lane's condition."""
+    lanes = sim.clock.shape[0]
+
+    def one(c):
+        return torch.as_tensor(c.predicate(sim, p),
+                               device=sim.clock.device).expand(lanes)
+
+    if isinstance(cid, int):
+        return one(spec.conditions[cid])
+    cid = cid.clamp(0, len(spec.conditions) - 1)
+    out = torch.zeros((lanes,), dtype=torch.bool, device=sim.clock.device)
+    for c in spec.conditions:
+        out = torch.where(cid == c.id, one(c), out)
+    return out
+
+
+def cond_signal(spec: ModelSpec, sim: Sim, cid: int, pred=True) -> Sim:
+    """Signal condition ``cid``: every waiter whose predicate holds wakes
+    with SUCCESS, in pid order (parity: cmb_condition_signal's wake-all;
+    the woken retry checks the predicate again).  ``pred`` gates the
+    whole signal."""
+    c = spec.conditions[cid]
+    lanes, dev = sim.clock.shape[0], sim.clock.device
+    for q in range(spec.n_procs):
+        qv = torch.full((lanes,), q, dtype=INDEX, device=dev)
+        wake = (sim.procs.pend_guard[:, q] == c.guard) & \
+            _cond_satisfied(spec, sim, cid, qv)
+        if pred is not True:
+            wake = wake & pred
+        sim = sim._replace(procs=sim.procs._replace(
+            pend_guard=ix.put(sim.procs.pend_guard, qv, -1, wake)))
+        sim = _schedule_wake(sim, wake, qv, pr.SUCCESS)
+    return sim
 
 
 def _guard_wait(sim: Sim, p, gid, cmd: pr.Command, is_retry, pred) -> Sim:
@@ -296,10 +388,82 @@ def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
         time=torch.where(hit, ev.NEVER, es.time),
         gen=es.gen + hit.to(INDEX),
     ))
-    return sim._replace(procs=sim.procs._replace(
+    sim = sim._replace(procs=sim.procs._replace(
         status=ix.put(sim.procs.status, p, pr.FINISHED, pred),
         exit_sig=ix.put(sim.procs.exit_sig, p, exit_sig, pred),
     ))
+    # pool units p still holds return to their pools
+    p_rec = [pl.record for pl in spec.pools]
+    for k, pl in enumerate(spec.pools):
+        po = sim.pools
+        amt = ix.get2(po.held, k, p)
+        has = (amt > 0.0) & pred
+        in_use = (torch.tensor(pl.capacity, dtype=po.level.dtype,
+                               device=po.level.device)
+                  - (po.level[:, k] + amt))
+        sim = sim._replace(pools=po._replace(
+            level=ix.add(po.level, k, amt, has),
+            held=ix.put2(po.held, k, p, 0.0, has),
+            acc=_record_if(p_rec, po.acc, k, sim.clock, in_use, has),
+        ))
+        sim = _guard_signal(sim, pl.guard, pred=has, spec=spec)
+    return sim
+
+
+def release_pool(spec: ModelSpec, sim: Sim, p, k, amount, pred=True) -> Sim:
+    """Release ``amount`` units of pool ``k`` held by ``p`` (partial
+    release allowed; parity: cmb_resourcepool_release): the body of the
+    C_POOL_REL handler, also called inline from a block
+    (``api.pool_release``: a release never blocks, so it takes no chain
+    iteration).  Releasing more than ``p`` holds, beyond a tolerance at
+    the profile's resolution, fails the replication with
+    ERR_BAD_RELEASE."""
+    po = sim.pools
+    dt, dev = po.level.dtype, po.level.device
+    lanes, npool = po.level.shape
+    k = torch.as_tensor(k, dtype=INDEX, device=dev).clamp(0, npool - 1)
+    k = k.expand(lanes) if k.dim() == 0 else k
+    amount = torch.as_tensor(amount, dtype=dt, device=dev).expand(lanes)
+    held = ix.get2(po.held, k, p)
+    amt = torch.minimum(amount, held)
+    # held amounts accumulate in REAL, so ownership is checked with a
+    # tolerance at REAL's resolution, floored at 1e-12
+    tol = torch.maximum(
+        64.0 * float(torch.finfo(dt).eps)
+        * torch.maximum(torch.ones_like(amount), amount.abs()),
+        torch.tensor(1e-12, dtype=dt, device=dev))
+    owner_ok = held >= amount - tol
+    cap = _table(spec.pools, "capacity", dev, dt)[k.long()]
+    in_use = cap - (ix.get(po.level, k) + amt)
+    sim = sim._replace(pools=po._replace(
+        level=ix.add(po.level, k, amt, pred),
+        held=ix.add2(po.held, k, p, -amt, pred),
+        acc=_record_if([pl.record for pl in spec.pools], po.acc, k,
+                       sim.clock, in_use, pred),
+    ))
+    guard = _table(spec.pools, "guard", dev)[k.long()]
+    sim = _guard_signal(sim, guard, pred=pred, spec=spec)
+    bad = ~owner_ok if pred is True else ~owner_ok & pred
+    return _set_err(sim, bad, ERR_BAD_RELEASE)
+
+
+def _table(refs, attr, dev, dt=INDEX):
+    """A component attribute (``capacity``, ``guard``, ...) of each of
+    ``refs`` as a tensor, to index by a lane's component id."""
+    return torch.tensor([getattr(r, attr) for r in refs] or [0], dtype=dt,
+                        device=dev)
+
+
+def _record_if(flags, acc, row, t, v, pred):
+    """:func:`_record_row` on the accumulator rows whose component
+    records (``flags``, one a row); nothing when none does."""
+    if acc is None or not any(flags):
+        return acc
+    if not all(flags):
+        on = torch.tensor(flags, device=t.device)
+        gate = on[row] if isinstance(row, int) else on[row.long()]
+        pred = gate if pred is True else gate & pred
+    return _record_row(acc, row, t, v, pred)
 
 
 def _record_row(acc: ts.StepAccum, row, t, v, pred) -> ts.StepAccum:
@@ -320,6 +484,8 @@ def _make_apply(spec: ModelSpec):
     q_front = [q.front_guard for q in spec.queues] or [0]
     q_rear = [q.rear_guard for q in spec.queues] or [0]
     q_rec = [q.record for q in spec.queues] or [False]
+    p_rec = [pl.record for pl in spec.pools]
+    b_rec = [b.record for b in spec.buffers]
 
     def set_pc(sim, p, pc, pred):
         return sim._replace(procs=sim.procs._replace(
@@ -366,14 +532,10 @@ def _make_apply(spec: ModelSpec):
                            torch.zeros((), dtype=flat.dtype, device=dev))
         flat2 = ix.put(flat, slot, cmd.f, ok & is_put)
         dsz = torch.where(is_put, 1, -1).to(INDEX)
-        acc = q.acc
-        if acc is not None and any(q_rec):
-            # the length after the verb, from the clock on, gated by the
-            # same ok as the size write (and by the queue's own flag)
-            rec = ok if all(q_rec) else ok & torch.tensor(
-                q_rec, device=dev)[qid]
-            acc = _record_row(acc, qid, sim.clock,
-                              (size + dsz).to(flat.dtype), rec)
+        # the length after the verb, from the clock on, gated by the same
+        # ok as the size write (and by the queue's own flag)
+        acc = _record_if(q_rec, q.acc, qid, sim.clock,
+                         (size + dsz).to(flat.dtype), ok)
         sim = sim._replace(
             queues=q._replace(
                 items=flat2.reshape(q.items.shape),
@@ -384,14 +546,113 @@ def _make_apply(spec: ModelSpec):
             procs=sim.procs._replace(
                 got=ix.put(sim.procs.got, p, item, ok_get)),
         )
-        sim = _guard_signal(sim, rear, pred=ok_get)
-        sim = _guard_signal(sim, front, pred=ok)
+        sim = _guard_signal(sim, rear, pred=ok_get, spec=spec)
+        sim = _guard_signal(sim, front, pred=ok, spec=spec)
         sim = _schedule_wake(sim, fused & ok, p, pr.SUCCESS,
                              t=sim.clock + _nanmax0(cmd.f3))
         sim = set_pc(sim, p, cmd.next_pc, gate)
         sim = _guard_wait(sim, p, own_gid, cmd, is_retry,
                           pred=blocked & gate)
         return sim, blocked | fused
+
+    def h_pool_acquire(sim, p, cmd, is_retry, gate):
+        """Greedy acquire (parity: the reference's ``_pool_acquire_impl``
+        without the preempt): take what is available now, pend for the
+        rest; the pended claim is the remainder (pend_f) and the holding
+        before the call (pend_f2).  Signals the pool's guard only on
+        success, then arms the fused hold."""
+        po = sim.pools
+        dev, dt = gate.device, po.level.dtype
+        k = cmd.i.clamp(0, len(spec.pools) - 1)
+        kl = k.long()
+        rem = cmd.f
+        init_held = torch.where(is_retry, ix.get(sim.procs.pend_f2, p),
+                                ix.get2(po.held, k, p))
+        level = ix.get(po.level, k)
+        take = torch.minimum(torch.maximum(rem, torch.zeros_like(rem)),
+                             level)
+        # the grab order is stamped on a holder's first units
+        fresh = (ix.get2(po.held, k, p) <= 0.0) & gate
+        po = po._replace(
+            held_seq=ix.put2(po.held_seq, k, p, ix.get(po.next_seq, k),
+                             fresh),
+            next_seq=ix.add(po.next_seq, k, 1, fresh),
+        )
+        po = po._replace(level=ix.add(po.level, k, -take, gate),
+                         held=ix.add2(po.held, k, p, take, gate))
+        rem = rem - take
+        done = rem <= 0.0
+        fused = cmd.tag == pr.C_POOL_ACQ_HOLD
+        in_use = _table(spec.pools, "capacity", dev, dt)[kl] - ix.get(
+            po.level, k)
+        po = po._replace(acc=_record_if(p_rec, po.acc, k, sim.clock, in_use,
+                                        gate))
+        sim = sim._replace(pools=po)
+        guard = _table(spec.pools, "guard", dev)[kl]
+        sim = _guard_signal(sim, guard, pred=done & gate, spec=spec)
+        sim = _schedule_wake(sim, fused & done & gate, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f3))
+        sim = set_pc(sim, p, cmd.next_pc, done & gate)
+        sim = _guard_wait(sim, p, guard, cmd._replace(f=rem, f2=init_held),
+                          is_retry, pred=~done & gate)
+        return sim, ~done | fused
+
+    def h_pool_release(sim, p, cmd, is_retry, gate):
+        sim = release_pool(spec, sim, p, cmd.i, cmd.f, pred=gate)
+        return set_pc(sim, p, cmd.next_pc, gate), torch.zeros_like(gate)
+
+    def h_buffer(sim, p, cmd, is_retry, gate):
+        """Get and put (and their fused twins) as one handler (parity:
+        the reference's ``_buffer_xfer_impl``): move what fits now and
+        wait for the rest (pend_f the remainder, pend_f2 the total).
+        Signals the other side's guard on any progress, then its own
+        side's on completion only, then arms the fused hold."""
+        bu = sim.buffers
+        dev, dt = gate.device, bu.level.dtype
+        b = cmd.i.clamp(0, len(spec.buffers) - 1)
+        bl = b.long()
+        getting = (cmd.tag == pr.C_BUF_GET) | (cmd.tag == pr.C_BUF_GET_HOLD)
+        rem = cmd.f
+        total = torch.where(is_retry, ix.get(sim.procs.pend_f2, p), cmd.f)
+        level = ix.get(bu.level, b)
+        cap = _table(spec.buffers, "capacity", dev, dt)[bl]
+        room = torch.where(getting, level, cap - level)
+        moved = torch.minimum(torch.maximum(rem, torch.zeros_like(rem)),
+                              room)
+        level2 = level + torch.where(getting, -moved, moved)
+        rem2 = rem - moved
+        done = rem2 <= 0.0
+        front = _table(spec.buffers, "front_guard", dev)[bl]
+        rear = _table(spec.buffers, "rear_guard", dev)[bl]
+        my_guard = torch.where(getting, front, rear)
+        other_guard = torch.where(getting, rear, front)
+        sim = sim._replace(buffers=bu._replace(
+            level=ix.put(bu.level, b, level2, gate),
+            acc=_record_if(b_rec, bu.acc, b, sim.clock, level2, gate),
+        ))
+        sim = _guard_signal(sim, other_guard, pred=(moved > 0.0) & gate,
+                            spec=spec)
+        sim = _guard_signal(sim, my_guard, pred=done & gate, spec=spec)
+        sim = sim._replace(procs=sim.procs._replace(
+            got=ix.put(sim.procs.got, p, total, done & gate)))
+        fused = (cmd.tag == pr.C_BUF_GET_HOLD) | (cmd.tag == pr.C_BUF_PUT_HOLD)
+        sim = _schedule_wake(sim, fused & done & gate, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f3))
+        sim = set_pc(sim, p, cmd.next_pc, gate)
+        sim = _guard_wait(sim, p, my_guard, cmd._replace(f=rem2, f2=total),
+                          is_retry, pred=~done & gate)
+        return sim, ~done | fused
+
+    def h_cond_wait(sim, p, cmd, is_retry, gate):
+        """A first issue always waits for a signal; a signalled retry
+        proceeds if the predicate holds and waits again (keeping its
+        place) if not."""
+        cid = cmd.i.clamp(0, len(spec.conditions) - 1)
+        proceed = is_retry & _cond_satisfied(spec, sim, cid, p)
+        guard = _table(spec.conditions, "guard", gate.device)[cid.long()]
+        sim = set_pc(sim, p, cmd.next_pc, gate)
+        sim = _guard_wait(sim, p, guard, cmd, is_retry, pred=~proceed & gate)
+        return sim, ~proceed
 
     def h_invalid(sim, p, cmd, is_retry, gate):
         return _set_err(sim, gate, ERR_USER), torch.ones_like(gate)
@@ -403,6 +664,14 @@ def _make_apply(spec: ModelSpec):
         (h_jump, (pr.C_JUMP,)),
         (queue, (pr.C_PUT, pr.C_GET, pr.C_PUT_HOLD, pr.C_GET_HOLD)),
     ]
+    if spec.pools:
+        table += [(h_pool_acquire, (pr.C_POOL_ACQ, pr.C_POOL_ACQ_HOLD)),
+                  (h_pool_release, (pr.C_POOL_REL,))]
+    if spec.buffers:
+        table.append((h_buffer, (pr.C_BUF_GET, pr.C_BUF_PUT,
+                                 pr.C_BUF_GET_HOLD, pr.C_BUF_PUT_HOLD)))
+    if spec.conditions:
+        table.append((h_cond_wait, (pr.C_COND_WAIT,)))
     handled = [t for _, tags in table for t in tags]
 
     def apply_command(sim, p, cmd, is_retry, active):
@@ -477,8 +746,10 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
         )
         has_pend = pend.tag != pr.NO_PEND
         sim = _clear_pend(sim, p, gate)
-        # a non-SUCCESS wake aborts the pend: its clear above is the whole
-        # abort for the ported components (no pool/buffer cleanup exists)
+        # a non-SUCCESS wake aborts the pend, and its clear above is the
+        # whole abort: no ported verb delivers one (the reference's pool
+        # rollback and buffer report on an abort, ``_abort_cleanup``,
+        # come with interrupts, timeouts and preempt)
         use_pend0 = has_pend & (sig == pr.SUCCESS)
 
         def cond(c):

@@ -16,9 +16,9 @@ a :class:`ModelSpec`.  Block registration is the reference's::
     m.process("arrival", entry=a_hold)
 
 Blocks run on every replication lane at once: ``p`` and ``sig`` are
-``[L]`` tensors.  The components the ported models do not use
-(resources, pools, buffers, priority queues, conditions, user event
-handlers, spawn pools) are still to port and raise
+``[L]`` tensors.  Object queues, resource pools, buffers and conditions
+are ported; the other components (binary resources, priority queues,
+user event handlers, spawn pools) are still to port and raise
 ``NotImplementedError`` naming the feature.
 """
 
@@ -41,6 +41,37 @@ class QueueRef:
 
 
 @dataclasses.dataclass
+class PoolRef:
+    id: int
+    name: str
+    capacity: float
+    guard: int
+    record: bool = True  # in-use StepAccum recording
+
+
+@dataclasses.dataclass
+class BufferRef:
+    id: int
+    name: str
+    capacity: float
+    initial: float
+    front_guard: int  # getters wait here
+    rear_guard: int   # putters wait here
+    record: bool = True  # level StepAccum recording
+
+
+@dataclasses.dataclass
+class ConditionRef:
+    id: int
+    name: str
+    guard: int
+    predicate: Callable  # predicate(sim, pid) -> [L] bool
+    #: guard ids this condition observes: a signal on any of them also
+    #: signals the condition (parity: cmb_resourceguard_register)
+    observes: tuple = ()
+
+
+@dataclasses.dataclass
 class ProcessType:
     name: str
     entry_pc: int
@@ -59,6 +90,9 @@ class ModelSpec:
     proc_prio: np.ndarray   # [P] i32
     proc_names: List[str]
     queues: List[QueueRef]
+    pools: List[PoolRef]
+    buffers: List[BufferRef]
+    conditions: List[ConditionRef]
     n_guards: int
     event_cap: int
     queue_cap_max: int
@@ -68,6 +102,10 @@ class ModelSpec:
     #: pcs of blocks dispatched outside the chunk kernel, between chunks
     #: (see Model.boundary_block); empty for most models
     boundary_pcs: tuple = ()
+    #: the build arguments a model's blocks close over (e.g. the job
+    #: shop's ``backlog`` and ``b_slow``), by name: a CUDA kernel that
+    #: restates the blocks takes them from here
+    constants: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n_procs(self) -> int:
@@ -97,7 +135,12 @@ class Model:
         self._blocks: List[Callable] = []
         self._types: List[ProcessType] = []
         self._queues: List[QueueRef] = []
+        self._pools: List[PoolRef] = []
+        self._buffers: List[BufferRef] = []
+        self._conditions: List[ConditionRef] = []
         self._n_guards = 0
+        #: see ModelSpec.constants
+        self.constants: dict = {}
         self._user_init: Optional[Callable] = None
         self._boundary_pcs: List[int] = []
 
@@ -139,17 +182,57 @@ class Model:
     def resource(self, *a, **k):
         _not_ported("resources")
 
-    def resourcepool(self, *a, **k):
-        _not_ported("resource pools")
+    def resourcepool(self, name: str, capacity: float,
+                     record: bool = True) -> PoolRef:
+        """Counting resource of ``capacity`` fungible units (parity:
+        cmb_resourcepool); with ``record`` the engine keeps the units in
+        use as a time-weighted series (``Sim.pools.acc``)."""
+        p = PoolRef(id=len(self._pools), name=name,
+                    capacity=float(capacity), guard=self._guard(),
+                    record=record)
+        self._pools.append(p)
+        return p
 
-    def buffer(self, *a, **k):
-        _not_ported("buffers")
+    def buffer(self, name: str, capacity: float, initial: float = 0.0,
+               record: bool = True) -> BufferRef:
+        """Producer-consumer store of a fungible amount (parity:
+        cmb_buffer); with ``record`` the engine keeps its level as a
+        time-weighted series (``Sim.buffers.acc``)."""
+        b = BufferRef(id=len(self._buffers), name=name,
+                      capacity=float(capacity), initial=float(initial),
+                      front_guard=self._guard(), rear_guard=self._guard(),
+                      record=record)
+        self._buffers.append(b)
+        return b
 
     def priorityqueue(self, *a, **k):
         _not_ported("priority queues")
 
-    def condition(self, *a, **k):
-        _not_ported("conditions")
+    def condition(self, name: str, predicate: Callable,
+                  observes=()) -> ConditionRef:
+        """Condition variable: processes wait until ``predicate(sim,
+        pid)`` (an ``[L]`` bool for the ``[L]`` pid tensor) holds at a
+        signal (parity: cmb_condition).  ``observes`` lists components
+        (queues, pools, buffers) whose guard signals also signal this
+        condition, so the model need not call ``api.cond_signal`` where
+        they change (parity: cmb_resourceguard_register)."""
+        gids = []
+        for comp in observes:
+            found = False
+            for attr in ("guard", "front_guard", "rear_guard"):
+                g = getattr(comp, attr, None)
+                if g is not None:
+                    gids.append(g)
+                    found = True
+            if not found:
+                raise TypeError(
+                    f"condition {name!r}: observes entry {comp!r} has no "
+                    "guard — pass component refs (queue/pool/buffer)")
+        c = ConditionRef(id=len(self._conditions), name=name,
+                         guard=self._guard(), predicate=predicate,
+                         observes=tuple(gids))
+        self._conditions.append(c)
+        return c
 
     def handler(self, *a, **k):
         _not_ported("user event handlers")
@@ -192,6 +275,9 @@ class Model:
             proc_prio=np.asarray(prios, np.int32),
             proc_names=names,
             queues=list(self._queues),
+            pools=list(self._pools),
+            buffers=list(self._buffers),
+            conditions=list(self._conditions),
             n_guards=max(self._n_guards, 1),
             event_cap=self.event_cap,
             queue_cap_max=max([q.capacity for q in self._queues], default=1),
@@ -199,4 +285,5 @@ class Model:
             n_ilocals=self.n_ilocals,
             user_init=self._user_init,
             boundary_pcs=tuple(self._boundary_pcs),
+            constants=dict(self.constants),
         )

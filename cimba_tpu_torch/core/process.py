@@ -4,9 +4,12 @@ Counterpart of :mod:`cimba_tpu.core.process`.  Signal codes, statuses and
 command tags keep the reference's values (the CUDA kernel and the state
 carried across by :mod:`cimba_tpu_torch.interop` rely on them).  A
 command's fields are tensors over the replication lanes or plain Python
-numbers; the engine broadcasts them.  The port implements the handlers
-mm1 reaches (hold, exit, jump and the object-queue verbs with their fused
-``*_hold`` twins); the constructors of the other verbs are still to port.
+numbers; the engine broadcasts them.  The port implements hold, exit,
+jump, the object-queue verbs, the resource-pool acquire and release, the
+buffer get and put (each blocking verb with its fused ``*_hold`` twin)
+and the condition wait; the constructors of the other verbs (resources,
+preempt, priority queues, waits on processes and events) are still to
+port.
 """
 
 from __future__ import annotations
@@ -37,8 +40,16 @@ C_EXIT = 1
 C_JUMP = 2
 C_PUT = 3
 C_GET = 4
+C_POOL_ACQ = 8
+C_POOL_REL = 9
+C_BUF_GET = 10
+C_BUF_PUT = 11
+C_COND_WAIT = 14
 C_PUT_HOLD = 18
 C_GET_HOLD = 19
+C_POOL_ACQ_HOLD = 22
+C_BUF_GET_HOLD = 24
+C_BUF_PUT_HOLD = 25
 N_COMMANDS = 28
 
 #: no pending command
@@ -93,6 +104,57 @@ def put_hold(queue, item, duration, next_pc) -> Command:
 def get_hold(queue, duration, next_pc) -> Command:
     """Fused ``get; hold(duration)``: the M/M/1 service cycle."""
     return _cmd(C_GET_HOLD, f3=duration, i=queue, next_pc=next_pc)
+
+
+def pool_acquire(pool, amount, next_pc) -> Command:
+    """Blocking acquire of ``amount`` units of a resource pool (parity:
+    cmb_resourcepool_acquire): greedily takes what is available now and
+    waits for the rest."""
+    return _cmd(C_POOL_ACQ, f=amount, i=pool, next_pc=next_pc)
+
+
+def pool_acquire_hold(pool, amount, duration, next_pc) -> Command:
+    """Fused ``pool_acquire; hold(duration)``: the hold starts when the
+    whole claim is granted (the pended claim rides f and f2, the
+    duration f3)."""
+    return _cmd(C_POOL_ACQ_HOLD, f=amount, f3=duration, i=pool,
+                next_pc=next_pc)
+
+
+def pool_release(pool, amount, next_pc) -> Command:
+    """Release units back to a pool (partial release allowed); never
+    blocks (``api.pool_release`` does it inline from a block)."""
+    return _cmd(C_POOL_REL, f=amount, i=pool, next_pc=next_pc)
+
+
+def buffer_get(buffer, amount, next_pc) -> Command:
+    """Take ``amount`` from a fungible store (parity: cmb_buffer_get)."""
+    return _cmd(C_BUF_GET, f=amount, i=buffer, next_pc=next_pc)
+
+
+def buffer_put(buffer, amount, next_pc) -> Command:
+    """Add ``amount`` into a fungible store (parity: cmb_buffer_put)."""
+    return _cmd(C_BUF_PUT, f=amount, i=buffer, next_pc=next_pc)
+
+
+def buffer_get_hold(buffer, amount, duration, next_pc) -> Command:
+    """Fused ``buffer_get; hold(duration)``: the hold starts when the
+    transfer is complete."""
+    return _cmd(C_BUF_GET_HOLD, f=amount, f3=duration, i=buffer,
+                next_pc=next_pc)
+
+
+def buffer_put_hold(buffer, amount, duration, next_pc) -> Command:
+    """Fused ``buffer_put; hold(duration)`` (see :func:`buffer_get_hold`)."""
+    return _cmd(C_BUF_PUT_HOLD, f=amount, f3=duration, i=buffer,
+                next_pc=next_pc)
+
+
+def cond_wait(condition, next_pc) -> Command:
+    """Wait until the condition is signalled and its predicate holds
+    (parity: cmb_condition_wait; a woken waiter whose predicate no longer
+    holds waits again)."""
+    return _cmd(C_COND_WAIT, i=condition, next_pc=next_pc)
 
 
 _REAL_FIELDS = (1, 2, 3)

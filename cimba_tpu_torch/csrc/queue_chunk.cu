@@ -1,5 +1,5 @@
-// The object-queue event-loop chunk kernel for Hopper (sm_90a): the M/M/1,
-// M/M/c, M/G/1 and tandem-network instances of K1.
+// The single-queue event-loop chunk kernel for Hopper (sm_90a): the M/M/1,
+// M/M/c, M/G/1, tandem-network and job-shop instances of K1.
 //
 // Replaces the Pallas chunk mega-kernel of the JAX package
 // (cimba_tpu/core/pallas_run.py: make_kernel_run -> build_chunk_call,
@@ -24,7 +24,15 @@
 //           time (1 server, recording);
 //   TANDEM  models.tandem.build(): three processes, two recording
 //           queues, four guards, three summaries (wait, w1, w2), and
-//           feedback routing at station 2.
+//           feedback routing at station 2;
+//   SHOP    models.jobshop.build(): four processes (stage A, two of
+//           stage B, maintenance), no object queue, a resource pool (the
+//           crew), a buffer (the WIP between the stages) and a condition
+//           observing the buffer (the backlog), both recording; the
+//           toolkit's verbs (pool acquire and release, buffer get and
+//           put, condition wait and signal) are compiled in for this
+//           family only (`if constexpr`), so the other instances keep
+//           their code and registers.
 // The TPU kernel re-evaluates any model's traced step; this one hard-codes
 // the blocks, and its host loop (cimba_tpu_torch/core/kernel_run.py)
 // refuses any other spec.
@@ -54,8 +62,11 @@
 //    columns of the block, one a thread, where a run-time pid costs one
 //    access.  pend_f2 is written only with 0, by a block's command that
 //    pends, which a bit of the mask records; so is pend_i (the queue id)
-//    where the model has one queue, and where it has two it is a cold
-//    column; exit_sig is written through to memory by the exit.  The row
+//    where the model has one queue or none, and where it has two it is a
+//    cold column; the job shop keeps pend_f2 (a pended claim's holding
+//    before the call, a transfer's total) and its processes' pool
+//    holdings in cold columns of their own; exit_sig is written through
+//    to memory by the exit.  The row
 //    addresses are computed where they are used from a lane index the
 //    compiler cannot see through (opaque), not kept live across the event
 //    loop.  The launch bounds (Model::minb) give each instance the least
@@ -116,11 +127,18 @@
 // rear guard, then its front guard (the cascade to the next waiting
 // server), and only then arms its own fused hold; a put signals its
 // queue's front guard (in tandem, server 1's put into q2 wakes server 2,
-// server 2's feedback put into q1 wakes server 1).  A resume's chain is
-// bounded at MAX_CHAIN = 1024 commands, the reference's XLA-path rule
-// (cimba_tpu/core/loop.py), not its kernel mode's spec.max_chain: the
-// parity tests hold the port against make_run, and no chain of these
-// models is longer than two commands.
+// server 2's feedback put into q1 wakes server 1).  In the job shop a
+// buffer transfer signals the other side's guard on any progress, then its
+// own side's on completion only, then arms its fused hold; a pool acquire
+// signals the pool's guard only on success, then arms its hold; a signal
+// of a buffer guard also signals the condition (observer forwarding),
+// which wakes its satisfied waiters in pid order after the guard's own.
+// A resume's chain is bounded at MAX_CHAIN = 1024 commands, the
+// reference's XLA-path rule (cimba_tpu/core/loop.py), not its kernel
+// mode's spec.max_chain (16): the parity tests hold the port against
+// make_run, and no chain of these models is longer than two commands
+// (tests/test_torch_network_invariants.py,
+// tests/test_torch_jobshop_invariants.py), so the two rules agree here.
 
 #include <cuda_runtime.h>
 
@@ -139,15 +157,19 @@ constexpr int MAX_CHAIN = 1024;
 
 // command tags, statuses, signals, kinds, error codes: the reference's
 constexpr int C_HOLD = 0, C_EXIT = 1, C_JUMP = 2, C_PUT = 3, C_GET = 4;
-constexpr int C_PUT_HOLD = 18, C_GET_HOLD = 19, N_COMMANDS = 28;
+constexpr int C_POOL_ACQ = 8, C_POOL_REL = 9, C_BUF_GET = 10,
+              C_BUF_PUT = 11, C_COND_WAIT = 14;
+constexpr int C_PUT_HOLD = 18, C_GET_HOLD = 19, C_POOL_ACQ_HOLD = 22,
+              C_BUF_GET_HOLD = 24, C_BUF_PUT_HOLD = 25, N_COMMANDS = 28;
 constexpr int NO_PEND = -1, SUCCESS = 0, RUNNING = 1, FINISHED = 2;
 constexpr int K_TIMER = 1;
-constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4;
+constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4,
+              ERR_BAD_RELEASE = 5;
 constexpr int32_t I32_MIN = INT32_MIN, I32_MAX = INT32_MAX;
 
 // model families (the kernel's template argument; each has its C entry
 // below)
-constexpr int F_MM = 0, F_MG1 = 1, F_TANDEM = 2;
+constexpr int F_MM = 0, F_MG1 = 1, F_TANDEM = 2, F_SHOP = 3;
 
 // Sim leaves in the reference's jax.tree.leaves order, up to the queues;
 // the eleven queues.acc leaves (A_N..A_STARTED) exist only in a recording
@@ -172,17 +194,31 @@ constexpr int N_ACC = A_STARTED - A_N + 1;
 constexpr int DONE = 0, ERR = 1, N_EVENTS = 2, N_TAIL = 4;  // after the user
 constexpr int MAX_LEAVES = U0 + 29 + N_TAIL;                // tandem's
 
-// a leaf's position in the pointer array of a (non-)recording Sim
-template <bool RECORD>
+// The job shop's Sim has no queue leaves: from Q_ITEMS on come the
+// pool's (level, held [NP], held_seq [NP], next_seq, and its StepAccum's
+// eleven), then the buffer's (level and its StepAccum's eleven), then the
+// user leaves from SHOP_U0.
+enum ShopLeaf {
+  P_LEVEL = Q_ITEMS, P_HELD, P_HELD_SEQ, P_NEXT_SEQ, P_ACC,
+  B_LEVEL = P_ACC + N_ACC, B_ACC,
+  SHOP_U0 = B_ACC + N_ACC
+};
+
+// a leaf's position in the pointer array of the model's Sim: a
+// non-recording queue model's has no queues.acc leaves; the job shop's
+// positions are its own (ShopLeaf)
+template <class M>
 __host__ __device__ constexpr int at(int k) {
-  return (!RECORD && k > A_STARTED) ? k - N_ACC : k;
+  return (!M::RECORD && !M::SHOP && k > A_STARTED) ? k - N_ACC : k;
 }
 
 struct Ptrs {
   void* p[MAX_LEAVES];
 };
 
-// static layout of one lane's tables; per queue its capacity and guards
+// static layout of one lane's tables; per queue its capacity and guards;
+// the job shop's pool and buffer capacities and its blocks' build
+// constants
 struct Shape {
   int event_cap;   // general event table slots
   int ring_width;  // queue ring slots per lane and queue (queue_cap_max)
@@ -190,6 +226,7 @@ struct Shape {
   int front[2];    // guard ids
   int rear[2];
   int n_ilocals;
+  double pool_cap = 0.0, buf_cap = 0.0, backlog = 0.0, b_slow = 0.0;
 };
 
 // the kinds of variate a block draws: the standard exponential (the block
@@ -197,14 +234,17 @@ struct Shape {
 // and uniform01
 constexpr int K_EXP = 0, K_LOGN = 1, K_UNIF = 2;
 
-// a command as the blocks issue it; pend_f2 is 0 in every one of them
-// and no handler reads it; q is the queue id (pend_i)
+// a command as the blocks issue it; q is the queue id (pend_i).  pend_f2
+// is 0 in every command of the queue models and no handler of theirs
+// reads it; the job shop's pended pool claim keeps the holding before
+// the call there, a pended buffer transfer its total
 template <typename R>
 struct Cmd {
   int32_t tag;
   R f, f3;
   int32_t next_pc;
   int32_t q;
+  R f2 = R(0);
 };
 
 template <typename R>
@@ -257,6 +297,12 @@ __device__ __forceinline__ double u01_of(uint32_t b1, double) {
 template <typename R>
 __device__ __forceinline__ R nanmax0(R x) {
   return (x != x || x > R(0)) ? x : R(0);
+}
+
+// torch.minimum(x, y): NaN propagates
+template <typename R>
+__device__ __forceinline__ R nanmin(R x, R y) {
+  return (x != x || x < y) ? x : y;
 }
 
 // a register array read and written by a run-time index: unrolled over
@@ -338,13 +384,15 @@ struct Cold {
   int32_t prio[NP][T], produced[NP][T];
 };
 
-// the queue-length accumulators (stats.timeseries.StepAccum) of a
-// recording instance, touched once a put or get: per queue the summary's
-// eight moments, last_t, last_v, and started (0 or 1)
-template <typename R, class M, bool RECORD = M::RECORD>
+// the StepAccum rows (stats.timeseries) of a recording instance: a
+// recording queue's length, touched once a put or get (row q), or the job
+// shop's crew in use (row 0) and buffer level (row 1), touched once a
+// verb of theirs: per row the summary's eight moments, last_t, last_v,
+// and started (0 or 1)
+template <typename R, class M, bool RECORD = (M::NACC > 0)>
 struct ColdAcc {
-  R acc[10 * M::NQ][M::THREADS];
-  bool started[M::NQ][M::THREADS];
+  R acc[10 * M::NACC][M::THREADS];
+  bool started[M::NACC][M::THREADS];
 };
 
 template <typename R, class M>
@@ -359,6 +407,16 @@ struct ColdQ {
 template <class M>
 struct ColdQ<M, false> {};
 
+// the job shop's per-process pool columns (held, held_seq) and pend_f2
+template <typename R, class M, bool SHOP = M::SHOP>
+struct ColdShop {
+  R held[M::NP][M::THREADS], pend_f2[M::NP][M::THREADS];
+  int32_t held_seq[M::NP][M::THREADS];
+};
+
+template <typename R, class M>
+struct ColdShop<R, M, false> {};
+
 // One lane's working state: the hot part in registers, the cold part in
 // the block's shared memory.
 template <typename R_, typename C_, class M_>
@@ -366,12 +424,14 @@ struct State {
   using R = R_;
   using C = C_;
   using M = M_;
-  static constexpr int NP = M::NP, NQ = M::NQ, NG = 2 * M::NQ;
+  static constexpr int NP = M::NP, NQ = M::NQ, NG = M::NG;
+  static constexpr int NQA = NQ > 0 ? NQ : 1;  // register arrays' length
   static constexpr bool RECORD = M::RECORD;
 
   Cold<R, M>* cold;  // the block's
   ColdAcc<R, M>* cold_acc;
   ColdQ<M>* cold_q;
+  ColdShop<R, M>* cold_shop;
   int t;             // this thread's column
   R clock;
   uint32_t k0, k1, lo, hi;
@@ -383,7 +443,11 @@ struct State {
   uint32_t dirty;
   int32_t gseq[NG];
   // the queues: heads and sizes here, the rings in device memory
-  int32_t head[NQ], size[NQ];
+  int32_t head[NQA], size[NQA];
+  // the job shop's pool (its level and grab counter) and buffer level,
+  // its maintenance_runs, and stage B's mean work (work_mean * b_slow)
+  R pool_level, buf_level, b_mean;
+  int32_t pool_next_seq, runs;
   // user state: the model's real parameters, n_objects
   R par[M::NPAR];
   int32_t n_objects;
@@ -400,6 +464,7 @@ struct State {
 
 // a cold field of process p (or summary moment p) of this lane
 #define COLD(s, f, p) ((s).cold->f[p][(s).t])
+#define SCOL(s, f, p) ((s).cold_shop->f[p][(s).t])
 
 // where a lane's rows live: the kernel's parameters and the lane
 struct Where {
@@ -421,14 +486,16 @@ __device__ __forceinline__ int opaque(int x) {
 // a lane's row of a [L, n] leaf
 template <typename T, class S>
 __device__ __forceinline__ T* row(const Where& at_, int k, int n) {
-  return static_cast<T*>(at_.ps.p[at<S::RECORD>(k)]) + size_t(at_.l) * n;
+  return static_cast<T*>(at_.ps.p[at<typename S::M>(k)]) +
+         size_t(at_.l) * n;
 }
 
 // the model's user leaf at offset u, and tail leaf j
-__device__ __forceinline__ constexpr int user(int u) { return U0 + u; }
+template <class M>
+__device__ __forceinline__ constexpr int user(int u) { return M::U0 + u; }
 template <class S>
 __device__ __forceinline__ constexpr int tail(int j) {
-  return U0 + S::M::N_USER + j;
+  return S::M::U0 + S::M::N_USER + j;
 }
 
 template <class S>
@@ -615,13 +682,15 @@ __device__ __forceinline__ void guard_wait(S& s, int p, int gid,
   set(s, F_TAG, p, c.tag);
   COLD(s, pend_f, p) = c.f;
   COLD(s, pend_f3, p) = c.f3;
+  if constexpr (S::M::SHOP) SCOL(s, pend_f2, p) = c.f2;
   if constexpr (S::NQ > 1) s.cold_q->pend_i[p][s.t] = c.q;
   COLD(s, pend_pc, p) = c.next_pc;
   set(s, F_GUARD, p, gid);
   COLD(s, pend_seq, p) = seq;
   set(s, F_PC, p, c.next_pc);
   // a retry re-pends the pended command as it was: its pend_f2 (and
-  // pend_i) stay; a block's command writes its 0s
+  // pend_i) stay; a block's command writes its 0s (the job shop's
+  // pend_f2 is the column written above)
   if (!is_retry) s.dirty |= 1u << (F_BLOCK * S::NP + p);
 }
 
@@ -693,6 +762,144 @@ __device__ __forceinline__ bool h_queue(S& s, const Where& w, int p,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The toolkit's verbs, compiled in for the job shop only: one pool (K = 0),
+// one buffer (B = 0) and one condition, their guards compile-time
+// constants of the family (M::G_FRONT, G_REAR, G_POOL, G_COND), as
+// h_queue_at<Q> takes its queue.
+
+// condition M's signal (loop.cond_signal): every waiter whose predicate
+// holds wakes, in pid order; the job shop's predicate (the buffer's level
+// at or above the backlog) is the same for every pid
+template <class S>
+__device__ __forceinline__ void cond_signal(S& s, const Where& w) {
+  using M = typename S::M;
+  if (!M::cond_holds(s, w)) return;
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q)
+    if (field(s.word[q], F_GUARD) == M::G_COND) {
+      set(s, F_GUARD, q, -1);
+      schedule_wake(s, q, s.clock);
+    }
+}
+
+// guard G's signal with the observer forwarding of loop._guard_signal:
+// the best waiter's wake, then the condition's signal where it observes G
+template <int G, class S>
+__device__ __forceinline__ void signal_at(S& s, const Where& w) {
+  using M = typename S::M;
+  guard_signal(s, G);
+  if constexpr (G == M::G_FRONT || G == M::G_REAR) cond_signal(s, w);
+}
+
+// loop.release_pool: amount units back from process p, inline from a
+// block or as the C_POOL_REL command; the ownership tolerance
+// max(64 eps max(1, |amount|), 1e-12) at REAL's eps
+template <class S>
+__device__ __forceinline__ void release_pool(S& s, const Where& w, int p,
+                                             typename S::R amount) {
+  using R = typename S::R;
+  const R held = SCOL(s, held, p);
+  const R amt = nanmin(amount, held);
+  const R a = amount < R(0) ? -amount : amount;
+  const R big = (a != a || a > R(1)) ? a : R(1);
+  R tol = R(sizeof(R) == 4 ? 0x1p-17 : 0x1p-46) * big;
+  tol = (tol != tol || tol > R(1e-12)) ? tol : R(1e-12);
+  const bool owner_ok = held >= amount - tol;
+  const R in_use = R(w.sh.pool_cap) - (s.pool_level + amt);
+  s.pool_level = s.pool_level + amt;
+  SCOL(s, held, p) = held + -amt;
+  record(s, 0, in_use);
+  signal_at<S::M::G_POOL>(s, w);
+  if (!owner_ok) set_err(s, ERR_BAD_RELEASE);
+}
+
+// pool_acquire and its fused twin (loop's h_pool_acquire): take what is
+// available now, pend for the rest (pend_f the remainder, pend_f2 the
+// holding before the call); the guard's signal only on success, then the
+// fused hold
+template <class S>
+__device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
+                                       const Cmd<typename S::R>& c, int tag,
+                                       bool is_retry) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const R held = SCOL(s, held, p);
+  const R init_held = is_retry ? SCOL(s, pend_f2, p) : held;
+  const R take = nanmin(nanmax0(c.f), s.pool_level);
+  if (held <= R(0)) {  // the grab order, stamped on the first units
+    SCOL(s, held_seq, p) = s.pool_next_seq;
+    s.pool_next_seq += 1;
+  }
+  s.pool_level = s.pool_level + -take;
+  SCOL(s, held, p) = held + take;
+  const R rem = c.f - take;
+  const bool done = rem <= R(0);
+  const bool fused = tag == C_POOL_ACQ_HOLD;
+  record(s, 0, R(w.sh.pool_cap) - s.pool_level);
+  if (done) signal_at<M::G_POOL>(s, w);
+  if (fused && done) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  if (done) {
+    set(s, F_PC, p, c.next_pc);
+  } else {
+    Cmd<R> pc = c;
+    pc.f = rem;
+    pc.f2 = init_held;
+    guard_wait(s, p, M::G_POOL, pc, is_retry);
+  }
+  return !done || fused;
+}
+
+// buffer get (GET) or put and their fused twins (loop's h_buffer): move
+// what fits now, pend for the rest (pend_f the remainder, pend_f2 the
+// total); the other side's guard on any progress, this side's on
+// completion only, then the fused hold
+template <bool GET, class S>
+__device__ __forceinline__ bool h_buffer(S& s, const Where& w, int p,
+                                         const Cmd<typename S::R>& c, int tag,
+                                         bool is_retry) {
+  using R = typename S::R;
+  using M = typename S::M;
+  constexpr int MY = GET ? M::G_FRONT : M::G_REAR;
+  constexpr int OTHER = GET ? M::G_REAR : M::G_FRONT;
+  const R total = is_retry ? SCOL(s, pend_f2, p) : c.f;
+  const R level = s.buf_level;
+  const R room = GET ? level : R(w.sh.buf_cap) - level;
+  const R moved = nanmin(nanmax0(c.f), room);
+  const R level2 = level + (GET ? -moved : moved);
+  const R rem = c.f - moved;
+  const bool done = rem <= R(0);
+  s.buf_level = level2;
+  record(s, 1, level2);
+  if (moved > R(0)) signal_at<OTHER>(s, w);
+  if (done) signal_at<MY>(s, w);
+  if (done) COLD(s, got, p) = total;
+  const bool fused = tag == C_BUF_GET_HOLD || tag == C_BUF_PUT_HOLD;
+  if (fused && done) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  set(s, F_PC, p, c.next_pc);
+  if (!done) {
+    Cmd<R> pc = c;
+    pc.f = rem;
+    pc.f2 = total;
+    guard_wait(s, p, MY, pc, is_retry);
+  }
+  return !done || fused;
+}
+
+// cond_wait (loop's h_cond_wait): a first issue always waits; a
+// signalled retry goes on where the predicate holds and waits again,
+// keeping its place, where not
+template <class S>
+__device__ __forceinline__ bool h_cond_wait(S& s, const Where& w, int p,
+                                            const Cmd<typename S::R>& c,
+                                            bool is_retry) {
+  using M = typename S::M;
+  const bool proceed = is_retry && M::cond_holds(s, w);
+  set(s, F_PC, p, c.next_pc);
+  if (!proceed) guard_wait(s, p, M::G_COND, c, is_retry);
+  return !proceed;
+}
+
 template <class S>
 __device__ __forceinline__ void finish(S& s, const Where& w, int p) {
   using R = typename S::R;
@@ -714,6 +921,17 @@ __device__ __forceinline__ void finish(S& s, const Where& w, int p) {
   }
   set(s, F_STATUS, p, FINISHED);
   row<int32_t, S>(w, EXIT_SIG, S::NP)[p] = SUCCESS;
+  if constexpr (S::M::SHOP) {  // the pool units p holds go back
+    using R = typename S::R;
+    const R amt = SCOL(s, held, p);
+    if (amt > R(0)) {
+      const R in_use = R(w.sh.pool_cap) - (s.pool_level + amt);
+      s.pool_level = s.pool_level + amt;
+      SCOL(s, held, p) = R(0);
+      record(s, 0, in_use);
+      signal_at<S::M::G_POOL>(s, w);
+    }
+  }
 }
 
 // returns "yielded"
@@ -723,6 +941,27 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
                                       bool is_retry) {
   const int tag = c.tag < 0 ? 0 : (c.tag > N_COMMANDS - 1 ? N_COMMANDS - 1
                                                           : c.tag);
+  if constexpr (S::M::SHOP) {
+    switch (tag) {
+      case C_POOL_ACQ:
+      case C_POOL_ACQ_HOLD:
+        return h_pool(s, w, p, c, tag, is_retry);
+      case C_POOL_REL:
+        release_pool(s, w, p, c.f);
+        set(s, F_PC, p, c.next_pc);
+        return false;
+      case C_BUF_GET:
+      case C_BUF_GET_HOLD:
+        return h_buffer<true>(s, w, p, c, tag, is_retry);
+      case C_BUF_PUT:
+      case C_BUF_PUT_HOLD:
+        return h_buffer<false>(s, w, p, c, tag, is_retry);
+      case C_COND_WAIT:
+        return h_cond_wait(s, w, p, c, is_retry);
+      default:
+        break;
+    }
+  }
   switch (tag) {
     case C_HOLD:
       schedule_wake(s, p, s.clock + nanmax0(c.f));
@@ -738,7 +977,9 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
     case C_GET:
     case C_PUT_HOLD:
     case C_GET_HOLD:
-      return h_queue(s, w, p, c, tag, is_retry);
+      if constexpr (S::NQ > 0) return h_queue(s, w, p, c, tag, is_retry);
+      set_err(s, ERR_USER);
+      return true;
     default:
       set_err(s, ERR_USER);
       return true;
@@ -756,10 +997,14 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
 // srv_mean, wait.*
 template <int NS, bool RECORD_>
 struct MM {
-  static constexpr int NP = 1 + NS, NQ = 1, NSUM = 1, N_BLOCKS = 5;
+  static constexpr int NP = 1 + NS, NQ = 1, NG = 2, NSUM = 1, N_BLOCKS = 5;
   static constexpr int NPAR = 2, N_USER = 11, N_OBJ = 1, THREADS = 128;
+  static constexpr int NACC = RECORD_ ? 1 : 0, U0 = cimba::queue::U0;
   static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
   static constexpr bool RECORD = RECORD_, LOGN = false, UNIF = false;
+  static constexpr bool SHOP = false;
+  // no toolkit component
+  static constexpr int G_FRONT = -1, G_REAR = -1, G_POOL = -1, G_COND = -1;
   static constexpr int A_START = 0, A_CYCLE = 1, A_EXIT = 2, S_START = 3;
   __host__ __device__ static constexpr int par_off(int i) {
     return i == 0 ? 0 : 2;  // arr_mean, srv_mean
@@ -787,9 +1032,13 @@ struct MM {
   __device__ static typename S::R mean(const S& s, int b) {
     return b < A_EXIT ? s.par[0] : s.par[1];
   }
+  template <class S>
+  __device__ static bool cond_holds(const S&, const Where&) {
+    return false;
+  }
   // block b of process p; t is its draw (times its mean)
   template <class S>
-  __device__ static Cmd<typename S::R> block(S& s, int p, int b,
+  __device__ static Cmd<typename S::R> block(S& s, const Where&, int p, int b,
                                              typename S::R t) {
     using R = typename S::R;
     switch (b) {
@@ -846,10 +1095,13 @@ struct MG1 : MM<1, true> {
 // arr_mean, n_objects, p_back, s1_mean, s2_mean, w1.*, w2.*, wait.*
 // (summaries: 0 wait, 1 w1, 2 w2)
 struct Tandem {
-  static constexpr int NP = 3, NQ = 2, NSUM = 3, N_BLOCKS = 9;
+  static constexpr int NP = 3, NQ = 2, NG = 4, NSUM = 3, N_BLOCKS = 9;
   static constexpr int NPAR = 4, N_USER = 29, N_OBJ = 1, THREADS = 64;
+  static constexpr int NACC = 2, U0 = cimba::queue::U0;
   static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
   static constexpr bool RECORD = true, LOGN = false, UNIF = true;
+  static constexpr bool SHOP = false;
+  static constexpr int G_FRONT = -1, G_REAR = -1, G_POOL = -1, G_COND = -1;
   static constexpr int A_START = 0, A_CYCLE = 1, A_EXIT = 2, S1_START = 3,
                        S1_CYCLE = 4, S1_TAKE = 5, S2_START = 6, S2_CYCLE = 7,
                        S2_TAKE = 8;
@@ -884,7 +1136,11 @@ struct Tandem {
                       : (b < S2_START ? s.par[P_S1] : s.par[P_S2]);
   }
   template <class S>
-  __device__ static Cmd<typename S::R> block(S& s, int p, int b,
+  __device__ static bool cond_holds(const S&, const Where&) {
+    return false;
+  }
+  template <class S>
+  __device__ static Cmd<typename S::R> block(S& s, const Where&, int p, int b,
                                              typename S::R t) {
     using R = typename S::R;
     switch (b) {
@@ -925,6 +1181,89 @@ struct Tandem {
   }
 };
 
+// jobshop.build(): blocks a_start, a_entry, a_store, a_exit, b_take, b_svc,
+// b_fin, mt_wait, mt_act, mt_rel; pids 0 stage A, 1 and 2 stage B, 3
+// maintenance; guards 0 the buffer's front, 1 its rear, 2 the pool's, 3
+// the condition's; user leaves arr_mean, done.*, maintenance_runs,
+// n_jobs, work_mean.  Every draw is an exponential: arr_mean's (a_start,
+// a_store), work_mean's (a_entry) or work_mean * b_slow's (b_svc).
+struct Shop {
+  static constexpr int NP = 4, NQ = 0, NG = 4, NSUM = 1, N_BLOCKS = 10;
+  static constexpr int NPAR = 2, N_USER = 12, N_OBJ = 10, THREADS = 64;
+  static constexpr int NACC = 2, U0 = SHOP_U0, MRUNS = 9;
+  static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
+  static constexpr bool RECORD = false, LOGN = false, UNIF = false;
+  static constexpr bool SHOP = true;
+  static constexpr int G_FRONT = 0, G_REAR = 1, G_POOL = 2, G_COND = 3;
+  static constexpr int A_START = 0, A_ENTRY = 1, A_STORE = 2, A_EXIT = 3,
+                       B_TAKE = 4, B_SVC = 5, B_FIN = 6, MT_WAIT = 7,
+                       MT_ACT = 8, MT_REL = 9;
+  __host__ __device__ static constexpr int par_off(int i) {
+    return i == 0 ? 0 : 11;  // arr_mean, work_mean
+  }
+  __host__ __device__ static constexpr int sum_off(int) { return 1; }
+  // 64 threads a block (the f64 cold state of 128 would pass the 48 KB
+  // of static shared memory)
+  template <typename R>
+  __host__ __device__ static constexpr int minb() {
+    return sizeof(R) == 4 ? 8 : 6;
+  }
+  template <class S>
+  __device__ static int conv_kind(const S&, int) {
+    return K_EXP;
+  }
+  __device__ static bool draws(int b) {
+    return b == A_START || b == A_ENTRY || b == A_STORE || b == B_SVC;
+  }
+  __device__ static int kind(int) { return K_EXP; }
+  template <class S>
+  __device__ static typename S::R mean(const S& s, int b) {
+    return b == A_ENTRY ? s.par[1] : (b == B_SVC ? s.b_mean : s.par[0]);
+  }
+  // the backlog condition: the buffer's level at or above the backlog
+  template <class S>
+  __device__ static bool cond_holds(const S& s, const Where& w) {
+    return s.buf_level >= typename S::R(w.sh.backlog);
+  }
+  template <class S>
+  __device__ static Cmd<typename S::R> block(S& s, const Where& w, int p,
+                                             int b, typename S::R t) {
+    using R = typename S::R;
+    switch (b) {
+      case A_START:
+        return Cmd<R>{C_HOLD, t, R(0), A_ENTRY, 0};
+      case A_ENTRY:
+        return Cmd<R>{C_POOL_ACQ_HOLD, R(1), t, A_STORE, 0};
+      case A_STORE: {
+        const int32_t n = COLD(s, produced, p) += 1;
+        release_pool(s, w, p, R(1));
+        if (n >= s.n_objects) return Cmd<R>{C_BUF_PUT, R(1), R(0), A_EXIT, 0};
+        return Cmd<R>{C_BUF_PUT_HOLD, R(1), t, A_ENTRY, 0};
+      }
+      case A_EXIT:
+        return Cmd<R>{C_EXIT, R(0), R(0), 0, 0};
+      case B_TAKE:
+        return Cmd<R>{C_BUF_GET, R(1), R(0), B_SVC, 0};
+      case B_SVC:
+        return Cmd<R>{C_POOL_ACQ_HOLD, R(1), t, B_FIN, 0};
+      case B_FIN: {
+        const Sum<R> d = sum_add(s, 0, s.clock);
+        if (d.n >= R(s.n_objects)) s.done = true;
+        release_pool(s, w, p, R(1));
+        return Cmd<R>{C_BUF_GET, R(1), R(0), B_SVC, 0};
+      }
+      case MT_WAIT:
+        return Cmd<R>{C_COND_WAIT, R(0), R(0), MT_ACT, 0};
+      case MT_ACT:
+        s.runs += 1;
+        return Cmd<R>{C_POOL_ACQ_HOLD, R(1), R(2), MT_REL, 0};
+      default:  // mt_rel
+        release_pool(s, w, p, R(1));
+        return Cmd<R>{C_COND_WAIT, R(0), R(0), MT_ACT, 0};
+    }
+  }
+};
+
 template <int FAMILY, int NS, bool RECORD>
 struct ModelOf {
   using type = MM<NS, RECORD>;
@@ -937,6 +1276,10 @@ template <>
 struct ModelOf<F_TANDEM, 2, true> {
   using type = Tandem;
 };
+template <>
+struct ModelOf<F_SHOP, 2, true> {
+  using type = Shop;
+};
 
 // ---------------------------------------------------------------------------
 
@@ -944,7 +1287,7 @@ struct ModelOf<F_TANDEM, 2, true> {
 // xkind, while `fresh` (no block of this event has drawn yet)
 template <class S>
 __device__ __forceinline__ Cmd<typename S::R> run_block(
-    S& s, int p, typename S::R x, int xkind, bool& fresh) {
+    S& s, const Where& w, int p, typename S::R x, int xkind, bool& fresh) {
   using R = typename S::R;
   using M = typename S::M;
   const int b = get(s, F_PC, p);  // clamped to a block when loaded
@@ -961,7 +1304,7 @@ __device__ __forceinline__ Cmd<typename S::R> run_block(
     if (s.lo == 0u) s.hi += 1u;
     t = kind == K_EXP ? M::mean(s, b) * x : x;
   }
-  return M::block(s, p, b, t);
+  return M::block(s, w, p, b, t);
 }
 
 template <class S>
@@ -979,6 +1322,7 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
     pend.f3 = COLD(s, pend_f3, p);
     pend.next_pc = COLD(s, pend_pc, p);
     if constexpr (S::NQ > 1) pend.q = s.cold_q->pend_i[p][s.t];
+    if constexpr (S::M::SHOP) pend.f2 = SCOL(s, pend_f2, p);
   }
   set(s, F_TAG, p, NO_PEND);
   set(s, F_GUARD, p, -1);
@@ -988,7 +1332,7 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
          n < MAX_CHAIN) {
     // one apply for the retried command and a block's: the lanes of a
     // warp that take either run the handlers together
-    const Cmd<R> c = use_pend ? pend : run_block(s, p, x, xkind, fresh);
+    const Cmd<R> c = use_pend ? pend : run_block(s, w, p, x, xkind, fresh);
     yielded = apply(s, w, p, c, use_pend);
     use_pend = false;
     ++n;
@@ -1100,14 +1444,36 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
   }
 #pragma unroll
   for (int i = 0; i < M::NPAR; ++i)
-    s.par[i] = row<R, S>(w, user(M::par_off(i)), 1)[0];
-  s.n_objects = row<int32_t, S>(w, user(M::N_OBJ), 1)[0];
+    s.par[i] = row<R, S>(w, user<M>(M::par_off(i)), 1)[0];
+  s.n_objects = row<int32_t, S>(w, user<M>(M::N_OBJ), 1)[0];
 #pragma unroll
   for (int j = 0; j < M::NSUM; ++j)
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       COLD(s, sums, 8 * j + i) =
-          row<R, S>(w, user(M::sum_off(j) + i), 1)[0];
+          row<R, S>(w, user<M>(M::sum_off(j) + i), 1)[0];
+  if constexpr (M::SHOP) {
+    // the pool (one: its [L, 1] and [L, 1, NP] rows) and the buffer
+    s.pool_level = row<R, S>(w, P_LEVEL, 1)[0];
+    s.pool_next_seq = row<int32_t, S>(w, P_NEXT_SEQ, 1)[0];
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      SCOL(s, held, q) = row<R, S>(w, P_HELD, NP)[q];
+      SCOL(s, held_seq, q) = row<int32_t, S>(w, P_HELD_SEQ, NP)[q];
+      SCOL(s, pend_f2, q) = row<R, S>(w, PEND_F2, NP)[q];
+    }
+    s.buf_level = row<R, S>(w, B_LEVEL, 1)[0];
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      ACC(s, 0, i) = row<R, S>(w, P_ACC + i, 1)[0];
+      ACC(s, 1, i) = row<R, S>(w, B_ACC + i, 1)[0];
+    }
+    s.cold_acc->started[0][s.t] = row<bool, S>(w, P_ACC + 10, 1)[0];
+    s.cold_acc->started[1][s.t] = row<bool, S>(w, B_ACC + 10, 1)[0];
+    s.runs = row<int32_t, S>(w, user<M>(M::MRUNS), 1)[0];
+    // the b_svc block's mean, work_mean * b_slow, as the blocks compute it
+    s.b_mean = s.par[1] * R(w.sh.b_slow);
+  }
   if constexpr (S::RECORD) {
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
@@ -1153,9 +1519,14 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
         COLD(s, produced, q);
     if constexpr (NQ > 1)
       row<int32_t, S>(w, PEND_I, NP)[q] = s.cold_q->pend_i[q][s.t];
+    if constexpr (M::SHOP) {
+      row<R, S>(w, P_HELD, NP)[q] = SCOL(s, held, q);
+      row<int32_t, S>(w, P_HELD_SEQ, NP)[q] = SCOL(s, held_seq, q);
+      row<R, S>(w, PEND_F2, NP)[q] = SCOL(s, pend_f2, q);
+    }
     if (s.dirty & (1u << (F_BLOCK * NP + q))) {
-      row<R, S>(w, PEND_F2, NP)[q] = R(0);
-      if constexpr (NQ == 1) row<int32_t, S>(w, PEND_I, NP)[q] = 0;
+      if constexpr (!M::SHOP) row<R, S>(w, PEND_F2, NP)[q] = R(0);
+      if constexpr (NQ <= 1) row<int32_t, S>(w, PEND_I, NP)[q] = 0;
     }
   }
 #pragma unroll
@@ -1170,8 +1541,21 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
   for (int j = 0; j < M::NSUM; ++j)
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      row<R, S>(w, user(M::sum_off(j) + i), 1)[0] =
+      row<R, S>(w, user<M>(M::sum_off(j) + i), 1)[0] =
           COLD(s, sums, 8 * j + i);
+  if constexpr (M::SHOP) {
+    row<R, S>(w, P_LEVEL, 1)[0] = s.pool_level;
+    row<int32_t, S>(w, P_NEXT_SEQ, 1)[0] = s.pool_next_seq;
+    row<R, S>(w, B_LEVEL, 1)[0] = s.buf_level;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      row<R, S>(w, P_ACC + i, 1)[0] = ACC(s, 0, i);
+      row<R, S>(w, B_ACC + i, 1)[0] = ACC(s, 1, i);
+    }
+    row<bool, S>(w, P_ACC + 10, 1)[0] = s.cold_acc->started[0][s.t];
+    row<bool, S>(w, B_ACC + 10, 1)[0] = s.cold_acc->started[1][s.t];
+    row<int32_t, S>(w, user<M>(M::MRUNS), 1)[0] = s.runs;
+  }
   if constexpr (S::RECORD) {
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
@@ -1195,12 +1579,14 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          bool has_t_end, R t_end,
                                          Cold<R, M>& cold,
                                          ColdAcc<R, M>& cold_acc,
-                                         ColdQ<M>& cold_q) {
+                                         ColdQ<M>& cold_q,
+                                         ColdShop<R, M>& cold_shop) {
   using S = State<R, C, M>;
   S s;
   s.cold = &cold;
   s.cold_acc = &cold_acc;
   s.cold_q = &cold_q;
+  s.cold_shop = &cold_shop;
   s.t = threadIdx.x;
   load(s, Where{ps, sh, l});
   scan_table(s, Where{ps, sh, l});
@@ -1234,17 +1620,18 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
   __shared__ Cold<R, M> cold;
   __shared__ ColdAcc<R, M> cold_acc;
   __shared__ ColdQ<M> cold_q;
+  __shared__ ColdShop<R, M> cold_shop;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < lanes)
     run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
-                      cold_acc, cold_q);
+                      cold_acc, cold_q, cold_shop);
 }
 
 template <typename R, typename C, int FAMILY, int NS, bool RECORD>
 int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
            int chunk_steps, int has_t_end, double t_end, void* stream) {
   using M = typename ModelOf<FAMILY, NS, RECORD>::type;
-  if (n_leaves != at<RECORD>(U0 + M::N_USER + N_TAIL)) return -1;
+  if (n_leaves != at<M>(M::U0 + M::N_USER + N_TAIL)) return -1;
   if (lanes <= 0 || chunk_steps <= 0) return -2;
   Ptrs ps{};
   for (int i = 0; i < n_leaves; ++i) ps.p[i] = leaves[i];
@@ -1331,6 +1718,19 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
                                  {cap1, cap2},     {front1, front2},        \
                                  {rear1, rear2},   n_ilocals};              \
     return cimba::queue::launch<R, C, cimba::queue::F_TANDEM, 2, true>(     \
+        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        stream);                                                             \
+  }                                                                          \
+  /* jobshop.build(): the pool's and buffer's capacities, backlog, b_slow */ \
+  extern "C" int cimba_shop_chunk_##SUFFIX(                                  \
+      void* const* leaves, int n_leaves, int lanes, int event_cap,          \
+      int n_ilocals, double pool_cap, double buf_cap, double backlog,       \
+      double b_slow, int chunk_steps, int has_t_end, double t_end,          \
+      void* stream) {                                                        \
+    const cimba::queue::Shape sh{event_cap, 1,         {0, 0},   {0, 0},    \
+                                 {0, 0},    n_ilocals, pool_cap, buf_cap,   \
+                                 backlog,   b_slow};                         \
+    return cimba::queue::launch<R, C, cimba::queue::F_SHOP, 2, true>(       \
         leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
         stream);                                                             \
   }

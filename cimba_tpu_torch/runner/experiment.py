@@ -6,13 +6,16 @@ Replication r is lane r of one batched Sim.  On the card the lanes go
 through the spec's CUDA chunk kernel and the host loop of
 :mod:`cimba_tpu_torch.core.kernel_run`, for five model families: the
 M/M/1 and M/M/c (with or without queue-length recording), the M/G/1
-sweep, the tandem network, and AWACS, whose radar dwells run between
-chunks as one launch of the dwell kernel a boundary round; on
-``device="cpu"`` through the plain engine.  A sweep's parameters (leaves
+sweep, the tandem network, the job shop, and AWACS, whose radar dwells
+run between chunks as one launch of the dwell kernel a boundary round;
+on ``device="cpu"`` through the plain engine.  A sweep's parameters (leaves
 with leading axis ``n_replications``, e.g. ``mg1.sweep_params`` or
 ``tandem.sweep_grid(n).rows(r)``) give each lane its own row.  A failed
 replication freezes with ``sim.err`` set and is counted, as in the
-reference.
+reference.  The pooled statistic is a model's summary leaf:
+:func:`default_summary_path` (``wait``) for the queueing models, the
+model's own ``summary_path`` elsewhere (``models.jobshop.summary_path``:
+``done``, as the job shop records no ``wait``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,13 @@ from cimba_tpu_torch.core import kernel_run
 from cimba_tpu_torch.core.loop import Sim, init_sim, make_run
 from cimba_tpu_torch.core.model import ModelSpec
 from cimba_tpu_torch.stats import summary as sm
+
+
+def default_summary_path(sims):
+    """The default pooled statistic: the per-replication ``wait``
+    summary every queueing model records (parity:
+    ``cimba_tpu.runner.experiment.default_summary_path``)."""
+    return sims.user["wait"]
 
 
 class ExperimentResult(NamedTuple):
@@ -48,8 +58,9 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
     PyTorch engine.  On the card every chunk of ``chunk_steps`` events
     per lane is one launch of the spec's CUDA kernel; kernels exist for
     ``models.mm1.build(...)``, ``models.mmc.build(c)`` for c in 1..4,
-    ``models.mg1.build()``, ``models.tandem.build()`` and
-    ``models.awacs.build(n)``, and other specs raise there."""
+    ``models.mg1.build()``, ``models.tandem.build()``,
+    ``models.jobshop.build(...)`` and ``models.awacs.build(n)``, and
+    other specs raise there."""
     dev = config.resolve_device(device)
     sims = init_sim(spec, seed, torch.arange(n_replications), params,
                     device=dev)

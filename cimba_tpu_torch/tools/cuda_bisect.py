@@ -30,6 +30,7 @@ driver itself.
 Usage (from the root of a checkout)::
 
     python -m cimba_tpu_torch.tools.cuda_bisect --model mmc
+    python -m cimba_tpu_torch.tools.cuda_bisect --model jobshop --jobs 7
     python -m cimba_tpu_torch.tools.cuda_bisect --model mm1 --stages 0,1,15
     python -m cimba_tpu_torch.tools.cuda_bisect --model awacs 3  # one stage
 
@@ -55,11 +56,11 @@ import torch
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
 
-MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "awacs")
+MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "jobshop", "awacs")
 #: float leaves, kernel vs plain (chip_smoke.py's RTOL)
 RTOL = {"f32": 2e-5, "f64": 1e-12}
-#: small default shapes: lanes, objects (mm1, mmc, mg1, tandem), servers
-#: (mmc), targets and horizon (AWACS)
+#: small default shapes: lanes, objects (mm1, mmc, mg1, tandem; jobs of
+#: the job shop), servers (mmc), targets and horizon (AWACS)
 LANES, N_OBJECTS, SERVERS, N_TARGETS, AW_T_END = 512, 200, 3, 64, 10.0
 CHUNK = {2: 1, 3: 16, 4: 512}
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -73,7 +74,8 @@ class Setup:
 
     def __init__(self, model: str, device, lanes: int = LANES,
                  size=None, seed: int = 2026):
-        from cimba_tpu_torch.models import awacs, mg1, mm1, mmc, tandem
+        from cimba_tpu_torch.models import (awacs, jobshop, mg1, mm1, mmc,
+                                            tandem)
 
         n = size or (N_TARGETS if model == "awacs" else N_OBJECTS)
         if model == "mm1":
@@ -91,6 +93,8 @@ class Setup:
             spec = tandem.build()[0]
             p, _ = tandem.sweep_grid(n).rows(-(-lanes // 6))
             params = tuple(x[:lanes] for x in p)
+        elif model == "jobshop":
+            spec, params = jobshop.build()[0], jobshop.params(n)
         elif model == "awacs":
             spec, params = awacs.build(n)[0], awacs.params(AW_T_END)
         else:
@@ -138,8 +142,9 @@ def compare(table, ref, got, rtol: float) -> list:
 
 def run_stage(model: str, profile: str, device: str, stage: int,
               lanes: int = LANES, size=None) -> dict:
-    """Run one stage in this process (``size``: objects of mm1/mmc,
-    targets of AWACS); returns its result (``ok``, and what differed)."""
+    """Run one stage in this process (``size``: objects of the queue
+    models, jobs of the job shop, targets of AWACS); returns its result
+    (``ok``, and what differed)."""
     base = stage % 10
     if stage >= 10:
         return offline(model, base)
@@ -297,8 +302,9 @@ def main(argv=None) -> int:
                     help="seconds a stage may take")
     ap.add_argument("--lanes", type=int, default=LANES)
     ap.add_argument("--size", type=int, default=None,
-                    help=f"objects of mm1/mmc (default {N_OBJECTS}), "
-                         f"targets of AWACS (default {N_TARGETS})")
+                    help=f"objects of the queue models and jobs of the "
+                         f"job shop (default {N_OBJECTS}), targets of "
+                         f"AWACS (default {N_TARGETS})")
     ap.add_argument("stage", nargs="?", type=int,
                     help="run this one stage in this process")
     a = ap.parse_args(argv)

@@ -30,6 +30,7 @@ process's CUDA context unusable::
 
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model mmc --K 64
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model mm1 --device cpu
+    python -m cimba_tpu_torch.tools.cuda_event_bisect --model jobshop --K 16
 
 It exits 1 when it finds a divergence, 0 when it finds none.
 """

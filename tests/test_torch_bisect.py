@@ -27,7 +27,8 @@ def _lines(buf):
     return [json.loads(x) for x in buf.getvalue().splitlines()]
 
 
-@pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "awacs"])
+@pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "jobshop",
+                                   "awacs"])
 def test_every_stage_passes_on_cpu(model):
     buf = io.StringIO()
 
@@ -111,6 +112,7 @@ def _planted(st, lane, leaf, at, delta):
     ("mmc", 5, "queues.size", 11),
     ("mm1-record", 2, "queues.acc.summary.m1", 20),
     ("awacs", 3, "user.pos_x", 7),
+    ("jobshop", 4, "buffers.level", 9),
 ])
 def test_event_bisect_names_a_planted_divergence(model, lane, leaf, at):
     with config.profile("f32"):

@@ -24,7 +24,7 @@ import torch
 
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
-from cimba_tpu_torch.models import awacs, mg1, mm1, mmc, tandem
+from cimba_tpu_torch.models import awacs, jobshop, mg1, mm1, mmc, tandem
 from cimba_tpu_torch.random import bits, block_kernels
 from cimba_tpu_torch.tools import bisect_kernels, cuda_bisect
 
@@ -233,16 +233,19 @@ def _queue_spec(name):
     if name == "tandem":  # every cell of the grid among the 512 lanes
         p, _ = tandem.sweep_grid(40).rows(86)
         return tandem.build()[0], tuple(x[:512] for x in p)
+    if name == "shop":  # backlog 4: the maintenance process runs
+        return jobshop.build(backlog=4.0)[0], jobshop.params(40)
     c = int(name[-1])
     return mmc.build(c)[0], mmc.params(40, 0.83 * c, 1.0)
 
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
 @pytest.mark.parametrize("name", ["mm1_record", "mmc1", "mmc2", "mmc3",
-                                  "mmc4", "mg1", "tandem"])
+                                  "mmc4", "mg1", "tandem", "shop"])
 def test_queue_instances_match_plain_engine(card, name, prof):
-    """Every recording instance of the object-queue kernel: one chunk,
-    then the whole run, the queues' length accumulators included."""
+    """Every recording instance of the single-queue kernel: one chunk,
+    then the whole run, the queues' length accumulators (the job shop's
+    pool's and buffer's) included."""
     with config.profile(prof):
         spec, params = _queue_spec(name)
         lay = kernel_run.queue_layout(spec)
@@ -260,11 +263,17 @@ def test_queue_instances_match_plain_engine(card, name, prof):
         torch.cuda.synchronize()
     assert run.launches > 0 and bool(ker.done.all())
     assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
-    assert bool(ker.queues.acc.started.all())
+    if name == "shop":
+        assert bool(ker.pools.acc.started.all())
+        assert bool(ker.buffers.acc.started.all())
+        assert bool((ker.user["maintenance_runs"] >= 1).any())
+    else:
+        assert bool(ker.queues.acc.started.all())
 
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
-@pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "awacs"])
+@pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "jobshop",
+                                   "awacs"])
 def test_bisect_kernels_match_plain(card, model, prof):
     """K6: the copy byte for byte, the peek equal to peek_merged, at the
     start and a few events in; an odd lane count puts the end of every
@@ -315,10 +324,11 @@ def _plant(sims):
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
 @pytest.mark.parametrize("name", ["mm1", "mm1_record", "mmc1", "mmc2",
-                                  "mmc3", "mmc4", "mg1", "tandem"])
+                                  "mmc3", "mmc4", "mg1", "tandem", "shop"])
 def test_queue_kernel_general_table(card, name, prof):
-    """Every object-queue instance with events planted in the general
-    table: one chunk, and the whole run, equal to the plain engine."""
+    """Every single-queue engine instance with events planted in the
+    general table: one chunk, and the whole run, equal to the plain
+    engine."""
     with config.profile(prof):
         if name == "mm1":
             spec, params = mm1.build(record=False)[0], mm1.params(40)
@@ -354,9 +364,9 @@ def test_awacs_kernels_have_no_stack_frame(card):
 
 def test_queue_chunk_has_no_stack_frame(card):
     """ptxas' report of csrc/queue_chunk.cu: the mm (1, false), (1,
-    true) and (3, true), the mg1 and the tandem instances keep no stack
-    frame and spill nothing, in either profile (chip_smoke.py checks the
-    same)."""
+    true) and (3, true), the mg1, the tandem and the job-shop instances
+    keep no stack frame and spill nothing, in either profile
+    (chip_smoke.py checks the same)."""
     import chip_smoke
     from cimba_tpu_torch import _build
 
@@ -364,4 +374,4 @@ def test_queue_chunk_has_no_stack_frame(card):
     figs, faults = chip_smoke.queue_frames(
         chip_smoke.build_report("queue_chunk", report))
     assert faults == []
-    assert len(figs) >= 14  # every instance in both profiles
+    assert len(figs) >= 16  # every instance in both profiles

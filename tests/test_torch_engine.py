@@ -91,7 +91,16 @@ def test_unported_features_raise():
 
     tmm1.build()  # record=True: queue-length recording is ported
     m = Model("x")
-    for call in (lambda: m.resource("r"), lambda: m.buffer("b", 1.0),
-                 lambda: m.condition("c", None)):
+    # pools, buffers and conditions are ported (the job shop's toolkit)
+    m.resourcepool("p", 2.0)
+    m.buffer("b", 1.0)
+    m.condition("c", lambda sim, p: True)
+
+    def blk(sim, p, sig):
+        return sim, None
+
+    for call in (lambda: m.resource("r"), lambda: m.priorityqueue("q", 4),
+                 lambda: m.handler(blk),
+                 lambda: m.process("s", entry=m.block(blk), start=False)):
         with pytest.raises(NotImplementedError):
             call()
