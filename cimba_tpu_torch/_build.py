@@ -8,7 +8,9 @@ plain C interface::
 
 The library goes to ``cimba_tpu_torch/build/`` (ignored by git), named
 by a hash of every source under ``csrc/`` and the flags, so a checkout
-builds its own kernel once and an edited source rebuilds.  ``--fmad=false``
+builds its own kernel once and an edited source rebuilds.  A generated
+instance of the chunk kernel (a user spec's, :func:`build_gen`) goes to
+``build/gen/<hash>/`` with its header.  ``--fmad=false``
 keeps the kernel's float arithmetic separately rounded, like the plain
 PyTorch engine it is held against.  Nothing here runs at import.
 """
@@ -85,6 +87,52 @@ def build_all(names) -> dict:
     names = list(names)
     with ThreadPoolExecutor(max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(build, names)))
+
+
+def build_gen(header: str) -> tuple:
+    """Build a generated instance of the chunk kernel: ``header`` (the
+    text :func:`cimba_tpu_torch.core.emit.emit` made) goes to
+    ``build/gen/<hash>/gen.cuh``, named by a hash of it, the engine's
+    sources and the flags, and ``csrc/queue_chunk.cu`` compiles with it
+    alone (``-DCIMBA_GEN_HEADER``, ``-DCIMBA_GEN_ONLY``) into ``gen.so``
+    beside it, unless that exists.  Returns ``(library path, seconds,
+    ptxas report)``; raises with the header's path when nvcc fails."""
+    h = hashlib.sha256(header.encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    d = BUILD / "gen" / h.hexdigest()[:16]
+    out = d / "gen.so"
+    if out.exists():
+        return out, 0.0, ""
+    d.mkdir(parents=True, exist_ok=True)
+    hdr = d / "gen.cuh"
+    hdr.write_text(header)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc(), *FLAGS, f'-DCIMBA_GEN_HEADER="{hdr}"', "-DCIMBA_GEN_ONLY",
+         "-o", str(tmp), str(CSRC / "queue_chunk.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the generated instance "
+                           f"{hdr}:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0, proc.stdout
+
+
+def load_gen(header: str) -> ctypes.CDLL:
+    """The generated instance's library for ``header``, built first if
+    needed (one load per process and header)."""
+    key = ("gen", header)
+    lib = _loaded.get(key)
+    if lib is None:
+        path, _, _ = build_gen(header)
+        lib = ctypes.CDLL(str(path))
+        _loaded[key] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

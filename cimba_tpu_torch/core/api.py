@@ -1,6 +1,14 @@
-"""Block-author helpers (torch port of :mod:`cimba_tpu.core.api`, the
-calls the ported models' blocks make).  ``p`` is the ``[L]`` pid tensor a block
-receives; every helper acts on all replication lanes at once."""
+"""Block-author helpers (torch port of :mod:`cimba_tpu.core.api`): the
+readers of a lane's state and the calls a block makes between yields.
+``p`` is the ``[L]`` pid tensor a block receives; every helper acts on
+all replication lanes at once.  The readers of components not ported
+yet (``queue_position``, ``pqueue_position``, ``pqueue_length``,
+``resource_holder``) come with their verbs.
+
+Under :mod:`cimba_tpu_torch.core.trace` a block runs on a symbolic
+one-lane Sim: :func:`draw` then records one draw node naming its
+sampler, and :func:`pool_release` and :func:`cond_signal` one engine
+call each; every other helper is traced through as torch ops."""
 
 from __future__ import annotations
 
@@ -10,7 +18,8 @@ from cimba_tpu_torch import config
 from cimba_tpu_torch.config import INDEX
 from cimba_tpu_torch.core import ix
 from cimba_tpu_torch.core import loop as _loop
-from cimba_tpu_torch.core.loop import Sim
+from cimba_tpu_torch.core import trace as _trace
+from cimba_tpu_torch.core.loop import ERR_USER, Sim
 
 
 def clock(sim: Sim):
@@ -22,6 +31,8 @@ def draw(sim: Sim, dist, *params):
     """Draw from a distribution, threading each lane's RNG stream:
     ``sim, x = api.draw(sim, random.exponential, mean)``.  The sample
     takes the Sim's own dtype profile."""
+    if _trace.is_symbolic(sim):
+        return _trace.draw(sim, dist, params)
     prof = "f32" if sim.clock.dtype == torch.float32 else "f64"
     with config.profile(prof):
         rng, x = dist(sim.rng, *params)
@@ -33,8 +44,22 @@ def got(sim: Sim, p):
     return ix.get(sim.procs.got, p)
 
 
+def local_f(sim: Sim, p, k: int):
+    """Float local ``k`` of process ``p``."""
+    return ix.get(sim.procs.locals_f[:, :, k], p)
+
+
 def local_i(sim: Sim, p, k: int):
+    """Integer local ``k`` of process ``p``."""
     return ix.get(sim.procs.locals_i[:, :, k], p)
+
+
+def set_local_i(sim: Sim, p, k: int, v) -> Sim:
+    li = sim.procs.locals_i
+    col = ix.put(li[:, :, k], p, torch.as_tensor(v, dtype=INDEX))
+    return sim._replace(procs=sim.procs._replace(
+        locals_i=torch.cat([li[:, :, :k], col[:, :, None], li[:, :, k + 1:]],
+                           dim=2)))
 
 
 def set_local_f(sim: Sim, p, k: int, v) -> Sim:
@@ -53,6 +78,10 @@ def add_local_i(sim: Sim, p, k: int, dv=1) -> Sim:
                            dim=2)))
 
 
+def user(sim: Sim):
+    return sim.user
+
+
 def set_user(sim: Sim, new_user) -> Sim:
     return sim._replace(user=new_user)
 
@@ -60,6 +89,15 @@ def set_user(sim: Sim, new_user) -> Sim:
 def stop(sim: Sim, pred=True) -> Sim:
     """End the replication after the current event."""
     return sim._replace(done=sim.done | pred)
+
+
+def fail(sim: Sim, pred=True) -> Sim:
+    """Mark the replication failed with ERR_USER (parity: the
+    reference's ``api.fail``); an earlier error code stays."""
+    err = torch.where((sim.err == 0) & pred,
+                      torch.tensor(ERR_USER, dtype=INDEX,
+                                   device=sim.err.device), sim.err)
+    return sim._replace(err=err)
 
 
 def _id(ref):
@@ -80,14 +118,65 @@ def buffer_space(sim: Sim, b):
     return torch.tensor(b.capacity, dtype=lv.dtype, device=lv.device) - lv
 
 
+def queue_length(sim: Sim, q):
+    """Items in an object queue (parity: cmb_objectqueue_length)."""
+    return sim.queues.size[:, _id(q)]
+
+
+def queue_space(sim: Sim, q):
+    """Free slots in an object queue (parity: cmb_objectqueue_space);
+    takes the QueueRef, which holds the capacity."""
+    if not hasattr(q, "capacity"):
+        raise TypeError("queue_space needs the QueueRef, not a bare id")
+    size = sim.queues.size[:, q.id]
+    return (torch.tensor(q.capacity, dtype=INDEX, device=size.device)
+            - size).to(INDEX)
+
+
+def pool_level(sim: Sim, pool):
+    """Units available in a resource pool (parity:
+    cmb_resourcepool_level)."""
+    return sim.pools.level[:, _id(pool)]
+
+
+def pool_in_use(sim: Sim, pool):
+    """Units held out of a resource pool (parity:
+    cmb_resourcepool_in_use); takes the PoolRef, which holds the
+    capacity."""
+    if not hasattr(pool, "capacity"):
+        raise TypeError("pool_in_use needs the PoolRef, not a bare id")
+    lv = sim.pools.level[:, pool.id]
+    return torch.tensor(pool.capacity, dtype=lv.dtype, device=lv.device) - lv
+
+
+def pool_held(sim: Sim, pool, p):
+    """Units process ``p`` holds from a pool (parity:
+    cmb_resourcepool_held_by_process)."""
+    return ix.get(sim.pools.held[:, _id(pool)], p)
+
+
+def proc_priority(sim: Sim, p):
+    """Current priority of process ``p`` (parity: cmb_process_priority)."""
+    return ix.get(sim.procs.prio, p)
+
+
+def proc_status(sim: Sim, p):
+    """CREATED, RUNNING or FINISHED (parity: cmb_process_status)."""
+    return ix.get(sim.procs.status, p)
+
+
 def pool_release(sim: Sim, spec, pool, p, amount) -> Sim:
     """Release pool units inline from a block (partial release allowed;
     parity: cmb_resourcepool_release): it never blocks, so it takes no
     chain iteration.  ``cmd.pool_release`` is the command form."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "pool_release", _id(pool), p, amount)
     return _loop.release_pool(spec, sim, p, _id(pool), amount)
 
 
 def cond_signal(sim: Sim, spec, condition) -> Sim:
     """Signal a condition: wake every waiter whose predicate holds
     (parity: cmb_condition_signal)."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "cond_signal", _id(condition))
     return _loop.cond_signal(spec, sim, _id(condition))

@@ -1,0 +1,614 @@
+"""Emit a spec's traced blocks as a family of the CUDA chunk kernel.
+
+The IR of :mod:`cimba_tpu_torch.core.trace` becomes one header that
+defines ``Gen<float>`` or ``Gen<double>`` (the profile of the Sim it was
+traced on), a model family of the engine in ``csrc/queue_chunk.cu`` with
+the interface the hand-written families have:
+
+* the blocks and the conditions' predicates as inlined device functions,
+  a switch on pc and on the condition id;
+* the Sim's leaf positions, the user state's leaves as shared-memory
+  columns (``UCold``, with the processes' float and integer locals), and
+  their load and store;
+* ``NP``, ``NQ``, ``NK``, ``NV``, ``NC``, the queues', pools', buffers' and
+  conditions' capacities, guards, recording flags and observer lists, all
+  compile-time constants (a command's component id is dispatched over
+  them, ``by_id``);
+* the launch bounds.
+
+Each node is one ``const`` local of the C++ type of its dtype; an op casts
+its operands to the dtype torch computes it in, a Python number is rounded
+to that dtype as torch rounds it, and a division by a Python number is a
+multiply by its reciprocal, as torch's CUDA kernel computes it.  Reads of
+per-process columns by a traced pid (``ix.get``) are unrolled selects, and
+writes by one (``ix.put``) predicated stores, never a local array indexed
+by a run-time pid.  A leaf, op or sampler the kernel has no counterpart
+for raises ``NotImplementedError`` naming it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+from typing import Dict, List
+
+import torch
+
+from cimba_tpu_torch.core import trace as tr
+from cimba_tpu_torch.core.model import ModelSpec
+
+_CTYPE = {torch.float32: "float", torch.float64: "double",
+          torch.int32: "int32_t", torch.int64: "int64_t",
+          torch.bool: "bool"}
+
+#: the samplers with a device counterpart (csrc/samplers.cuh), by the
+#: name the draw node gives them, and their parameter counts
+SAMPLERS = {
+    "cimba_tpu_torch.random.distributions.uniform01": ("uniform01", 0),
+    "cimba_tpu_torch.random.distributions.exponential": ("exponential", 1),
+    "cimba_tpu_torch.random.distributions.uniform": ("uniform", 2),
+    "cimba_tpu_torch.random.distributions.normal": ("normal", 2),
+    "cimba_tpu_torch.random.distributions.lognormal": ("lognormal", 2),
+    "cimba_tpu_torch.random.distributions.triangular": ("triangular", 3),
+}
+
+#: a process's packed word holds a guard id in 4 signed bits and the
+#: dirty mask 6 bits a process in 64
+MAX_GUARDS, MAX_PROCS, MAX_BLOCKS = 8, 10, 127
+#: the kernel's leaf pointer array (queue_chunk.cu MAX_LEAVES)
+MAX_LEAVES = 83
+#: static shared memory a block may use
+SMEM = 48 * 1024
+
+
+def _ctype(dt, what):
+    c = _CTYPE.get(dt)
+    if c is None:
+        raise NotImplementedError(f"{what}: dtype {dt} has no kernel type")
+    return c
+
+
+def _lit(value, dt) -> str:
+    """A Python number rounded to ``dt`` as torch rounds it."""
+    if dt == torch.bool:
+        return "true" if value else "false"
+    if dt.is_floating_point:
+        v = float(value)
+        if math.isnan(v):
+            return f"{_CTYPE[dt]}(NAN)"
+        if math.isinf(v):
+            return f"{_CTYPE[dt]}({'-' if v < 0 else ''}INFINITY)"
+        return f"{_CTYPE[dt]}({v.hex()})"
+    v = int(value)
+    if dt == torch.int64:
+        return f"int64_t({v}LL)"
+    return f"{_CTYPE[dt]}({v})"
+
+
+class _Layout:
+    """The Sim's leaves as the kernel sees them."""
+
+    def __init__(self, spec: ModelSpec, sims):
+        self.spec = spec
+        named = tr.named_leaves(sims)
+        self.names = [n for n, _ in named]
+        self.pos = {n: i for i, n in enumerate(self.names)}
+        self.leaf = {n: x for n, x in named}
+        self.real = sims.clock.dtype
+        self.user = [n for n in self.names if n.startswith("user.")]
+        for n in self.user:
+            x = self.leaf[n]
+            if x.dim() != 1:
+                raise NotImplementedError(
+                    f"spec {spec.name!r}: user leaf {n} has per-lane shape "
+                    f"{tuple(x.shape[1:])}; the generated kernel takes one "
+                    "value a lane")
+            _ctype(x.dtype, f"spec {spec.name!r}: user leaf {n}")
+        if len(self.names) > MAX_LEAVES:
+            raise NotImplementedError(
+                f"spec {spec.name!r}: {len(self.names)} Sim leaves, the "
+                f"kernel takes at most {MAX_LEAVES}")
+
+    def at(self, name) -> int:
+        return self.pos.get(name, -1)
+
+
+def check_spec(spec: ModelSpec) -> None:
+    """Refuse what the generated family cannot hold, before tracing."""
+    why = None
+    if spec.boundary_pcs:
+        why = "boundary blocks (the dwell kernel is AWACS's own)"
+    elif spec.n_guards > MAX_GUARDS:
+        why = f"{spec.n_guards} guards (at most {MAX_GUARDS})"
+    elif spec.n_procs > MAX_PROCS:
+        why = f"{spec.n_procs} processes (at most {MAX_PROCS})"
+    elif len(spec.blocks) > MAX_BLOCKS:
+        why = f"{len(spec.blocks)} blocks (at most {MAX_BLOCKS})"
+    if why:
+        raise NotImplementedError(
+            f"spec {spec.name!r}: the generated chunk kernel takes no {why}")
+
+
+class _Fn:
+    """The C++ body of one block or predicate."""
+
+    def __init__(self, lay: _Layout, nodes, what: str):
+        self.lay, self.nodes, self.what = lay, nodes, what
+        self.lines: List[str] = []
+        self.done = 0
+        self.live = [False] * len(nodes)
+
+    def fail(self, msg):
+        raise NotImplementedError(f"{self.what}: {msg}")
+
+    def mark(self, roots):
+        stack = [r for r in roots if isinstance(r, int)]
+        while stack:
+            i = stack.pop()
+            if self.live[i]:
+                continue
+            self.live[i] = True
+            stack += [a for a in self.nodes[i].args if isinstance(a, int)]
+
+    # --- leaves --------------------------------------------------------
+    def access(self, name, i, write=False) -> str:
+        lay = self.lay
+        if name.startswith("user."):
+            return f"UCOL(s, u{lay.user.index(name)}, 0)"
+        if name == "procs.locals_f":
+            return f"UCOL(s, lf, {i})"
+        if name == "procs.locals_i":
+            return f"UCOL(s, li, {i})"
+        if name == "done":
+            return "s.done"
+        if name == "err":
+            return "s.err"
+        if not write:
+            if name == "clock":
+                return "s.clock"
+            if name == "n_events":
+                return "s.n_events"
+            if name == "rep":
+                return "row<int32_t, S>(w, REP, 1)[0]"
+            if name == "procs.got":
+                return f"COLD(s, got, {i})"
+            if name == "procs.prio":
+                return f"COLD(s, prio, {i})"
+            if name == "procs.status":
+                return f"get(s, F_STATUS, {i})"
+            if name == "queues.size":
+                return f"s.size[{i}]"
+            if name == "queues.head":
+                return f"s.head[{i}]"
+            if name == "pools.level":
+                return f"s.pool_level[{i}]"
+            if name == "pools.next_seq":
+                return f"s.pool_next_seq[{i}]"
+            if name == "pools.held":
+                return f"SCOL(s, held, {i})"
+            if name == "pools.held_seq":
+                return f"SCOL(s, held_seq, {i})"
+            if name == "buffers.level":
+                return f"s.buf_level[{i}]"
+        self.fail(f"{'writes' if write else 'reads'} Sim leaf {name}, which "
+                  "the generated kernel does not give a block")
+
+    # --- nodes -----------------------------------------------------------
+    def ref(self, a, cdt) -> str:
+        if isinstance(a, tr.Lit):
+            return _lit(a.value, cdt)
+        n = self.nodes[a]
+        if cdt is None or n.dtype == cdt:
+            return f"v{a}"
+        return f"static_cast<{_ctype(cdt, self.what)}>(v{a})"
+
+    def expr(self, i) -> str:
+        n = self.nodes[i]
+        op, a, cdt = n.op, n.args, n.cdt
+        if op == "leaf":
+            return self.access(*n.aux)
+        if op == "const":
+            return _lit(n.aux, n.dtype)
+        if op == "pid":
+            return "int32_t(p)"
+        if op == "sig":
+            return "sig"
+        if op == "cast":
+            return f"static_cast<{_ctype(n.dtype, self.what)}>(v{a[0]})"
+        if op == "pick":
+            out = f"v{a[1]}"
+            for j, e in enumerate(a[2:], start=1):
+                out = f"(v{a[0]} == {j} ? v{e} : {out})"
+            return out
+        fl = cdt is not None and cdt.is_floating_point
+        x = [self.ref(v, cdt) if v is not None else None for v in a]
+        if op == "where":
+            return f"(v{a[0]} ? {x[1]} : {x[2]})"
+        if op == "clamp":
+            v = x[0]
+            if x[1] is not None:
+                v = f"({v} < {x[1]} ? {x[1]} : {v})"
+            if x[2] is not None:
+                v = f"({v} > {x[2]} ? {x[2]} : {v})"
+            return f"({x[0]} != {x[0]} ? {x[0]} : {v})" if fl else v
+        bin_ = {"add": "+", "sub": "-", "mul": "*", "lt": "<", "le": "<=",
+                "gt": ">", "ge": ">=", "eq": "==", "ne": "!="}
+        if op in bin_:
+            if cdt == torch.bool and op in ("add", "sub", "mul"):
+                self.fail(f"op {op} on bools")
+            return f"({x[0]} {bin_[op]} {x[1]})"
+        if op == "div":
+            if not fl:
+                self.fail("an integer division")
+            if isinstance(a[1], tr.Lit):
+                # torch's CUDA kernel: a * (1 / b) for a Python number b
+                return f"({x[0]} * ({_lit(1, cdt)} / {x[1]}))"
+            return f"({x[0]} / {x[1]})"
+        if op in ("and", "or", "xor"):
+            sym = {"and": "&", "or": "|", "xor": "^"}[op]
+            if cdt == torch.bool:
+                return f"bool({x[0]} {sym} {x[1]})"
+            return f"({x[0]} {sym} {x[1]})"
+        if op in ("minimum", "maximum"):
+            cmp = "<" if op == "minimum" else ">"
+            pick = f"({x[0]} {cmp} {x[1]} ? {x[0]} : {x[1]})"
+            if fl:
+                return (f"({x[0]} != {x[0]} ? {x[0]} : ({x[1]} != {x[1]} ? "
+                        f"{x[1]} : {pick}))")
+            return pick
+        if op == "not":
+            return f"(!{x[0]})" if cdt == torch.bool else f"(~{x[0]})"
+        if op == "neg":
+            return f"(-{x[0]})"
+        if op == "reciprocal":
+            return f"({_lit(1, cdt)} / {x[0]})"
+        if op == "isnan":
+            return f"({x[0]} != {x[0]})" if fl else "false"
+        if op == "isfinite":
+            return f"finite({x[0]})" if fl else "true"
+        if op in ("sin", "cos") and fl:
+            # frame-free, the library's slow path in registers
+            # (queue_chunk.cu trig_of)
+            return f"trig_of<{str(op == 'sin').lower()}>({x[0]})"
+        f32 = cdt == torch.float32
+        libm = {"abs": "fabs", "exp": "exp",
+                "log": "log", "log1p": "log1p", "sqrt": "sqrt",
+                "floor": "floor", "ceil": "ceil"}
+        if op in libm:
+            if not fl:
+                if op == "abs":
+                    return f"({x[0]} < 0 ? -{x[0]} : {x[0]})"
+                self.fail(f"op {op} on {cdt}")
+            return f"{libm[op]}{'f' if f32 else ''}({x[0]})"
+        self.fail(f"op {op} has no CUDA counterpart")
+
+    def draw(self, i) -> List[str]:
+        n = self.nodes[i]
+        name, _ = n.aux
+        fn = SAMPLERS.get(name)
+        if fn is None:
+            self.fail(f"sampler {name} has no device counterpart "
+                      "(csrc/samplers.cuh)")
+        dev, arity = fn
+        if len(n.args) != arity:
+            self.fail(f"sampler {name} with {len(n.args)} parameters")
+        lits = [isinstance(a, tr.Lit) for a in n.args]
+        real = self.lay.real
+        if all(lits):
+            args = [f"Lit{{{float(a.value).hex()}}}" for a in n.args]
+            want = real
+        else:
+            dts = {self.nodes[a].dtype for a in n.args
+                   if not isinstance(a, tr.Lit)}
+            if any(lits) or len(dts) != 1 or not next(iter(dts)) \
+                    .is_floating_point:
+                self.fail(f"sampler {name}'s parameters: all Python numbers "
+                          "or all tensors of one float dtype")
+            pdt = next(iter(dts))
+            args = [f"v{a}" for a in n.args]
+            want = torch.promote_types(pdt, real)
+        if n.dtype != want:
+            self.fail(f"sampler {name} gives {n.dtype}, the device sampler "
+                      f"{want}")
+        b0, b1 = f"b{i}_0", f"b{i}_1"
+        return [f"uint32_t {b0}, {b1};", f"draw_bits(s, {b0}, {b1});",
+                f"const {_ctype(n.dtype, self.what)} v{i} = "
+                f"{dev}<R>({', '.join([b0, b1] + args)});"]
+
+    def emit_upto(self, end):
+        for i in range(self.done, end):
+            if not self.live[i]:
+                continue
+            n = self.nodes[i]
+            if n.op == "draw":
+                self.lines += self.draw(i)
+            else:
+                self.lines.append(f"const {_ctype(n.dtype, self.what)} v{i} "
+                                  f"= {self.expr(i)};")
+        self.done = max(self.done, end)
+
+    def store(self, name, i, nid):
+        x = self.lay.leaf[name]
+        t = _ctype(x.dtype, self.what)
+        self.lines.append(f"{self.access(name, i, write=True)} = "
+                          f"static_cast<{t}>(v{nid});")
+
+
+def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
+    f = _Fn(lay, ir.nodes, f"block {ir.name!r} (pc {ir.pc}) of spec "
+                           f"{spec.name!r}")
+    roots = list(ir.cmd)
+    for e in ir.effects:
+        if e[0] == "draw":
+            roots.append(e[1])
+        elif e[0] == "write":
+            roots.append(e[3])
+        else:
+            roots += [a for a in e[2] if isinstance(a, int)]
+    f.mark(roots)
+    pending = []
+    for e in ir.effects:
+        if e[0] == "write":
+            pending.append(e)
+        elif e[0] == "call":
+            f.emit_upto(e[3])
+            for w in pending:
+                f.store(w[1], w[2], w[3])
+            pending = []
+            f.lines += _call(f, e, spec)
+    f.emit_upto(len(ir.nodes))
+    for w in pending:
+        f.store(w[1], w[2], w[3])
+    tag, f1, f2, f3, i, npc = ir.cmd
+    real = lay.real
+    f.lines.append(
+        f"return Cmd<R>{{{f.ref(tag, torch.int32)}, {f.ref(f1, real)}, "
+        f"{f.ref(f3, real)}, {f.ref(npc, torch.int32)}, "
+        f"{f.ref(i, torch.int32)}, {f.ref(f2, real)}}};")
+    return f.lines
+
+
+def _call(f: _Fn, e, spec: ModelSpec) -> List[str]:
+    kind, args = e[1], e[2]
+    if kind == "pool_release":
+        k, p, amount = args
+        if not isinstance(k, tr.Lit):
+            f.fail("api.pool_release of a traced pool id")
+        if not 0 <= int(k.value) < len(spec.pools):
+            f.fail(f"api.pool_release of pool {k.value}")
+        pid = f.ref(p, None) if not isinstance(p, tr.Lit) else str(
+            int(p.value))
+        return [f"release_pool<{int(k.value)}>(s, w, int({pid}), "
+                f"{f.ref(amount, f.lay.real)});"]
+    if kind == "cond_signal":
+        (c,) = args
+        if not 0 <= int(c.value) < len(spec.conditions):
+            f.fail(f"api.cond_signal of condition {c.value}")
+        return [f"cond_signal<{int(c.value)}>(s, w);"]
+    f.fail(f"engine call {kind}")
+
+
+def _pred_fn(lay: _Layout, ir: tr.PredIR, spec: ModelSpec) -> List[str]:
+    f = _Fn(lay, ir.nodes, f"predicate of condition {ir.name!r} of spec "
+                           f"{spec.name!r}")
+    f.mark([ir.out])
+    f.emit_upto(len(ir.nodes))
+    f.lines.append(f"return {f.ref(ir.out, torch.bool)};")
+    return f.lines
+
+
+def _ternary(name, values, default=0, fmt=str) -> str:
+    """A constexpr function of a component id: nested selects."""
+    out = fmt(default)
+    for j in reversed(range(len(values))):
+        out = f"({name} == {j} ? {fmt(values[j])} : {out})"
+    return out
+
+
+def emit(spec: ModelSpec, sims) -> str:
+    """The generated family's header for ``spec`` in the profile (and
+    with the shapes) of ``sims``."""
+    check_spec(spec)
+    lay = _Layout(spec, sims)
+    real = lay.real
+    R = _ctype(real, "the Sim's clock")
+    blocks = [tr.trace_block(spec, pc, sims) for pc in
+              range(len(spec.blocks))]
+    preds = [tr.trace_predicate(spec, c.id, sims) for c in spec.conditions]
+    np_, nq = spec.n_procs, len(spec.queues)
+    nk, nv, nc = len(spec.pools), len(spec.buffers), len(spec.conditions)
+    nf, ni = max(spec.n_flocals, 1), max(spec.n_ilocals, 1)
+    q_acc = lay.at("queues.acc.summary.n")
+    p_acc = lay.at("pools.acc.summary.n")
+    b_acc = lay.at("buffers.acc.summary.n")
+    n_qa = nq if q_acc >= 0 else 0
+    n_pa = nk if p_acc >= 0 else 0
+    n_ba = nv if b_acc >= 0 else 0
+    toolkit = nk + nv + nc > 0
+    u0 = lay.pos[lay.user[0]] if lay.user else lay.pos["done"]
+    # shared memory a lane takes, to choose the block size
+    rb = torch.finfo(real).bits // 8
+    nka = max(nk, 1)
+    per_lane = (rb * (8 + 3 * np_) + 16 * np_ + (10 * rb + 1) * (
+        n_qa + n_pa + n_ba) + 4 * np_
+        + ((rb * (nka * np_ + np_) + 4 * nka * np_) if toolkit else 0)
+        + rb * np_ * nf + 4 * np_ * ni
+        + sum(lay.leaf[n].element_size() for n in lay.user))
+    threads = 64 if per_lane * 64 <= SMEM - 1024 else 32
+    if per_lane * threads > SMEM - 1024:
+        raise NotImplementedError(
+            f"spec {spec.name!r}: {per_lane} B of shared state a lane, more "
+            f"than a block of {threads} lanes can hold")
+
+    def cx(expr_, args="int i", ret="int"):
+        return f"__host__ __device__ static constexpr {ret} {expr_}"
+
+    observes = " || ".join(
+        f"(c == {c.id} && ({' || '.join(f'g == {g}' for g in c.observes)}))"
+        for c in spec.conditions if c.observes) or "false"
+    out = [
+        f"// {'f32' if real == torch.float32 else 'f64'} profile of spec "
+        f"{spec.name!r}: {np_} processes, {len(spec.blocks)} blocks, "
+        f"{nq} queues, {nk} pools, {nv} buffers, {nc} conditions",
+        f"template <>",
+        f"struct Gen<{R}> : Family {{",
+        f"  static constexpr bool GEN = true, RECORD = false, SHOP = false;",
+        f"  static constexpr bool TOOLKIT = {str(toolkit).lower()}, "
+        f"PEND_I = true, PRED_BY_PID = true;",
+        f"  static constexpr int NP = {np_}, NQ = {nq}, NG = "
+        f"{spec.n_guards}, NK = {nk}, NV = {nv}, NC = {nc};",
+        f"  static constexpr int NF = {nf}, NI = {ni}, NSUM = 1, NPAR = 1, "
+        f"N_BLOCKS = {len(spec.blocks)};",
+        f"  static constexpr int THREADS = {threads}, NACC = "
+        f"{n_qa + n_pa + n_ba}, U0 = {u0}, N_USER = {len(lay.user)};",
+        f"  static constexpr int L_QACC = {q_acc}, L_PACC = {p_acc}, "
+        f"L_BACC = {b_acc};",
+        f"  static constexpr int L_P_LEVEL = {lay.at('pools.level')}, "
+        f"L_P_HELD = {lay.at('pools.held')}, L_P_HELD_SEQ = "
+        f"{lay.at('pools.held_seq')}, L_P_NEXT_SEQ = "
+        f"{lay.at('pools.next_seq')}, L_B_LEVEL = "
+        f"{lay.at('buffers.level')};",
+        f"  static constexpr int LN_MU = 0, LN_SIGMA = 0;",
+        f"  // a generous register cap: a frame or a spill fails the build's "
+        f"check",
+        f"  template <typename RR>",
+        f"  __host__ __device__ static constexpr int minb() {{ return "
+        f"{4 if threads == 64 else 8}; }}",
+        "  " + cx(f"q_cap(int i) {{ return "
+                  f"{_ternary('i', [q.capacity for q in spec.queues], 1)}; }}"),
+        "  " + cx(f"q_front(int i) {{ return "
+                  f"{_ternary('i', [q.front_guard for q in spec.queues])}; }}"),
+        "  " + cx(f"q_rear(int i) {{ return "
+                  f"{_ternary('i', [q.rear_guard for q in spec.queues])}; }}"),
+        "  " + cx(f"q_rec(int i) {{ return "
+                  f"{_ternary('i', [q.record and q_acc >= 0 for q in spec.queues], False, lambda v: str(bool(v)).lower())}; }}",
+                  ret="bool"),
+        "  " + cx("acc_q(int i) { return i; }"),
+        "  " + cx(f"acc_pool(int i) {{ return {n_qa} + i; }}"),
+        "  " + cx(f"acc_buf(int i) {{ return {n_qa + n_pa} + i; }}"),
+        "  " + cx(f"pool_rec(int i) {{ return "
+                  f"{_ternary('i', [pl.record and p_acc >= 0 for pl in spec.pools], False, lambda v: str(bool(v)).lower())}; }}",
+                  ret="bool"),
+        "  " + cx(f"buf_rec(int i) {{ return "
+                  f"{_ternary('i', [b.record and b_acc >= 0 for b in spec.buffers], False, lambda v: str(bool(v)).lower())}; }}",
+                  ret="bool"),
+        "  " + cx(f"g_pool(int i) {{ return "
+                  f"{_ternary('i', [pl.guard for pl in spec.pools])}; }}"),
+        "  " + cx(f"g_front(int i) {{ return "
+                  f"{_ternary('i', [b.front_guard for b in spec.buffers])}; }}"),
+        "  " + cx(f"g_rear(int i) {{ return "
+                  f"{_ternary('i', [b.rear_guard for b in spec.buffers])}; }}"),
+        "  " + cx(f"g_cond(int i) {{ return "
+                  f"{_ternary('i', [c.guard for c in spec.conditions])}; }}"),
+        "  " + cx(f"observes(int c, int g) {{ return {observes}; }}",
+                  ret="bool"),
+        "  template <typename RR>",
+        "  __device__ static RR pool_cap(const Where&, int i) {",
+        f"    return RR({_ternary('i', [float(pl.capacity).hex() for pl in spec.pools], '0.0')});",
+        "  }",
+        "  template <typename RR>",
+        "  __device__ static RR buf_cap(const Where&, int i) {",
+        f"    return RR({_ternary('i', [float(b.capacity).hex() for b in spec.buffers], '0.0')});",
+        "  }",
+        "  struct UCold {",
+        f"    {R} lf[{np_ * nf}][{threads}];",
+        f"    int32_t li[{np_ * ni}][{threads}];",
+    ]
+    for j, n in enumerate(lay.user):
+        out.append(f"    {_CTYPE[lay.leaf[n].dtype]} u{j}[1][{threads}];"
+                   f"  // {n}")
+    out += ["  };", "  template <bool LOAD, class S>",
+            "  __device__ static void xfer_user(S& s, const Where& w) {"]
+    for j, n in enumerate(lay.user):
+        t = _CTYPE[lay.leaf[n].dtype]
+        out.append(f"    xfer<LOAD>(row<{t}, S>(w, {lay.pos[n]}, 1), "
+                   f"UCOL(s, u{j}, 0));")
+    out.append("  }")
+    for ir in preds:
+        out += [f"  // condition {ir.cid} {ir.name!r}",
+                "  template <class S>",
+                f"  __device__ __forceinline__ static bool pred{ir.cid}("
+                "S& s, const Where& w, int p) {",
+                "    using R = typename S::R;"]
+        out += ["    " + ln for ln in _pred_fn(lay, ir, spec)]
+        out.append("  }")
+    out += ["  template <int C, class S>",
+            "  __device__ __forceinline__ static bool cond_holds(S& s, "
+            "const Where& w, int p) {"]
+    for ir in preds:
+        out.append(f"    if constexpr (C == {ir.cid}) return pred{ir.cid}"
+                   "(s, w, p);")
+    out += ["    return false;", "  }"]
+    for ir in blocks:
+        out += [f"  // block {ir.pc} {ir.name!r}",
+                "  template <class S>",
+                f"  __device__ __forceinline__ static Cmd<typename S::R> "
+                f"blk{ir.pc}(S& s, const Where& w, int p, int32_t sig) {{",
+                "    using R = typename S::R;"]
+        out += ["    " + ln for ln in _block_fn(lay, ir, spec)]
+        out.append("  }")
+    out += ["  template <class S>",
+            "  __device__ static Cmd<typename S::R> block(S& s, const Where& "
+            "w, int p, int b, int32_t sig) {",
+            "    switch (b) {"]
+    for ir in blocks[:-1]:
+        out.append(f"      case {ir.pc}: return blk{ir.pc}(s, w, p, sig);")
+    out += [f"      default: return blk{blocks[-1].pc}(s, w, p, sig);",
+            "    }", "  }", "};"]
+    prof = "F32" if real == torch.float32 else "F64"
+    head = [
+        f"// Generated by cimba_tpu_torch/core/emit.py from spec "
+        f"{spec.name!r}: a model family of the chunk kernel",
+        "// (csrc/queue_chunk.cu includes it with -DCIMBA_GEN_HEADER).  "
+        "A resume's chain is bounded",
+        "// at MAX_CHAIN = 1024 commands, the plain engine's rule "
+        "(make_run), not the reference",
+        "// kernel mode's spec.max_chain.",
+        f"#define CIMBA_GEN_{prof} 1",
+        "template <typename R>",
+        "struct Gen;",
+    ]
+    return "\n".join(head + out) + "\n"
+
+
+def header_hash(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def op_counts(spec: ModelSpec, sims, weights=None) -> Dict[int, int]:
+    """Live float and integer ops of each block's IR (pc -> count): the
+    least the generated kernel computes a dispatch of that block, for the
+    bound (draws counted by their samplers elsewhere).  An op counts
+    ``weights.get(op, 1)`` (a library function's operations), a division
+    by a Python number one multiply.  A write by a traced pid counts as
+    one store, not the candidate positions' tests and selects it is
+    emitted as (``BlockIR.puts``); a read by one (``pick``) as one
+    load."""
+    weights = weights or {}
+    counts = {}
+    lay = _Layout(spec, sims)
+    for pc in range(len(spec.blocks)):
+        ir = tr.trace_block(spec, pc, sims)
+        f = _Fn(lay, ir.nodes, "")
+        roots = list(ir.cmd) + [e[1] if e[0] == "draw" else e[3]
+                                for e in ir.effects if e[0] != "call"]
+        f.mark(roots)
+        live = {i for i, n in enumerate(ir.nodes) if f.live[i]
+                and n.op not in ("leaf", "const", "pid", "sig", "draw")}
+        put = {w for g in ir.puts for w in g} & live
+        # a put's position tests: eq nodes no live node but its selects
+        # reads
+        users: Dict[int, set] = {}
+        for i in live:
+            for a in ir.nodes[i].args:
+                if isinstance(a, int):
+                    users.setdefault(a, set()).add(i)
+        tests = {i for i in live if ir.nodes[i].op == "eq" and users.get(i)
+                 and users[i] <= put}
+        n = sum(1 for g in ir.puts if any(f.live[w] for w in g))
+        for i in live - put - tests:
+            node = ir.nodes[i]
+            lit = node.op == "div" and isinstance(node.args[1], tr.Lit)
+            n += 1 if lit else weights.get(node.op, 1)
+        counts[pc] = n
+    return counts

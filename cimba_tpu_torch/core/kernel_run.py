@@ -20,10 +20,16 @@ tensors:
   device memory; and its boundary round, the dwell kernel (a warp a
   lane).
 
-Six model families in all: M/M/1, M/M/c, M/G/1, tandem, the job shop
-and AWACS.
-:func:`make_kernel_run` refuses any other spec rather than switching to
-the plain engine.  On CPU tensors the chunk is the plain engine,
+These six hand-written families (M/M/1, M/M/c, M/G/1, tandem, the job
+shop and AWACS) are chosen first.  Any other spec built from the toolkit
+the port has runs through a *generated* family of the single-queue
+engine (:func:`generated_kernel_for`): its blocks and predicates are
+traced (:mod:`cimba_tpu_torch.core.trace`) on the Sim the run starts
+from, emitted as a header (:mod:`cimba_tpu_torch.core.emit`) and built
+with the engine into ``build/gen/<hash>/`` at first use
+(:func:`cimba_tpu_torch._build.build_gen`).  A spec the generator
+cannot take raises, naming the verb, op, leaf or sampler; nothing
+switches to the plain engine.  On CPU tensors the chunk is the plain engine,
 ``loop.make_run(spec, max_steps=chunk_steps, defer_boundary=True)`` —
 the version the kernels are held against — driven by the same host loop.
 
@@ -267,15 +273,11 @@ def _is_awacs(spec: ModelSpec) -> bool:
     )
 
 
-def _refuse(spec: ModelSpec):
+def _refuse(spec: ModelSpec, family: str):
     raise NotImplementedError(
-        f"CUDA chunk kernels exist for six model families only: the "
-        f"M/M/1 (models.mm1.build), the M/M/c (models.mmc.build(c)), the "
-        f"M/G/1 (models.mg1.build), the tandem network "
-        f"(models.tandem.build), the job shop (models.jobshop.build) and "
-        f"AWACS (models.awacs.build(n)); spec {spec.name!r} needs a kernel "
-        f"of its own (ROADMAP.md, queue B)"
-    )
+        f"spec {spec.name!r} is not {family}, which this hand-written "
+        f"kernel restates (kernel_for chooses the generated family for "
+        f"other specs)")
 
 
 def queue_layout(spec: ModelSpec) -> dict:
@@ -288,7 +290,8 @@ def queue_layout(spec: ModelSpec) -> dict:
     server count no instance serves."""
     shape = _queue_family(spec)
     if shape is None:
-        _refuse(spec)
+        _refuse(spec, "a model of the single-queue engine's hand-written "
+                      "families")
     if shape not in QUEUE_INSTANCES:
         have = ", ".join(f"{n} server{'s' * (n > 1)}"
                          f"{' recording' if r else ''}"
@@ -324,7 +327,7 @@ def awacs_layout(spec: ModelSpec) -> dict:
     computes), or NotImplementedError when ``spec`` is not
     ``models.awacs.build(n)``."""
     if not _is_awacs(spec):
-        _refuse(spec)
+        _refuse(spec, "models.awacs.build(n)")
     return dict(E=spec.event_cap, P=spec.n_procs, X=spec.n_procs - 1,
                 G=spec.n_guards, F=max(spec.n_flocals, 1),
                 N=max(spec.n_ilocals, 1),
@@ -332,6 +335,9 @@ def awacs_layout(spec: ModelSpec) -> dict:
 
 
 def _check_leaves(leaves, table, lay: dict, real, count):
+    """Every leaf of the Sim as the kernel's leaf table has it: its dtype
+    (a role, or a generated table's own dtype) and its per-lane shape
+    (dims named in ``lay``, or a generated table's sizes)."""
     if len(leaves) != len(table):
         raise ValueError(f"Sim has {len(leaves)} leaves, the kernel takes "
                          f"{len(table)}")
@@ -339,21 +345,24 @@ def _check_leaves(leaves, table, lay: dict, real, count):
     lanes = leaves[0].shape[0]
     dev = leaves[0].device
     for (name, role, dims), x in zip(table, leaves):
-        shape = (lanes,) + tuple(lay[d] for d in dims)
-        if x.dtype != dtypes[role] or tuple(x.shape) != shape:
+        shape = (lanes,) + tuple(lay[d] if isinstance(d, str) else d
+                                 for d in dims)
+        dt = dtypes[role] if isinstance(role, str) else role
+        if x.dtype != dt or tuple(x.shape) != shape:
             raise ValueError(f"Sim leaf {name}: {x.dtype} {tuple(x.shape)}, "
-                             f"the kernel takes {dtypes[role]} {shape}")
+                             f"the kernel takes {dt} {shape}")
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"Sim leaf {name} must be a contiguous tensor "
                              f"on {dev}")
     return lanes
 
 
-def _launch(lib_name: str, entry: str, table, sims: loop.Sim, lay: dict,
+def _launch(lib_name, entry: str, table, sims: loop.Sim, lay: dict,
             args) -> None:
     """One launch of ``cimba_<entry>_<f32|f64>`` of ``csrc/<lib_name>.cu``
-    on the current stream: (leaf pointers, count, lanes, *args, stream),
-    ``args`` as (ctypes type, value) pairs."""
+    (or of a loaded library) on the current stream: (leaf pointers,
+    count, lanes, *args, stream), ``args`` as (ctypes type, value)
+    pairs."""
     from cimba_tpu_torch import _build
 
     leaves = tree.leaves(sims)
@@ -364,7 +373,7 @@ def _launch(lib_name: str, entry: str, table, sims: loop.Sim, lay: dict,
                              (torch.float64, torch.int64)):
         raise ValueError(f"no kernel instance for {real}/{count} Sims")
     lanes = _check_leaves(leaves, table, lay, real, count)
-    lib = _build.load(lib_name)
+    lib = _build.load(lib_name) if isinstance(lib_name, str) else lib_name
     fn = getattr(lib, f"cimba_{entry}_"
                       f"{'f32' if real == torch.float32 else 'f64'}")
     fn.restype = ctypes.c_int
@@ -450,20 +459,84 @@ def awacs_dwell(sims: loop.Sim, lay: dict) -> loop.Sim:
     return sims
 
 
+def gen_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
+              t_end: Optional[float] = None) -> loop.Sim:
+    """Launch a generated instance of the chunk kernel (``lay`` from
+    :func:`generated_kernel_for`) in place, as :func:`queue_chunk` does.
+    ``gen_chunk.launches`` counts launches, of every generated
+    instance."""
+    from cimba_tpu_torch import _build
+
+    _launch(_build.load_gen(lay["header"]), "gen_chunk", lay["table"], sims,
+            lay, _chunk_args((lay["E"], lay["W"]), chunk_steps, t_end))
+    gen_chunk.launches += 1
+    return sims
+
+
 queue_chunk.launches = 0
 awacs_chunk.launches = 0
 awacs_dwell.launches = 0
+gen_chunk.launches = 0
+
+#: generated layouts, by spec and the Sim's structure
+_GEN: dict = {}
 
 
-def kernel_for(spec: ModelSpec):
-    """``(layout, chunk wrapper, leaf table)`` of the spec's CUDA chunk
-    kernel; NotImplementedError for a spec that has none."""
+def generated_kernel_for(spec: ModelSpec, sims: loop.Sim):
+    """``(layout, gen_chunk, leaf table)`` of the generated family for
+    ``spec`` in the profile and shapes of ``sims`` (any Sim of the
+    spec, on any device: its first lane is traced).  Any spec built from
+    the ported toolkit takes it, the six hand-written families' too;
+    NotImplementedError names what a spec uses that it cannot take."""
+    from cimba_tpu_torch.core import emit
+    from cimba_tpu_torch.core import trace
+
+    named = trace.named_leaves(sims)
+    key = (id(spec), tuple((n, x.dtype, tuple(x.shape[1:]))
+                           for n, x in named))
+    got = _GEN.get(key)
+    if got is not None and got[0] is spec:
+        return got[1], gen_chunk, got[1]["table"]
+    header = emit.emit(spec, sims)
+    table = tuple((n, x.dtype, tuple(x.shape[1:])) for n, x in named)
+    lay = dict(family="gen", header=header, table=table, E=spec.event_cap,
+               W=spec.queue_cap_max, P=spec.n_procs, G=spec.n_guards,
+               NS=0, REC=False)
+    _GEN[key] = (spec, lay)
+    return lay, gen_chunk, table
+
+
+def _hand_written(spec: ModelSpec):
     if _queue_family(spec) is not None:
         lay = queue_layout(spec)
         return lay, queue_chunk, queue_leaves(lay["family"], lay["REC"])
     if _is_awacs(spec):
         return awacs_layout(spec), awacs_chunk, AWACS_LEAVES
-    _refuse(spec)
+    return None
+
+
+class NeedsSim(NotImplementedError):
+    """:func:`kernel_for` of a spec whose kernel is generated, without a
+    Sim to trace it on."""
+
+
+def kernel_for(spec: ModelSpec, sims: Optional[loop.Sim] = None):
+    """``(layout, chunk wrapper, leaf table)`` of the spec's CUDA chunk
+    kernel: a hand-written family's where the spec is one, else the
+    generated family's for ``sims`` (:func:`generated_kernel_for`;
+    :class:`NeedsSim` without a Sim to trace, NotImplementedError for a
+    spec it cannot take)."""
+    hand = _hand_written(spec)
+    if hand is not None:
+        return hand
+    from cimba_tpu_torch.core import emit
+
+    emit.check_spec(spec)
+    if sims is None:
+        raise NeedsSim(
+            f"spec {spec.name!r} runs on a generated kernel, traced from a "
+            "Sim of the spec: pass one")
+    return generated_kernel_for(spec, sims)
 
 
 def make_boundary_step_plain(spec: ModelSpec):
@@ -526,7 +599,10 @@ def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
     x chunk_steps`` (each dispatches at least one event per frozen lane).
     Raises if lanes are still live when a budget runs out — a silent
     partial run would corrupt statistics."""
-    lay, kernel, _ = kernel_for(spec)
+    try:  # the refusals, before any Sim
+        kernel = kernel_for(spec)[1]
+    except NeedsSim:
+        kernel = gen_chunk
     if chunk_steps <= 0:
         raise ValueError(f"chunk_steps must be positive, got {chunk_steps}")
     plain = loop.make_run(spec, t_end=t_end, max_steps=chunk_steps,
@@ -536,6 +612,7 @@ def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
 
     def run(sims: loop.Sim) -> loop.Sim:
         on_card = sims.clock.is_cuda
+        klay = kernel_for(spec, sims)[0] if on_card else None
         if on_card:
             # the kernel works in place: keep the caller's Sim intact
             sims = tree.map(
@@ -545,7 +622,7 @@ def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
         max_rounds = max_chunks * chunk_steps
         before = kernel.launches
         while bool(cond(sims).any()) and it < max_chunks:
-            sims = (kernel(sims, lay, chunk_steps, t_end) if on_card
+            sims = (kernel(sims, klay, chunk_steps, t_end) if on_card
                     else plain(sims))
             if boundary is not None and bool(sims.boundary_pending.any()):
                 sims = boundary(sims)

@@ -128,6 +128,8 @@ def _broadcast_params(params, lanes: int, device):
             return t
         return t.expand((lanes,) + tuple(t.shape)).contiguous()
 
+    if params is None:
+        return None
     if isinstance(params, (tuple, list)):
         return type(params)(bc(x) for x in params)
     if isinstance(params, dict):
@@ -162,6 +164,10 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
     nq = max(len(spec.queues), 1)
     user = (spec.user_init(_broadcast_params(params, lanes, dev))
             if spec.user_init else torch.zeros((lanes,), device=dev))
+    # a user state written one lane at a time, as the reference's is
+    # (0-dim leaves), holds the same values in every lane
+    user = tree.map(lambda x: x.to(dev).expand(lanes).contiguous()
+                    if x.dim() == 0 else x, user)
 
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=dev)

@@ -1,0 +1,793 @@
+"""Trace a spec's blocks into a small explicit IR (the generated K1's front end).
+
+The TPU package lowers a spec's whole step to Mosaic through its jaxpr
+(``cimba_tpu/core/pallas_run.py``).  The port instead runs each block
+``(sim, p, sig) -> (sim, Command)``, and each condition predicate ``(sim,
+pid)``, once on a symbolic one-lane Sim and records what it computes:
+
+* every Sim leaf element the block reads is a ``leaf`` node, the pid a
+  ``pid`` node and the resume signal a ``sig`` node;
+* every torch op on a traced value is a node of the op table (the
+  unary and binary elementwise ops of ``_UN`` and ``_BIN``, ``where``,
+  ``clamp``, ``cast``, and ``pick`` for a gather by a traced index,
+  ``where`` of an ``eq`` for a scatter by one), with the dtype torch gives
+  its result and the dtype it computes in, so the IR holds the plain
+  engine's own order of operations (``stats.summary.add``'s Pébay merge
+  included);
+* ``api.draw`` is one ``draw`` node naming its sampler (the samplers'
+  loops and tables are not traced), and ``api.pool_release`` and
+  ``api.cond_signal`` are engine calls, since they scan guard waiters.
+
+A traced value is a :class:`Sym`: a tensor subclass holding the value
+torch computes on a real one-lane Sim (the *shadow*, which gives every
+result its dtype and shape) and, element for element, the id of the node
+that computes it.  Ops that only move elements (reshape, slicing, cat,
+a gather by a constant index) move the ids with the same torch call.
+A Python branch on a traced value (``__bool__``, ``.item()``,
+``.tolist()``) raises, and so does any op the emitter
+(:mod:`cimba_tpu_torch.core.emit`) does not know, naming the block, the
+op and the source line.
+
+:func:`replay` evaluates a block's IR with torch on a real batched Sim;
+the tests hold it against the block itself, bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import traceback
+from typing import Any, List, NamedTuple, Optional, Tuple
+
+import torch
+from torch.overrides import TorchFunctionMode
+
+from cimba_tpu_torch import config
+from cimba_tpu_torch.core import process as pr
+
+
+class TraceError(NotImplementedError):
+    """A block the tracer (and so the generated kernel) cannot take."""
+
+
+class Lit(NamedTuple):
+    """A Python number in an op: torch rounds it to the op's dtype."""
+
+    value: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Node:
+    op: str
+    args: tuple          # node ids (int) and Lit
+    dtype: torch.dtype   # the result's
+    cdt: Optional[torch.dtype] = None  # the dtype the op computes in
+    aux: Any = None      # leaf: (name, flat index); const: value;
+                         # draw: (sampler name, profile); cast: None
+
+
+#: the comparisons (a bool result, computed in the operands' common
+#: dtype)
+COMPARE = ("lt", "le", "gt", "ge", "eq", "ne")
+
+# torch function name -> (IR op, swap the two operands)
+_BIN = {
+    "add": ("add", False), "__add__": ("add", False),
+    "__radd__": ("add", True), "sub": ("sub", False),
+    "__sub__": ("sub", False), "subtract": ("sub", False),
+    "__rsub__": ("sub", True), "mul": ("mul", False),
+    "__mul__": ("mul", False), "__rmul__": ("mul", True),
+    "multiply": ("mul", False), "div": ("div", False),
+    "__truediv__": ("div", False), "true_divide": ("div", False),
+    "divide": ("div", False), "__div__": ("div", False),
+    "lt": ("lt", False), "__lt__": ("lt", False), "less": ("lt", False),
+    "le": ("le", False), "__le__": ("le", False),
+    "gt": ("gt", False), "__gt__": ("gt", False), "greater": ("gt", False),
+    "ge": ("ge", False), "__ge__": ("ge", False),
+    "eq": ("eq", False), "__eq__": ("eq", False),
+    "ne": ("ne", False), "__ne__": ("ne", False),
+    "__and__": ("and", False), "__rand__": ("and", True),
+    "bitwise_and": ("and", False), "logical_and": ("and", False),
+    "__or__": ("or", False), "__ror__": ("or", True),
+    "bitwise_or": ("or", False), "logical_or": ("or", False),
+    "__xor__": ("xor", False), "__rxor__": ("xor", True),
+    "bitwise_xor": ("xor", False), "logical_xor": ("xor", False),
+    "minimum": ("minimum", False), "maximum": ("maximum", False),
+}
+_UN = {
+    "neg": "neg", "__neg__": "neg", "negative": "neg", "abs": "abs",
+    "__abs__": "abs", "absolute": "abs", "sin": "sin", "cos": "cos",
+    "exp": "exp", "log": "log", "log1p": "log1p", "sqrt": "sqrt",
+    "floor": "floor", "ceil": "ceil", "isnan": "isnan",
+    "isfinite": "isfinite", "__invert__": "not", "bitwise_not": "not",
+    "logical_not": "not", "reciprocal": "reciprocal",
+}
+_CAST = {"double": torch.float64, "float": torch.float32,
+         "int": torch.int32, "long": torch.int64, "bool": torch.bool}
+_MOVE = {"reshape", "view", "expand", "squeeze", "unsqueeze", "flatten",
+         "permute", "transpose", "t", "contiguous", "clone", "detach",
+         "__getitem__", "select", "narrow", "broadcast_to", "cat", "concat",
+         "concatenate", "stack", "index_select", "repeat"}
+_META = {"__get__", "dim", "size", "numel", "is_floating_point",
+         "is_contiguous", "element_size", "__len__", "nelement", "ndimension",
+         "get_device", "__format__", "__repr__", "__str__", "data_ptr"}
+_LIKE = {"ones_like", "zeros_like", "full_like", "empty_like"}
+_HOST = {"__bool__", "item", "tolist", "__int__", "__float__", "__index__",
+         "numpy", "__array__", "__nonzero__"}
+
+
+class Sym(torch.Tensor):
+    """A traced value: the shadow's data, and ``ids`` (an int64 tensor
+    of its shape) naming each element's node."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @staticmethod
+    def __new__(cls, shadow, ids, tracer):
+        r = torch.Tensor._make_subclass(cls, shadow)
+        r.ids = ids
+        r.tracer = tracer
+        return r
+
+
+def is_symbolic(sim) -> bool:
+    """Whether ``sim`` is the tracer's symbolic Sim (api helpers ask)."""
+    return isinstance(getattr(sim, "clock", None), Sym)
+
+
+def _plain(x):
+    return x.as_subclass(torch.Tensor) if isinstance(x, Sym) else x
+
+
+def _unwrap(x):
+    if isinstance(x, Sym):
+        return _plain(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_unwrap(v) for v in x])
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _unwrap(v) for k, v in x.items()}
+    return x
+
+
+def _syms(x):
+    if isinstance(x, Sym):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _syms(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _syms(v)
+
+
+def _where_in_source() -> str:
+    """file:line of the innermost frame outside torch and this module."""
+    here = os.path.abspath(__file__)
+    tdir = os.path.dirname(os.path.abspath(torch.__file__))
+    for fr in reversed(traceback.extract_stack()):
+        f = os.path.abspath(fr.filename)
+        if f != here and not f.startswith(tdir):
+            return f"{os.path.relpath(f)}:{fr.lineno}"
+    return "?"
+
+
+class Tracer(TorchFunctionMode):
+    """Records the nodes and effects of one block or predicate."""
+
+    def __init__(self, what: str):
+        super().__init__()
+        self.what = what
+        self.nodes: List[Node] = []
+        self._memo: dict = {}
+        #: ("draw", nid) | ("write", leaf, flat, nid) | ("call", kind,
+        #: args, nodes made before it)
+        self.effects: list = []
+        #: leaf name -> ids the storage holds now (writes committed)
+        self.committed: dict = {}
+        self.template: dict = {}
+        #: the selects of each element a write by a traced index makes
+        #: (one a candidate position): for the bound, one store
+        self.puts: List[List[int]] = []
+
+    def fail(self, msg: str):
+        raise TraceError(f"{self.what}: {msg} ({_where_in_source()})")
+
+    # --- nodes ----------------------------------------------------------
+    def node(self, op, args, dtype, cdt=None, aux=None) -> int:
+        n = Node(op, tuple(args), dtype, cdt, aux)
+        if op not in ("draw", "leaf"):  # reads are epoch-tagged by position
+            key = (op, n.args, dtype, cdt, aux)
+            got = self._memo.get(key)
+            if got is not None:
+                return got
+            self._memo[key] = len(self.nodes)
+        self.nodes.append(n)
+        return len(self.nodes) - 1
+
+    def const(self, value, dtype) -> int:
+        v = bool(value) if dtype == torch.bool else (
+            float(value) if dtype.is_floating_point else int(value))
+        return self.node("const", (), dtype, aux=v)
+
+    def const_ids(self, t: torch.Tensor) -> torch.Tensor:
+        flat = [self.const(v, t.dtype) for v in t.reshape(-1).tolist()]
+        return torch.tensor(flat, dtype=torch.int64).reshape(t.shape)
+
+    def wrap(self, shadow, ids) -> Sym:
+        return Sym(shadow, ids, self)
+
+    def ids_of(self, x) -> torch.Tensor:
+        return x.ids if isinstance(x, Sym) else self.const_ids(x)
+
+    def cast_ids(self, ids, to):
+        """Cast nodes where an element's dtype differs from ``to``."""
+        out = ids.reshape(-1).tolist()
+        for i, nid in enumerate(out):
+            if self.nodes[nid].dtype != to:
+                out[i] = self.node("cast", (nid,), to, to)
+        return torch.tensor(out, dtype=torch.int64).reshape(ids.shape)
+
+    # --- the torch function hook ----------------------------------------
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", str(func))
+        syms = list(_syms(args)) + list(_syms(kwargs))
+        if not syms:
+            return func(*args, **kwargs)
+        if name in _HOST:
+            self.fail("branches in Python on a traced value "
+                      f"({name} of a traced tensor)")
+        out = func(*_unwrap(args), **_unwrap(kwargs))
+        if name in _META or name in _LIKE:
+            return out
+        if name.endswith("_") and not name.endswith("__"):
+            self.fail(f"in-place op {name} on a traced value")
+        if not isinstance(out, torch.Tensor):
+            self.fail(f"op {name} returns {type(out).__name__}")
+        if name in _BIN:
+            op, swap = _BIN[name]
+            a, b = args[0], args[1] if len(args) > 1 else kwargs.get("other")
+            if kwargs.get("alpha", 1) != 1 or kwargs.get("rounding_mode"):
+                self.fail(f"op {name} with {kwargs}")
+            return self._elementwise(op, [b, a] if swap else [a, b], out)
+        if name in ("__rtruediv__", "__rdiv__"):
+            # python / tensor: torch computes reciprocal(tensor) * python
+            r = self._elementwise("reciprocal", [args[0]], out.dtype)
+            return self._elementwise("mul", [r, args[1]], out)
+        if name in _UN:
+            return self._elementwise(_UN[name], [args[0]], out)
+        if name == "where":
+            if len(args) + len(kwargs) != 3:
+                self.fail("torch.where with one argument")
+            c, a, b = (list(args) + [kwargs.get(k) for k in
+                                     ("input", "other")])[:3]
+            return self._elementwise("where", [c, a, b], out)
+        if name in ("clamp", "clip", "clamp_min", "clamp_max"):
+            x = args[0]
+            lo = args[1] if len(args) > 1 else kwargs.get("min")
+            hi = args[2] if len(args) > 2 else kwargs.get("max")
+            if name == "clamp_max":
+                lo, hi = None, lo
+            return self._elementwise("clamp", [x, lo, hi], out)
+        if name in _CAST or name in ("to", "type", "as_tensor", "tensor"):
+            src = args[0] if name != "as_tensor" or args else kwargs["data"]
+            if not isinstance(src, Sym):
+                self.fail(f"op {name} on a traced value inside a container")
+            if out.dtype == src.dtype and tuple(out.shape) == tuple(
+                    src.shape):
+                return self.wrap(out, src.ids.clone())
+            if tuple(out.shape) != tuple(src.shape):
+                self.fail(f"op {name} changes the shape")
+            return self._elementwise("cast", [src], out)
+        if name == "gather":
+            return self._gather(args, kwargs, out)
+        if name == "scatter":
+            return self._scatter(args, kwargs, out)
+        if name == "expand_as":
+            return self.wrap(out, self.ids_of(args[0]).expand_as(
+                _unwrap(args[1])))
+        if name in _MOVE:
+            return self._move(func, args, kwargs, out)
+        self.fail(f"op {name} is not in the generated kernel's op table")
+
+    def _move(self, func, args, kwargs, out):
+        """An op that only moves elements: the same call on the ids."""
+        if func.__name__ in ("__getitem__", "index_select") and any(
+                True for x in list(args[1:]) + list(kwargs.values())
+                for _ in _syms(x)):
+            self.fail(f"indexing by a traced value ({func.__name__}); "
+                      "use core.ix.get")
+
+        def ids(x):
+            if isinstance(x, Sym):
+                return x.ids
+            if isinstance(x, torch.Tensor) and func.__name__ in (
+                    "cat", "concat", "concatenate", "stack"):
+                return self.const_ids(x)
+            if isinstance(x, (list, tuple)):
+                return type(x)(ids(v) for v in x)
+            return x
+
+        moved = func(*ids(args), **{k: ids(v) for k, v in kwargs.items()})
+        return self.wrap(out, self.cast_ids(moved, out.dtype))
+
+    def _operand(self, x, bshape):
+        """An operand of an elementwise op: node ids broadcast to
+        ``bshape``, or a Lit for a Python number."""
+        if x is None or isinstance(x, (bool, int, float)):
+            return x if x is None else Lit(x)
+        if isinstance(x, Sym):
+            return x.ids.expand(bshape)
+        if isinstance(x, torch.Tensor):
+            return self.const_ids(x).expand(bshape)
+        self.fail(f"operand of type {type(x).__name__}")
+
+    def _elementwise(self, op, operands, out):
+        """One node an element; ``out`` is the shadow result (or its
+        dtype for an intermediate the op is expanded into)."""
+        if isinstance(out, torch.dtype):
+            dtype, shape = out, None
+        else:
+            dtype, shape = out.dtype, tuple(out.shape)
+        tens = [x for x in operands if isinstance(x, torch.Tensor)]
+        if shape is None:
+            shape = tuple(torch.broadcast_shapes(*[t.shape for t in tens]))
+        ops = [self._operand(x, shape) for x in operands]
+        if op in COMPARE:
+            a, b = operands
+            cdt = torch.result_type(_plain(a) if isinstance(a, torch.Tensor)
+                                    else a,
+                                    _plain(b) if isinstance(b, torch.Tensor)
+                                    else b)
+        else:
+            cdt = dtype
+        n = math.prod(shape) if shape else 1
+        cols = [o.contiguous().reshape(-1).tolist()
+                if isinstance(o, torch.Tensor) else [o] * n for o in ops]
+        flat = [self.node(op, [c[i] for c in cols], dtype, cdt)
+                for i in range(n)]
+        ids = torch.tensor(flat, dtype=torch.int64).reshape(shape)
+        if isinstance(out, torch.dtype):
+            # an intermediate: its shadow is never read
+            return self.wrap(torch.zeros(shape, dtype=dtype), ids)
+        return self.wrap(out, ids)
+
+    def _gather(self, args, kwargs, out):
+        arr, dim, index = (list(args) + [kwargs.get("dim"),
+                                         kwargs.get("index")])[:3]
+        if not isinstance(index, Sym):
+            return self._move(torch.gather, args, kwargs, out)
+        src = self.ids_of(arr)
+        dim = dim % src.dim()
+        flat = []
+        for pos in _positions(index.shape):
+            entries = []
+            for j in range(src.shape[dim]):
+                p = list(pos)
+                p[dim] = j
+                entries.append(int(src[tuple(p)]))
+            flat.append(self.node("pick", [int(index.ids[pos])] + entries,
+                                  out.dtype))
+        ids = torch.tensor(flat, dtype=torch.int64).reshape(out.shape)
+        return self.wrap(out, ids)
+
+    def _scatter(self, args, kwargs, out):
+        arr, dim, index = args[:3]
+        src = args[3] if len(args) > 3 else kwargs.get("src",
+                                                       kwargs.get("value"))
+        if not isinstance(index, Sym):
+            sv = (self.ids_of(src) if isinstance(src, torch.Tensor)
+                  else self.const(src, out.dtype))
+            moved = torch.scatter(self.ids_of(arr), dim, index, sv)
+            return self.wrap(out, self.cast_ids(moved, out.dtype))
+        ids = self.ids_of(arr).clone()
+        dim = dim % ids.dim()
+        src_ids = (self.ids_of(src) if isinstance(src, torch.Tensor)
+                   else None)
+        for pos in _positions(index.shape):
+            iv = int(index.ids[pos])
+            sv = (int(src_ids[pos]) if src_ids is not None
+                  else self.const(src, out.dtype))
+            if self.nodes[sv].dtype != out.dtype:
+                sv = self.node("cast", (sv,), out.dtype, out.dtype)
+            group = []
+            for j in range(ids.shape[dim]):
+                p = list(pos)
+                p[dim] = j
+                p = tuple(p)
+                hit = self.node("eq", (iv, Lit(j)), torch.bool,
+                                self.nodes[iv].dtype)
+                ids[p] = self.node("where", (hit, sv, int(ids[p])), out.dtype,
+                                   out.dtype)
+                group.append(int(ids[p]))
+            self.puts.append(group)
+        return self.wrap(out, ids)
+
+
+def _positions(shape):
+    if not shape:
+        yield ()
+        return
+    for i in range(math.prod(shape)):
+        pos, r = [], i
+        for d in reversed(shape):
+            pos.append(r % d)
+            r //= d
+        yield tuple(reversed(pos))
+
+
+# --- named leaves ---------------------------------------------------------
+
+
+def named_leaves(tree, prefix="") -> list:
+    """``[(name, leaf)]`` in JAX's leaf order (the names the kernel's
+    leaf tables use: ``procs.locals_f``, ``user.wait.n``, ...)."""
+    out = []
+
+    def walk(x, name):
+        if x is None:
+            return
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            for f, v in zip(x._fields, x):
+                walk(v, f"{name}.{f}" if name else f)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{name}.{i}")
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{name}.{k}" if name else str(k))
+        else:
+            out.append((name, x))
+
+    walk(tree, prefix)
+    return out
+
+
+def _rebuild(template, leaves):
+    from cimba_tpu_torch import tree
+
+    return tree.unflatten(template, leaves)
+
+
+# --- the IR ------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockIR:
+    """One block: its nodes, its effects in program order (draws, leaf
+    writes, engine calls) and its command's six fields (node ids)."""
+
+    name: str
+    pc: int
+    nodes: List[Node]
+    effects: list
+    cmd: Tuple[int, ...]  # tag, f, f2, f3, i, next_pc
+    #: the selects of each write by a traced index (Tracer.puts)
+    puts: List[List[int]] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class PredIR:
+    """A condition's predicate for a waiter pid: a bool node."""
+
+    name: str
+    cid: int
+    nodes: List[Node]
+    out: int
+
+
+#: leaves an engine call may change: read afresh after one
+_CALL_TOUCHES = ("wakes.", "events.next_seq", "procs.pend_guard",
+                 "pools.", "err", "guards.")
+
+
+def _symbolic_sim(tr: Tracer, shadow):
+    leaves = []
+    for name, t in named_leaves(shadow):
+        n = t.numel() // max(t.shape[0], 1)
+        ids = torch.tensor([tr.node("leaf", (), t.dtype, aux=(name, i))
+                            for i in range(n)],
+                           dtype=torch.int64).reshape(t.shape)
+        tr.committed[name] = ids
+        tr.template[name] = t
+        leaves.append(tr.wrap(t, ids))
+    return _rebuild(shadow, leaves)
+
+
+def _commit(tr: Tracer, sim):
+    """Record a write for every leaf element whose node differs from
+    what the storage holds."""
+    for name, x in named_leaves(sim):
+        if isinstance(x, Sym):
+            ids = x.ids
+        elif isinstance(x, torch.Tensor):
+            ids = tr.const_ids(x)
+        else:
+            tr.fail(f"leaf {name} is a {type(x).__name__}")
+        tmpl = tr.template.get(name)
+        if tmpl is None:
+            tr.fail(f"the block adds leaf {name}")
+        if tuple(ids.shape) != tuple(tmpl.shape):
+            tr.fail(f"leaf {name} changes shape {tuple(tmpl.shape)} -> "
+                    f"{tuple(ids.shape)}")
+        old = tr.committed[name].reshape(-1).tolist()
+        for i, nid in enumerate(ids.reshape(-1).tolist()):
+            if nid != old[i]:
+                if tr.nodes[nid].dtype != tmpl.dtype:
+                    tr.fail(f"leaf {name} written as {tr.nodes[nid].dtype}, "
+                            f"the Sim holds {tmpl.dtype}")
+                tr.effects.append(("write", name, i, nid))
+        tr.committed[name] = ids.clone()
+
+
+def _arg(tr: Tracer, x):
+    if isinstance(x, Sym):
+        if x.numel() != 1:
+            tr.fail("an engine call's argument is not one value a lane")
+        return int(x.ids.reshape(-1)[0])
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1:
+            tr.fail("an engine call's argument is not one value a lane")
+        return tr.const(x.reshape(-1)[0].item(), x.dtype)
+    return Lit(x)
+
+
+def engine_call(sim, kind: str, *args):
+    """``api.pool_release`` / ``api.cond_signal`` under the tracer: the
+    writes so far are committed, the call recorded, and the leaves it may
+    change read afresh."""
+    tr = sim.clock.tracer
+    refs = tuple(_arg(tr, a) for a in args)
+    _commit(tr, sim)
+    tr.effects.append(("call", kind, refs, len(tr.nodes)))
+    leaves = []
+    for name, x in named_leaves(sim):
+        if name.startswith(_CALL_TOUCHES):
+            t = tr.template[name]
+            n = t.numel() // t.shape[0]
+            ids = torch.tensor([tr.node("leaf", (), t.dtype, aux=(name, i))
+                                for i in range(n)],
+                               dtype=torch.int64).reshape(t.shape)
+            tr.committed[name] = ids
+            x = tr.wrap(t, ids)
+        leaves.append(x)
+    return _rebuild(sim, leaves)
+
+
+def draw(sim, dist, params):
+    """``api.draw`` under the tracer: one draw node naming the sampler;
+    its shadow value comes from the sampler itself."""
+    tr = sim.clock.tracer
+    prof = "f32" if sim.clock.dtype == torch.float32 else "f64"
+    refs = []
+    for x in params:
+        if isinstance(x, (bool, int, float)):
+            refs.append(Lit(x))
+        elif isinstance(x, torch.Tensor):
+            refs.append(_arg(tr, x))
+        else:
+            tr.fail(f"sampler {getattr(dist, '__name__', dist)} takes a "
+                    f"{type(x).__name__} parameter")
+    with config.profile(prof):
+        _, x = dist(_unwrap(sim.rng), *_unwrap(list(params)))
+    if x.numel() != 1:
+        tr.fail("a draw gives more than one value a lane")
+    name = f"{getattr(dist, '__module__', '')}.{getattr(dist, '__name__', '')}"
+    nid = tr.node("draw", refs, x.dtype, aux=(name, prof))
+    tr.effects.append(("draw", nid))
+    return sim, tr.wrap(x, torch.tensor([nid], dtype=torch.int64)
+                        .reshape(x.shape))
+
+
+def _one_lane(sims):
+    from cimba_tpu_torch import tree
+
+    return tree.map(lambda x: x[:1].detach().to("cpu").clone(), sims)
+
+
+def trace_block(spec, pc: int, sims) -> BlockIR:
+    """Trace block ``pc`` of ``spec`` on a one-lane copy of ``sims``
+    (any Sim of the spec: it fixes the dtypes and shapes)."""
+    blk = spec.blocks[pc]
+    what = f"block {getattr(blk, '__name__', pc)!r} (pc {pc}) of spec " \
+           f"{spec.name!r}"
+    tr = Tracer(what)
+    shadow = _one_lane(sims)
+    real = shadow.clock.dtype
+    prof = "f32" if real == torch.float32 else "f64"
+    with config.profile(prof):
+        with tr:
+            sym = _symbolic_sim(tr, shadow)
+            p = tr.wrap(torch.zeros(1, dtype=torch.int32),
+                        torch.tensor([tr.node("pid", (), torch.int32)]))
+            sig = tr.wrap(torch.zeros(1, dtype=torch.int32),
+                          torch.tensor([tr.node("sig", (), torch.int32)]))
+            out = blk(sym, p, sig)
+            if not (isinstance(out, tuple) and len(out) == 2):
+                tr.fail("a block returns (sim, Command)")
+            sim2, cmd = out
+            cmd = pr.normalize(cmd, 1, torch.device("cpu"), real)
+            _commit(tr, sim2)
+            fields = []
+            for k, v in enumerate(cmd):
+                if isinstance(v, Sym):
+                    fields.append(int(v.ids.reshape(-1)[0]))
+                else:
+                    fields.append(tr.const(v.reshape(-1)[0].item(), v.dtype))
+    return BlockIR(getattr(blk, "__name__", str(pc)), pc, tr.nodes,
+                   tr.effects, tuple(fields), tr.puts)
+
+
+def trace_predicate(spec, cid: int, sims) -> PredIR:
+    """Trace condition ``cid``'s predicate for a symbolic waiter pid."""
+    c = spec.conditions[cid]
+    tr = Tracer(f"predicate of condition {c.name!r} of spec {spec.name!r}")
+    shadow = _one_lane(sims)
+    prof = "f32" if shadow.clock.dtype == torch.float32 else "f64"
+    with config.profile(prof):
+        with tr:
+            sym = _symbolic_sim(tr, shadow)
+            pid = tr.wrap(torch.zeros(1, dtype=torch.int32),
+                          torch.tensor([tr.node("pid", (), torch.int32)]))
+            v = c.predicate(sym, pid)
+            if isinstance(v, Sym):
+                if v.numel() != 1:
+                    tr.fail("the predicate is not one bool a lane")
+                out = int(v.ids.reshape(-1)[0])
+                if tr.nodes[out].dtype != torch.bool:
+                    out = tr.node("cast", (out,), torch.bool, torch.bool)
+            else:
+                out = tr.const(bool(torch.as_tensor(v).reshape(-1)[0]),
+                               torch.bool)
+    if tr.effects:
+        tr.fail("a predicate draws or calls the engine")
+    return PredIR(c.name, cid, tr.nodes, out)
+
+
+# --- replay ----------------------------------------------------------------
+
+
+def _sampler(name: str):
+    import importlib
+
+    mod, _, fn = name.rpartition(".")
+    return getattr(importlib.import_module(mod), fn)
+
+
+def eval_nodes(nodes, env_leaf, pid, sig, lanes, device, draw_fn=None,
+               upto=None, vals=None):
+    """Evaluate ``nodes`` (in order) with torch over ``lanes`` lanes:
+    ``env_leaf(name, flat)`` reads a leaf element, ``draw_fn(node,
+    params)`` draws.  Returns the list of values (a node's own order)."""
+    vals = [] if vals is None else vals
+    end = len(nodes) if upto is None else upto
+    for nid in range(len(vals), end):
+        n = nodes[nid]
+        vals.append(_eval(n, vals, env_leaf, pid, sig, lanes, device,
+                          draw_fn))
+    return vals
+
+
+def _lit(a, vals, cdt):
+    if isinstance(a, Lit):
+        return a.value
+    v = vals[a]
+    return v if cdt is None or v.dtype == cdt else v.to(cdt)
+
+
+def _eval(n: Node, vals, env_leaf, pid, sig, lanes, device, draw_fn):
+    op = n.op
+    if op == "leaf":
+        return env_leaf(*n.aux)
+    if op == "const":
+        return torch.full((lanes,), n.aux, dtype=n.dtype, device=device)
+    if op == "pid":
+        return pid.to(torch.int32)
+    if op == "sig":
+        return sig.to(torch.int32)
+    if op == "draw":
+        params = [a.value if isinstance(a, Lit) else vals[a] for a in n.args]
+        return draw_fn(n, params)
+    if op == "pick":
+        idx = vals[n.args[0]].to(torch.int64)
+        out = vals[n.args[1]]
+        for j, e in enumerate(n.args[1:]):
+            out = torch.where(idx == j, vals[e], out)
+        return out
+    if op == "cast":
+        return vals[n.args[0]].to(n.dtype)
+    if op == "where":
+        c = vals[n.args[0]]
+        a = _lit(n.args[1], vals, n.cdt)
+        b = _lit(n.args[2], vals, n.cdt)
+        a = a if isinstance(a, torch.Tensor) else torch.tensor(
+            a, dtype=n.cdt, device=device)
+        b = b if isinstance(b, torch.Tensor) else torch.tensor(
+            b, dtype=n.cdt, device=device)
+        return torch.where(c, a, b).to(n.dtype)
+    if op == "clamp":
+        x = _lit(n.args[0], vals, n.cdt)
+        lo = None if n.args[1] is None else _lit(n.args[1], vals, n.cdt)
+        hi = None if n.args[2] is None else _lit(n.args[2], vals, n.cdt)
+        return torch.clamp(x, lo, hi)
+    args = [_lit(a, vals, n.cdt) for a in n.args]
+    args = [a if isinstance(a, torch.Tensor) else torch.tensor(
+        a, dtype=n.cdt, device=device) for a in args]
+    fn = {
+        "neg": torch.neg, "abs": torch.abs, "sin": torch.sin,
+        "cos": torch.cos, "exp": torch.exp, "log": torch.log,
+        "log1p": torch.log1p, "sqrt": torch.sqrt, "floor": torch.floor,
+        "ceil": torch.ceil, "isnan": torch.isnan, "isfinite": torch.isfinite,
+        "not": torch.bitwise_not, "reciprocal": torch.reciprocal,
+        "add": torch.add, "sub": torch.sub, "mul": torch.mul,
+        "div": torch.div, "lt": torch.lt, "le": torch.le, "gt": torch.gt,
+        "ge": torch.ge, "eq": torch.eq, "ne": torch.ne,
+        "and": torch.bitwise_and, "or": torch.bitwise_or,
+        "xor": torch.bitwise_xor, "minimum": torch.minimum,
+        "maximum": torch.maximum,
+    }[op]
+    return fn(*args).to(n.dtype)
+
+
+def replay(spec, ir: BlockIR, sim, p, sig):
+    """Run ``ir`` as a block on a real batched Sim: ``(sim, Command)``
+    as the block itself returns it (fields normalised)."""
+    from cimba_tpu_torch.core import api
+    from cimba_tpu_torch.core import loop
+
+    lanes, dev = sim.clock.shape[0], sim.clock.device
+    state = {"sim": sim}
+
+    def leaf(name, flat):
+        x = dict(named_leaves(state["sim"]))[name]
+        return x.reshape(lanes, -1)[:, flat]
+
+    def do_draw(n, params):
+        s, x = api.draw(state["sim"], _sampler(n.aux[0]), *params)
+        state["sim"] = s
+        return x.reshape(lanes) if x.numel() == lanes else x.expand(lanes)
+
+    vals: list = []
+    pending: dict = {}  # leaf -> {flat index: node} (committed at calls)
+
+    def flush(vals):
+        s = state["sim"]
+        leaves = []
+        for name, x in named_leaves(s):
+            w = pending.get(name)
+            if w:
+                flat = x.reshape(lanes, -1).clone()
+                for i, nid in w.items():
+                    flat[:, i] = vals[nid]
+                x = flat.reshape(x.shape)
+            leaves.append(x)
+        state["sim"] = _rebuild(s, leaves)
+        pending.clear()
+
+    for e in ir.effects:
+        if e[0] == "draw":
+            eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, e[1] + 1,
+                       vals)
+        elif e[0] == "write":
+            pending.setdefault(e[1], {})[e[2]] = e[3]
+        else:
+            # every node made before the call reads the state before it
+            eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, e[3],
+                       vals)
+            flush(vals)
+            args = [a.value if isinstance(a, Lit) else vals[a]
+                    for a in e[2]]
+            s = state["sim"]
+            if e[1] == "pool_release":
+                k, pp, amt = args
+                state["sim"] = loop.release_pool(spec, s, pp.to(torch.int32),
+                                                 k, amt)
+            else:
+                state["sim"] = loop.cond_signal(spec, s, args[0])
+    eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, None, vals)
+    flush(vals)
+    cmd = pr.Command(*[vals[f] for f in ir.cmd])
+    return state["sim"], cmd

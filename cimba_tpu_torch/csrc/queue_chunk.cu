@@ -1,5 +1,6 @@
 // The single-queue event-loop chunk kernel for Hopper (sm_90a): the M/M/1,
-// M/M/c, M/G/1, tandem-network and job-shop instances of K1.
+// M/M/c, M/G/1, tandem-network and job-shop instances of K1, and the
+// generated instances of user specs.
 //
 // Replaces the Pallas chunk mega-kernel of the JAX package
 // (cimba_tpu/core/pallas_run.py: make_kernel_run -> build_chunk_call,
@@ -30,12 +31,17 @@
 //           crew), a buffer (the WIP between the stages) and a condition
 //           observing the buffer (the backlog), both recording; the
 //           toolkit's verbs (pool acquire and release, buffer get and
-//           put, condition wait and signal) are compiled in for this
-//           family only (`if constexpr`), so the other instances keep
-//           their code and registers.
-// The TPU kernel re-evaluates any model's traced step; this one hard-codes
-// the blocks, and its host loop (cimba_tpu_torch/core/kernel_run.py)
-// refuses any other spec.
+//           put, condition wait and signal) are compiled in for the
+//           families that have them (`if constexpr`), templates on a
+//           compile-time pool, buffer and condition, so the other
+//           instances keep their code and registers;
+//   GEN     any other spec over the ported toolkit: a family generated
+//           from the spec's traced blocks (cimba_tpu_torch/core/emit.py
+//           writes Gen<R>, included with -DCIMBA_GEN_HEADER; its blocks
+//           draw inline through samplers.cuh, with no converged draw).
+// The TPU kernel re-evaluates any model's traced step; here the
+// hand-written families restate their blocks and every other spec's are
+// emitted from its trace by the host loop (core/kernel_run.py).
 //
 // What bounds it on this card.  Each event is one serial chain of
 // dependent operations (the pick, a 20-round Threefry block, a log1p,
@@ -147,8 +153,10 @@
 #include <type_traits>
 
 #include "erfinv.cuh"
+#include "samplers.cuh"
 #include "summary.cuh"
 #include "threefry.cuh"
+#include "trig.cuh"
 
 namespace cimba {
 namespace queue {
@@ -169,7 +177,7 @@ constexpr int32_t I32_MIN = INT32_MIN, I32_MAX = INT32_MAX;
 
 // model families (the kernel's template argument; each has its C entry
 // below)
-constexpr int F_MM = 0, F_MG1 = 1, F_TANDEM = 2, F_SHOP = 3;
+constexpr int F_MM = 0, F_MG1 = 1, F_TANDEM = 2, F_SHOP = 3, F_GEN = 4;
 
 // Sim leaves in the reference's jax.tree.leaves order, up to the queues;
 // the eleven queues.acc leaves (A_N..A_STARTED) exist only in a recording
@@ -209,6 +217,7 @@ enum ShopLeaf {
 // positions are its own (ShopLeaf)
 template <class M>
 __host__ __device__ constexpr int at(int k) {
+  if constexpr (M::GEN) return k;  // a generated family's own positions
   return (!M::RECORD && !M::SHOP && k > A_STARTED) ? k - N_ACC : k;
 }
 
@@ -258,11 +267,6 @@ __device__ __forceinline__ bool finite(R x) {
   return x == x && x != inf_of<R>() && x != -inf_of<R>();
 }
 
-__device__ __forceinline__ float log1p_of(float x) { return log1pf(x); }
-__device__ __forceinline__ double log1p_of(double x) { return log1p(x); }
-__device__ __forceinline__ float exp_of(float x) { return expf(x); }
-__device__ __forceinline__ double exp_of(double x) { return exp(x); }
-
 // keep a value's computation where it stands: the converged draw must
 // not be sunk into the blocks that use it
 __device__ __forceinline__ void pin(float& x) {
@@ -274,23 +278,6 @@ __device__ __forceinline__ void pin(double& x) {
 #ifdef __CUDA_ARCH__
   asm volatile("" : "+d"(x));
 #endif
-}
-
-// uniform01_53: f32 takes 24 bits of the high word, f64 a 53-bit
-// significand from both words
-__device__ __forceinline__ float u53_of(uint32_t, uint32_t b1, float) {
-  return float(int32_t(b1 >> 8)) * 0x1p-24f;
-}
-__device__ __forceinline__ double u53_of(uint32_t b0, uint32_t b1, double) {
-  return double(b1) * 0x1p-32 + double(b0 >> 11) * 0x1p-53;
-}
-
-// uniform01: f32 24 bits of the high word (as uniform01_53), f64 32 bits
-__device__ __forceinline__ float u01_of(uint32_t b1, float) {
-  return float(int32_t(b1 >> 8)) * 0x1p-24f;
-}
-__device__ __forceinline__ double u01_of(uint32_t b1, double) {
-  return double(b1) * 0x1p-32;
 }
 
 // jnp.maximum(x, 0): NaN propagates
@@ -398,8 +385,9 @@ struct ColdAcc {
 template <typename R, class M>
 struct ColdAcc<R, M, false> {};
 
-// a pended command's queue id, where the model has more than one queue
-template <class M, bool MANY = (M::NQ > 1)>
+// a pended command's component id, where the model has more than one
+// queue (or, in a generated family, any component)
+template <class M, bool MANY = M::PEND_I>
 struct ColdQ {
   int32_t pend_i[M::NP][M::THREADS];
 };
@@ -407,11 +395,13 @@ struct ColdQ {
 template <class M>
 struct ColdQ<M, false> {};
 
-// the job shop's per-process pool columns (held, held_seq) and pend_f2
-template <typename R, class M, bool SHOP = M::SHOP>
+// the toolkit's columns: each process's holding of each pool (row k NP +
+// p: held, held_seq) and pend_f2
+template <typename R, class M, bool TOOLKIT = M::TOOLKIT>
 struct ColdShop {
-  R held[M::NP][M::THREADS], pend_f2[M::NP][M::THREADS];
-  int32_t held_seq[M::NP][M::THREADS];
+  static constexpr int NKA = M::NK > 0 ? M::NK : 1;
+  R held[NKA * M::NP][M::THREADS], pend_f2[M::NP][M::THREADS];
+  int32_t held_seq[NKA * M::NP][M::THREADS];
 };
 
 template <typename R, class M>
@@ -426,12 +416,18 @@ struct State {
   using M = M_;
   static constexpr int NP = M::NP, NQ = M::NQ, NG = M::NG;
   static constexpr int NQA = NQ > 0 ? NQ : 1;  // register arrays' length
+  static constexpr int NKA = M::NK > 0 ? M::NK : 1;
+  static constexpr int NVA = M::NV > 0 ? M::NV : 1;
   static constexpr bool RECORD = M::RECORD;
+  // the `dirty` mask: a bit a field and process
+  using Dirty =
+      std::conditional_t<(6 * NP <= 32), uint32_t, unsigned long long>;
 
   Cold<R, M>* cold;  // the block's
   ColdAcc<R, M>* cold_acc;
   ColdQ<M>* cold_q;
   ColdShop<R, M>* cold_shop;
+  typename M::UCold* ucold;  // a generated family's user and local columns
   int t;             // this thread's column
   R clock;
   uint32_t k0, k1, lo, hi;
@@ -440,14 +436,15 @@ struct State {
   R wt[NP];
   int32_t wseq[NP];
   uint32_t word[NP];  // pc, status, pend_tag, pend_guard, wakes.sig
-  uint32_t dirty;
+  Dirty dirty;
   int32_t gseq[NG];
   // the queues: heads and sizes here, the rings in device memory
   int32_t head[NQA], size[NQA];
-  // the job shop's pool (its level and grab counter) and buffer level,
-  // its maintenance_runs, and stage B's mean work (work_mean * b_slow)
-  R pool_level, buf_level, b_mean;
-  int32_t pool_next_seq, runs;
+  // the pools (their levels and grab counters) and the buffers' levels;
+  // the job shop's maintenance_runs and stage B's mean work (work_mean *
+  // b_slow)
+  R pool_level[NKA], buf_level[NVA], b_mean;
+  int32_t pool_next_seq[NKA], runs;
   // user state: the model's real parameters, n_objects
   R par[M::NPAR];
   int32_t n_objects;
@@ -465,6 +462,7 @@ struct State {
 // a cold field of process p (or summary moment p) of this lane
 #define COLD(s, f, p) ((s).cold->f[p][(s).t])
 #define SCOL(s, f, p) ((s).cold_shop->f[p][(s).t])
+#define UCOL(s, f, i) ((s).ucold->f[i][(s).t])
 
 // where a lane's rows live: the kernel's parameters and the lane
 struct Where {
@@ -508,7 +506,7 @@ __device__ __forceinline__ void set(S& s, int f, int p, int32_t v) {
 #pragma unroll
   for (int q = 0; q < S::NP; ++q)
     if (p == q) s.word[q] = with(s.word[q], f, v);
-  s.dirty |= 1u << (f * S::NP + p);
+  s.dirty |= typename S::Dirty(1) << (f * S::NP + p);
 }
 
 template <class S>
@@ -635,6 +633,26 @@ __device__ __forceinline__ void record(S& s, int q, typename S::R v) {
   s.cold_acc->started[q][s.t] = true;
 }
 
+// torch.sin (SIN) or torch.cos of a generated block: trig.cuh's
+// frame-free sincos_of with the library's slow path for |x| >= 105615 in
+// f32 (2^31 in f64) in registers, bit for bit CUDA's own for every
+// argument
+template <bool SIN, typename R>
+__device__ __forceinline__ R trig_of(R x) {
+  R c, sn;
+  sincos_of<true>(x, c, sn);
+  return SIN ? sn : c;
+}
+
+// one Threefry block at the lane's counter, which then advances (a draw
+// of a generated block: random.bits.next_bits64)
+template <class S>
+__device__ __forceinline__ void draw_bits(S& s, uint32_t& b0, uint32_t& b1) {
+  threefry2x32(s.k0, s.k1, s.lo, s.hi, b0, b1);
+  s.lo += 1u;
+  if (s.lo == 0u) s.hi += 1u;
+}
+
 // arm a SUCCESS wake of process p at t (every wake these blocks arm)
 template <class S>
 __device__ __forceinline__ void schedule_wake(S& s, int p, typename S::R t) {
@@ -682,8 +700,8 @@ __device__ __forceinline__ void guard_wait(S& s, int p, int gid,
   set(s, F_TAG, p, c.tag);
   COLD(s, pend_f, p) = c.f;
   COLD(s, pend_f3, p) = c.f3;
-  if constexpr (S::M::SHOP) SCOL(s, pend_f2, p) = c.f2;
-  if constexpr (S::NQ > 1) s.cold_q->pend_i[p][s.t] = c.q;
+  if constexpr (S::M::TOOLKIT) SCOL(s, pend_f2, p) = c.f2;
+  if constexpr (S::M::PEND_I) s.cold_q->pend_i[p][s.t] = c.q;
   COLD(s, pend_pc, p) = c.next_pc;
   set(s, F_GUARD, p, gid);
   COLD(s, pend_seq, p) = seq;
@@ -691,7 +709,7 @@ __device__ __forceinline__ void guard_wait(S& s, int p, int gid,
   // a retry re-pends the pended command as it was: its pend_f2 (and
   // pend_i) stay; a block's command writes its 0s (the job shop's
   // pend_f2 is the column written above)
-  if (!is_retry) s.dirty |= 1u << (F_BLOCK * S::NP + p);
+  if (!is_retry) s.dirty |= typename S::Dirty(1) << (F_BLOCK * S::NP + p);
 }
 
 template <class S>
@@ -701,6 +719,21 @@ __device__ __forceinline__ bool any_waiting(const S& s, int gid) {
   for (int q = 0; q < S::NP; ++q)
     any = any || field(s.word[q], F_GUARD) == gid;
   return any;
+}
+
+// A component id a command names at run time, dispatched to the verb's
+// instance for that id (a compile-time constant: a run-time index into
+// a per-component register array once went wrong on the card, the
+// tandem network's queue), clamped into [0, N) as the plain engine's
+// gather clamps it.
+template <int J, int N, class F>
+__device__ __forceinline__ auto by_id(int i, F&& f) {
+  if constexpr (J + 1 >= N) {
+    return f(std::integral_constant<int, J>{});
+  } else {
+    if (i <= J) return f(std::integral_constant<int, J>{});
+    return by_id<J + 1, N>(i, f);
+  }
 }
 
 // (head + size) % cap and (head + 1) % cap, without a division in range
@@ -720,8 +753,13 @@ __device__ __forceinline__ bool h_queue_at(S& s, const Where& w, int p,
   using R = typename S::R;
   const bool is_put = tag == C_PUT || tag == C_PUT_HOLD;
   const bool fused = tag == C_PUT_HOLD || tag == C_GET_HOLD;
-  const int cap = w.sh.queue_cap[Q];
-  const int front = w.sh.front[Q], rear = w.sh.rear[Q];
+  using M = typename S::M;
+  int cap, front, rear;
+  if constexpr (M::GEN) {
+    cap = M::q_cap(Q), front = M::q_front(Q), rear = M::q_rear(Q);
+  } else {
+    cap = w.sh.queue_cap[Q], front = w.sh.front[Q], rear = w.sh.rear[Q];
+  }
   const int own = is_put ? rear : front;
   const bool may = is_retry || !any_waiting(s, own);
   const bool blocked =
@@ -737,7 +775,11 @@ __device__ __forceinline__ bool h_queue_at(S& s, const Where& w, int p,
       s.head[Q] = wrap(s.head[Q] + 1, cap);
       s.size[Q] -= 1;
     }
-    if constexpr (S::RECORD) record(s, Q, R(s.size[Q]));
+    if constexpr (M::GEN) {
+      if constexpr (M::q_rec(Q)) record(s, M::acc_q(Q), R(s.size[Q]));
+    } else if constexpr (S::RECORD) {
+      record(s, Q, R(s.size[Q]));
+    }
     if (!is_put) guard_signal(s, rear);
     guard_signal(s, front);
     if (fused) schedule_wake(s, p, s.clock + nanmax0(c.f3));
@@ -753,8 +795,11 @@ template <class S>
 __device__ __forceinline__ bool h_queue(S& s, const Where& w, int p,
                                         const Cmd<typename S::R>& c, int tag,
                                         bool is_retry) {
-  static_assert(S::NQ == 1 || S::NQ == 2, "one or two queues");
-  if constexpr (S::NQ == 1) {
+  if constexpr (S::M::GEN) {
+    return by_id<0, S::NQ>(c.q, [&](auto q) {
+      return h_queue_at<decltype(q)::value>(s, w, p, c, tag, is_retry);
+    });
+  } else if constexpr (S::NQ == 1) {
     return h_queue_at<0>(s, w, p, c, tag, is_retry);
   } else {
     if (c.q <= 0) return h_queue_at<0>(s, w, p, c, tag, is_retry);
@@ -763,81 +808,106 @@ __device__ __forceinline__ bool h_queue(S& s, const Where& w, int p,
 }
 
 // ---------------------------------------------------------------------------
-// The toolkit's verbs, compiled in for the job shop only: one pool (K = 0),
-// one buffer (B = 0) and one condition, their guards compile-time
-// constants of the family (M::G_FRONT, G_REAR, G_POOL, G_COND), as
-// h_queue_at<Q> takes its queue.
+// The toolkit's verbs, compiled in for the families with pools, buffers or
+// conditions (the job shop, and a generated family): pool K, buffer B and
+// condition C are compile-time indices, as h_queue_at<Q> takes its queue,
+// and so are their guards (M::g_pool(K), g_front(B), g_rear(B),
+// g_cond(C)) and whether a condition observes a guard (M::observes(C,
+// G)).
 
-// condition M's signal (loop.cond_signal): every waiter whose predicate
-// holds wakes, in pid order; the job shop's predicate (the buffer's level
-// at or above the backlog) is the same for every pid
-template <class S>
+// condition C's signal (loop.cond_signal): every waiter whose predicate
+// holds wakes, in pid order; where no predicate reads its waiter
+// (M::PRED_BY_PID false: the job shop's backlog) it is evaluated once
+template <int C, class S>
 __device__ __forceinline__ void cond_signal(S& s, const Where& w) {
   using M = typename S::M;
-  if (!M::cond_holds(s, w)) return;
+  if constexpr (!M::PRED_BY_PID) {
+    if (!M::template cond_holds<C>(s, w, 0)) return;
 #pragma unroll
-  for (int q = 0; q < S::NP; ++q)
-    if (field(s.word[q], F_GUARD) == M::G_COND) {
-      set(s, F_GUARD, q, -1);
-      schedule_wake(s, q, s.clock);
-    }
+    for (int q = 0; q < S::NP; ++q)
+      if (field(s.word[q], F_GUARD) == M::g_cond(C)) {
+        set(s, F_GUARD, q, -1);
+        schedule_wake(s, q, s.clock);
+      }
+  } else {
+#pragma unroll
+    for (int q = 0; q < S::NP; ++q)
+      if (field(s.word[q], F_GUARD) == M::g_cond(C) &&
+          M::template cond_holds<C>(s, w, q)) {
+        set(s, F_GUARD, q, -1);
+        schedule_wake(s, q, s.clock);
+      }
+  }
+}
+
+// the signals of the conditions from C on that observe guard G, in id
+// order
+template <int G, int C, class S>
+__device__ __forceinline__ void forward(S& s, const Where& w) {
+  using M = typename S::M;
+  if constexpr (C < M::NC) {
+    if constexpr (M::observes(C, G)) cond_signal<C>(s, w);
+    forward<G, C + 1>(s, w);
+  }
 }
 
 // guard G's signal with the observer forwarding of loop._guard_signal:
-// the best waiter's wake, then the condition's signal where it observes G
+// the best waiter's wake, then the signals of the conditions observing G
 template <int G, class S>
 __device__ __forceinline__ void signal_at(S& s, const Where& w) {
-  using M = typename S::M;
   guard_signal(s, G);
-  if constexpr (G == M::G_FRONT || G == M::G_REAR) cond_signal(s, w);
+  forward<G, 0>(s, w);
 }
 
-// loop.release_pool: amount units back from process p, inline from a
-// block or as the C_POOL_REL command; the ownership tolerance
+// loop.release_pool: amount units of pool K back from process p, inline
+// from a block or as the C_POOL_REL command; the ownership tolerance
 // max(64 eps max(1, |amount|), 1e-12) at REAL's eps
-template <class S>
+template <int K, class S>
 __device__ __forceinline__ void release_pool(S& s, const Where& w, int p,
                                              typename S::R amount) {
   using R = typename S::R;
-  const R held = SCOL(s, held, p);
+  using M = typename S::M;
+  const R held = SCOL(s, held, K * S::NP + p);
   const R amt = nanmin(amount, held);
   const R a = amount < R(0) ? -amount : amount;
   const R big = (a != a || a > R(1)) ? a : R(1);
   R tol = R(sizeof(R) == 4 ? 0x1p-17 : 0x1p-46) * big;
   tol = (tol != tol || tol > R(1e-12)) ? tol : R(1e-12);
   const bool owner_ok = held >= amount - tol;
-  const R in_use = R(w.sh.pool_cap) - (s.pool_level + amt);
-  s.pool_level = s.pool_level + amt;
-  SCOL(s, held, p) = held + -amt;
-  record(s, 0, in_use);
-  signal_at<S::M::G_POOL>(s, w);
+  const R in_use = M::template pool_cap<R>(w, K) - (s.pool_level[K] + amt);
+  s.pool_level[K] = s.pool_level[K] + amt;
+  SCOL(s, held, K * S::NP + p) = held + -amt;
+  if constexpr (M::pool_rec(K)) record(s, M::acc_pool(K), in_use);
+  signal_at<M::g_pool(K)>(s, w);
   if (!owner_ok) set_err(s, ERR_BAD_RELEASE);
 }
 
-// pool_acquire and its fused twin (loop's h_pool_acquire): take what is
-// available now, pend for the rest (pend_f the remainder, pend_f2 the
-// holding before the call); the guard's signal only on success, then the
-// fused hold
-template <class S>
+// pool_acquire and its fused twin (loop's h_pool_acquire) on pool K: take
+// what is available now, pend for the rest (pend_f the remainder, pend_f2
+// the holding before the call); the guard's signal only on success, then
+// the fused hold
+template <int K, class S>
 __device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
                                        const Cmd<typename S::R>& c, int tag,
                                        bool is_retry) {
   using R = typename S::R;
   using M = typename S::M;
-  const R held = SCOL(s, held, p);
+  const int h = K * S::NP + p;
+  const R held = SCOL(s, held, h);
   const R init_held = is_retry ? SCOL(s, pend_f2, p) : held;
-  const R take = nanmin(nanmax0(c.f), s.pool_level);
+  const R take = nanmin(nanmax0(c.f), s.pool_level[K]);
   if (held <= R(0)) {  // the grab order, stamped on the first units
-    SCOL(s, held_seq, p) = s.pool_next_seq;
-    s.pool_next_seq += 1;
+    SCOL(s, held_seq, h) = s.pool_next_seq[K];
+    s.pool_next_seq[K] += 1;
   }
-  s.pool_level = s.pool_level + -take;
-  SCOL(s, held, p) = held + take;
+  s.pool_level[K] = s.pool_level[K] + -take;
+  SCOL(s, held, h) = held + take;
   const R rem = c.f - take;
   const bool done = rem <= R(0);
   const bool fused = tag == C_POOL_ACQ_HOLD;
-  record(s, 0, R(w.sh.pool_cap) - s.pool_level);
-  if (done) signal_at<M::G_POOL>(s, w);
+  if constexpr (M::pool_rec(K))
+    record(s, M::acc_pool(K), M::template pool_cap<R>(w, K) - s.pool_level[K]);
+  if (done) signal_at<M::g_pool(K)>(s, w);
   if (fused && done) schedule_wake(s, p, s.clock + nanmax0(c.f3));
   if (done) {
     set(s, F_PC, p, c.next_pc);
@@ -845,32 +915,32 @@ __device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
     Cmd<R> pc = c;
     pc.f = rem;
     pc.f2 = init_held;
-    guard_wait(s, p, M::G_POOL, pc, is_retry);
+    guard_wait(s, p, M::g_pool(K), pc, is_retry);
   }
   return !done || fused;
 }
 
-// buffer get (GET) or put and their fused twins (loop's h_buffer): move
-// what fits now, pend for the rest (pend_f the remainder, pend_f2 the
-// total); the other side's guard on any progress, this side's on
+// buffer B's get (GET) or put and their fused twins (loop's h_buffer):
+// move what fits now, pend for the rest (pend_f the remainder, pend_f2
+// the total); the other side's guard on any progress, this side's on
 // completion only, then the fused hold
-template <bool GET, class S>
+template <bool GET, int B, class S>
 __device__ __forceinline__ bool h_buffer(S& s, const Where& w, int p,
                                          const Cmd<typename S::R>& c, int tag,
                                          bool is_retry) {
   using R = typename S::R;
   using M = typename S::M;
-  constexpr int MY = GET ? M::G_FRONT : M::G_REAR;
-  constexpr int OTHER = GET ? M::G_REAR : M::G_FRONT;
+  constexpr int MY = GET ? M::g_front(B) : M::g_rear(B);
+  constexpr int OTHER = GET ? M::g_rear(B) : M::g_front(B);
   const R total = is_retry ? SCOL(s, pend_f2, p) : c.f;
-  const R level = s.buf_level;
-  const R room = GET ? level : R(w.sh.buf_cap) - level;
+  const R level = s.buf_level[B];
+  const R room = GET ? level : M::template buf_cap<R>(w, B) - level;
   const R moved = nanmin(nanmax0(c.f), room);
   const R level2 = level + (GET ? -moved : moved);
   const R rem = c.f - moved;
   const bool done = rem <= R(0);
-  s.buf_level = level2;
-  record(s, 1, level2);
+  s.buf_level[B] = level2;
+  if constexpr (M::buf_rec(B)) record(s, M::acc_buf(B), level2);
   if (moved > R(0)) signal_at<OTHER>(s, w);
   if (done) signal_at<MY>(s, w);
   if (done) COLD(s, got, p) = total;
@@ -886,18 +956,37 @@ __device__ __forceinline__ bool h_buffer(S& s, const Where& w, int p,
   return !done || fused;
 }
 
-// cond_wait (loop's h_cond_wait): a first issue always waits; a
-// signalled retry goes on where the predicate holds and waits again,
-// keeping its place, where not
-template <class S>
+// cond_wait on condition C (loop's h_cond_wait): a first issue always
+// waits; a signalled retry goes on where the predicate holds and waits
+// again, keeping its place, where not
+template <int C, class S>
 __device__ __forceinline__ bool h_cond_wait(S& s, const Where& w, int p,
                                             const Cmd<typename S::R>& c,
                                             bool is_retry) {
   using M = typename S::M;
-  const bool proceed = is_retry && M::cond_holds(s, w);
+  const bool proceed = is_retry && M::template cond_holds<C>(s, w, p);
   set(s, F_PC, p, c.next_pc);
-  if (!proceed) guard_wait(s, p, M::G_COND, c, is_retry);
+  if (!proceed) guard_wait(s, p, M::g_cond(C), c, is_retry);
   return !proceed;
+}
+
+// the units of pool K that p holds go back (an exit)
+template <int K, class S>
+__device__ __forceinline__ void drop_pool(S& s, const Where& w, int p) {
+  using R = typename S::R;
+  using M = typename S::M;
+  if constexpr (K < M::NK) {
+    const R amt = SCOL(s, held, K * S::NP + p);
+    if (amt > R(0)) {
+      const R in_use =
+          M::template pool_cap<R>(w, K) - (s.pool_level[K] + amt);
+      s.pool_level[K] = s.pool_level[K] + amt;
+      SCOL(s, held, K * S::NP + p) = R(0);
+      if constexpr (M::pool_rec(K)) record(s, M::acc_pool(K), in_use);
+      signal_at<M::g_pool(K)>(s, w);
+    }
+    drop_pool<K + 1>(s, w, p);
+  }
 }
 
 template <class S>
@@ -921,17 +1010,7 @@ __device__ __forceinline__ void finish(S& s, const Where& w, int p) {
   }
   set(s, F_STATUS, p, FINISHED);
   row<int32_t, S>(w, EXIT_SIG, S::NP)[p] = SUCCESS;
-  if constexpr (S::M::SHOP) {  // the pool units p holds go back
-    using R = typename S::R;
-    const R amt = SCOL(s, held, p);
-    if (amt > R(0)) {
-      const R in_use = R(w.sh.pool_cap) - (s.pool_level + amt);
-      s.pool_level = s.pool_level + amt;
-      SCOL(s, held, p) = R(0);
-      record(s, 0, in_use);
-      signal_at<S::M::G_POOL>(s, w);
-    }
-  }
+  if constexpr (S::M::TOOLKIT) drop_pool<0>(s, w, p);
 }
 
 // returns "yielded"
@@ -939,25 +1018,50 @@ template <class S>
 __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
                                       const Cmd<typename S::R>& c,
                                       bool is_retry) {
+  using M = typename S::M;
   const int tag = c.tag < 0 ? 0 : (c.tag > N_COMMANDS - 1 ? N_COMMANDS - 1
                                                           : c.tag);
-  if constexpr (S::M::SHOP) {
+  if constexpr (M::TOOLKIT) {
     switch (tag) {
       case C_POOL_ACQ:
       case C_POOL_ACQ_HOLD:
-        return h_pool(s, w, p, c, tag, is_retry);
+        if constexpr (M::NK > 0)
+          return by_id<0, M::NK>(c.q, [&](auto k) {
+            return h_pool<decltype(k)::value>(s, w, p, c, tag, is_retry);
+          });
+        break;
       case C_POOL_REL:
-        release_pool(s, w, p, c.f);
-        set(s, F_PC, p, c.next_pc);
-        return false;
+        if constexpr (M::NK > 0) {
+          by_id<0, M::NK>(c.q, [&](auto k) {
+            release_pool<decltype(k)::value>(s, w, p, c.f);
+            return 0;
+          });
+          set(s, F_PC, p, c.next_pc);
+          return false;
+        }
+        break;
       case C_BUF_GET:
       case C_BUF_GET_HOLD:
-        return h_buffer<true>(s, w, p, c, tag, is_retry);
+        if constexpr (M::NV > 0)
+          return by_id<0, M::NV>(c.q, [&](auto b) {
+            return h_buffer<true, decltype(b)::value>(s, w, p, c, tag,
+                                                      is_retry);
+          });
+        break;
       case C_BUF_PUT:
       case C_BUF_PUT_HOLD:
-        return h_buffer<false>(s, w, p, c, tag, is_retry);
+        if constexpr (M::NV > 0)
+          return by_id<0, M::NV>(c.q, [&](auto b) {
+            return h_buffer<false, decltype(b)::value>(s, w, p, c, tag,
+                                                       is_retry);
+          });
+        break;
       case C_COND_WAIT:
-        return h_cond_wait(s, w, p, c, is_retry);
+        if constexpr (M::NC > 0)
+          return by_id<0, M::NC>(c.q, [&](auto k) {
+            return h_cond_wait<decltype(k)::value>(s, w, p, c, is_retry);
+          });
+        break;
       default:
         break;
     }
@@ -992,19 +1096,27 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
 // sorted key order), which blocks draw and of what kind, and the kind the
 // event's first draw takes (the converged draw of design point 3).
 
+// what a family has unless it says otherwise: no toolkit component, no
+// generated code
+struct NoUCold {};
+struct Family {
+  static constexpr bool GEN = false, TOOLKIT = false, PEND_I = false;
+  static constexpr bool PRED_BY_PID = false;
+  static constexpr int NK = 0, NV = 0, NC = 0;
+  using UCold = NoUCold;
+};
+
 // mm1.build(record=RECORD) (NS = 1) and mmc.build(NS): blocks a_start,
 // a_cycle, a_exit, s_start, s_cycle; user leaves arr_mean, n_objects,
 // srv_mean, wait.*
 template <int NS, bool RECORD_>
-struct MM {
+struct MM : Family {
   static constexpr int NP = 1 + NS, NQ = 1, NG = 2, NSUM = 1, N_BLOCKS = 5;
   static constexpr int NPAR = 2, N_USER = 11, N_OBJ = 1, THREADS = 128;
   static constexpr int NACC = RECORD_ ? 1 : 0, U0 = cimba::queue::U0;
   static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
   static constexpr bool RECORD = RECORD_, LOGN = false, UNIF = false;
   static constexpr bool SHOP = false;
-  // no toolkit component
-  static constexpr int G_FRONT = -1, G_REAR = -1, G_POOL = -1, G_COND = -1;
   static constexpr int A_START = 0, A_CYCLE = 1, A_EXIT = 2, S_START = 3;
   __host__ __device__ static constexpr int par_off(int i) {
     return i == 0 ? 0 : 2;  // arr_mean, srv_mean
@@ -1031,10 +1143,6 @@ struct MM {
   template <class S>
   __device__ static typename S::R mean(const S& s, int b) {
     return b < A_EXIT ? s.par[0] : s.par[1];
-  }
-  template <class S>
-  __device__ static bool cond_holds(const S&, const Where&) {
-    return false;
   }
   // block b of process p; t is its draw (times its mean)
   template <class S>
@@ -1094,14 +1202,13 @@ struct MG1 : MM<1, true> {
 // server 2; queues 0 (station 1) and 1 (station 2); user leaves
 // arr_mean, n_objects, p_back, s1_mean, s2_mean, w1.*, w2.*, wait.*
 // (summaries: 0 wait, 1 w1, 2 w2)
-struct Tandem {
+struct Tandem : Family {
   static constexpr int NP = 3, NQ = 2, NG = 4, NSUM = 3, N_BLOCKS = 9;
   static constexpr int NPAR = 4, N_USER = 29, N_OBJ = 1, THREADS = 64;
   static constexpr int NACC = 2, U0 = cimba::queue::U0;
   static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
   static constexpr bool RECORD = true, LOGN = false, UNIF = true;
-  static constexpr bool SHOP = false;
-  static constexpr int G_FRONT = -1, G_REAR = -1, G_POOL = -1, G_COND = -1;
+  static constexpr bool SHOP = false, PEND_I = true;
   static constexpr int A_START = 0, A_CYCLE = 1, A_EXIT = 2, S1_START = 3,
                        S1_CYCLE = 4, S1_TAKE = 5, S2_START = 6, S2_CYCLE = 7,
                        S2_TAKE = 8;
@@ -1134,10 +1241,6 @@ struct Tandem {
   __device__ static typename S::R mean(const S& s, int b) {
     return b < A_EXIT ? s.par[P_ARR]
                       : (b < S2_START ? s.par[P_S1] : s.par[P_S2]);
-  }
-  template <class S>
-  __device__ static bool cond_holds(const S&, const Where&) {
-    return false;
   }
   template <class S>
   __device__ static Cmd<typename S::R> block(S& s, const Where&, int p, int b,
@@ -1187,14 +1290,36 @@ struct Tandem {
 // the condition's; user leaves arr_mean, done.*, maintenance_runs,
 // n_jobs, work_mean.  Every draw is an exponential: arr_mean's (a_start,
 // a_store), work_mean's (a_entry) or work_mean * b_slow's (b_svc).
-struct Shop {
+struct Shop : Family {
   static constexpr int NP = 4, NQ = 0, NG = 4, NSUM = 1, N_BLOCKS = 10;
   static constexpr int NPAR = 2, N_USER = 12, N_OBJ = 10, THREADS = 64;
   static constexpr int NACC = 2, U0 = SHOP_U0, MRUNS = 9;
   static constexpr int LN_MU = 0, LN_SIGMA = 0;  // no lognormal
   static constexpr bool RECORD = false, LOGN = false, UNIF = false;
-  static constexpr bool SHOP = true;
+  static constexpr bool SHOP = true, TOOLKIT = true;
+  // one pool, one buffer, one condition observing the buffer's guards;
+  // the pool's StepAccum row 0, the buffer's row 1
+  static constexpr int NK = 1, NV = 1, NC = 1;
   static constexpr int G_FRONT = 0, G_REAR = 1, G_POOL = 2, G_COND = 3;
+  __host__ __device__ static constexpr int g_pool(int) { return G_POOL; }
+  __host__ __device__ static constexpr int g_front(int) { return G_FRONT; }
+  __host__ __device__ static constexpr int g_rear(int) { return G_REAR; }
+  __host__ __device__ static constexpr int g_cond(int) { return G_COND; }
+  __host__ __device__ static constexpr bool observes(int, int g) {
+    return g == G_FRONT || g == G_REAR;
+  }
+  __host__ __device__ static constexpr bool pool_rec(int) { return true; }
+  __host__ __device__ static constexpr bool buf_rec(int) { return true; }
+  __host__ __device__ static constexpr int acc_pool(int) { return 0; }
+  __host__ __device__ static constexpr int acc_buf(int) { return 1; }
+  template <typename R>
+  __device__ static R pool_cap(const Where& w, int) {
+    return R(w.sh.pool_cap);
+  }
+  template <typename R>
+  __device__ static R buf_cap(const Where& w, int) {
+    return R(w.sh.buf_cap);
+  }
   static constexpr int A_START = 0, A_ENTRY = 1, A_STORE = 2, A_EXIT = 3,
                        B_TAKE = 4, B_SVC = 5, B_FIN = 6, MT_WAIT = 7,
                        MT_ACT = 8, MT_REL = 9;
@@ -1221,9 +1346,9 @@ struct Shop {
     return b == A_ENTRY ? s.par[1] : (b == B_SVC ? s.b_mean : s.par[0]);
   }
   // the backlog condition: the buffer's level at or above the backlog
-  template <class S>
-  __device__ static bool cond_holds(const S& s, const Where& w) {
-    return s.buf_level >= typename S::R(w.sh.backlog);
+  template <int C, class S>
+  __device__ static bool cond_holds(const S& s, const Where& w, int) {
+    return s.buf_level[0] >= typename S::R(w.sh.backlog);
   }
   template <class S>
   __device__ static Cmd<typename S::R> block(S& s, const Where& w, int p,
@@ -1236,7 +1361,7 @@ struct Shop {
         return Cmd<R>{C_POOL_ACQ_HOLD, R(1), t, A_STORE, 0};
       case A_STORE: {
         const int32_t n = COLD(s, produced, p) += 1;
-        release_pool(s, w, p, R(1));
+        release_pool<0>(s, w, p, R(1));
         if (n >= s.n_objects) return Cmd<R>{C_BUF_PUT, R(1), R(0), A_EXIT, 0};
         return Cmd<R>{C_BUF_PUT_HOLD, R(1), t, A_ENTRY, 0};
       }
@@ -1249,7 +1374,7 @@ struct Shop {
       case B_FIN: {
         const Sum<R> d = sum_add(s, 0, s.clock);
         if (d.n >= R(s.n_objects)) s.done = true;
-        release_pool(s, w, p, R(1));
+        release_pool<0>(s, w, p, R(1));
         return Cmd<R>{C_BUF_GET, R(1), R(0), B_SVC, 0};
       }
       case MT_WAIT:
@@ -1258,28 +1383,29 @@ struct Shop {
         s.runs += 1;
         return Cmd<R>{C_POOL_ACQ_HOLD, R(1), R(2), MT_REL, 0};
       default:  // mt_rel
-        release_pool(s, w, p, R(1));
+        release_pool<0>(s, w, p, R(1));
         return Cmd<R>{C_COND_WAIT, R(0), R(0), MT_ACT, 0};
     }
   }
 };
 
-template <int FAMILY, int NS, bool RECORD>
+template <int FAMILY, int NS, bool RECORD, typename R>
 struct ModelOf {
   using type = MM<NS, RECORD>;
 };
-template <>
-struct ModelOf<F_MG1, 1, true> {
+template <typename R>
+struct ModelOf<F_MG1, 1, true, R> {
   using type = MG1;
 };
-template <>
-struct ModelOf<F_TANDEM, 2, true> {
+template <typename R>
+struct ModelOf<F_TANDEM, 2, true, R> {
   using type = Tandem;
 };
-template <>
-struct ModelOf<F_SHOP, 2, true> {
+template <typename R>
+struct ModelOf<F_SHOP, 2, true, R> {
   using type = Shop;
 };
+
 
 // ---------------------------------------------------------------------------
 
@@ -1287,24 +1413,29 @@ struct ModelOf<F_SHOP, 2, true> {
 // xkind, while `fresh` (no block of this event has drawn yet)
 template <class S>
 __device__ __forceinline__ Cmd<typename S::R> run_block(
-    S& s, const Where& w, int p, typename S::R x, int xkind, bool& fresh) {
+    S& s, const Where& w, int p, typename S::R x, int xkind, bool& fresh,
+    int32_t sig) {
   using R = typename S::R;
   using M = typename S::M;
   const int b = get(s, F_PC, p);  // clamped to a block when loaded
-  R t = R(0);
-  if (M::draws(b)) {
-    const int kind = M::kind(b);
-    if (!fresh || kind != xkind) {
-      uint32_t b0, b1;
-      threefry2x32(s.k0, s.k1, s.lo, s.hi, b0, b1);
-      x = variate(s, kind, b0, b1);
+  if constexpr (M::GEN) {
+    return M::block(s, w, p, b, sig);
+  } else {
+    R t = R(0);
+    if (M::draws(b)) {
+      const int kind = M::kind(b);
+      if (!fresh || kind != xkind) {
+        uint32_t b0, b1;
+        threefry2x32(s.k0, s.k1, s.lo, s.hi, b0, b1);
+        x = variate(s, kind, b0, b1);
+      }
+      fresh = false;
+      s.lo += 1u;
+      if (s.lo == 0u) s.hi += 1u;
+      t = kind == K_EXP ? M::mean(s, b) * x : x;
     }
-    fresh = false;
-    s.lo += 1u;
-    if (s.lo == 0u) s.hi += 1u;
-    t = kind == K_EXP ? M::mean(s, b) * x : x;
+    return M::block(s, w, p, b, t);
   }
-  return M::block(s, w, p, b, t);
 }
 
 template <class S>
@@ -1321,8 +1452,8 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
     pend.f = COLD(s, pend_f, p);
     pend.f3 = COLD(s, pend_f3, p);
     pend.next_pc = COLD(s, pend_pc, p);
-    if constexpr (S::NQ > 1) pend.q = s.cold_q->pend_i[p][s.t];
-    if constexpr (S::M::SHOP) pend.f2 = SCOL(s, pend_f2, p);
+    if constexpr (S::M::PEND_I) pend.q = s.cold_q->pend_i[p][s.t];
+    if constexpr (S::M::TOOLKIT) pend.f2 = SCOL(s, pend_f2, p);
   }
   set(s, F_TAG, p, NO_PEND);
   set(s, F_GUARD, p, -1);
@@ -1332,9 +1463,11 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
          n < MAX_CHAIN) {
     // one apply for the retried command and a block's: the lanes of a
     // warp that take either run the handlers together
-    const Cmd<R> c = use_pend ? pend : run_block(s, w, p, x, xkind, fresh);
+    const Cmd<R> c =
+        use_pend ? pend : run_block(s, w, p, x, xkind, fresh, sig);
     yielded = apply(s, w, p, c, use_pend);
     use_pend = false;
+    sig = SUCCESS;  // a chained block resumes with SUCCESS
     ++n;
   }
   if (n >= MAX_CHAIN) set_err(s, ERR_CHAIN_RUNAWAY);
@@ -1391,14 +1524,93 @@ __device__ __forceinline__ void step(S& s, const Where& w,
     scan_table(s, w);
   }
   s.n_events += 1;  // K_PROC and K_TIMER both resume; no handlers
-  // the converged draw, at the counter as the event found it
-  const int xkind = S::M::conv_kind(s, subj);
-  uint32_t b0, b1;
-  threefry2x32(s.k0, s.k1, s.lo, s.hi, b0, b1);
-  R x = variate(s, xkind, b0, b1);
-  pin(x);
-  if (subj >= 0 && subj < S::NP && get(s, F_STATUS, subj) == RUNNING)
-    resume(s, w, subj, arg, x, xkind);
+  if constexpr (S::M::GEN) {  // its blocks draw where they draw
+    if (subj >= 0 && subj < S::NP && get(s, F_STATUS, subj) == RUNNING)
+      resume(s, w, subj, arg, R(0), 0);
+  } else {
+    // the converged draw, at the counter as the event found it
+    const int xkind = S::M::conv_kind(s, subj);
+    uint32_t b0, b1;
+    threefry2x32(s.k0, s.k1, s.lo, s.hi, b0, b1);
+    R x = variate(s, xkind, b0, b1);
+    pin(x);
+    if (subj >= 0 && subj < S::NP && get(s, F_STATUS, subj) == RUNNING)
+      resume(s, w, subj, arg, x, xkind);
+  }
+}
+
+// a lane's value of a leaf, loaded into a register or column (LOAD) or
+// stored back from it
+template <bool LOAD, typename T, typename V>
+__device__ __forceinline__ void xfer(T* mem, V& v) {
+  if constexpr (LOAD) {
+    v = *mem;
+  } else {
+    *mem = v;
+  }
+}
+
+// A generated family's part of the state, loaded (LOAD) or stored: the
+// queues' StepAccum rows, the pools (level, grab counter, each process's
+// holding and grab order, StepAccum rows), the buffers (level, StepAccum
+// rows), the toolkit's pend_f2, the locals and the user leaves (their
+// columns, M::xfer_user); positions M::L_* in the Sim's leaf list (-1:
+// absent)
+template <bool LOAD, int LACC, int N, class S>
+__device__ __forceinline__ void acc_rows(S& s, const Where& w, int row0) {
+  using R = typename S::R;
+  if constexpr (LACC >= 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+#pragma unroll
+      for (int i = 0; i < 10; ++i)
+        xfer<LOAD>(row<R, S>(w, LACC + i, N) + k, ACC(s, row0 + k, i));
+      xfer<LOAD>(row<bool, S>(w, LACC + 10, N) + k,
+                 s.cold_acc->started[row0 + k][s.t]);
+    }
+  }
+}
+
+template <bool LOAD, class S>
+__device__ __forceinline__ void gen_state(S& s, const Where& w) {
+  using R = typename S::R;
+  using M = typename S::M;
+  constexpr int NP = S::NP, NK = M::NK, NV = M::NV;
+  acc_rows<LOAD, M::L_QACC, S::NQ>(s, w, M::acc_q(0));
+  if constexpr (NK > 0) {
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      xfer<LOAD>(row<R, S>(w, M::L_P_LEVEL, NK) + k, s.pool_level[k]);
+      xfer<LOAD>(row<int32_t, S>(w, M::L_P_NEXT_SEQ, NK) + k,
+                 s.pool_next_seq[k]);
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        xfer<LOAD>(row<R, S>(w, M::L_P_HELD, NK * NP) + k * NP + q,
+                   SCOL(s, held, k * NP + q));
+        xfer<LOAD>(row<int32_t, S>(w, M::L_P_HELD_SEQ, NK * NP) + k * NP + q,
+                   SCOL(s, held_seq, k * NP + q));
+      }
+    }
+    acc_rows<LOAD, M::L_PACC, NK>(s, w, M::acc_pool(0));
+  }
+  if constexpr (NV > 0) {
+#pragma unroll
+    for (int b = 0; b < NV; ++b)
+      xfer<LOAD>(row<R, S>(w, M::L_B_LEVEL, NV) + b, s.buf_level[b]);
+    acc_rows<LOAD, M::L_BACC, NV>(s, w, M::acc_buf(0));
+  }
+  if constexpr (M::TOOLKIT) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      xfer<LOAD>(row<R, S>(w, PEND_F2, NP) + q, SCOL(s, pend_f2, q));
+  }
+#pragma unroll
+  for (int i = 0; i < NP * M::NF; ++i)
+    xfer<LOAD>(row<R, S>(w, LOCALS_F, NP * M::NF) + i, UCOL(s, lf, i));
+#pragma unroll
+  for (int i = 0; i < NP * M::NI; ++i)
+    xfer<LOAD>(row<int32_t, S>(w, LOCALS_I, NP * M::NI) + i, UCOL(s, li, i));
+  M::template xfer_user<LOAD>(s, w);
 }
 
 template <class S>
@@ -1428,9 +1640,10 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
     COLD(s, pend_f, q) = row<R, S>(w, PEND_F, NP)[q];
     COLD(s, pend_f3, q) = row<R, S>(w, PEND_F3, NP)[q];
     COLD(s, got, q) = row<R, S>(w, GOT, NP)[q];
-    COLD(s, produced, q) =
-        row<int32_t, S>(w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals];
-    if constexpr (NQ > 1)
+    if constexpr (!M::GEN)
+      COLD(s, produced, q) = row<int32_t, S>(
+          w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals];
+    if constexpr (M::PEND_I)
       s.cold_q->pend_i[q][s.t] = row<int32_t, S>(w, PEND_I, NP)[q];
   }
   s.dirty = 0u;
@@ -1442,27 +1655,31 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
     s.head[q] = row<int32_t, S>(w, Q_HEAD, NQ)[q];
     s.size[q] = row<int32_t, S>(w, Q_SIZE, NQ)[q];
   }
+  if constexpr (M::GEN) {
+    gen_state<true>(s, w);
+  } else {
 #pragma unroll
-  for (int i = 0; i < M::NPAR; ++i)
-    s.par[i] = row<R, S>(w, user<M>(M::par_off(i)), 1)[0];
-  s.n_objects = row<int32_t, S>(w, user<M>(M::N_OBJ), 1)[0];
+    for (int i = 0; i < M::NPAR; ++i)
+      s.par[i] = row<R, S>(w, user<M>(M::par_off(i)), 1)[0];
+    s.n_objects = row<int32_t, S>(w, user<M>(M::N_OBJ), 1)[0];
 #pragma unroll
-  for (int j = 0; j < M::NSUM; ++j)
+    for (int j = 0; j < M::NSUM; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      COLD(s, sums, 8 * j + i) =
-          row<R, S>(w, user<M>(M::sum_off(j) + i), 1)[0];
+      for (int i = 0; i < 8; ++i)
+        COLD(s, sums, 8 * j + i) =
+            row<R, S>(w, user<M>(M::sum_off(j) + i), 1)[0];
+  }
   if constexpr (M::SHOP) {
     // the pool (one: its [L, 1] and [L, 1, NP] rows) and the buffer
-    s.pool_level = row<R, S>(w, P_LEVEL, 1)[0];
-    s.pool_next_seq = row<int32_t, S>(w, P_NEXT_SEQ, 1)[0];
+    s.pool_level[0] = row<R, S>(w, P_LEVEL, 1)[0];
+    s.pool_next_seq[0] = row<int32_t, S>(w, P_NEXT_SEQ, 1)[0];
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       SCOL(s, held, q) = row<R, S>(w, P_HELD, NP)[q];
       SCOL(s, held_seq, q) = row<int32_t, S>(w, P_HELD_SEQ, NP)[q];
       SCOL(s, pend_f2, q) = row<R, S>(w, PEND_F2, NP)[q];
     }
-    s.buf_level = row<R, S>(w, B_LEVEL, 1)[0];
+    s.buf_level[0] = row<R, S>(w, B_LEVEL, 1)[0];
 #pragma unroll
     for (int i = 0; i < 10; ++i) {
       ACC(s, 0, i) = row<R, S>(w, P_ACC + i, 1)[0];
@@ -1508,25 +1725,26 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
     row<int32_t, S>(w, WK_SEQ, NP)[q] = s.wseq[q];
 #pragma unroll
     for (int f = 0; f < 5; ++f)
-      if (s.dirty & (1u << (f * NP + q)))
+      if (s.dirty & (typename S::Dirty(1) << (f * NP + q)))
         row<int32_t, S>(w, packed[f], NP)[q] = field(s.word[q], f);
     row<int32_t, S>(w, PEND_PC, NP)[q] = COLD(s, pend_pc, q);
     row<int32_t, S>(w, PEND_SEQ, NP)[q] = COLD(s, pend_seq, q);
     row<R, S>(w, PEND_F, NP)[q] = COLD(s, pend_f, q);
     row<R, S>(w, PEND_F3, NP)[q] = COLD(s, pend_f3, q);
     row<R, S>(w, GOT, NP)[q] = COLD(s, got, q);
-    row<int32_t, S>(w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals] =
-        COLD(s, produced, q);
-    if constexpr (NQ > 1)
+    if constexpr (!M::GEN)
+      row<int32_t, S>(w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals] =
+          COLD(s, produced, q);
+    if constexpr (M::PEND_I)
       row<int32_t, S>(w, PEND_I, NP)[q] = s.cold_q->pend_i[q][s.t];
     if constexpr (M::SHOP) {
       row<R, S>(w, P_HELD, NP)[q] = SCOL(s, held, q);
       row<int32_t, S>(w, P_HELD_SEQ, NP)[q] = SCOL(s, held_seq, q);
       row<R, S>(w, PEND_F2, NP)[q] = SCOL(s, pend_f2, q);
     }
-    if (s.dirty & (1u << (F_BLOCK * NP + q))) {
-      if constexpr (!M::SHOP) row<R, S>(w, PEND_F2, NP)[q] = R(0);
-      if constexpr (NQ <= 1) row<int32_t, S>(w, PEND_I, NP)[q] = 0;
+    if (s.dirty & (typename S::Dirty(1) << (F_BLOCK * NP + q))) {
+      if constexpr (!M::TOOLKIT) row<R, S>(w, PEND_F2, NP)[q] = R(0);
+      if constexpr (!M::PEND_I) row<int32_t, S>(w, PEND_I, NP)[q] = 0;
     }
   }
 #pragma unroll
@@ -1537,16 +1755,20 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
     row<int32_t, S>(w, Q_HEAD, NQ)[q] = s.head[q];
     row<int32_t, S>(w, Q_SIZE, NQ)[q] = s.size[q];
   }
+  if constexpr (M::GEN) {
+    gen_state<false>(s, w);
+  } else {
 #pragma unroll
-  for (int j = 0; j < M::NSUM; ++j)
+    for (int j = 0; j < M::NSUM; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      row<R, S>(w, user<M>(M::sum_off(j) + i), 1)[0] =
-          COLD(s, sums, 8 * j + i);
+      for (int i = 0; i < 8; ++i)
+        row<R, S>(w, user<M>(M::sum_off(j) + i), 1)[0] =
+            COLD(s, sums, 8 * j + i);
+  }
   if constexpr (M::SHOP) {
-    row<R, S>(w, P_LEVEL, 1)[0] = s.pool_level;
-    row<int32_t, S>(w, P_NEXT_SEQ, 1)[0] = s.pool_next_seq;
-    row<R, S>(w, B_LEVEL, 1)[0] = s.buf_level;
+    row<R, S>(w, P_LEVEL, 1)[0] = s.pool_level[0];
+    row<int32_t, S>(w, P_NEXT_SEQ, 1)[0] = s.pool_next_seq[0];
+    row<R, S>(w, B_LEVEL, 1)[0] = s.buf_level[0];
 #pragma unroll
     for (int i = 0; i < 10; ++i) {
       row<R, S>(w, P_ACC + i, 1)[0] = ACC(s, 0, i);
@@ -1580,13 +1802,15 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          Cold<R, M>& cold,
                                          ColdAcc<R, M>& cold_acc,
                                          ColdQ<M>& cold_q,
-                                         ColdShop<R, M>& cold_shop) {
+                                         ColdShop<R, M>& cold_shop,
+                                         typename M::UCold& ucold) {
   using S = State<R, C, M>;
   S s;
   s.cold = &cold;
   s.cold_acc = &cold_acc;
   s.cold_q = &cold_q;
   s.cold_shop = &cold_shop;
+  s.ucold = &ucold;
   s.t = threadIdx.x;
   load(s, Where{ps, sh, l});
   scan_table(s, Where{ps, sh, l});
@@ -1609,28 +1833,43 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
   store(s, Where{ps, sh, opaque(l)});
 }
 
+// A generated family (core/emit.py): the header the build names defines
+// Gen<float> or Gen<double>, a spec's blocks, predicates, components and
+// leaf positions in the profile it was traced in, with CIMBA_GEN_F32 or
+// CIMBA_GEN_F64.  A resume's chain is bounded at MAX_CHAIN here too, the
+// rule the plain engine (make_run) keeps; user specs can now reach it,
+// where the reference's kernel mode bounds a chain at spec.max_chain.
+#ifdef CIMBA_GEN_HEADER
+#include CIMBA_GEN_HEADER
+template <typename R>
+struct ModelOf<F_GEN, 0, false, R> {
+  using type = Gen<R>;
+};
+#endif
+
 template <typename R, typename C, int FAMILY, int NS, bool RECORD>
 __global__ void __launch_bounds__(
-    ModelOf<FAMILY, NS, RECORD>::type::THREADS,
-    ModelOf<FAMILY, NS, RECORD>::type::template minb<R>())
+    ModelOf<FAMILY, NS, RECORD, R>::type::THREADS,
+    ModelOf<FAMILY, NS, RECORD, R>::type::template minb<R>())
 chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
              const __grid_constant__ Shape sh, int chunk_steps,
              bool has_t_end, R t_end) {
-  using M = typename ModelOf<FAMILY, NS, RECORD>::type;
+  using M = typename ModelOf<FAMILY, NS, RECORD, R>::type;
   __shared__ Cold<R, M> cold;
   __shared__ ColdAcc<R, M> cold_acc;
   __shared__ ColdQ<M> cold_q;
   __shared__ ColdShop<R, M> cold_shop;
+  __shared__ typename M::UCold ucold;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < lanes)
     run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
-                      cold_acc, cold_q, cold_shop);
+                      cold_acc, cold_q, cold_shop, ucold);
 }
 
 template <typename R, typename C, int FAMILY, int NS, bool RECORD>
 int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
            int chunk_steps, int has_t_end, double t_end, void* stream) {
-  using M = typename ModelOf<FAMILY, NS, RECORD>::type;
+  using M = typename ModelOf<FAMILY, NS, RECORD, R>::type;
   if (n_leaves != at<M>(M::U0 + M::N_USER + N_TAIL)) return -1;
   if (lanes <= 0 || chunk_steps <= 0) return -2;
   Ptrs ps{};
@@ -1735,5 +1974,29 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
         stream);                                                             \
   }
 
+// A generated instance (CIMBA_GEN_HEADER): its shape is compiled in, so
+// it takes the general event table's slots and the rings' width only.
+#define CIMBA_GEN_CHUNK(SUFFIX, R, C)                                        \
+  extern "C" int cimba_gen_chunk_##SUFFIX(                                   \
+      void* const* leaves, int n_leaves, int lanes, int event_cap,          \
+      int ring_width, int chunk_steps, int has_t_end, double t_end,         \
+      void* stream) {                                                        \
+    const cimba::queue::Shape sh{event_cap, ring_width, {0, 0}, {0, 0},     \
+                                 {0, 0},    1};                              \
+    return cimba::queue::launch<R, C, cimba::queue::F_GEN, 0, false>(       \
+        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        stream);                                                             \
+  }
+
+#ifdef CIMBA_GEN_F32
+CIMBA_GEN_CHUNK(f32, float, int32_t)
+#endif
+#ifdef CIMBA_GEN_F64
+CIMBA_GEN_CHUNK(f64, double, int64_t)
+#endif
+// CIMBA_GEN_ONLY: a generated instance's own library, without the
+// hand-written ones
+#ifndef CIMBA_GEN_ONLY
 CIMBA_QUEUE_CHUNK(f32, float, int32_t)
 CIMBA_QUEUE_CHUNK(f64, double, int64_t)
+#endif

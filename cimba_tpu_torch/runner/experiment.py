@@ -4,11 +4,12 @@
 
 Replication r is lane r of one batched Sim.  On the card the lanes go
 through the spec's CUDA chunk kernel and the host loop of
-:mod:`cimba_tpu_torch.core.kernel_run`, for five model families: the
+:mod:`cimba_tpu_torch.core.kernel_run`: a hand-written instance for the
 M/M/1 and M/M/c (with or without queue-length recording), the M/G/1
-sweep, the tandem network, the job shop, and AWACS, whose radar dwells
-run between chunks as one launch of the dwell kernel a boundary round;
-on ``device="cpu"`` through the plain engine.  A sweep's parameters (leaves
+sweep, the tandem network, the job shop, and AWACS (whose radar dwells
+run between chunks as one launch of the dwell kernel a boundary round),
+and for any other spec over the ported toolkit an instance generated
+from its blocks; on ``device="cpu"`` through the plain engine.  A sweep's parameters (leaves
 with leading axis ``n_replications``, e.g. ``mg1.sweep_params`` or
 ``tandem.sweep_grid(n).rows(r)``) give each lane its own row.  A failed
 replication freezes with ``sim.err`` set and is counted, as in the
@@ -56,11 +57,12 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
     ``n_replications`` (a sweep).  ``device`` defaults to ``"cuda"``;
     without a card only ``device="cpu"`` runs, and it runs the plain
     PyTorch engine.  On the card every chunk of ``chunk_steps`` events
-    per lane is one launch of the spec's CUDA kernel; kernels exist for
+    per lane is one launch of the spec's CUDA kernel (hand-written for
     ``models.mm1.build(...)``, ``models.mmc.build(c)`` for c in 1..4,
     ``models.mg1.build()``, ``models.tandem.build()``,
-    ``models.jobshop.build(...)`` and ``models.awacs.build(n)``, and
-    other specs raise there."""
+    ``models.jobshop.build(...)`` and ``models.awacs.build(n)``,
+    generated from the blocks for any other spec; a spec the generator
+    cannot take raises there, naming what it uses)."""
     dev = config.resolve_device(device)
     sims = init_sim(spec, seed, torch.arange(n_replications), params,
                     device=dev)

@@ -33,6 +33,7 @@ Usage (from the root of a checkout)::
     python -m cimba_tpu_torch.tools.cuda_bisect --model jobshop --jobs 7
     python -m cimba_tpu_torch.tools.cuda_bisect --model mm1 --stages 0,1,15
     python -m cimba_tpu_torch.tools.cuda_bisect --model awacs 3  # one stage
+    python -m cimba_tpu_torch.tools.cuda_bisect --model harbor  # generated
 
 Without a stage it drives the stages (default 0-5), prints one JSON line
 ``{"stage", "ok", "s", "tail"}`` for each, stops after the first failed
@@ -56,7 +57,11 @@ import torch
 from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
 
-MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "jobshop", "awacs")
+MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "jobshop", "awacs",
+          "balking", "harbor")
+#: the user programs (examples/), which run on a generated K1 instance,
+#: and the harbor's horizon (its tide never ends)
+GENERATED, HARBOR_T_END = ("balking", "harbor"), 40.0
 #: float leaves, kernel vs plain (chip_smoke.py's RTOL)
 RTOL = {"f32": 2e-5, "f64": 1e-12}
 #: small default shapes: lanes, objects (mm1, mmc, mg1, tandem; jobs of
@@ -74,6 +79,7 @@ class Setup:
 
     def __init__(self, model: str, device, lanes: int = LANES,
                  size=None, seed: int = 2026):
+        from cimba_tpu_torch.examples import cookbook_balking, tut_4_harbor
         from cimba_tpu_torch.models import (awacs, jobshop, mg1, mm1, mmc,
                                             tandem)
 
@@ -97,9 +103,15 @@ class Setup:
             spec, params = jobshop.build()[0], jobshop.params(n)
         elif model == "awacs":
             spec, params = awacs.build(n)[0], awacs.params(AW_T_END)
+        elif model == "balking":
+            spec, params = cookbook_balking.build()[0], \
+                cookbook_balking.params(n)
+        elif model == "harbor":
+            spec, params = tut_4_harbor.build(), tut_4_harbor.params()
         else:
             raise ValueError(f"unknown model {model!r}; one of {MODELS}")
         self.model, self.spec = model, spec
+        self.t_end = HARBOR_T_END if model == "harbor" else None
         self.on_card = torch.device(device).type == "cuda"
         self.s0 = loop.init_sim(spec, seed, torch.arange(lanes), params,
                                 device=device)
@@ -107,7 +119,8 @@ class Setup:
         if spec.boundary_pcs:
             self.start = kernel_run.make_boundary_step(spec)(
                 self.plain(self.s0, 512))
-        self.lay, self.kernel, self.table = kernel_run.kernel_for(spec)
+        self.lay, self.kernel, self.table = kernel_run.kernel_for(spec,
+                                                                  self.s0)
 
     def plain(self, sims, k: int):
         """``k`` events a lane of the plain engine, boundary deferred."""
@@ -173,10 +186,11 @@ def run_stage(model: str, profile: str, device: str, stage: int,
             bad = compare(st.table, st.plain(st.start, k),
                           st.chunk(st.start, k), rtol)
         elif base == 5:
-            got = kernel_run.make_kernel_run(st.spec)(st.s0)
-            want = loop.make_run(st.spec)(st.s0)
+            got = kernel_run.make_kernel_run(st.spec, t_end=st.t_end)(st.s0)
+            want = loop.make_run(st.spec, t_end=st.t_end)(st.s0)
             bad = compare(st.table, want, got, rtol)
-            if not bad and bool(loop.make_cond(st.spec)(got).any()):
+            if not bad and bool(loop.make_cond(st.spec, st.t_end)(got)
+                                .any()):
                 bad = [("lanes", "still live after the run")]
         else:
             raise ValueError(f"no stage {stage}")
@@ -184,6 +198,7 @@ def run_stage(model: str, profile: str, device: str, stage: int,
             torch.cuda.synchronize()
     launches = {"sim_copy": bk.sim_copy.launches, "peek": bk.peek.launches,
                 "queue_chunk": kernel_run.queue_chunk.launches,
+                "gen_chunk": kernel_run.gen_chunk.launches,
                 "awacs_chunk": kernel_run.awacs_chunk.launches,
                 "awacs_dwell": kernel_run.awacs_dwell.launches}
     return {"ok": not bad, "differs": [str(b) for b in bad][:8],

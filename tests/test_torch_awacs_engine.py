@@ -131,7 +131,9 @@ def test_chained_entry_into_boundary_block_fails_the_lane():
 
 
 def test_kernels_refuse_other_specs():
-    with pytest.raises(NotImplementedError, match="M/M/1"):
+    # another spec with a boundary block: no dwell kernel, and the
+    # generated family takes none
+    with pytest.raises(NotImplementedError, match="boundary blocks"):
         kernel_run.make_kernel_run(_jumpy())
     aw, _ = awacs.build(8)
     mm, _ = mm1.build(record=False)

@@ -375,3 +375,117 @@ def test_queue_chunk_has_no_stack_frame(card):
         chip_smoke.build_report("queue_chunk", report))
     assert faults == []
     assert len(figs) >= 16  # every instance in both profiles
+
+
+# --- the generated K1 (user specs) ------------------------------------------
+
+def _user_spec(name):
+    """A user spec that runs on a generated instance: (spec, params,
+    horizon, seed)."""
+    from cimba_tpu_torch.examples import cookbook_balking, tut_4_harbor
+    from cimba_tpu_torch.tools import usergen
+
+    if name == "balking":
+        return cookbook_balking.build()[0], cookbook_balking.params(60), \
+            None, 7
+    if name == "harbor":
+        return tut_4_harbor.build(), tut_4_harbor.params(), 60.0, 4
+    if name == "mm1":  # forced onto the generated route
+        return mm1.build()[0], mm1.params(60), None, 2026
+    seed = int(name[len("usergen"):])
+    return usergen.build(seed, usergen.torch_lib())[0], None, None, 11
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["balking", "harbor", "mm1", "usergen1",
+                                  "usergen2"])
+def test_generated_instances_match_plain_engine(card, name, prof):
+    """A generated instance, driven by its host loop (the user programs
+    through make_kernel_run, which chooses the generated family for
+    them), equals the plain engine on the card leaf for leaf, floats bit
+    for bit; mm1.build()'s generated instance equals its hand-written
+    one on a chunk."""
+    with config.profile(prof):
+        spec, params, t_end, seed = _user_spec(name)
+        s0 = loop.init_sim(spec, seed, torch.arange(512), params,
+                           device=card)
+        lay, wrapper, table = kernel_run.generated_kernel_for(spec, s0)
+        if name == "mm1":
+            hlay, hk, _ = kernel_run.kernel_for(spec)
+            a = hk(tree.map(lambda x: x.clone(), s0), hlay, 64)
+            b = wrapper(tree.map(lambda x: x.clone(), s0), lay, 64)
+            torch.cuda.synchronize()
+            assert interop.diff_leaves(tree.leaves(a), tree.leaves(b),
+                                       0.0) == []
+            return
+        before = kernel_run.gen_chunk.launches
+        ker = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                         chunk_steps=64)(s0)
+        pla = loop.make_run(spec, t_end=t_end)(s0)
+        torch.cuda.synchronize()
+    assert kernel_run.gen_chunk.launches > before
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert int(ker.err.ne(0).sum()) == 0
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+def test_generated_trig_past_the_fast_path(card, prof):
+    """sin and cos of a generated block equal torch's on the card for
+    arguments past the library's fast path too (|x| >= 105615 in f32,
+    2^31 in f64, up to the dtype's range: chip_smoke.TRIG_SCALES), with
+    no failed lane; so does every device sampler."""
+    import chip_smoke
+
+    with config.profile(prof):
+        spec = chip_smoke.sampler_spec()
+        s0 = loop.init_sim(spec, 2026, torch.arange(512), None, device=card)
+        lay, wrapper, _ = kernel_run.generated_kernel_for(spec, s0)
+        ker = wrapper(tree.map(lambda x: x.clone(), s0), lay, 16)
+        pla = loop.make_run(spec, max_steps=16)(s0)
+        torch.cuda.synchronize()
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert int(ker.err.ne(0).sum()) == 0
+    assert all(bool(torch.isfinite(pla.user[f"{f}{j}"]).all())
+               for f in ("sin", "cos") for j in range(5))
+
+
+def test_generated_instances_have_no_stack_frame(card):
+    """ptxas' report of the generated harbor and balking instances: the
+    chunk kernel keeps no stack frame and spills nothing in either
+    profile (the harbor's sin is queue_chunk.cu's frame-free
+    trig_of)."""
+    import chip_smoke
+    from cimba_tpu_torch import _build
+
+    for name in ("balking", "harbor"):
+        for prof in ("f32", "f64"):
+            spec, s = chip_smoke.gen_template(name, prof)
+            with config.profile(prof):
+                lay = kernel_run.generated_kernel_for(spec, s)[0]
+            path, _, report = _build.build_gen(lay["header"])
+            report = report or path.with_suffix(".log").read_text()
+            f = chip_smoke.print_gen_ptxas(f"{name} {prof}", report)
+            assert f["frame"] == 0 and f["spill_stores"] == 0
+
+
+def test_generated_route_refuses_unported_sampler_on_card(card):
+    """A user spec whose block draws a sampler without a device
+    counterpart raises on the card, naming it; nothing runs the plain
+    engine instead."""
+    import cimba_tpu_torch.random as cr
+    from cimba_tpu_torch.core import api
+    from cimba_tpu_torch.core import process as cmd
+    from cimba_tpu_torch.core.model import Model
+
+    m = Model("gammaish")
+
+    @m.block
+    def wait(sim, p, sig):
+        sim, t = api.draw(sim, cr.gamma, 2.0, 1.0)
+        return sim, cmd.hold(t, next_pc=wait.pc)
+
+    m.process("p", entry=wait)
+    spec = m.build()
+    s0 = loop.init_sim(spec, 1, torch.arange(4), device=card)
+    with pytest.raises(NotImplementedError, match="gamma"):
+        kernel_run.make_kernel_run(spec, t_end=5.0)(s0)

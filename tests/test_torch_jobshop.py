@@ -165,7 +165,8 @@ def test_no_card_no_fallback(monkeypatch):
 
 def test_kernel_layout_and_refusals():
     """``kernel_for`` gives the job shop's layout and leaf table; a job
-    shop of another structure is refused with the six families named."""
+    shop of another structure is refused by the hand-written families
+    (its kernel is the generated one)."""
     from cimba_tpu_torch import tree
     from cimba_tpu_torch.core import process as cmd
     from cimba_tpu_torch.core.model import Model
@@ -197,6 +198,7 @@ def test_kernel_layout_and_refusals():
         blk.__name__, blk.__module__ = name, tjobshop.__name__
         blocks.append(m.block(blk))
     m.process("stageA", entry=blocks[0])
-    with pytest.raises(NotImplementedError,
-                       match="six model families.*job shop"):
-        kernel_run.make_kernel_run(m.build())
+    fake = m.build()
+    assert kernel_run._queue_family(fake) is None
+    with pytest.raises(NotImplementedError, match="hand-written families"):
+        kernel_run.queue_layout(fake)

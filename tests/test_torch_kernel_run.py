@@ -67,8 +67,16 @@ def test_refuses_other_specs_and_cpu_launch():
         return sim, cmd.exit_()
 
     m.process("p", entry=only)
-    with pytest.raises(NotImplementedError, match="M/M/1"):
-        kernel_run.make_kernel_run(m.build())
+    other = m.build()
+    # no hand-written family restates it: its kernel is generated, from a
+    # Sim of the spec
+    with pytest.raises(NotImplementedError, match="M/M/1|hand-written"):
+        kernel_run.queue_layout(other)
+    with pytest.raises(NotImplementedError, match="traced from a Sim"):
+        kernel_run.kernel_for(other)
+    s_other = tloop.init_sim(other, 1, torch.arange(2), device="cpu")
+    lay_o, kernel_o, _ = kernel_run.kernel_for(other, s_other)
+    assert kernel_o is kernel_run.gen_chunk and lay_o["family"] == "gen"
     spec, _ = tmm1.build(record=False)
     lay = kernel_run.queue_layout(spec)
     s0 = tloop.init_sim(spec, 3, torch.arange(4), tmm1.params(10),
@@ -136,8 +144,8 @@ def test_queue_instances_and_layouts():
 def test_mg1_and_tandem_layouts():
     """mg1.build() and tandem.build() get their own instances, layouts
     and leaf tables; mg1 (mm1's block names) is told from mm1 by its
-    module and user keys; a spec of another shape is refused with the
-    five families named."""
+    module and user keys; a spec of another shape is refused by the
+    hand-written families (its kernel is the generated one)."""
     from cimba_tpu_torch import tree
     from cimba_tpu_torch.core import process as cmd
     from cimba_tpu_torch.models import mg1 as tmg1
@@ -173,5 +181,7 @@ def test_mg1_and_tandem_layouts():
         blocks.append(m.block(blk))
     m.process("arrival", entry=blocks[0])
     m.process("service", entry=blocks[3])
-    with pytest.raises(NotImplementedError, match="M/G/1.*tandem.*AWACS"):
-        kernel_run.make_kernel_run(m.build())
+    fake = m.build()
+    assert kernel_run._queue_family(fake) is None
+    with pytest.raises(NotImplementedError, match="hand-written families"):
+        kernel_run.queue_layout(fake)

@@ -1,0 +1,201 @@
+"""The tracer and the emitter of the generated K1 (``core/trace.py``,
+``core/emit.py``), on the CPU.
+
+* Each block's IR, replayed with torch (``trace.replay``) on a state part
+  way through a run, equals the block itself bit for bit (every leaf and
+  the command's fields, dtypes included) in both profiles, for the two
+  user programs (the cookbook's balking M/M/1, the tutorial harbor), and
+  for ``mm1``, ``mmc(3)``, ``tandem`` and ``jobshop``.
+* A Python branch on a traced value raises, naming the block; so does an
+  op the emitter does not know, and a sampler without a device
+  counterpart; a spec with more guards than the kernel's packed word
+  holds is refused before any tracing.
+* The emitter's output is deterministic: two builds of one spec give the
+  same header, and so the same hash (the library's directory).
+"""
+
+import pytest
+import torch
+
+import cimba_tpu_torch.random as cr
+from cimba_tpu_torch import config
+from cimba_tpu_torch.core import emit, kernel_run, loop, trace
+from cimba_tpu_torch.core import process as cmd
+from cimba_tpu_torch.core.model import Model
+from cimba_tpu_torch.examples import cookbook_balking, tut_4_harbor
+from cimba_tpu_torch.models import jobshop, mm1, mmc, tandem
+
+torch.set_num_threads(1)
+
+LANES = 12
+
+SPECS = {
+    "balking": (lambda: cookbook_balking.build()[0],
+                lambda: cookbook_balking.params(40), 60),
+    "harbor": (tut_4_harbor.build, tut_4_harbor.params, 40),
+    "mm1": (lambda: mm1.build()[0], lambda: mm1.params(40), 40),
+    "mmc3": (lambda: mmc.build(3)[0], lambda: mmc.params(40, 2.5, 1.0), 40),
+    "tandem": (lambda: tandem.build()[0],
+               lambda: tandem.sweep_grid(40).rows(2)[0], 40),
+    "jobshop": (lambda: jobshop.build()[0], lambda: jobshop.params(20), 40),
+}
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_replay_equals_block(name, prof):
+    build, params, steps = SPECS[name]
+    with config.profile(prof):
+        spec = build()
+        s = loop.init_sim(spec, 5, torch.arange(LANES), params(),
+                          device="cpu")
+        s = loop.make_run(spec, max_steps=steps)(s)
+        p = torch.arange(LANES, dtype=torch.int32) % spec.n_procs
+        sig = torch.zeros(LANES, dtype=torch.int32)
+        for pc, blk in enumerate(spec.blocks):
+            ir = trace.trace_block(spec, pc, s)
+            a_sim, a_cmd = blk(s, p, sig)
+            a_cmd = cmd.normalize(a_cmd, LANES, s.clock.device,
+                                  s.clock.dtype)
+            b_sim, b_cmd = trace.replay(spec, ir, s, p, sig)
+            for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                                      trace.named_leaves(b_sim)):
+                assert x.dtype == y.dtype and torch.equal(x, y), (pc, n)
+            for x, y in zip(a_cmd, b_cmd):
+                assert x.dtype == y.dtype and torch.equal(x, y), pc
+
+
+def _one_block_spec(body):
+    m = Model("probe", n_ilocals=1)
+
+    @m.user_state
+    def init(params):
+        return {"x": torch.zeros((), dtype=torch.float64)}
+
+    blk = m.block(body)
+    m.process("p", entry=blk)
+    spec = m.build()
+    return spec, loop.init_sim(spec, 1, torch.arange(2), device="cpu")
+
+
+def test_python_branch_on_traced_value_raises():
+    def branchy(sim, p, sig):
+        if sim.clock > 1.0:
+            return sim, cmd.exit_()
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _one_block_spec(branchy)
+    with pytest.raises(trace.TraceError,
+                       match="block 'branchy'.*branches in Python"):
+        trace.trace_block(spec, 0, s)
+    with pytest.raises(NotImplementedError, match="branchy"):
+        kernel_run.generated_kernel_for(spec, s)
+
+
+def test_item_on_traced_value_raises():
+    def hosty(sim, p, sig):
+        return sim, cmd.hold(float(sim.user["x"].item()), next_pc=0)
+
+    spec, s = _one_block_spec(hosty)
+    with pytest.raises(trace.TraceError, match="hosty.*branches in Python"):
+        trace.trace_block(spec, 0, s)
+
+
+def test_unknown_op_names_its_block():
+    def tanhy(sim, p, sig):
+        return sim, cmd.hold(torch.tanh(sim.clock) + 1.0, next_pc=0)
+
+    spec, s = _one_block_spec(tanhy)
+    with pytest.raises(NotImplementedError,
+                       match=r"block 'tanhy'.*op tanh.*test_torch_trace"):
+        trace.trace_block(spec, 0, s)
+
+
+def test_sampler_without_device_counterpart_raises_at_emit():
+    def gammay(sim, p, sig):
+        sim, t = api_draw(sim, cr.gamma, 2.0, 1.0)
+        return sim, cmd.hold(t, next_pc=0)
+
+    from cimba_tpu_torch.core import api
+
+    api_draw = api.draw
+    spec, s = _one_block_spec(gammay)
+    trace.trace_block(spec, 0, s)  # the tracer takes it: one draw node
+    with pytest.raises(NotImplementedError,
+                       match="gammay.*sampler .*gamma has no device"):
+        emit.emit(spec, s)
+
+
+def test_too_many_guards_refused_before_tracing():
+    m = Model("wide")
+    for i in range(5):
+        m.objectqueue(f"q{i}", capacity=2)
+
+    @m.block
+    def idle(sim, p, sig):
+        return sim, cmd.exit_()
+
+    m.process("p", entry=idle)
+    spec = m.build()
+    with pytest.raises(NotImplementedError, match="10 guards"):
+        kernel_run.make_kernel_run(spec)
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_emit_is_deterministic(prof):
+    with config.profile(prof):
+        heads = []
+        for _ in range(2):
+            spec = tut_4_harbor.build()
+            s = loop.init_sim(spec, 4, torch.arange(3), None, device="cpu")
+            heads.append(emit.emit(spec, s))
+    assert heads[0] == heads[1]
+    assert emit.header_hash(heads[0]) == emit.header_hash(heads[1])
+    assert f"CIMBA_GEN_{prof.upper()}" in heads[0]
+
+
+def _shared_block_spec(body, n_procs=4):
+    """``n_procs`` processes sharing one block (a run-time pid)."""
+    m = Model("shared", n_flocals=2)
+
+    @m.user_state
+    def init(params):
+        return {"x": torch.zeros((), dtype=torch.float64)}
+
+    blk = m.block(body)
+    for k in range(n_procs):
+        m.process(f"p{k}", entry=blk)
+    spec = m.build()
+    return spec, loop.init_sim(spec, 1, torch.arange(2), device="cpu")
+
+
+def test_trace_records_each_pid_write_as_one_put():
+    def writer(sim, p, sig):
+        sim = api.set_local_f(sim, p, 1, sim.clock + 1.0)
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    from cimba_tpu_torch.core import api
+
+    spec, s = _shared_block_spec(writer)
+    ir = trace.trace_block(spec, 0, s)
+    assert len(ir.puts) == 1 and len(ir.puts[0]) == 4
+    assert {ir.nodes[w].op for w in ir.puts[0]} == {"where"}
+
+
+@pytest.mark.parametrize("n_procs", [2, 4, 7])
+def test_op_counts_take_a_pid_write_as_one_store(n_procs):
+    """The bound's count of a block: a write by a traced pid is one
+    store whatever the process count (not its n_procs position tests and
+    selects); a read by one is one load; a library function counts its
+    weight, a division by a Python number one multiply."""
+    from cimba_tpu_torch.core import api
+
+    def body(sim, p, sig):
+        x = api.local_f(sim, p, 0)  # the pid's cast to an index, a load
+        y = torch.sin(x) / 3.0 + x / sim.clock  # sin, mul, div, add
+        sim = api.set_local_f(sim, p, 1, y)  # one store
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _shared_block_spec(body, n_procs)
+    assert emit.op_counts(spec, s) == {0: 7}
+    assert emit.op_counts(spec, s, {"sin": 20, "div": 8}) == {0: 7 + 19 + 7}
