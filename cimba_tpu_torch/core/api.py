@@ -2,13 +2,15 @@
 readers of a lane's state and the calls a block makes between yields.
 ``p`` is the ``[L]`` pid tensor a block receives; every helper acts on
 all replication lanes at once.  The readers of components not ported
-yet (``queue_position``, ``pqueue_position``, ``pqueue_length``,
-``resource_holder``) come with their verbs.
+yet (``queue_position``, ``resource_holder``) come with their verbs.
 
 Under :mod:`cimba_tpu_torch.core.trace` a block runs on a symbolic
 one-lane Sim: :func:`draw` then records one draw node naming its
-sampler, and :func:`pool_release` and :func:`cond_signal` one engine
-call each; every other helper is traced through as torch ops."""
+sampler; :func:`pool_release`, :func:`cond_signal`, :func:`interrupt`,
+:func:`timer_add` and :func:`timers_clear` one engine call each;
+:func:`pqueue_length` and :func:`pqueue_position` one reader node each
+(they scan the queue's slots); every other helper is traced through as
+torch ops."""
 
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from cimba_tpu_torch.core import ix
 from cimba_tpu_torch.core import loop as _loop
 from cimba_tpu_torch.core import trace as _trace
 from cimba_tpu_torch.core.loop import ERR_USER, Sim
+
+_I32_MAX = 2**31 - 1
 
 
 def clock(sim: Sim):
@@ -133,6 +137,48 @@ def queue_space(sim: Sim, q):
             - size).to(INDEX)
 
 
+def pqueue_length(sim: Sim, q):
+    """Items in a priority queue (parity: cmb_priorityqueue_length), as
+    an int64 count: the reference's sum of int32 flags promotes to it."""
+    qid = _id(q)
+    if _trace.is_symbolic(sim):
+        return _trace.pq_read(sim, "pq_length", qid)
+    return sim.pqueues.live[:, qid].to(INDEX).sum(dim=1)
+
+
+def _pq_match(sim: Sim, qid: int, item):
+    """The earliest-dequeuing live item equal to ``item`` (parity: the
+    reference's ``_pq_match``): ``(one_hot, match, p_best, s_best)``,
+    the greatest priority among the matches, then the least seq."""
+    pq = sim.pqueues
+    live, prio, seq = pq.live[:, qid], pq.prio[:, qid], pq.seq[:, qid]
+    item = torch.as_tensor(item, device=prio.device).to(prio.dtype)
+    item = item.reshape(-1, 1) if item.dim() else item
+    match = live & (pq.items[:, qid] == item)
+    p_best = torch.where(match, prio, -torch.inf).amax(dim=1)
+    m2 = match & (prio == p_best[:, None])
+    s_best = torch.where(m2, seq, _I32_MAX).amin(dim=1)
+    return m2 & (seq == s_best[:, None]), match, p_best, s_best
+
+
+def pqueue_position(sim: Sim, q, item):
+    """1-based place in dequeue order (priority descending, FIFO among
+    equal priorities) of the first item equal to ``item``, 0 if absent
+    (parity: cmb_priorityqueue_position; the payload is the key, as in
+    the reference's restatement)."""
+    qid = _id(q)
+    if _trace.is_symbolic(sim):
+        item = torch.as_tensor(item).to(sim.pqueues.prio.dtype)
+        return _trace.pq_read(sim, "pq_position", qid, item)
+    _, match, p_best, s_best = _pq_match(sim, qid, item)
+    pq = sim.pqueues
+    live, prio, seq = pq.live[:, qid], pq.prio[:, qid], pq.seq[:, qid]
+    ahead = live & ((prio > p_best[:, None])
+                    | ((prio == p_best[:, None]) & (seq < s_best[:, None])))
+    pos = ahead.to(INDEX).sum(dim=1, dtype=INDEX) + 1
+    return torch.where(match.any(dim=1), pos, 0).to(INDEX)
+
+
 def pool_level(sim: Sim, pool):
     """Units available in a resource pool (parity:
     cmb_resourcepool_level)."""
@@ -180,3 +226,26 @@ def cond_signal(sim: Sim, spec, condition) -> Sim:
     if _trace.is_symbolic(sim):
         return _trace.engine_call(sim, "cond_signal", _id(condition))
     return _loop.cond_signal(spec, sim, _id(condition))
+
+
+def interrupt(sim: Sim, spec, target, sig) -> Sim:
+    """Deliver ``sig`` to process ``target`` now, aborting what it waits
+    on (parity: cmb_process_interrupt)."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "interrupt", target, sig)
+    return _loop.interrupt(spec, sim, target, sig)
+
+
+def timer_add(sim: Sim, p, dur, sig):
+    """``(sim, handle)``: deliver ``sig`` to p after ``dur`` unless
+    cancelled (parity: cmb_process_timer_add)."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "timer_add", p, dur, sig)
+    return _loop.timer_add(sim, p, dur, sig)
+
+
+def timers_clear(sim: Sim, p) -> Sim:
+    """Cancel every timer aimed at p (parity: cmb_process_timers_clear)."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "timers_clear", p)
+    return _loop.timers_clear(sim, p)

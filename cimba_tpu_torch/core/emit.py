@@ -10,10 +10,15 @@ the interface the hand-written families have:
 * the Sim's leaf positions, the user state's leaves as shared-memory
   columns (``UCold``, with the processes' float and integer locals), and
   their load and store;
-* ``NP``, ``NQ``, ``NK``, ``NV``, ``NC``, the queues', pools', buffers' and
-  conditions' capacities, guards, recording flags and observer lists, all
-  compile-time constants (a command's component id is dispatched over
-  them, ``by_id``);
+* ``NP``, ``NQ``, ``NK``, ``NV``, ``NC``, ``NPQ``, the queues', pools',
+  buffers', priority queues' and conditions' capacities, guards,
+  recording flags and observer lists, all compile-time constants (a
+  command's component id is dispatched over them, ``by_id``);
+* the engine calls of a block (a pool's release, a condition's signal,
+  an interrupt, a timer's insert, a pattern cancel of a process's
+  timers), each under its gate where a select of the whole Sim keeps or
+  drops it, and the priority queues' readers (``pq_length<Q>``,
+  ``pq_position<Q>``);
 * the launch bounds.
 
 Each node is one ``const`` local of the C++ type of its dtype; an op casts
@@ -50,13 +55,19 @@ SAMPLERS = {
     "cimba_tpu_torch.random.distributions.normal": ("normal", 2),
     "cimba_tpu_torch.random.distributions.lognormal": ("lognormal", 2),
     "cimba_tpu_torch.random.distributions.triangular": ("triangular", 3),
+    "cimba_tpu_torch.random.distributions.pert": ("pert", 3),
+    "cimba_tpu_torch.random.distributions.beta": ("beta", 4),
+    "cimba_tpu_torch.random.distributions.gamma": ("gamma", 2),
 }
+#: the samplers that draw a data-dependent number of blocks (a rejection
+#: loop): they take the lane's state and draw through it
+LOOPING = {"pert", "beta", "gamma"}
 
 #: a process's packed word holds a guard id in 4 signed bits and the
 #: dirty mask 6 bits a process in 64
 MAX_GUARDS, MAX_PROCS, MAX_BLOCKS = 8, 10, 127
 #: the kernel's leaf pointer array (queue_chunk.cu MAX_LEAVES)
-MAX_LEAVES = 83
+MAX_LEAVES = 128
 #: static shared memory a block may use
 SMEM = 48 * 1024
 
@@ -134,6 +145,8 @@ class _Fn:
 
     def __init__(self, lay: _Layout, nodes, what: str):
         self.lay, self.nodes, self.what = lay, nodes, what
+        #: the engine calls a select gates (their handles are not given)
+        self.gated: set = set()
         self.lines: List[str] = []
         self.done = 0
         self.live = [False] * len(nodes)
@@ -220,6 +233,16 @@ class _Fn:
             for j, e in enumerate(a[2:], start=1):
                 out = f"(v{a[0]} == {j} ? v{e} : {out})"
             return out
+        if op == "pq_length":
+            return f"pq_length<{n.aux[0]}>(s, w)"
+        if op == "pq_position":
+            return (f"pq_position<{n.aux[0]}>(s, w, "
+                    f"{self.ref(a[0], self.lay.real)})")
+        if op == "callres":
+            if n.aux in self.gated:
+                self.fail("uses the handle of a timer_add that a select "
+                          "keeps or drops")
+            return f"h{n.aux}"
         fl = cdt is not None and cdt.is_floating_point
         x = [self.ref(v, cdt) if v is not None else None for v in a]
         if op == "where":
@@ -273,11 +296,13 @@ class _Fn:
         f32 = cdt == torch.float32
         libm = {"abs": "fabs", "exp": "exp",
                 "log": "log", "log1p": "log1p", "sqrt": "sqrt",
-                "floor": "floor", "ceil": "ceil"}
+                "floor": "floor", "ceil": "ceil", "round": "rint"}
         if op in libm:
             if not fl:
                 if op == "abs":
                     return f"({x[0]} < 0 ? -{x[0]} : {x[0]})"
+                if op in ("floor", "ceil", "round"):
+                    return x[0]
                 self.fail(f"op {op} on {cdt}")
             return f"{libm[op]}{'f' if f32 else ''}({x[0]})"
         self.fail(f"op {op} has no CUDA counterpart")
@@ -310,6 +335,10 @@ class _Fn:
         if n.dtype != want:
             self.fail(f"sampler {name} gives {n.dtype}, the device sampler "
                       f"{want}")
+        ct = _ctype(n.dtype, self.what)
+        if dev in LOOPING:  # draws through the lane's state
+            return [f"const {ct} v{i} = {dev}<R>(Draws<S>{{s}}, "
+                    f"{', '.join(args)});"]
         b0, b1 = f"b{i}_0", f"b{i}_1"
         return [f"uint32_t {b0}, {b1};", f"draw_bits(s, {b0}, {b1});",
                 f"const {_ctype(n.dtype, self.what)} v{i} = "
@@ -338,6 +367,7 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
     f = _Fn(lay, ir.nodes, f"block {ir.name!r} (pc {ir.pc}) of spec "
                            f"{spec.name!r}")
     roots = list(ir.cmd)
+    calls = [e for e in ir.effects if e[0] == "call"]
     for e in ir.effects:
         if e[0] == "draw":
             roots.append(e[1])
@@ -345,8 +375,14 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
             roots.append(e[3])
         else:
             roots += [a for a in e[2] if isinstance(a, int)]
+            if len(e) > 4:
+                roots.append(e[4][0])
+    f.gated = {k for k, e in enumerate(calls) if len(e) > 4}
     f.mark(roots)
+    handles = {n.aux for i, n in enumerate(ir.nodes)
+               if n.op == "callres" and f.live[i]}
     pending = []
+    k = 0
     for e in ir.effects:
         if e[0] == "write":
             pending.append(e)
@@ -355,7 +391,15 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
             for w in pending:
                 f.store(w[1], w[2], w[3])
             pending = []
-            f.lines += _call(f, e, spec)
+            body = _call(f, e, spec, k in handles, k)
+            if len(e) > 4:
+                pred, neg = e[4]
+                f.lines.append(f"if ({'!' if neg else ''}v{pred}) {{")
+                f.lines += ["  " + ln for ln in body]
+                f.lines.append("}")
+            else:
+                f.lines += body
+            k += 1
     f.emit_upto(len(ir.nodes))
     for w in pending:
         f.store(w[1], w[2], w[3])
@@ -368,23 +412,37 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
     return f.lines
 
 
-def _call(f: _Fn, e, spec: ModelSpec) -> List[str]:
+def _pid(f: _Fn, p) -> str:
+    return str(int(p.value)) if isinstance(p, tr.Lit) else f.ref(p, None)
+
+
+def _call(f: _Fn, e, spec: ModelSpec, handle=False, k=0) -> List[str]:
     kind, args = e[1], e[2]
     if kind == "pool_release":
-        k, p, amount = args
-        if not isinstance(k, tr.Lit):
+        k_, p, amount = args
+        if not isinstance(k_, tr.Lit):
             f.fail("api.pool_release of a traced pool id")
-        if not 0 <= int(k.value) < len(spec.pools):
-            f.fail(f"api.pool_release of pool {k.value}")
-        pid = f.ref(p, None) if not isinstance(p, tr.Lit) else str(
-            int(p.value))
-        return [f"release_pool<{int(k.value)}>(s, w, int({pid}), "
+        if not 0 <= int(k_.value) < len(spec.pools):
+            f.fail(f"api.pool_release of pool {k_.value}")
+        return [f"release_pool<{int(k_.value)}>(s, w, int({_pid(f, p)}), "
                 f"{f.ref(amount, f.lay.real)});"]
     if kind == "cond_signal":
         (c,) = args
         if not 0 <= int(c.value) < len(spec.conditions):
             f.fail(f"api.cond_signal of condition {c.value}")
         return [f"cond_signal<{int(c.value)}>(s, w);"]
+    if kind == "interrupt":
+        target, sig = args
+        return [f"interrupt(s, w, int({_pid(f, target)}), "
+                f"{f.ref(sig, torch.int32)});"]
+    if kind == "timer_add":
+        p, dur, sig = args
+        call = (f"timer_add(s, w, int({_pid(f, p)}), "
+                f"{f.ref(dur, f.lay.real)}, {f.ref(sig, torch.int32)})")
+        return [f"const int32_t h{k} = {call};" if handle else f"{call};"]
+    if kind == "timers_clear":
+        (p,) = args
+        return [f"timers_clear(s, w, int({_pid(f, p)}));"]
     f.fail(f"engine call {kind}")
 
 
@@ -417,20 +475,25 @@ def emit(spec: ModelSpec, sims) -> str:
     preds = [tr.trace_predicate(spec, c.id, sims) for c in spec.conditions]
     np_, nq = spec.n_procs, len(spec.queues)
     nk, nv, nc = len(spec.pools), len(spec.buffers), len(spec.conditions)
+    npq = len(spec.pqueues)
     nf, ni = max(spec.n_flocals, 1), max(spec.n_ilocals, 1)
     q_acc = lay.at("queues.acc.summary.n")
     p_acc = lay.at("pools.acc.summary.n")
     b_acc = lay.at("buffers.acc.summary.n")
+    pq_acc = lay.at("pqueues.acc.summary.n")
     n_qa = nq if q_acc >= 0 else 0
     n_pa = nk if p_acc >= 0 else 0
     n_ba = nv if b_acc >= 0 else 0
-    toolkit = nk + nv + nc > 0
+    n_pqa = npq if pq_acc >= 0 else 0
+    # a pended priority-queue put keeps its item's priority in pend_f2,
+    # the toolkit's column
+    toolkit = nk + nv + nc + npq > 0
     u0 = lay.pos[lay.user[0]] if lay.user else lay.pos["done"]
     # shared memory a lane takes, to choose the block size
     rb = torch.finfo(real).bits // 8
     nka = max(nk, 1)
     per_lane = (rb * (8 + 3 * np_) + 16 * np_ + (10 * rb + 1) * (
-        n_qa + n_pa + n_ba) + 4 * np_
+        n_qa + n_pa + n_ba + n_pqa) + 4 * np_ + 4 * (np_ + max(npq, 1))
         + ((rb * (nka * np_ + np_) + 4 * nka * np_) if toolkit else 0)
         + rb * np_ * nf + 4 * np_ * ni
         + sum(lay.leaf[n].element_size() for n in lay.user))
@@ -449,20 +512,28 @@ def emit(spec: ModelSpec, sims) -> str:
     out = [
         f"// {'f32' if real == torch.float32 else 'f64'} profile of spec "
         f"{spec.name!r}: {np_} processes, {len(spec.blocks)} blocks, "
-        f"{nq} queues, {nk} pools, {nv} buffers, {nc} conditions",
+        f"{nq} queues, {nk} pools, {nv} buffers, {npq} priority queues, "
+        f"{nc} conditions",
         f"template <>",
         f"struct Gen<{R}> : Family {{",
         f"  static constexpr bool GEN = true, RECORD = false, SHOP = false;",
         f"  static constexpr bool TOOLKIT = {str(toolkit).lower()}, "
         f"PEND_I = true, PRED_BY_PID = true;",
+        f"  static constexpr bool ABORT = {str(nk + nv > 0).lower()}, "
+        f"WSIG = true;",
+        f"  static constexpr int NPQ = {npq}, PQW = {spec.pqueue_cap_max};",
         f"  static constexpr int NP = {np_}, NQ = {nq}, NG = "
         f"{spec.n_guards}, NK = {nk}, NV = {nv}, NC = {nc};",
         f"  static constexpr int NF = {nf}, NI = {ni}, NSUM = 1, NPAR = 1, "
         f"N_BLOCKS = {len(spec.blocks)};",
         f"  static constexpr int THREADS = {threads}, NACC = "
-        f"{n_qa + n_pa + n_ba}, U0 = {u0}, N_USER = {len(lay.user)};",
+        f"{n_qa + n_pa + n_ba + n_pqa}, U0 = {u0}, N_USER = {len(lay.user)};",
         f"  static constexpr int L_QACC = {q_acc}, L_PACC = {p_acc}, "
-        f"L_BACC = {b_acc};",
+        f"L_BACC = {b_acc}, L_PQACC = {pq_acc};",
+        f"  static constexpr int L_PQ_ITEMS = {lay.at('pqueues.items')}, "
+        f"L_PQ_PRIO = {lay.at('pqueues.prio')}, L_PQ_SEQ = "
+        f"{lay.at('pqueues.seq')}, L_PQ_LIVE = {lay.at('pqueues.live')}, "
+        f"L_PQ_NEXT_SEQ = {lay.at('pqueues.next_seq')};",
         f"  static constexpr int L_P_LEVEL = {lay.at('pools.level')}, "
         f"L_P_HELD = {lay.at('pools.held')}, L_P_HELD_SEQ = "
         f"{lay.at('pools.held_seq')}, L_P_NEXT_SEQ = "
@@ -486,6 +557,16 @@ def emit(spec: ModelSpec, sims) -> str:
         "  " + cx("acc_q(int i) { return i; }"),
         "  " + cx(f"acc_pool(int i) {{ return {n_qa} + i; }}"),
         "  " + cx(f"acc_buf(int i) {{ return {n_qa + n_pa} + i; }}"),
+        "  " + cx(f"acc_pq(int i) {{ return {n_qa + n_pa + n_ba} + i; }}"),
+        "  " + cx(f"pq_cap(int i) {{ return "
+                  f"{_ternary('i', [q.capacity for q in spec.pqueues], 1)}; }}"),
+        "  " + cx(f"pq_front(int i) {{ return "
+                  f"{_ternary('i', [q.front_guard for q in spec.pqueues])}; }}"),
+        "  " + cx(f"pq_rear(int i) {{ return "
+                  f"{_ternary('i', [q.rear_guard for q in spec.pqueues])}; }}"),
+        "  " + cx(f"pq_rec(int i) {{ return "
+                  f"{_ternary('i', [q.record and pq_acc >= 0 for q in spec.pqueues], False, lambda v: str(bool(v)).lower())}; }}",
+                  ret="bool"),
         "  " + cx(f"pool_rec(int i) {{ return "
                   f"{_ternary('i', [pl.record and p_acc >= 0 for pl in spec.pools], False, lambda v: str(bool(v)).lower())}; }}",
                   ret="bool"),

@@ -98,6 +98,56 @@ def schedule(es: EventSet, t, prio, kind, subj, arg):
     return es2, handle.to(INDEX)
 
 
+def _slot_of(handle):
+    return handle & ((1 << _GEN_SHIFT) - 1)
+
+
+def cancel(es: EventSet, handle):
+    """Remove an event by handle; returns (es, existed): a handle whose
+    slot is free or whose generation has moved on names nothing."""
+    cap = es.time.shape[1]
+    h = torch.as_tensor(handle, dtype=INDEX, device=es.time.device)
+    h = h.expand(es.time.shape[0]) if h.dim() == 0 else h
+    slot = _slot_of(h.clamp(min=0)).clamp(max=cap - 1)
+    ok = ((h >= 0) & torch.isfinite(ix.get(es.time, slot))
+          & (ix.get(es.gen, slot) == (h >> _GEN_SHIFT)))
+    es2 = es._replace(
+        time=ix.put(es.time, slot, NEVER, ok),
+        gen=ix.add(es.gen, slot, 1, ok),
+    )
+    return es2, ok
+
+
+#: a pattern's "any kind" / "any subject"
+WILDCARD = -1
+
+
+def _match(es: EventSet, kind, subj):
+    """The live events of kind ``kind`` aimed at ``subj`` (either may be
+    WILDCARD, or a ``[L]`` tensor), ``[L, CAP]``."""
+    live = torch.isfinite(es.time)
+    k = torch.as_tensor(kind, dtype=INDEX, device=es.time.device)
+    s = torch.as_tensor(subj, dtype=INDEX, device=es.time.device)
+    k = k.reshape(-1, 1) if k.dim() else k
+    s = s.reshape(-1, 1) if s.dim() else s
+    mk = (k == WILDCARD) | (es.kind == k)
+    ms = (s == WILDCARD) | (es.subj == s)
+    return live & mk & ms
+
+
+def pattern_cancel(es: EventSet, kind=WILDCARD, subj=WILDCARD, pred=True):
+    """Cancel every matching event (parity: cmb_event_pattern_cancel);
+    returns (es, n_cancelled).  ``pred`` (``[L]`` bool) gates the
+    cancellation; the count is the match count either way."""
+    m = _match(es, kind, subj)
+    mw = m if pred is True else m & pred.reshape(-1, 1)
+    es2 = es._replace(
+        time=torch.where(mw, NEVER, es.time),
+        gen=es.gen + mw.to(INDEX),
+    )
+    return es2, m.to(INDEX).sum(dim=1, dtype=INDEX)
+
+
 def _lexmin(time, prio, seq):
     """Row-wise (time asc, prio desc, seq asc) argnext: (one-hot mask,
     found, t_min, p_max, s_min) with the reference's fold identities for

@@ -25,12 +25,17 @@ loop to step between chunks.  Off (the default), the engine is the
 reference's XLA path and ignores the marker.
 
 Ported subset: hold, exit, jump; the object-queue put/get with their
-fused ``*_hold`` verbs and queue-length recording; the resource pool's
-acquire (greedy, FIFO waiters, no preempt) and release, inline from a
-block too (:func:`release_pool`); the buffer's get and put with partial
-fulfilment; the condition wait, :func:`cond_signal` and observer
-forwarding (a guard signal also signals every condition that observes
-the guard); the pools' and buffers' time-weighted recording; the guard
+fused ``*_hold`` verbs and queue-length recording; the priority queue's
+put/get (highest priority first, FIFO among equals) with theirs; the
+resource pool's acquire (greedy, FIFO waiters, no preempt) and release,
+inline from a block too (:func:`release_pool`); the buffer's get and put
+with partial fulfilment; the condition wait, :func:`cond_signal` and
+observer forwarding (a guard signal also signals every condition that
+observes the guard); the pools', buffers' and priority queues'
+time-weighted recording; timers (:func:`timer_add`,
+:func:`timers_clear`) and :func:`interrupt`, with the abort of a pended
+command on a non-SUCCESS wake (the pool rollback and the buffer's
+partial-fulfilment report, :func:`_abort_cleanup`); the guard
 pend/retry protocol, boundary blocks, failure codes and ``api.stop``.
 Other commands fail the replication with ERR_USER, as the reference's
 unknown-tag handler does.
@@ -58,6 +63,8 @@ N_KINDS = 2
 
 #: a process may not execute more blocks than this without yielding
 MAX_CHAIN = 1024
+
+_I32_MAX = 2**31 - 1
 
 ERR_NONE = 0
 ERR_EVENT_OVERFLOW = 1
@@ -87,6 +94,17 @@ class Pools(NamedTuple):
 class Buffers(NamedTuple):
     level: torch.Tensor  # [L, NB] REAL stored amount
     acc: Any = None      # StepAccum, leaves [L, NB]: the level
+
+
+class PQueues(NamedTuple):
+    items: torch.Tensor     # [L, NPQ, CAP] REAL payloads
+    prio: torch.Tensor      # [L, NPQ, CAP] REAL item priorities (higher
+                            # first)
+    seq: torch.Tensor       # [L, NPQ, CAP] i32 insertion order (FIFO
+                            # among equal priorities)
+    live: torch.Tensor      # [L, NPQ, CAP] bool slot occupancy
+    next_seq: torch.Tensor  # [L, NPQ] i32
+    acc: Any = None         # StepAccum, leaves [L, NPQ]: the length
 
 
 class Sim(NamedTuple):
@@ -172,7 +190,8 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    np_, nb = len(spec.pools), len(spec.buffers)
+    np_, nb, npq = len(spec.pools), len(spec.buffers), len(spec.pqueues)
+    pqw = spec.pqueue_cap_max
     buf_init = torch.tensor([b.initial for b in spec.buffers] or [0.0],
                             dtype=real, device=dev).expand(
                                 lanes, max(nb, 1)).contiguous()
@@ -210,7 +229,15 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
                 last_v=buf_init.clone())
             if any(b.record for b in spec.buffers) else None,
         ) if spec.buffers else None,
-        pqueues=None,
+        pqueues=PQueues(
+            items=zeros((lanes, npq, pqw), real),
+            prio=zeros((lanes, npq, pqw), real),
+            seq=zeros((lanes, npq, pqw), INDEX),
+            live=zeros((lanes, npq, pqw), torch.bool),
+            next_seq=zeros((lanes, npq), INDEX),
+            acc=ts.step_create(t0, 0.0, (lanes, npq), dev, real)
+            if any(q.record for q in spec.pqueues) else None,
+        ) if spec.pqueues else None,
         user=user,
         done=zeros((lanes,), torch.bool),
         err=zeros((lanes,), INDEX),
@@ -381,19 +408,73 @@ def _cancel_wake(sim: Sim, p, pred=True) -> Sim:
     return sim._replace(wakes=ev.wake_clear(sim.wakes, p, pred))
 
 
+def _unwait(spec: ModelSpec, sim: Sim, p, pred=True) -> Sim:
+    """Detach p from what it waits on: its pend (and with it its guard
+    membership) and its wake (parity: the reference's ``_unwait``; waits
+    on processes and events are not ported)."""
+    return _cancel_wake(_clear_pend(sim, p, pred), p, pred)
+
+
+def _abort_cleanup(spec: ModelSpec, sim: Sim, p, pend: pr.Command, sig,
+                   pred=True) -> Sim:
+    """The command-specific cleanup of an aborted wait (parity: the
+    reference's ``_abort_cleanup``): a pended pool acquire rolls p's
+    holding back to what it held before the call and signals the pool's
+    guard (except on PREEMPTED); a pended buffer get or put keeps what it
+    moved and reports it in ``got``.  As the reference's, it reads the
+    plain tags only (a pended ``*_hold`` twin is released as it is)."""
+    lanes, dev = sim.clock.shape[0], sim.clock.device
+    sig = torch.as_tensor(sig, dtype=INDEX, device=dev).expand(lanes)
+    if spec.pools:
+        po = sim.pools
+        dt = po.level.dtype
+        k = pend.i.clamp(0, len(spec.pools) - 1)
+        do_rb = (pend.tag == pr.C_POOL_ACQ) & (sig != pr.PREEMPTED)
+        if pred is not True:
+            do_rb = do_rb & pred
+        excess = _nanmax0(ix.get2(po.held, k, p) - pend.f2)
+        in_use = (_table(spec.pools, "capacity", dev, dt)[k.long()]
+                  - (ix.get(po.level, k) + excess))
+        sim = sim._replace(pools=po._replace(
+            level=ix.add(po.level, k, excess, do_rb),
+            held=ix.add2(po.held, k, p, -excess, do_rb),
+            acc=_record_if([pl.record for pl in spec.pools], po.acc, k,
+                           sim.clock, in_use, do_rb),
+        ))
+        sim = _guard_signal(sim, _table(spec.pools, "guard", dev)[k.long()],
+                            pred=do_rb, spec=spec)
+    if spec.buffers:
+        is_buf = (pend.tag == pr.C_BUF_GET) | (pend.tag == pr.C_BUF_PUT)
+        if pred is not True:
+            is_buf = is_buf & pred
+        sim = sim._replace(procs=sim.procs._replace(
+            got=ix.put(sim.procs.got, p, pend.f2 - pend.f, is_buf)))
+    return sim
+
+
+def _pend_of(sim: Sim, p) -> pr.Command:
+    pc = sim.procs
+    return pr.Command(*ix.get_tree(
+        (pc.pend_tag, pc.pend_f, pc.pend_f2, pc.pend_f3, pc.pend_i,
+         pc.pend_pc), p))
+
+
+def _abort_wait(spec: ModelSpec, sim: Sim, p, sig, pred=True) -> Sim:
+    """Abort what p waits on and run the abort's cleanup, unwait first
+    (parity: the reference's ``_abort_wait``): the path of every delivery
+    that ends a wait from outside, an interrupt or an exit."""
+    pend = _pend_of(sim, p)
+    return _abort_cleanup(spec, _unwait(spec, sim, p, pred), p, pend, sig,
+                          pred)
+
+
 def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
-    """Terminate process p: drop its pend and wake, cancel its timers,
-    mark it FINISHED (parity: the reference's kill semantics, restricted
-    to the ported components)."""
-    sim = _clear_pend(sim, p, pred)
-    sim = _cancel_wake(sim, p, pred)
-    es = sim.events
-    hit = (torch.isfinite(es.time) & (es.kind == K_TIMER)
-           & (es.subj == p[:, None]) & pred[:, None])
-    sim = sim._replace(events=es._replace(
-        time=torch.where(hit, ev.NEVER, es.time),
-        gen=es.gen + hit.to(INDEX),
-    ))
+    """Terminate process p: abort its wait, cancel its timers, mark it
+    FINISHED, return its pool units (parity: the reference's kill
+    semantics, restricted to the ported components)."""
+    sim = _abort_wait(spec, sim, p, exit_sig, pred)
+    es2, _ = ev.pattern_cancel(sim.events, K_TIMER, p, pred)
+    sim = sim._replace(events=es2)
     sim = sim._replace(procs=sim.procs._replace(
         status=ix.put(sim.procs.status, p, pr.FINISHED, pred),
         exit_sig=ix.put(sim.procs.exit_sig, p, exit_sig, pred),
@@ -414,6 +495,40 @@ def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
         ))
         sim = _guard_signal(sim, pl.guard, pred=has, spec=spec)
     return sim
+
+
+def interrupt(spec: ModelSpec, sim: Sim, target, sig) -> Sim:
+    """Deliver ``sig`` to process ``target`` now, aborting what it waits
+    on (parity: cmb_process_interrupt); a target that is not RUNNING (or
+    not a process) is left alone."""
+    lanes, dev = sim.clock.shape[0], sim.clock.device
+    t = torch.as_tensor(target, dtype=INDEX, device=dev).expand(lanes)
+    n = spec.n_procs
+    tc = t.clamp(0, n - 1)
+    alive = (t >= 0) & (t < n) & (ix.get(sim.procs.status, tc) == pr.RUNNING)
+    sig = torch.as_tensor(sig, dtype=INDEX, device=dev).expand(lanes)
+    sim = _abort_wait(spec, sim, tc, sig, pred=alive)
+    return _schedule_wake(sim, alive, tc, sig)
+
+
+def timer_add(sim: Sim, p, dur, sig):
+    """A timer delivering ``sig`` to p after ``dur`` (parity:
+    cmb_process_timer_add): a K_TIMER event at p's priority in the
+    general table; returns (sim, handle).  A full table fails the
+    replication with ERR_EVENT_OVERFLOW."""
+    dev = sim.clock.device
+    dur = torch.as_tensor(dur, dtype=sim.clock.dtype, device=dev)
+    prio = ix.get(sim.procs.prio, p)
+    es2, handle = ev.schedule(sim.events, sim.clock + _nanmax0(dur), prio,
+                              K_TIMER, p, sig)
+    sim = sim._replace(events=es2)
+    return _set_err(sim, es2.overflow, ERR_EVENT_OVERFLOW), handle
+
+
+def timers_clear(sim: Sim, p) -> Sim:
+    """Cancel every timer aimed at p (parity: cmb_process_timers_clear)."""
+    es2, _ = ev.pattern_cancel(sim.events, K_TIMER, p)
+    return sim._replace(events=es2)
 
 
 def release_pool(spec: ModelSpec, sim: Sim, p, k, amount, pred=True) -> Sim:
@@ -492,6 +607,7 @@ def _make_apply(spec: ModelSpec):
     q_rec = [q.record for q in spec.queues] or [False]
     p_rec = [pl.record for pl in spec.pools]
     b_rec = [b.record for b in spec.buffers]
+    pq_rec = [q.record for q in spec.pqueues]
 
     def set_pc(sim, p, pc, pred):
         return sim._replace(procs=sim.procs._replace(
@@ -660,6 +776,82 @@ def _make_apply(spec: ModelSpec):
         sim = _guard_wait(sim, p, guard, cmd, is_retry, pred=~proceed & gate)
         return sim, ~proceed
 
+    def _pq(sim, cmd, gate):
+        dev = gate.device
+        qid = cmd.i.clamp(0, len(spec.pqueues) - 1)
+        ql = qid.long()
+        return (qid, _table(spec.pqueues, "capacity", dev)[ql],
+                _table(spec.pqueues, "front_guard", dev)[ql],
+                _table(spec.pqueues, "rear_guard", dev)[ql])
+
+    def h_pq_put(sim, p, cmd, is_retry, gate):
+        """pq_put and its fused twin (parity: the reference's
+        ``h_pq_put``): the item into the lowest free column, stamped with
+        the queue's next seq; a put frees no slot, so only the front
+        guard is signalled; a full queue pends on the rear guard."""
+        pq = sim.pqueues
+        qid, cap, front, rear = _pq(sim, cmd, gate)
+        live = ix.get(pq.live, qid)
+        n_live = live.to(INDEX).sum(dim=1, dtype=INDEX)
+        may = is_retry | gd.is_empty(sim.procs.pend_guard, rear)
+        full = (n_live >= cap) | ~may
+        ok = ~full & gate
+        col = ix.first_true(~live).clamp(max=live.shape[1] - 1)
+        sim = sim._replace(pqueues=pq._replace(
+            items=ix.put2(pq.items, qid, col, cmd.f, ok),
+            prio=ix.put2(pq.prio, qid, col, cmd.f2, ok),
+            seq=ix.put2(pq.seq, qid, col, ix.get(pq.next_seq, qid), ok),
+            live=ix.put2(pq.live, qid, col, True, ok),
+            next_seq=ix.add(pq.next_seq, qid, 1, ok),
+            acc=_record_if(pq_rec, pq.acc, qid, sim.clock,
+                           (n_live + 1).to(pq.items.dtype), ok),
+        ))
+        sim = _guard_signal(sim, front, pred=ok, spec=spec)
+        fused = cmd.tag == pr.C_PQ_PUT_HOLD
+        sim = _schedule_wake(sim, fused & ok, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f3))
+        sim = set_pc(sim, p, cmd.next_pc, gate)
+        sim = _guard_wait(sim, p, rear, cmd, is_retry, pred=full & gate)
+        return sim, full | fused
+
+    def h_pq_get(sim, p, cmd, is_retry, gate):
+        """pq_get and its fused twin (parity: the reference's
+        ``h_pq_get``): the highest priority, then the lowest seq, then
+        the lowest column; signals the rear guard, then the front guard;
+        an empty queue pends on the front guard."""
+        pq = sim.pqueues
+        qid, cap, front, rear = _pq(sim, cmd, gate)
+        live = ix.get(pq.live, qid)
+        may = is_retry | gd.is_empty(sim.procs.pend_guard, front)
+        empty = ~live.any(dim=1) | ~may
+        n_live = live.to(INDEX).sum(dim=1, dtype=INDEX)
+        prio = ix.get(pq.prio, qid)
+        seq = ix.get(pq.seq, qid)
+        p_best = torch.where(live, prio, -torch.inf).amax(dim=1)
+        m = live & (prio == p_best[:, None])
+        s_min = torch.where(m, seq, _I32_MAX).amin(dim=1)
+        hit = m & (seq == s_min[:, None])
+        col = torch.where(hit.any(dim=1), ix.first_true(hit), 0)
+        item = ix.get2(pq.items, qid, col)
+        ok = ~empty & gate
+        sim = sim._replace(
+            pqueues=pq._replace(
+                live=ix.put2(pq.live, qid, col, False, ok),
+                acc=_record_if(pq_rec, pq.acc, qid, sim.clock,
+                               (n_live - 1).to(pq.items.dtype), ok),
+            ),
+            procs=sim.procs._replace(
+                got=ix.put(sim.procs.got, p, item, ok)),
+        )
+        sim = _guard_signal(sim, rear, pred=ok, spec=spec)
+        sim = _guard_signal(sim, front, pred=ok, spec=spec)
+        fused = cmd.tag == pr.C_PQ_GET_HOLD
+        sim = _schedule_wake(sim, fused & ok, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f3))
+        sim = set_pc(sim, p, cmd.next_pc, gate)
+        sim = _guard_wait(sim, p, front, cmd, is_retry, pred=empty & gate)
+        return sim, empty | fused
+
     def h_invalid(sim, p, cmd, is_retry, gate):
         return _set_err(sim, gate, ERR_USER), torch.ones_like(gate)
 
@@ -676,6 +868,9 @@ def _make_apply(spec: ModelSpec):
     if spec.buffers:
         table.append((h_buffer, (pr.C_BUF_GET, pr.C_BUF_PUT,
                                  pr.C_BUF_GET_HOLD, pr.C_BUF_PUT_HOLD)))
+    if spec.pqueues:
+        table += [(h_pq_put, (pr.C_PQ_PUT, pr.C_PQ_PUT_HOLD)),
+                  (h_pq_get, (pr.C_PQ_GET, pr.C_PQ_GET_HOLD))]
     if spec.conditions:
         table.append((h_cond_wait, (pr.C_COND_WAIT,)))
     handled = [t for _, tags in table for t in tags]
@@ -744,18 +939,17 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
         retry a pended command on a SUCCESS wake, then chain blocks until
         the process yields."""
         sim = _cancel_wake(sim, p, gate)
-        pc = sim.procs
-        pend = pr.Command(
-            ix.get(pc.pend_tag, p), ix.get(pc.pend_f, p),
-            ix.get(pc.pend_f2, p), ix.get(pc.pend_f3, p),
-            ix.get(pc.pend_i, p), ix.get(pc.pend_pc, p),
-        )
+        pend = _pend_of(sim, p)
         has_pend = pend.tag != pr.NO_PEND
+        # unwait before the cleanup (the reference's order): the pend's
+        # clear takes p off its guard, so a pool rollback's signal cannot
+        # wake p itself
         sim = _clear_pend(sim, p, gate)
-        # a non-SUCCESS wake aborts the pend, and its clear above is the
-        # whole abort: no ported verb delivers one (the reference's pool
-        # rollback and buffer report on an abort, ``_abort_cleanup``,
-        # come with interrupts, timeouts and preempt)
+        # a non-SUCCESS wake of a pended process (a timer or an
+        # interrupt) aborts its wait: the signal goes to the continuation
+        abort = gate & has_pend & (sig != pr.SUCCESS)
+        if (spec.pools or spec.buffers) and bool(abort.any()):
+            sim = _abort_cleanup(spec, sim, p, pend, sig, pred=abort)
         use_pend0 = has_pend & (sig == pr.SUCCESS)
 
         def cond(c):

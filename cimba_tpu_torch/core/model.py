@@ -16,9 +16,9 @@ a :class:`ModelSpec`.  Block registration is the reference's::
     m.process("arrival", entry=a_hold)
 
 Blocks run on every replication lane at once: ``p`` and ``sig`` are
-``[L]`` tensors.  Object queues, resource pools, buffers and conditions
-are ported; the other components (binary resources, priority queues,
-user event handlers, spawn pools) are still to port and raise
+``[L]`` tensors.  Object queues, resource pools, buffers, priority queues
+and conditions are ported; the other components (binary resources, user
+event handlers, spawn pools) are still to port and raise
 ``NotImplementedError`` naming the feature.
 """
 
@@ -58,6 +58,16 @@ class BufferRef:
     front_guard: int  # getters wait here
     rear_guard: int   # putters wait here
     record: bool = True  # level StepAccum recording
+
+
+@dataclasses.dataclass
+class PQueueRef:
+    id: int
+    name: str
+    capacity: int
+    front_guard: int  # getters wait here
+    rear_guard: int   # putters wait here
+    record: bool = True  # length StepAccum recording
 
 
 @dataclasses.dataclass
@@ -106,6 +116,9 @@ class ModelSpec:
     #: shop's ``backlog`` and ``b_slow``), by name: a CUDA kernel that
     #: restates the blocks takes them from here
     constants: dict = dataclasses.field(default_factory=dict)
+    pqueues: List[PQueueRef] = dataclasses.field(default_factory=list)
+    #: the widest priority queue's capacity (the rows' width)
+    pqueue_cap_max: int = 1
 
     @property
     def n_procs(self) -> int:
@@ -138,6 +151,7 @@ class Model:
         self._pools: List[PoolRef] = []
         self._buffers: List[BufferRef] = []
         self._conditions: List[ConditionRef] = []
+        self._pqueues: List[PQueueRef] = []
         self._n_guards = 0
         #: see ModelSpec.constants
         self.constants: dict = {}
@@ -205,8 +219,17 @@ class Model:
         self._buffers.append(b)
         return b
 
-    def priorityqueue(self, *a, **k):
-        _not_ported("priority queues")
+    def priorityqueue(self, name: str, capacity: int,
+                      record: bool = True) -> PQueueRef:
+        """Object queue ordered by per-item priority, FIFO among equal
+        priorities (parity: cmb_priorityqueue); with ``record`` the
+        engine keeps its length as a time-weighted series
+        (``Sim.pqueues.acc``)."""
+        q = PQueueRef(id=len(self._pqueues), name=name, capacity=capacity,
+                      front_guard=self._guard(), rear_guard=self._guard(),
+                      record=record)
+        self._pqueues.append(q)
+        return q
 
     def condition(self, name: str, predicate: Callable,
                   observes=()) -> ConditionRef:
@@ -286,4 +309,7 @@ class Model:
             user_init=self._user_init,
             boundary_pcs=tuple(self._boundary_pcs),
             constants=dict(self.constants),
+            pqueues=list(self._pqueues),
+            pqueue_cap_max=max([q.capacity for q in self._pqueues],
+                               default=1),
         )

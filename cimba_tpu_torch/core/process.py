@@ -6,10 +6,10 @@ carried across by :mod:`cimba_tpu_torch.interop` rely on them).  A
 command's fields are tensors over the replication lanes or plain Python
 numbers; the engine broadcasts them.  The port implements hold, exit,
 jump, the object-queue verbs, the resource-pool acquire and release, the
-buffer get and put (each blocking verb with its fused ``*_hold`` twin)
-and the condition wait; the constructors of the other verbs (resources,
-preempt, priority queues, waits on processes and events) are still to
-port.
+buffer get and put, the priority queue's put and get (each blocking verb
+with its fused ``*_hold`` twin) and the condition wait; the constructors
+of the other verbs (resources, preempt, waits on processes and events)
+are still to port.
 """
 
 from __future__ import annotations
@@ -44,12 +44,16 @@ C_POOL_ACQ = 8
 C_POOL_REL = 9
 C_BUF_GET = 10
 C_BUF_PUT = 11
+C_PQ_PUT = 12
+C_PQ_GET = 13
 C_COND_WAIT = 14
 C_PUT_HOLD = 18
 C_GET_HOLD = 19
 C_POOL_ACQ_HOLD = 22
 C_BUF_GET_HOLD = 24
 C_BUF_PUT_HOLD = 25
+C_PQ_PUT_HOLD = 26
+C_PQ_GET_HOLD = 27
 N_COMMANDS = 28
 
 #: no pending command
@@ -148,6 +152,31 @@ def buffer_put_hold(buffer, amount, duration, next_pc) -> Command:
     """Fused ``buffer_put; hold(duration)`` (see :func:`buffer_get_hold`)."""
     return _cmd(C_BUF_PUT_HOLD, f=amount, f3=duration, i=buffer,
                 next_pc=next_pc)
+
+
+def pq_put(pqueue, item, prio, next_pc) -> Command:
+    """Blocking put with a per-item priority (parity:
+    cmb_priorityqueue_put): higher priorities leave first, FIFO among
+    equal ones."""
+    return _cmd(C_PQ_PUT, f=item, f2=prio, i=pqueue, next_pc=next_pc)
+
+
+def pq_get(pqueue, next_pc) -> Command:
+    """Blocking get of the highest-priority item (parity:
+    cmb_priorityqueue_get); the item lands in api.got."""
+    return _cmd(C_PQ_GET, i=pqueue, next_pc=next_pc)
+
+
+def pq_put_hold(pqueue, item, prio, duration, next_pc) -> Command:
+    """Fused ``pq_put; hold(duration)`` (the item's priority stays on
+    f2)."""
+    return _cmd(C_PQ_PUT_HOLD, f=item, f2=prio, f3=duration, i=pqueue,
+                next_pc=next_pc)
+
+
+def pq_get_hold(pqueue, duration, next_pc) -> Command:
+    """Fused ``pq_get; hold(duration)``: the item lands in api.got."""
+    return _cmd(C_PQ_GET_HOLD, f3=duration, i=pqueue, next_pc=next_pc)
 
 
 def cond_wait(condition, next_pc) -> Command:

@@ -15,8 +15,21 @@ pid)``, once on a symbolic one-lane Sim and records what it computes:
   engine's own order of operations (``stats.summary.add``'s Pébay merge
   included);
 * ``api.draw`` is one ``draw`` node naming its sampler (the samplers'
-  loops and tables are not traced), and ``api.pool_release`` and
-  ``api.cond_signal`` are engine calls, since they scan guard waiters.
+  loops and tables are not traced); ``api.pool_release``,
+  ``api.cond_signal``, ``api.interrupt``, ``api.timer_add`` and
+  ``api.timers_clear`` are engine calls, since they scan guard waiters
+  or the event table; ``api.pqueue_length`` and ``api.pqueue_position``
+  are reader nodes (``pq_length``, ``pq_position``), since they scan a
+  priority queue's slots;
+* an engine call whose effect the block keeps or drops by selecting
+  between the whole Sim before and after it (``where(pred, after,
+  before)`` on every leaf the call touches, the reference's
+  ``jax.tree.map(jnp.where, ...)`` idiom) becomes the call gated by that
+  predicate (a chain of calls selected together, each gated); the
+  leaves it touches are then read afresh after the select.  A select
+  that covers only part of what a call touches, a predicate computed
+  after the call, or a read of the state after a gated call outside
+  the select raises, naming the block and the line.
 
 A traced value is a :class:`Sym`: a tensor subclass holding the value
 torch computes on a real one-lane Sim (the *shadow*, which gives every
@@ -101,7 +114,7 @@ _UN = {
     "exp": "exp", "log": "log", "log1p": "log1p", "sqrt": "sqrt",
     "floor": "floor", "ceil": "ceil", "isnan": "isnan",
     "isfinite": "isfinite", "__invert__": "not", "bitwise_not": "not",
-    "logical_not": "not", "reciprocal": "reciprocal",
+    "logical_not": "not", "reciprocal": "reciprocal", "round": "round",
 }
 _CAST = {"double": torch.float64, "float": torch.float32,
          "int": torch.int32, "long": torch.int64, "bool": torch.bool}
@@ -191,6 +204,13 @@ class Tracer(TorchFunctionMode):
         #: the selects of each element a write by a traced index makes
         #: (one a candidate position): for the bound, one store
         self.puts: List[List[int]] = []
+        #: the engine calls: what each touches, its gate (predicate node,
+        #: negated) once a select lowers it, the elements the selects
+        #: covered, the node count before it, its effect's index
+        self.calls: List[dict] = []
+        #: a leaf node read afresh after call k -> (k, the element's id
+        #: before the call)
+        self.post_of: dict = {}
 
     def fail(self, msg: str):
         raise TraceError(f"{self.what}: {msg} ({_where_in_source()})")
@@ -264,7 +284,7 @@ class Tracer(TorchFunctionMode):
                 self.fail("torch.where with one argument")
             c, a, b = (list(args) + [kwargs.get(k) for k in
                                      ("input", "other")])[:3]
-            return self._elementwise("where", [c, a, b], out)
+            return self._select(c, a, b, out)
         if name in ("clamp", "clip", "clamp_min", "clamp_max"):
             x = args[0]
             lo = args[1] if len(args) > 1 else kwargs.get("min")
@@ -354,6 +374,74 @@ class Tracer(TorchFunctionMode):
             # an intermediate: its shadow is never read
             return self.wrap(torch.zeros(shape, dtype=dtype), ids)
         return self.wrap(out, ids)
+
+    def _select(self, c, a, b, out):
+        """``where(c, a, b)``: an element both sides share passes
+        through; one that selects between the state after a chain of
+        engine calls and the state before it gates the calls by ``c``
+        (negated where the state before is the ``a`` side) and reads the
+        element afresh; any other element is a ``where`` node."""
+        shape = tuple(out.shape)
+        tens = [x for x in (c, a, b) if isinstance(x, torch.Tensor)]
+        if (len(tens) < 3 or not isinstance(c, Sym)
+                or not (isinstance(a, Sym) or isinstance(b, Sym))):
+            return self._elementwise("where", [c, a, b], out)
+        fc, fa, fb = [self._operand(x, shape).contiguous().reshape(-1)
+                      .tolist() for x in (c, a, b)]
+        flat, fresh = [], {}
+        for j in range(len(fa)):
+            x, y = fa[j], fb[j]
+            if x == y and self.nodes[x].dtype == out.dtype:
+                flat.append(x)
+                continue
+            hit, neg = self._chain(x, y), False
+            if hit is None:
+                hit, neg = self._chain(y, x), True
+            if hit is None:
+                flat.append(self.node("where", (fc[j], x, y), out.dtype,
+                                      out.dtype))
+                continue
+            self._gate(hit, fc[j], neg)
+            name, i = self.nodes[x if not neg else y].aux
+            nid = self.node("leaf", (), out.dtype, aux=(name, i))
+            flat.append(nid)
+            fresh.setdefault(name, {})[i] = nid
+        # the storage holds what the fresh reads read
+        for name, got in fresh.items():
+            held = self.committed[name].clone()
+            for i, nid in got.items():
+                held.view(-1)[i] = nid
+            self.committed[name] = held
+        ids = torch.tensor(flat, dtype=torch.int64).reshape(shape)
+        return self.wrap(out, ids)
+
+    def _chain(self, post, pre):
+        """The calls (and the element each re-read) between ``pre`` and
+        ``post``, where ``post`` is an element's read after a chain of
+        calls that began at ``pre``; else None."""
+        hits, x = [], post
+        while x in self.post_of:
+            k, prev = self.post_of[x]
+            hits.append((k, self.nodes[x].aux))
+            if prev == pre:
+                return hits
+            x = prev
+        return None
+
+    def _gate(self, hits, pred, neg):
+        for k, aux in hits:
+            call = self.calls[k]
+            if call["gate"] is None:
+                if pred >= call["mark"]:
+                    self.fail(f"the select of the state before and after "
+                              f"the engine call {call['kind']} takes a "
+                              "predicate computed after the call")
+                call["gate"] = (pred, neg)
+                call["line"] = _where_in_source()
+            elif call["gate"] != (pred, neg):
+                self.fail(f"the engine call {call['kind']} is selected "
+                          "under two predicates")
+            call["covered"].add(aux)
 
     def _gather(self, args, kwargs, out):
         arr, dim, index = (list(args) + [kwargs.get("dim"),
@@ -480,8 +568,8 @@ class PredIR:
 
 
 #: leaves an engine call may change: read afresh after one
-_CALL_TOUCHES = ("wakes.", "events.next_seq", "procs.pend_guard",
-                 "pools.", "err", "guards.")
+_CALL_TOUCHES = ("wakes.", "events.", "procs.pend_tag", "procs.pend_guard",
+                 "procs.got", "pools.", "buffers.", "err", "guards.")
 
 
 def _symbolic_sim(tr: Tracer, shadow):
@@ -536,25 +624,96 @@ def _arg(tr: Tracer, x):
 
 
 def engine_call(sim, kind: str, *args):
-    """``api.pool_release`` / ``api.cond_signal`` under the tracer: the
+    """An engine call of a block under the tracer (``api.pool_release``,
+    ``cond_signal``, ``interrupt``, ``timer_add``, ``timers_clear``): the
     writes so far are committed, the call recorded, and the leaves it may
-    change read afresh."""
+    change read afresh.  ``timer_add`` returns ``(sim, handle)``, the
+    handle a ``callres`` node (which no block may use where the call is
+    gated)."""
     tr = sim.clock.tracer
     refs = tuple(_arg(tr, a) for a in args)
     _commit(tr, sim)
-    tr.effects.append(("call", kind, refs, len(tr.nodes)))
+    k, mark = len(tr.calls), len(tr.nodes)
+    tr.effects.append(("call", kind, refs, mark))
+    touched = {}
     leaves = []
     for name, x in named_leaves(sim):
         if name.startswith(_CALL_TOUCHES):
             t = tr.template[name]
             n = t.numel() // t.shape[0]
+            pre = tr.committed[name].reshape(-1).tolist()
             ids = torch.tensor([tr.node("leaf", (), t.dtype, aux=(name, i))
                                 for i in range(n)],
                                dtype=torch.int64).reshape(t.shape)
+            for nid, old in zip(ids.reshape(-1).tolist(), pre):
+                tr.post_of[nid] = (k, old)
+            touched[name] = n
             tr.committed[name] = ids
             x = tr.wrap(t, ids)
         leaves.append(x)
-    return _rebuild(sim, leaves)
+    tr.calls.append(dict(kind=kind, touched=touched, gate=None,
+                         covered=set(), mark=mark,
+                         effect=len(tr.effects) - 1, line=None))
+    out = _rebuild(sim, leaves)
+    if kind == "timer_add":
+        h = tr.node("callres", (), torch.int32, aux=k)
+        return out, tr.wrap(torch.zeros(1, dtype=torch.int32),
+                            torch.tensor([h], dtype=torch.int64))
+    return out
+
+
+def pq_read(sim, op: str, qid, *args):
+    """``api.pqueue_length`` (op ``pq_length``) or ``api.pqueue_position``
+    (``pq_position``, of the item ``args[0]``) under the tracer: one node
+    that scans queue ``qid``'s slots (no call or block write changes a
+    priority queue within a block)."""
+    tr = sim.clock.tracer
+    if not isinstance(qid, int):
+        tr.fail(f"api.{op.replace('pq_', 'pqueue_')} of a traced queue id")
+    width = tr.template["pqueues.live"].shape[2]
+    refs = tuple(_arg(tr, a) for a in args)
+    # the length is the reference's int64 sum, the position its int32
+    dt = torch.int64 if op == "pq_length" else torch.int32
+    nid = tr.node(op, refs, dt, aux=(qid, width))
+    return tr.wrap(torch.zeros(1, dtype=dt),
+                   torch.tensor([nid], dtype=torch.int64))
+
+
+def _check_calls(tr: Tracer, ir_roots) -> None:
+    """The gated calls' selects cover every element the call touches,
+    and nothing live reads the state after a gated call but the
+    select."""
+    post = {}
+    for k, call in enumerate(tr.calls):
+        if call["gate"] is None:
+            continue
+        for name, n in call["touched"].items():
+            for i in range(n):
+                if (name, i) not in call["covered"]:
+                    raise TraceError(
+                        f"{tr.what}: the select at {call['line']} keeps or "
+                        f"drops the engine call {call['kind']} but leaves "
+                        f"{name}[{i}] out: select every leaf the call "
+                        "touches under one predicate")
+    gated = {k for k, c in enumerate(tr.calls) if c["gate"] is not None}
+    for nid, (k, _) in tr.post_of.items():
+        if k in gated:
+            post[nid] = k
+    if not post:
+        return
+    live, stack = set(), [r for r in ir_roots if isinstance(r, int)]
+    while stack:
+        i = stack.pop()
+        if i in live:
+            continue
+        live.add(i)
+        if i in post:
+            call = tr.calls[post[i]]
+            raise TraceError(
+                f"{tr.what}: reads {tr.nodes[i].aux[0]} after the engine "
+                f"call {call['kind']} outside the select at {call['line']} "
+                "that keeps or drops it")
+        stack += [a for a in tr.nodes[i].args if isinstance(a, int)]
 
 
 def draw(sim, dist, params):
@@ -617,8 +776,24 @@ def trace_block(spec, pc: int, sims) -> BlockIR:
                     fields.append(int(v.ids.reshape(-1)[0]))
                 else:
                     fields.append(tr.const(v.reshape(-1)[0].item(), v.dtype))
+    effects = list(tr.effects)
+    for call in tr.calls:
+        if call["gate"] is not None:
+            effects[call["effect"]] = effects[call["effect"]] + (
+                call["gate"],)
+    roots = list(fields)
+    for e in effects:
+        if e[0] == "draw":
+            roots += [a for a in tr.nodes[e[1]].args if isinstance(a, int)]
+        elif e[0] == "write":
+            roots.append(e[3])
+        else:
+            roots += [a for a in e[2] if isinstance(a, int)]
+            if len(e) > 4:
+                roots.append(e[4][0])
+    _check_calls(tr, roots)
     return BlockIR(getattr(blk, "__name__", str(pc)), pc, tr.nodes,
-                   tr.effects, tuple(fields), tr.puts)
+                   effects, tuple(fields), tr.puts)
 
 
 def trace_predicate(spec, cid: int, sims) -> PredIR:
@@ -658,17 +833,32 @@ def _sampler(name: str):
 
 
 def eval_nodes(nodes, env_leaf, pid, sig, lanes, device, draw_fn=None,
-               upto=None, vals=None):
+               upto=None, vals=None, results=None):
     """Evaluate ``nodes`` (in order) with torch over ``lanes`` lanes:
     ``env_leaf(name, flat)`` reads a leaf element, ``draw_fn(node,
-    params)`` draws.  Returns the list of values (a node's own order)."""
+    params)`` draws, ``results[k]`` is engine call k's result.  Returns
+    the list of values (a node's own order)."""
     vals = [] if vals is None else vals
     end = len(nodes) if upto is None else upto
     for nid in range(len(vals), end):
         n = nodes[nid]
+        if n.op == "callres":
+            vals.append(results[n.aux])
+            continue
         vals.append(_eval(n, vals, env_leaf, pid, sig, lanes, device,
                           draw_fn))
     return vals
+
+
+def _pq_rows(env_leaf, qid, width):
+    """Queue ``qid``'s slots, ``[lanes, width]`` each: live, items, prio,
+    seq."""
+    def rows(name):
+        return torch.stack([env_leaf(name, qid * width + j)
+                            for j in range(width)], dim=1)
+
+    return (rows("pqueues.live"), rows("pqueues.items"),
+            rows("pqueues.prio"), rows("pqueues.seq"))
 
 
 def _lit(a, vals, cdt):
@@ -699,6 +889,15 @@ def _eval(n: Node, vals, env_leaf, pid, sig, lanes, device, draw_fn):
         return out
     if op == "cast":
         return vals[n.args[0]].to(n.dtype)
+    if op in ("pq_length", "pq_position"):
+        from cimba_tpu_torch.core import api
+
+        live, items, prio, seq = _pq_rows(env_leaf, *n.aux)
+        if op == "pq_length":
+            return live.to(torch.int32).sum(dim=1)
+        pq = _PQ(items=items[:, None], prio=prio[:, None],
+                 seq=seq[:, None], live=live[:, None])
+        return api.pqueue_position(_PQSim(pq), 0, vals[n.args[0]])
     if op == "where":
         c = vals[n.args[0]]
         a = _lit(n.args[1], vals, n.cdt)
@@ -722,6 +921,7 @@ def _eval(n: Node, vals, env_leaf, pid, sig, lanes, device, draw_fn):
         "log1p": torch.log1p, "sqrt": torch.sqrt, "floor": torch.floor,
         "ceil": torch.ceil, "isnan": torch.isnan, "isfinite": torch.isfinite,
         "not": torch.bitwise_not, "reciprocal": torch.reciprocal,
+        "round": torch.round,
         "add": torch.add, "sub": torch.sub, "mul": torch.mul,
         "div": torch.div, "lt": torch.lt, "le": torch.le, "gt": torch.gt,
         "ge": torch.ge, "eq": torch.eq, "ne": torch.ne,
@@ -730,6 +930,17 @@ def _eval(n: Node, vals, env_leaf, pid, sig, lanes, device, draw_fn):
         "maximum": torch.maximum,
     }[op]
     return fn(*args).to(n.dtype)
+
+
+class _PQ(NamedTuple):
+    items: Any
+    prio: Any
+    seq: Any
+    live: Any
+
+
+class _PQSim(NamedTuple):
+    pqueues: Any
 
 
 def replay(spec, ir: BlockIR, sim, p, sig):
@@ -751,6 +962,7 @@ def replay(spec, ir: BlockIR, sim, p, sig):
         return x.reshape(lanes) if x.numel() == lanes else x.expand(lanes)
 
     vals: list = []
+    results: dict = {}  # engine call k -> its result (a timer's handle)
     pending: dict = {}  # leaf -> {flat index: node} (committed at calls)
 
     def flush(vals):
@@ -767,27 +979,52 @@ def replay(spec, ir: BlockIR, sim, p, sig):
         state["sim"] = _rebuild(s, leaves)
         pending.clear()
 
+    n_call = 0
     for e in ir.effects:
         if e[0] == "draw":
             eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, e[1] + 1,
-                       vals)
+                       vals, results)
         elif e[0] == "write":
             pending.setdefault(e[1], {})[e[2]] = e[3]
         else:
             # every node made before the call reads the state before it
             eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, e[3],
-                       vals)
+                       vals, results)
             flush(vals)
             args = [a.value if isinstance(a, Lit) else vals[a]
                     for a in e[2]]
             s = state["sim"]
-            if e[1] == "pool_release":
-                k, pp, amt = args
-                state["sim"] = loop.release_pool(spec, s, pp.to(torch.int32),
-                                                 k, amt)
-            else:
-                state["sim"] = loop.cond_signal(spec, s, args[0])
-    eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, None, vals)
+            out, res = _call(spec, s, e[1], args)
+            if len(e) > 4:  # gated by a select of the whole Sim
+                g = vals[e[4][0]]
+                out = loop._where(~g if e[4][1] else g, out, s)
+            state["sim"] = out
+            results[n_call] = res
+            n_call += 1
+    eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, None, vals,
+               results)
     flush(vals)
     cmd = pr.Command(*[vals[f] for f in ir.cmd])
     return state["sim"], cmd
+
+
+def _call(spec, s, kind, args):
+    """An engine call on a real Sim: (sim, result)."""
+    from cimba_tpu_torch.core import loop
+
+    if kind == "pool_release":
+        k, pp, amt = args
+        return loop.release_pool(spec, s, pp.to(torch.int32), k, amt), None
+    if kind == "cond_signal":
+        return loop.cond_signal(spec, s, args[0]), None
+    if kind == "interrupt":
+        return loop.interrupt(spec, s, *args), None
+    def pid(x):
+        return x.to(torch.int32) if isinstance(x, torch.Tensor) else x
+
+    if kind == "timer_add":
+        pp, dur, sig = args
+        return loop.timer_add(s, pid(pp), dur, sig)
+    if kind == "timers_clear":
+        return loop.timers_clear(s, pid(args[0])), None
+    raise TraceError(f"engine call {kind}")

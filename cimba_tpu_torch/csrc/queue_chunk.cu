@@ -39,6 +39,15 @@
 //           from the spec's traced blocks (cimba_tpu_torch/core/emit.py
 //           writes Gen<R>, included with -DCIMBA_GEN_HEADER; its blocks
 //           draw inline through samplers.cuh, with no converged draw).
+//           Its own rules, compiled in for it alone: the priority queues
+//           (h_pq_put<Q>, h_pq_get<Q> and the readers pq_length<Q>,
+//           pq_position<Q>, their slots in device memory), a block's
+//           timer_add (an insert into the general event table) and
+//           timers_clear (a pattern cancel), interrupt (the target's
+//           abort, then a wake with the signal), the abort's cleanup on
+//           a non-SUCCESS wake of a pended process (ABORT: the pool
+//           rollback and the buffer's partial report) and the wakes'
+//           full signals (WSIG: a column, not the packed word's bit).
 // The TPU kernel re-evaluates any model's traced step; here the
 // hand-written families restate their blocks and every other spec's are
 // emitted from its trace by the host loop (core/kernel_run.py).
@@ -166,10 +175,12 @@ constexpr int MAX_CHAIN = 1024;
 // command tags, statuses, signals, kinds, error codes: the reference's
 constexpr int C_HOLD = 0, C_EXIT = 1, C_JUMP = 2, C_PUT = 3, C_GET = 4;
 constexpr int C_POOL_ACQ = 8, C_POOL_REL = 9, C_BUF_GET = 10,
-              C_BUF_PUT = 11, C_COND_WAIT = 14;
+              C_BUF_PUT = 11, C_PQ_PUT = 12, C_PQ_GET = 13, C_COND_WAIT = 14;
 constexpr int C_PUT_HOLD = 18, C_GET_HOLD = 19, C_POOL_ACQ_HOLD = 22,
-              C_BUF_GET_HOLD = 24, C_BUF_PUT_HOLD = 25, N_COMMANDS = 28;
-constexpr int NO_PEND = -1, SUCCESS = 0, RUNNING = 1, FINISHED = 2;
+              C_BUF_GET_HOLD = 24, C_BUF_PUT_HOLD = 25, C_PQ_PUT_HOLD = 26,
+              C_PQ_GET_HOLD = 27, N_COMMANDS = 28;
+constexpr int NO_PEND = -1, SUCCESS = 0, PREEMPTED = -1, RUNNING = 1,
+              FINISHED = 2;
 constexpr int K_TIMER = 1;
 constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4,
               ERR_BAD_RELEASE = 5;
@@ -200,7 +211,9 @@ enum Leaf {
 };
 constexpr int N_ACC = A_STARTED - A_N + 1;
 constexpr int DONE = 0, ERR = 1, N_EVENTS = 2, N_TAIL = 4;  // after the user
-constexpr int MAX_LEAVES = U0 + 29 + N_TAIL;                // tandem's
+// the pointer array's room: a generated family's Sim (tandem's, the
+// widest hand-written one, has U0 + 29 + N_TAIL = 83 leaves)
+constexpr int MAX_LEAVES = 128;
 
 // The job shop's Sim has no queue leaves: from Q_ITEMS on come the
 // pool's (level, held [NP], held_seq [NP], next_seq, and its StepAccum's
@@ -407,6 +420,18 @@ struct ColdShop {
 template <typename R, class M>
 struct ColdShop<R, M, false> {};
 
+// a generated family's columns: each process's wake signal in full (an
+// interrupt's or a timer's reaches a block) and each priority queue's
+// next seq
+template <class M, bool WSIG = M::WSIG>
+struct ColdSig {
+  int32_t wsig[M::NP][M::THREADS];
+  int32_t pq_next_seq[M::NPQ > 0 ? M::NPQ : 1][M::THREADS];
+};
+
+template <class M>
+struct ColdSig<M, false> {};
+
 // One lane's working state: the hot part in registers, the cold part in
 // the block's shared memory.
 template <typename R_, typename C_, class M_>
@@ -427,6 +452,7 @@ struct State {
   ColdAcc<R, M>* cold_acc;
   ColdQ<M>* cold_q;
   ColdShop<R, M>* cold_shop;
+  ColdSig<M>* cold_sig;
   typename M::UCold* ucold;  // a generated family's user and local columns
   int t;             // this thread's column
   R clock;
@@ -463,6 +489,7 @@ struct State {
 #define COLD(s, f, p) ((s).cold->f[p][(s).t])
 #define SCOL(s, f, p) ((s).cold_shop->f[p][(s).t])
 #define UCOL(s, f, i) ((s).ucold->f[i][(s).t])
+#define GCOL(s, f, i) ((s).cold_sig->f[i][(s).t])
 
 // where a lane's rows live: the kernel's parameters and the lane
 struct Where {
@@ -658,7 +685,11 @@ template <class S>
 __device__ __forceinline__ void schedule_wake(S& s, int p, typename S::R t) {
   if (finite(t)) {
     put(s.wt, p, t);
-    set(s, F_SIG, p, SUCCESS);
+    if constexpr (S::M::WSIG) {
+      GCOL(s, wsig, p) = SUCCESS;
+    } else {
+      set(s, F_SIG, p, SUCCESS);
+    }
     put(s.wseq, p, s.next_seq);
     s.next_seq += 1;
   } else {
@@ -1013,6 +1044,321 @@ __device__ __forceinline__ void finish(S& s, const Where& w, int p) {
   if constexpr (S::M::TOOLKIT) drop_pool<0>(s, w, p);
 }
 
+// ---------------------------------------------------------------------------
+// A generated family's own rules: the priority queues, the general event
+// table written from a block, interrupts and the abort's cleanup.  Only a
+// family that has them instantiates them (the hand-written families and
+// a generated one without priority queues, timers or interrupts keep
+// their code).
+
+// queue Q's slot rows in device memory (each [PQW], lane-first)
+template <typename T, class S>
+__device__ __forceinline__ T* pq_row(const Where& w, int leaf, int q) {
+  using M = typename S::M;
+  return row<T, S>(w, leaf, M::NPQ * M::PQW) + q * M::PQW;
+}
+
+// api.pqueue_length: the live slots of queue Q
+template <int Q, class S>
+__device__ __forceinline__ int32_t pq_length(const S&, const Where& w) {
+  using M = typename S::M;
+  const bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
+  int32_t n = 0;
+  for (int j = 0; j < M::PQW; ++j) n += live[j] ? 1 : 0;
+  return n;
+}
+
+// api.pqueue_position: the 1-based place in dequeue order (priority
+// descending, then seq) of the earliest-dequeuing live item equal to
+// item, 0 if none
+template <int Q, class S>
+__device__ __forceinline__ int32_t pq_position(const S&, const Where& w,
+                                               typename S::R item) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
+  const R* items = pq_row<R, S>(w, M::L_PQ_ITEMS, Q);
+  const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
+  const int32_t* seq = pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q);
+  bool any = false;
+  R pb = -inf_of<R>();
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && items[j] == item) {
+      any = true;
+      const R x = prio[j];
+      pb = (x != x || x > pb) ? x : pb;  // amax: NaN propagates
+    }
+  int32_t sb = I32_MAX;
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && items[j] == item && prio[j] == pb && seq[j] < sb)
+      sb = seq[j];
+  int32_t ahead = 0;
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && (prio[j] > pb || (prio[j] == pb && seq[j] < sb)))
+      ahead += 1;
+  return any ? ahead + 1 : 0;
+}
+
+// pq_put and its fused twin (FUSED) on queue Q (loop's h_pq_put): the
+// item into the lowest free slot with the queue's next seq, the front
+// guard's signal, the fused hold; a full queue pends on the rear guard.
+// The twin is a compile-time choice: a run-time one once came out wrong
+// on the card (a plain get yielded as if fused)
+template <int Q, bool FUSED, class S>
+__device__ __forceinline__ bool h_pq_put(S& s, const Where& w, int p,
+                                         const Cmd<typename S::R>& c,
+                                         bool is_retry) {
+  using R = typename S::R;
+  using M = typename S::M;
+  bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
+  int32_t n = 0;
+  int col = M::PQW - 1;
+  bool free_found = false;
+  for (int j = 0; j < M::PQW; ++j) {
+    if (live[j]) {
+      n += 1;
+    } else if (!free_found) {
+      free_found = true;
+      col = j;
+    }
+  }
+  const bool may = is_retry || !any_waiting(s, M::pq_rear(Q));
+  const bool full = n >= M::pq_cap(Q) || !may;
+  if (!full) {
+    pq_row<R, S>(w, M::L_PQ_ITEMS, Q)[col] = c.f;
+    pq_row<R, S>(w, M::L_PQ_PRIO, Q)[col] = c.f2;
+    pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q)[col] = GCOL(s, pq_next_seq, Q);
+    live[col] = true;
+    GCOL(s, pq_next_seq, Q) += 1;
+    if constexpr (M::pq_rec(Q)) record(s, M::acc_pq(Q), R(n + 1));
+    signal_at<M::pq_front(Q)>(s, w);
+    if constexpr (FUSED) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  }
+  set(s, F_PC, p, c.next_pc);
+  if (full) guard_wait(s, p, M::pq_rear(Q), c, is_retry);
+  return FUSED || full;
+}
+
+// pq_get and its fused twin (FUSED) on queue Q (loop's h_pq_get): the
+// highest priority, then the lowest seq, then the lowest slot; the rear
+// guard's signal, then the front guard's, then the fused hold; an empty
+// queue pends on the front guard
+template <int Q, bool FUSED, class S>
+__device__ __forceinline__ bool h_pq_get(S& s, const Where& w, int p,
+                                         const Cmd<typename S::R>& c,
+                                         bool is_retry) {
+  using R = typename S::R;
+  using M = typename S::M;
+  bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
+  const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
+  const int32_t* seq = pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q);
+  int32_t n = 0;
+  R pb = -inf_of<R>();
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j]) {
+      n += 1;
+      const R x = prio[j];
+      pb = (x != x || x > pb) ? x : pb;  // amax: NaN propagates
+    }
+  int32_t sm = I32_MAX;
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && prio[j] == pb && seq[j] < sm) sm = seq[j];
+  int col = 0;
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && prio[j] == pb && seq[j] == sm) {
+      col = j;
+      break;
+    }
+  const bool may = is_retry || !any_waiting(s, M::pq_front(Q));
+  const bool empty = n == 0 || !may;
+  if (!empty) {
+    COLD(s, got, p) = pq_row<R, S>(w, M::L_PQ_ITEMS, Q)[col];
+    live[col] = false;
+    if constexpr (M::pq_rec(Q)) record(s, M::acc_pq(Q), R(n - 1));
+    signal_at<M::pq_rear(Q)>(s, w);
+    signal_at<M::pq_front(Q)>(s, w);
+    if constexpr (FUSED) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  }
+  set(s, F_PC, p, c.next_pc);
+  if (empty) guard_wait(s, p, M::pq_front(Q), c, is_retry);
+  return FUSED || empty;
+}
+
+// api.timer_add (loop.timer_add): a K_TIMER event for p at clock +
+// max(dur, 0) with p's priority and the next seq, in the first free slot
+// of the general table (a free slot holds an infinite time), the cached
+// minimum kept; a full table or a non-finite time sets the table's
+// overflow flag, which fails the lane.  Returns the handle (the slot's
+// generation above bit 16, the slot below), -1 where nothing was put.
+template <class S>
+__device__ __forceinline__ int32_t timer_add(S& s, const Where& w, int p,
+                                             typename S::R dur,
+                                             int32_t sig) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap;
+  R* time = row<R, S>(w, EV_TIME, E);
+  int32_t* prio = row<int32_t, S>(w, EV_PRIO, E);
+  int32_t* seq = row<int32_t, S>(w, EV_SEQ, E);
+  const R t = s.clock + nanmax0(dur);
+  int slot = E;
+  for (int i = 0; i < E; ++i)
+    if (time[i] == inf_of<R>() || time[i] == -inf_of<R>()) {
+      slot = i;
+      break;
+    }
+  const bool ok = slot < E && finite(t);
+  bool* overflow = row<bool, S>(w, EV_OVERFLOW, 1);
+  int32_t h = -1;
+  if (ok) {
+    const int32_t pr = COLD(s, prio, p);
+    time[slot] = t;
+    prio[slot] = pr;
+    seq[slot] = s.next_seq;
+    row<int32_t, S>(w, EV_KIND, E)[slot] = K_TIMER;
+    row<int32_t, S>(w, EV_SUBJ, E)[slot] = p;
+    row<int32_t, S>(w, EV_ARG, E)[slot] = sig;
+    h = int32_t(uint32_t(row<int32_t, S>(w, EV_GEN, E)[slot]) << 16) | slot;
+    // the minimum (time asc, prio desc, seq asc, lowest slot)
+    bool take = !s.any_e || t < s.t_e;
+    if (!take && t == s.t_e) {
+      const int32_t pe = prio[s.slot_e], se = seq[s.slot_e];
+      take = pr > pe ||
+             (pr == pe && (s.next_seq < se ||
+                           (s.next_seq == se && slot < s.slot_e)));
+    }
+    if (take) {
+      s.t_e = t;
+      s.slot_e = slot;
+    }
+    s.any_e = true;
+    s.next_seq += 1;
+  } else {
+    *overflow = true;
+  }
+  if (*overflow) set_err(s, ERR_EVENT_OVERFLOW);
+  return h;
+}
+
+// api.timers_clear (loop.timers_clear): every live K_TIMER event aimed at
+// p cancelled (its slot freed, its generation bumped), the minimum
+// scanned again where one was
+template <class S>
+__device__ __forceinline__ void timers_clear(S& s, const Where& w, int p) {
+  using R = typename S::R;
+  if (!s.any_e) return;
+  const int E = w.sh.event_cap;
+  R* time = row<R, S>(w, EV_TIME, E);
+  const int32_t* kind = row<int32_t, S>(w, EV_KIND, E);
+  const int32_t* subj = row<int32_t, S>(w, EV_SUBJ, E);
+  int32_t* gen = row<int32_t, S>(w, EV_GEN, E);
+  bool hit = false;
+  for (int i = 0; i < E; ++i)
+    if (finite(time[i]) && kind[i] == K_TIMER && subj[i] == p) {
+      time[i] = inf_of<R>();
+      gen[i] += 1;
+      hit = true;
+    }
+  if (hit) scan_table(s, w);
+}
+
+// pool K's rollback of an aborted acquire (loop._abort_cleanup): p's
+// holding back to what it held before the call (f2), the excess to the
+// pool, its record and its guard's signal
+template <int K, class S>
+__device__ __forceinline__ void rollback(S& s, const Where& w, int p,
+                                         typename S::R f2) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const R held = SCOL(s, held, K * S::NP + p);
+  const R excess = nanmax0(held - f2);
+  const R in_use =
+      M::template pool_cap<R>(w, K) - (s.pool_level[K] + excess);
+  s.pool_level[K] = s.pool_level[K] + excess;
+  SCOL(s, held, K * S::NP + p) = held + -excess;
+  if constexpr (M::pool_rec(K)) record(s, M::acc_pool(K), in_use);
+  signal_at<M::g_pool(K)>(s, w);
+}
+
+// the cleanup of p's aborted wait on pend (loop._abort_cleanup): a pended
+// pool acquire rolls back (not on PREEMPTED), a pended buffer transfer
+// reports what it moved; the reference reads the plain tags only
+template <class S>
+__device__ __forceinline__ void abort_cleanup(S& s, const Where& w, int p,
+                                              const Cmd<typename S::R>& pend,
+                                              int32_t sig) {
+  using M = typename S::M;
+  if constexpr (M::ABORT) {
+    if constexpr (M::NK > 0) {
+      if (pend.tag == C_POOL_ACQ && sig != PREEMPTED)
+        by_id<0, M::NK>(pend.q, [&](auto k) {
+          rollback<decltype(k)::value>(s, w, p, pend.f2);
+          return 0;
+        });
+    }
+    if constexpr (M::NV > 0) {
+      if (pend.tag == C_BUF_GET || pend.tag == C_BUF_PUT)
+        COLD(s, got, p) = pend.f2 - pend.f;
+    }
+  }
+}
+
+// process T's pended command (its payload where the cleanup reads it)
+template <class S>
+__device__ __forceinline__ Cmd<typename S::R> pend_of(const S& s, int p) {
+  using R = typename S::R;
+  Cmd<R> c{get(s, F_TAG, p), COLD(s, pend_f, p), COLD(s, pend_f3, p),
+           COLD(s, pend_pc, p), 0};
+  if constexpr (S::M::PEND_I) c.q = s.cold_q->pend_i[p][s.t];
+  if constexpr (S::M::TOOLKIT) c.f2 = SCOL(s, pend_f2, p);
+  return c;
+}
+
+// interrupt of process T (a compile-time pid; loop.interrupt): where it
+// runs, its wait aborted (unwait, then the cleanup) and a wake now with
+// sig
+template <int T, class S>
+__device__ __forceinline__ void interrupt_at(S& s, const Where& w,
+                                             int32_t sig) {
+  using R = typename S::R;
+  if (get(s, F_STATUS, T) != RUNNING) return;
+  const Cmd<R> pend = pend_of(s, T);
+  set(s, F_TAG, T, NO_PEND);
+  set(s, F_GUARD, T, -1);
+  put(s.wt, T, inf_of<R>());
+  abort_cleanup(s, w, T, pend, sig);
+  if (finite(s.clock)) {
+    put(s.wt, T, s.clock);
+    GCOL(s, wsig, T) = sig;
+    put(s.wseq, T, s.next_seq);
+    s.next_seq += 1;
+  } else {
+    set_err(s, ERR_EVENT_OVERFLOW);
+  }
+}
+
+// api.interrupt of a pid a block computes: dispatched over the
+// processes (a compile-time pid each); a pid out of range is no process
+template <class S>
+__device__ __forceinline__ void interrupt(S& s, const Where& w, int target,
+                                          int32_t sig) {
+  if (target < 0 || target >= S::NP) return;
+  by_id<0, S::NP>(target, [&](auto q) {
+    interrupt_at<decltype(q)::value>(s, w, sig);
+    return 0;
+  });
+}
+
+// the draws of a sampler that loops (samplers.cuh: gamma, beta, pert):
+// one Threefry block at the lane's counter a call
+template <class S>
+struct Draws {
+  S& s;
+  __device__ __forceinline__ void operator()(uint32_t& b0,
+                                             uint32_t& b1) const {
+    draw_bits(s, b0, b1);
+  }
+};
+
 // returns "yielded"
 template <class S>
 __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
@@ -1062,6 +1408,30 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
             return h_cond_wait<decltype(k)::value>(s, w, p, c, is_retry);
           });
         break;
+      case C_PQ_PUT:
+        if constexpr (M::NPQ > 0)
+          return by_id<0, M::NPQ>(c.q, [&](auto q) {
+            return h_pq_put<decltype(q)::value, false>(s, w, p, c, is_retry);
+          });
+        break;
+      case C_PQ_PUT_HOLD:
+        if constexpr (M::NPQ > 0)
+          return by_id<0, M::NPQ>(c.q, [&](auto q) {
+            return h_pq_put<decltype(q)::value, true>(s, w, p, c, is_retry);
+          });
+        break;
+      case C_PQ_GET:
+        if constexpr (M::NPQ > 0)
+          return by_id<0, M::NPQ>(c.q, [&](auto q) {
+            return h_pq_get<decltype(q)::value, false>(s, w, p, c, is_retry);
+          });
+        break;
+      case C_PQ_GET_HOLD:
+        if constexpr (M::NPQ > 0)
+          return by_id<0, M::NPQ>(c.q, [&](auto q) {
+            return h_pq_get<decltype(q)::value, true>(s, w, p, c, is_retry);
+          });
+        break;
       default:
         break;
     }
@@ -1101,8 +1471,8 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
 struct NoUCold {};
 struct Family {
   static constexpr bool GEN = false, TOOLKIT = false, PEND_I = false;
-  static constexpr bool PRED_BY_PID = false;
-  static constexpr int NK = 0, NV = 0, NC = 0;
+  static constexpr bool PRED_BY_PID = false, ABORT = false, WSIG = false;
+  static constexpr int NK = 0, NV = 0, NC = 0, NPQ = 0, PQW = 1;
   using UCold = NoUCold;
 };
 
@@ -1448,7 +1818,7 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
   const bool has_pend = tag != NO_PEND;
   bool use_pend = has_pend && sig == SUCCESS;
   Cmd<R> pend{tag, R(0), R(0), 0, 0};
-  if (use_pend) {
+  if (S::M::ABORT ? has_pend : use_pend) {
     pend.f = COLD(s, pend_f, p);
     pend.f3 = COLD(s, pend_f3, p);
     pend.next_pc = COLD(s, pend_pc, p);
@@ -1457,6 +1827,11 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
   }
   set(s, F_TAG, p, NO_PEND);
   set(s, F_GUARD, p, -1);
+  // a non-SUCCESS wake of a pended process (a timer or an interrupt)
+  // aborts its wait, after the unwait above (loop's resume)
+  if constexpr (S::M::ABORT) {
+    if (has_pend && sig != SUCCESS) abort_cleanup(s, w, p, pend, sig);
+  }
   bool yielded = false, fresh = true;
   int n = 0;
   while (!yielded && get(s, F_STATUS, p) == RUNNING && s.err == 0 &&
@@ -1513,7 +1888,11 @@ __device__ __forceinline__ void step(S& s, const Where& w,
   if (wake_first) {
     s.clock = t_w;
     subj = pid_w;
-    arg = get(s, F_SIG, pid_w);
+    if constexpr (S::M::WSIG) {
+      arg = GCOL(s, wsig, pid_w);
+    } else {
+      arg = get(s, F_SIG, pid_w);
+    }
     put(s.wt, pid_w, inf_of<R>());
   } else {
     s.clock = s.t_e;
@@ -1603,6 +1982,18 @@ __device__ __forceinline__ void gen_state(S& s, const Where& w) {
 #pragma unroll
     for (int q = 0; q < NP; ++q)
       xfer<LOAD>(row<R, S>(w, PEND_F2, NP) + q, SCOL(s, pend_f2, q));
+  }
+  if constexpr (M::WSIG) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      xfer<LOAD>(row<int32_t, S>(w, WK_SIG, NP) + q, GCOL(s, wsig, q));
+  }
+  if constexpr (M::NPQ > 0) {
+#pragma unroll
+    for (int k = 0; k < M::NPQ; ++k)
+      xfer<LOAD>(row<int32_t, S>(w, M::L_PQ_NEXT_SEQ, M::NPQ) + k,
+                 GCOL(s, pq_next_seq, k));
+    acc_rows<LOAD, M::L_PQACC, M::NPQ>(s, w, M::acc_pq(0));
   }
 #pragma unroll
   for (int i = 0; i < NP * M::NF; ++i)
@@ -1803,6 +2194,7 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          ColdAcc<R, M>& cold_acc,
                                          ColdQ<M>& cold_q,
                                          ColdShop<R, M>& cold_shop,
+                                         ColdSig<M>& cold_sig,
                                          typename M::UCold& ucold) {
   using S = State<R, C, M>;
   S s;
@@ -1810,6 +2202,7 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
   s.cold_acc = &cold_acc;
   s.cold_q = &cold_q;
   s.cold_shop = &cold_shop;
+  s.cold_sig = &cold_sig;
   s.ucold = &ucold;
   s.t = threadIdx.x;
   load(s, Where{ps, sh, l});
@@ -1859,11 +2252,12 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
   __shared__ ColdAcc<R, M> cold_acc;
   __shared__ ColdQ<M> cold_q;
   __shared__ ColdShop<R, M> cold_shop;
+  __shared__ ColdSig<M> cold_sig;
   __shared__ typename M::UCold ucold;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < lanes)
     run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
-                      cold_acc, cold_q, cold_shop, ucold);
+                      cold_acc, cold_q, cold_shop, cold_sig, ucold);
 }
 
 template <typename R, typename C, int FAMILY, int NS, bool RECORD>

@@ -11,6 +11,18 @@ code builds the spec in either package: ``lib`` carries the DSL modules
 one seed gives the same model in both.  Every lane ends, by ``api.stop``
 once ``n_items`` items are done.
 
+``build(seed, lib, timers=True)`` makes the same kind of model with the
+later verbs: a priority queue (puts at a drawn priority, plain or fused
+gets) in place of the object queue; a timeout on each consumer's plain
+pool acquire (a timer, then the acquire: a timed-out waiter's partial
+grab rolls back, and it tries again) and on the drain's plain buffer get
+(a timed-out get keeps its partial take, reported in ``api.got``); the
+timers cleared on success (``api.timers_clear``, kept or dropped by a
+select of the whole Sim); and the watcher interrupting a consumer it
+draws, which may be holding or pended (on the pool, the priority queue
+or the buffer).  Lost items are possible there, so such a model runs to
+a horizon.
+
 On the card a spec built here takes the generated chunk kernel
 (``core/kernel_run.generated_kernel_for``), which the tests and
 ``chip_smoke.py`` hold against the plain engine.
@@ -37,10 +49,27 @@ def torch_lib():
         Model=Model, api=api, cmd=cmd, cr=cr,
         zeros_i=lambda: torch.zeros((), dtype=torch.int32),
         real=lambda v: torch.tensor(v, dtype=config.real()),
-        where=torch.where, empty=lambda: sm.empty((), "cpu"), add=sm.add)
+        where=torch.where, empty=lambda: sm.empty((), "cpu"), add=sm.add,
+        floor=torch.floor, i32=lambda x: x.to(torch.int32),
+        select_sim=_torch_select_sim)
 
 
-def build(seed: int, lib):
+def _torch_select_sim(pred, a, b):
+    """``pred ? a : b`` over every leaf, lane by lane (the JAX package's
+    ``jax.tree.map(lambda x, y: jnp.where(pred, x, y), a, b)``)."""
+    import torch
+
+    from cimba_tpu_torch import tree
+
+    return tree.map(lambda x, y: torch.where(
+        pred.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
+
+
+#: the signals the timed model's timers and interrupts deliver
+TIMEOUT, INTERRUPTED = -5, -2
+
+
+def build(seed: int, lib, timers: bool = False):
     """One random spec; returns ``(spec, n_items)``."""
     rng = random.Random(seed)
     Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
@@ -54,10 +83,24 @@ def build(seed: int, lib):
     thr = float(rng.randint(2, 6))
     take = rng.choice([0.5, 1.0])
 
-    m = Model(f"usergen{seed}", n_flocals=1, n_ilocals=1, event_cap=8,
-              guard_cap=8)
-    q = m.objectqueue("q", capacity=rng.randint(4, 16),
-                      record=rng.random() < 0.5)
+    if timers:
+        patience = rng.uniform(0.2, 1.5)
+        d_patience = rng.uniform(0.3, 1.5)
+        intr_every = rng.uniform(1.0, 4.0)
+        # claims and takes that whole units do not fill, so a timeout
+        # or an interrupt finds a partial grab or take; all units held
+        # go back inline
+        need = 1.5
+        take = take + 1.0
+        inline_release = True
+    m = Model(f"usergen{'t' if timers else ''}{seed}", n_flocals=1,
+              n_ilocals=1, event_cap=8, guard_cap=8)
+    if timers:
+        q = m.priorityqueue("q", capacity=rng.randint(4, 16),
+                            record=rng.random() < 0.5)
+    else:
+        q = m.objectqueue("q", capacity=rng.randint(4, 16),
+                          record=rng.random() < 0.5)
     pa = m.resourcepool("pa", capacity=float(rng.randint(2, 3)),
                         record=rng.random() < 0.5)
     pb = (m.resourcepool("pb", capacity=2.0, record=False) if two_pools
@@ -74,8 +117,11 @@ def build(seed: int, lib):
 
     @m.user_state
     def init(params):
-        return {"done_n": lib.zeros_i(), "watched": lib.zeros_i(),
-                "srv_mean": lib.real(srv_mean), "w": lib.empty()}
+        u = {"done_n": lib.zeros_i(), "watched": lib.zeros_i(),
+             "srv_mean": lib.real(srv_mean), "w": lib.empty()}
+        if timers:
+            u.update(timeouts=lib.zeros_i(), partial=lib.real(0.0))
+        return u
 
     # --- producer: n_items items into q ----------------------------------
     @m.block
@@ -84,9 +130,17 @@ def build(seed: int, lib):
         fin = made >= n_items
         sim = api.add_local_i(sim, p, 0, 1)
         sim, t = api.draw(sim, cr.exponential, arr_mean)
-        put = (cmd.put_hold(q.id, api.clock(sim), t, next_pc=produce.pc)
-               if fused else cmd.put(q.id, api.clock(sim),
-                                     next_pc=p_wait.pc))
+        if timers:
+            sim, u = api.draw(sim, cr.uniform01)
+            prio = lib.floor(u * 3.0)
+            put = (cmd.pq_put_hold(q.id, api.clock(sim), prio, t,
+                                   next_pc=produce.pc)
+                   if fused else cmd.pq_put(q.id, api.clock(sim), prio,
+                                            next_pc=p_wait.pc))
+        else:
+            put = (cmd.put_hold(q.id, api.clock(sim), t, next_pc=produce.pc)
+                   if fused else cmd.put(q.id, api.clock(sim),
+                                         next_pc=p_wait.pc))
         return sim, cmd.select(fin, cmd.exit_(), put)
 
     @m.block
@@ -100,17 +154,48 @@ def build(seed: int, lib):
     def c_get(sim, p, sig):
         if fused:
             sim, t = api.draw(sim, cr.exponential, sim.user["srv_mean"])
+            if timers:
+                return sim, cmd.pq_get_hold(q.id, t, next_pc=c_acq.pc)
             return sim, cmd.get_hold(q.id, t, next_pc=c_acq.pc)
+        if timers:
+            return sim, cmd.pq_get(q.id, next_pc=c_acq.pc)
         return sim, cmd.get(q.id, next_pc=c_acq.pc)
 
-    @m.block
-    def c_acq(sim, p, sig):
-        sim, u = api.draw(sim, cr.triangular, 0.0, 0.3, 1.0)
-        sim, t = api.draw(sim, cr.lognormal, -0.5, 0.4)
-        use_b = u < 0.5
-        return sim, cmd.select(
-            use_b, cmd.pool_acquire_hold(pb.id, 1.0, t, next_pc=c_put.pc),
-            cmd.pool_acquire_hold(pa.id, 1.0, t, next_pc=c_put.pc))
+    if timers:
+        @m.block
+        def c_acq(sim, p, sig):
+            # a plain acquire under a timeout: a timed-out (or
+            # interrupted) waiter's partial grab rolls back
+            sim, u = api.draw(sim, cr.triangular, 0.0, 0.3, 1.0)
+            sim, _ = api.timer_add(sim, p, patience, TIMEOUT)
+            use_b = u < 0.5
+            return sim, cmd.select(
+                use_b, cmd.pool_acquire(pb.id, need, next_pc=c_won.pc),
+                cmd.pool_acquire(pa.id, need, next_pc=c_won.pc))
+
+        @m.block
+        def c_won(sim, p, sig):
+            # granted, or interrupted while waiting: the timer is cleared
+            # (a timeout's own timer has fired)
+            ok = sig == 0
+            timed_out = sig == TIMEOUT
+            u = sim.user
+            sim = api.set_user(sim, {**u, "timeouts": u["timeouts"]
+                                     + lib.i32(lib.where(timed_out, 1, 0))})
+            sim = lib.select_sim(timed_out, sim, api.timers_clear(sim, p))
+            sim, t = api.draw(sim, cr.lognormal, -0.5, 0.4)
+            return sim, cmd.select(ok, cmd.hold(t, next_pc=c_put.pc),
+                                   cmd.jump(c_acq.pc))
+    else:
+        @m.block
+        def c_acq(sim, p, sig):
+            sim, u = api.draw(sim, cr.triangular, 0.0, 0.3, 1.0)
+            sim, t = api.draw(sim, cr.lognormal, -0.5, 0.4)
+            use_b = u < 0.5
+            return sim, cmd.select(
+                use_b,
+                cmd.pool_acquire_hold(pb.id, 1.0, t, next_pc=c_put.pc),
+                cmd.pool_acquire_hold(pa.id, 1.0, t, next_pc=c_put.pc))
 
     @m.block
     def c_put(sim, p, sig):
@@ -142,11 +227,30 @@ def build(seed: int, lib):
         return sim, cmd.jump(c_get.pc)
 
     # --- the drain: takes from the buffer ---------------------------------
-    @m.block
-    def d_get(sim, p, sig):
-        sim, t = api.draw(sim, cr.normal, 1.0, 0.25)
-        return sim, cmd.buffer_get_hold(buf.id, take, lib.where(
-            t > 0.1, t, 0.1), next_pc=d_get.pc)
+    if timers:
+        @m.block
+        def d_get(sim, p, sig):
+            # a plain get under a timeout: a timed-out get keeps its
+            # partial take, reported in got
+            sim, _ = api.timer_add(sim, p, d_patience, TIMEOUT)
+            return sim, cmd.buffer_get(buf.id, take, next_pc=d_got.pc)
+
+        @m.block
+        def d_got(sim, p, sig):
+            ok = sig == 0
+            u = sim.user
+            sim = api.set_user(sim, {**u, "partial": u["partial"]
+                                     + lib.where(ok, 0.0, api.got(sim, p))})
+            sim = api.timers_clear(sim, p)
+            sim, t = api.draw(sim, cr.normal, 1.0, 0.25)
+            return sim, cmd.hold(lib.where(t > 0.1, t, 0.1),
+                                 next_pc=d_get.pc)
+    else:
+        @m.block
+        def d_get(sim, p, sig):
+            sim, t = api.draw(sim, cr.normal, 1.0, 0.25)
+            return sim, cmd.buffer_get_hold(buf.id, take, lib.where(
+                t > 0.1, t, 0.1), next_pc=d_get.pc)
 
     # --- the watcher: waits until the buffer holds its own threshold ------
     @m.block
@@ -159,7 +263,18 @@ def build(seed: int, lib):
     def w_seen(sim, p, sig):
         u = sim.user
         sim = api.set_user(sim, {**u, "watched": u["watched"] + 1})
+        if timers:
+            return sim, cmd.hold(intr_every, next_pc=w_poke.pc)
         return sim, cmd.hold(1.0, next_pc=w_arm.pc)
+
+    if timers:
+        @m.block
+        def w_poke(sim, p, sig):
+            # interrupt a consumer (pids 1 .. n_cons), holding or pended
+            sim, u = api.draw(sim, cr.uniform01)
+            target = lib.floor(u * n_cons) + 1.0
+            sim = api.interrupt(sim, box[0], lib.i32(target), INTERRUPTED)
+            return sim, cmd.jump(w_arm.pc)
 
     m.process("producer", entry=produce)
     m.process("consumer", entry=c_get, count=n_cons)
@@ -168,3 +283,96 @@ def build(seed: int, lib):
     spec = m.build()
     box.append(spec)
     return spec, n_items
+
+
+def abort_spec(lib):
+    """A model whose waits are aborted from outside, every few events:
+    two hogs contend for a pool of 4 units; a waiter claims 2.5 under a
+    timeout (a timed-out claim rolls its partial grab back, counted in
+    ``timeouts``); a consumer's plain buffer get of 3 is interrupted by
+    a third process at random times (it keeps its partial take, reported
+    in ``got`` and summed in ``partial``) while a producer puts units
+    into the buffer.  It runs to a horizon."""
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    m = Model("abort", n_flocals=1, event_cap=8, guard_cap=8)
+    pool = m.resourcepool("units", capacity=4.0, record=True)
+    buf = m.buffer("tank", capacity=10.0, initial=1.0, record=True)
+    box = []
+
+    @m.user_state
+    def init(params):
+        return {"timeouts": lib.zeros_i(), "grants": lib.zeros_i(),
+                "partial": lib.real(0.0), "got_all": lib.zeros_i()}
+
+    # --- hogs: grab 1-3 units, hold, give them back ------------------------
+    @m.block
+    def h_acq(sim, p, sig):
+        sim, a = api.draw(sim, cr.uniform, 1.0, 3.0)
+        sim, t = api.draw(sim, cr.exponential, 1.0)
+        return sim, cmd.pool_acquire_hold(pool.id, a, t, next_pc=h_rel.pc)
+
+    @m.block
+    def h_rel(sim, p, sig):
+        sim = api.pool_release(sim, box[0], pool, p,
+                               api.pool_held(sim, pool, p))
+        sim, t = api.draw(sim, cr.exponential, 0.5)
+        return sim, cmd.hold(t, next_pc=h_acq.pc)
+
+    # --- the waiter: a claim of 2.5 under a timeout ------------------------
+    @m.block
+    def w_acq(sim, p, sig):
+        sim, pat = api.draw(sim, cr.uniform, 0.2, 1.2)
+        sim, _ = api.timer_add(sim, p, pat, TIMEOUT)
+        return sim, cmd.pool_acquire(pool.id, 2.5, next_pc=w_got.pc)
+
+    @m.block
+    def w_got(sim, p, sig):
+        ok = sig == 0
+        u = sim.user
+        sim = api.set_user(sim, {
+            **u, "timeouts": u["timeouts"] + lib.i32(lib.where(ok, 0, 1)),
+            "grants": u["grants"] + lib.i32(lib.where(ok, 1, 0))})
+        sim = lib.select_sim(ok, api.timers_clear(sim, p), sim)
+        return sim, cmd.select(ok, cmd.hold(0.5, next_pc=w_rel.pc),
+                               cmd.hold(0.25, next_pc=w_acq.pc))
+
+    @m.block
+    def w_rel(sim, p, sig):
+        sim = api.pool_release(sim, box[0], pool, p,
+                               api.pool_held(sim, pool, p))
+        return sim, cmd.jump(w_acq.pc)
+
+    # --- the buffer's consumer, producer and interrupter -------------------
+    @m.block
+    def b_get(sim, p, sig):
+        return sim, cmd.buffer_get(buf.id, 3.0, next_pc=b_got.pc)
+
+    @m.block
+    def b_got(sim, p, sig):
+        whole = sig == 0
+        u = sim.user
+        sim = api.set_user(sim, {
+            **u, "got_all": u["got_all"] + lib.i32(lib.where(whole, 1, 0)),
+            "partial": u["partial"] + lib.where(whole, 0.0,
+                                                 api.got(sim, p))})
+        return sim, cmd.hold(0.1, next_pc=b_get.pc)
+
+    @m.block
+    def b_put(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, 0.8)
+        return sim, cmd.buffer_put_hold(buf.id, 1.0, t, next_pc=b_put.pc)
+
+    @m.block
+    def poke(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, 2.0)
+        sim = api.interrupt(sim, box[0], 3, INTERRUPTED)
+        return sim, cmd.hold(t, next_pc=poke.pc)
+
+    m.process("hog", entry=h_acq, count=2)   # pids 0, 1
+    m.process("waiter", entry=w_acq)         # pid 2
+    m.process("consumer", entry=b_get)       # pid 3
+    m.process("producer", entry=b_put)       # pid 4
+    m.process("poker", entry=poke)           # pid 5
+    spec = m.build()
+    box.append(spec)
+    return spec

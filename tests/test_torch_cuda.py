@@ -382,9 +382,18 @@ def test_queue_chunk_has_no_stack_frame(card):
 def _user_spec(name):
     """A user spec that runs on a generated instance: (spec, params,
     horizon, seed)."""
-    from cimba_tpu_torch.examples import cookbook_balking, tut_4_harbor
+    from cimba_tpu_torch.examples import (cookbook_balking, tut_3_balking,
+                                          tut_4_harbor)
     from cimba_tpu_torch.tools import usergen
 
+    if name == "park3":  # to its end (every lane ends well before t=400)
+        return tut_3_balking.build(), None, tut_3_balking.T_END, 11
+    if name == "abort":
+        return usergen.abort_spec(usergen.torch_lib()), None, 15.0, 11
+    if name.startswith("usergent"):
+        seed = int(name[len("usergent"):])
+        return (usergen.build(seed, usergen.torch_lib(), timers=True)[0],
+                None, 15.0, 11)
     if name == "balking":
         return cookbook_balking.build()[0], cookbook_balking.params(60), \
             None, 7
@@ -429,6 +438,39 @@ def test_generated_instances_match_plain_engine(card, name, prof):
 
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["park3", "abort", "usergent5", "usergent6",
+                                  "usergent7"])
+def test_generated_timers_and_interrupts_match_plain_engine(card, name,
+                                                            prof):
+    """The generated instances with the priority queues, timers,
+    timers_clear, interrupts and the abort's cleanup (tutorial 3's park;
+    a spec whose pool waiter times out and whose buffer waiter is
+    interrupted, reaching the rollback and the partial report; three
+    usergen specs with the later verbs): driven by their host loop to a
+    horizon, equal to the plain engine on the card leaf for leaf, floats
+    bit for bit, with the waits really aborted."""
+    with config.profile(prof):
+        spec, params, t_end, seed = _user_spec(name)
+        s0 = loop.init_sim(spec, seed, torch.arange(512), params,
+                           device=card)
+        before = kernel_run.gen_chunk.launches
+        ker = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                         chunk_steps=64)(s0)
+        pla = loop.make_run(spec, t_end=t_end)(s0)
+        torch.cuda.synchronize()
+    assert kernel_run.gen_chunk.launches > before
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert int(ker.err.ne(0).sum()) == 0
+    if name == "abort":
+        assert int(ker.user["timeouts"].sum()) > 0
+        assert float(ker.user["partial"].sum()) > 0.0
+    if name == "park3":
+        li = ker.procs.locals_i[:, :8]
+        assert int(li[:, :, 3].sum()) > 0  # reneges
+        assert torch.equal(li[:, :, 1].sum(dim=1), ker.user["served"])
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
 def test_generated_trig_past_the_fast_path(card, prof):
     """sin and cos of a generated block equal torch's on the card for
     arguments past the library's fast path too (|x| >= 105615 in f32,
@@ -450,14 +492,14 @@ def test_generated_trig_past_the_fast_path(card, prof):
 
 
 def test_generated_instances_have_no_stack_frame(card):
-    """ptxas' report of the generated harbor and balking instances: the
-    chunk kernel keeps no stack frame and spills nothing in either
-    profile (the harbor's sin is queue_chunk.cu's frame-free
-    trig_of)."""
+    """ptxas' report of the generated harbor, balking, park3, abort and
+    a timed usergen instance: the chunk kernel keeps no stack frame and
+    spills nothing in either profile (the harbor's sin is
+    queue_chunk.cu's frame-free trig_of)."""
     import chip_smoke
     from cimba_tpu_torch import _build
 
-    for name in ("balking", "harbor"):
+    for name in ("balking", "harbor", "park3", "abort", "usergent5"):
         for prof in ("f32", "f64"):
             spec, s = chip_smoke.gen_template(name, prof)
             with config.profile(prof):
@@ -477,15 +519,15 @@ def test_generated_route_refuses_unported_sampler_on_card(card):
     from cimba_tpu_torch.core import process as cmd
     from cimba_tpu_torch.core.model import Model
 
-    m = Model("gammaish")
+    m = Model("weibullish")
 
     @m.block
     def wait(sim, p, sig):
-        sim, t = api.draw(sim, cr.gamma, 2.0, 1.0)
+        sim, t = api.draw(sim, cr.weibull, 2.0, 1.0)
         return sim, cmd.hold(t, next_pc=wait.pc)
 
     m.process("p", entry=wait)
     spec = m.build()
     s0 = loop.init_sim(spec, 1, torch.arange(4), device=card)
-    with pytest.raises(NotImplementedError, match="gamma"):
+    with pytest.raises(NotImplementedError, match="weibull"):
         kernel_run.make_kernel_run(spec, t_end=5.0)(s0)

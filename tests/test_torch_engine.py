@@ -91,16 +91,17 @@ def test_unported_features_raise():
 
     tmm1.build()  # record=True: queue-length recording is ported
     m = Model("x")
-    # pools, buffers and conditions are ported (the job shop's toolkit)
+    # pools, buffers and conditions are ported (the job shop's toolkit),
+    # priority queues too
     m.resourcepool("p", 2.0)
     m.buffer("b", 1.0)
     m.condition("c", lambda sim, p: True)
+    assert m.priorityqueue("q", 4).capacity == 4
 
     def blk(sim, p, sig):
         return sim, None
 
-    for call in (lambda: m.resource("r"), lambda: m.priorityqueue("q", 4),
-                 lambda: m.handler(blk),
+    for call in (lambda: m.resource("r"), lambda: m.handler(blk),
                  lambda: m.process("s", entry=m.block(blk), start=False)):
         with pytest.raises(NotImplementedError):
             call()

@@ -112,17 +112,17 @@ def test_unknown_op_names_its_block():
 
 
 def test_sampler_without_device_counterpart_raises_at_emit():
-    def gammay(sim, p, sig):
-        sim, t = api_draw(sim, cr.gamma, 2.0, 1.0)
+    def weibully(sim, p, sig):
+        sim, t = api_draw(sim, cr.weibull, 2.0, 1.0)
         return sim, cmd.hold(t, next_pc=0)
 
     from cimba_tpu_torch.core import api
 
     api_draw = api.draw
-    spec, s = _one_block_spec(gammay)
+    spec, s = _one_block_spec(weibully)
     trace.trace_block(spec, 0, s)  # the tracer takes it: one draw node
     with pytest.raises(NotImplementedError,
-                       match="gammay.*sampler .*gamma has no device"):
+                       match="weibully.*sampler .*weibull has no device"):
         emit.emit(spec, s)
 
 
@@ -199,3 +199,157 @@ def test_op_counts_take_a_pid_write_as_one_store(n_procs):
     spec, s = _shared_block_spec(body, n_procs)
     assert emit.op_counts(spec, s) == {0: 7}
     assert emit.op_counts(spec, s, {"sin": 20, "div": 8}) == {0: 7 + 19 + 7}
+
+
+def _park3_state(prof, lanes=LANES):
+    """Tutorial 3's park part way, with the lanes set up so that each of
+    its three gates goes both ways: the first lanes' queues hold five
+    ghost tickets each (a join there balks), a signal a lane cycles
+    through served, renege, jockey and none, and the servers' tickets
+    alternately live and stale."""
+    from cimba_tpu_torch.examples import tut_3_balking as t3
+
+    spec = t3.build()
+    s = loop.init_sim(spec, 5, torch.arange(lanes), device="cpu")
+    s = loop.make_run(spec, max_steps=30)(s)
+    live = s.pqueues.live.clone()
+    live[: lanes // 2, :, :5] = True
+    s = s._replace(pqueues=s.pqueues._replace(live=live))
+    tickets = (torch.arange(lanes) % t3.N_VISITORS).to(s.clock.dtype)
+    gen = s.procs.locals_i[torch.arange(lanes),
+                           torch.arange(lanes) % t3.N_VISITORS, t3.LI_TICKET]
+    stale = (torch.arange(lanes) % 2).to(gen.dtype)
+    got = s.procs.got.clone()
+    got[:, t3.N_VISITORS:] = (tickets + (gen + stale).to(s.clock.dtype)
+                              / 1024.0)[:, None]
+    s = s._replace(procs=s.procs._replace(got=got))
+    sigs = torch.tensor([t3.SIG_SERVED, t3.SIG_RENEGE, t3.SIG_JOCKEY, 0],
+                        dtype=torch.int32)
+    sig = sigs[torch.arange(lanes) % 4]
+    return spec, s, sig
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_predicated_calls_replay_both_sides(prof):
+    """Tutorial 3's three selects of the whole Sim (the join's two timers,
+    the leave's timers_clear, the service's interrupt) lower to gated
+    calls; the replay of each block equals the block bit for bit on
+    lanes where its gate is open and where it is shut, for a visitor and
+    a server pid."""
+    with config.profile(prof):
+        spec, s, sig = _park3_state(prof)
+        gated = {}
+        for pc, blk in enumerate(spec.blocks):
+            ir = trace.trace_block(spec, pc, s)
+            for e in ir.effects:
+                if e[0] == "call" and len(e) > 4:
+                    gated.setdefault(ir.name, []).append(e[1])
+            for p0 in (0, 8):
+                p = torch.full((LANES,), p0, dtype=torch.int32)
+                a_sim, a_cmd = blk(s, p, sig)
+                a_cmd = cmd.normalize(a_cmd, LANES, s.clock.device,
+                                      s.clock.dtype)
+                b_sim, b_cmd = trace.replay(spec, ir, s, p, sig)
+                for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                                          trace.named_leaves(b_sim)):
+                    assert x.dtype == y.dtype and torch.equal(x, y), (pc, n)
+                for x, y in zip(a_cmd, b_cmd):
+                    assert x.dtype == y.dtype and torch.equal(x, y), pc
+                if ir.name in gated:
+                    # the call's effect shows on some lanes and not others
+                    moved = [not torch.equal(x, y) for (_, x), (_, y) in zip(
+                        trace.named_leaves(s), trace.named_leaves(b_sim))]
+                    assert any(moved), (ir.name, p0)
+    # (each server has its own s_done)
+    assert gated == {"v_join": ["timer_add", "timer_add"],
+                     "v_signal": ["timers_clear"],
+                     "s_done": ["interrupt", "interrupt"]}
+
+
+def _gated_spec(body):
+    m = Model("gated", n_ilocals=1, event_cap=8)
+    blk = m.block(body)
+    m.process("p", entry=blk, count=2)
+    spec = m.build()
+    return spec, loop.init_sim(spec, 1, torch.arange(2), device="cpu")
+
+
+def test_partial_select_of_a_call_raises():
+    """A select that keeps or drops a call's effect on only some of the
+    leaves it touches (here the event table, not the error code) cannot
+    be a gated call: TraceError naming the block and the select's line."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import api
+
+    def partial(sim, p, sig):
+        late = sim.clock > 1.0
+        sim2, _ = api.timer_add(sim, p, 2.0, 7)
+        events = tree.map(lambda x, y: torch.where(
+            late.reshape((-1,) + (1,) * (x.dim() - 1)), x, y),
+            sim.events, sim2.events)
+        return sim2._replace(events=events), cmd.hold(1.0, next_pc=0)
+
+    spec, s = _gated_spec(partial)
+    with pytest.raises(trace.TraceError,
+                       match=r"block 'partial'.*select at .*test_torch_trace"
+                             r".*timer_add.*leaves .* out"):
+        trace.trace_block(spec, 0, s)
+
+
+def test_read_after_a_gated_call_outside_its_select_raises():
+    """A value read from the state after a gated call, other than
+    through the select, would see the call's effect where the gate is
+    shut: TraceError."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import api
+
+    def leaky(sim, p, sig):
+        late = sim.clock > 1.0
+        sim2 = api.interrupt(sim, None, 1 - p, 3)
+        seq = sim2.events.next_seq  # the call's effect, outside the select
+        sim = tree.map(lambda x, y: torch.where(
+            late.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), sim2, sim)
+        sim = api.set_local_i(sim, p, 0, seq)
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _gated_spec(leaky)
+    with pytest.raises(trace.TraceError,
+                       match=r"block 'leaky'.*reads events.next_seq after "
+                             r"the engine call interrupt outside the select"):
+        trace.trace_block(spec, 0, s)
+
+
+def test_timer_handle_replays_and_emits():
+    """A block that keeps the handle ``api.timer_add`` returns: the
+    replay gives the plain engine's handle bit for bit, and the emitted
+    call declares it; a handle of a gated call is refused at emit."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import api
+
+    def keep(sim, p, sig):
+        sim, h = api.timer_add(sim, p, 1.5, 9)
+        sim = api.set_local_i(sim, p, 0, h)
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _gated_spec(keep)
+    ir = trace.trace_block(spec, 0, s)
+    p = torch.arange(2, dtype=torch.int32)
+    sig = torch.zeros(2, dtype=torch.int32)
+    a_sim, _ = keep(s, p, sig)
+    b_sim, _ = trace.replay(spec, ir, s, p, sig)
+    for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                              trace.named_leaves(b_sim)):
+        assert torch.equal(x, y), n
+    assert "const int32_t h0 = timer_add(s, w," in emit.emit(spec, s)
+
+    def gated_keep(sim, p, sig):
+        late = sim.clock > 1.0
+        sim2, h = api.timer_add(sim, p, 1.5, 9)
+        sim = tree.map(lambda x, y: torch.where(
+            late.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), sim2, sim)
+        sim = api.set_local_i(sim, p, 0, h)
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _gated_spec(gated_keep)
+    with pytest.raises(NotImplementedError, match="handle of a timer_add"):
+        emit.emit(spec, s)
