@@ -1,13 +1,14 @@
 """Block-author helpers (torch port of :mod:`cimba_tpu.core.api`): the
 readers of a lane's state and the calls a block makes between yields.
 ``p`` is the ``[L]`` pid tensor a block receives; every helper acts on
-all replication lanes at once.  The readers of components not ported
-yet (``queue_position``, ``resource_holder``) come with their verbs.
+all replication lanes at once.  The reader of a component not ported
+yet (``queue_position``) comes with its verbs.
 
 Under :mod:`cimba_tpu_torch.core.trace` a block runs on a symbolic
 one-lane Sim: :func:`draw` then records one draw node naming its
-sampler; :func:`pool_release`, :func:`cond_signal`, :func:`interrupt`,
-:func:`timer_add` and :func:`timers_clear` one engine call each;
+sampler; :func:`pool_release`, :func:`release`, :func:`cond_signal`,
+:func:`interrupt`, :func:`stop_process`, :func:`timer_add`,
+:func:`timers_clear` and :func:`schedule` one engine call each;
 :func:`pqueue_length` and :func:`pqueue_position` one reader node each
 (they scan the queue's slots); every other helper is traced through as
 torch ops."""
@@ -179,6 +180,12 @@ def pqueue_position(sim: Sim, q, item):
     return torch.where(match.any(dim=1), pos, 0).to(INDEX)
 
 
+def resource_holder(sim: Sim, r):
+    """Pid holding a binary resource, -1 if free (parity:
+    cmb_resource_holder)."""
+    return sim.resources.holder[:, _id(r)]
+
+
 def pool_level(sim: Sim, pool):
     """Units available in a resource pool (parity:
     cmb_resourcepool_level)."""
@@ -249,3 +256,33 @@ def timers_clear(sim: Sim, p) -> Sim:
     if _trace.is_symbolic(sim):
         return _trace.engine_call(sim, "timers_clear", p)
     return _loop.timers_clear(sim, p)
+
+
+def release(sim: Sim, spec, resource, p) -> Sim:
+    """Release a binary resource inline from a block (parity:
+    cmb_resource_release): it never blocks, so it takes no chain
+    iteration.  ``cmd.release`` is the command form."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "release", _id(resource), p)
+    return _loop.release_resource(spec, sim, p, _id(resource))
+
+
+def stop_process(sim: Sim, spec, target) -> Sim:
+    """Kill process ``target``: its wait aborted, its timers cancelled,
+    its resources and pool units given back, its exit signal STOPPED
+    (parity: cmb_process_stop)."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "stop_process", target)
+    return _loop.stop_process(spec, sim, target)
+
+
+def schedule(sim: Sim, t, prio, handler, subj=0, arg=0):
+    """``(sim, handle)``: an event at absolute time ``t`` whose dispatch
+    calls ``handler`` (registered with ``Model.handler``) as
+    ``handler(sim, subj, arg)`` (parity: cmb_event_schedule with an
+    arbitrary action).  A full event table gives NULL_HANDLE (-1) and
+    fails the replication with ERR_EVENT_OVERFLOW."""
+    kind = handler.kind if hasattr(handler, "kind") else handler
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "schedule", t, prio, kind, subj, arg)
+    return _loop.schedule(sim, t, prio, kind, subj, arg)

@@ -5,20 +5,23 @@ defines ``Gen<float>`` or ``Gen<double>`` (the profile of the Sim it was
 traced on), a model family of the engine in ``csrc/queue_chunk.cu`` with
 the interface the hand-written families have:
 
-* the blocks and the conditions' predicates as inlined device functions,
-  a switch on pc and on the condition id;
+* the blocks, the user event handlers and the conditions' predicates as
+  inlined device functions, a switch on pc, a template on the handler
+  and on the condition id;
 * the Sim's leaf positions, the user state's leaves as shared-memory
   columns (``UCold``, with the processes' float and integer locals), and
   their load and store;
-* ``NP``, ``NQ``, ``NK``, ``NV``, ``NC``, ``NPQ``, the queues', pools',
-  buffers', priority queues' and conditions' capacities, guards,
-  recording flags and observer lists, all compile-time constants (a
-  command's component id is dispatched over them, ``by_id``);
-* the engine calls of a block (a pool's release, a condition's signal,
-  an interrupt, a timer's insert, a pattern cancel of a process's
-  timers), each under its gate where a select of the whole Sim keeps or
-  drops it, and the priority queues' readers (``pq_length<Q>``,
-  ``pq_position<Q>``);
+* ``NP``, ``NQ``, ``NR``, ``NK``, ``NV``, ``NC``, ``NPQ``, ``NH``, the
+  queues', resources', pools', buffers', priority queues' and
+  conditions' capacities, guards, recording flags and observer lists,
+  all compile-time constants (a command's component id is dispatched
+  over them, ``by_id``), and ``MUG``, whether a block may issue a pool
+  preempt;
+* the engine calls of a block or handler (a resource's or a pool's
+  release, a condition's signal, an interrupt, a stop, a timer's insert,
+  a pattern cancel of a process's timers, a user event's insert), each
+  under its gate where a select of the whole Sim keeps or drops it, and
+  the priority queues' readers (``pq_length<Q>``, ``pq_position<Q>``);
 * the launch bounds.
 
 Each node is one ``const`` local of the C++ type of its dtype; an op casts
@@ -62,6 +65,8 @@ SAMPLERS = {
 #: the samplers that draw a data-dependent number of blocks (a rejection
 #: loop): they take the lane's state and draw through it
 LOOPING = {"pert", "beta", "gamma"}
+#: the integer sampler: dice(a, b), an int64 of one block
+DICE = "cimba_tpu_torch.random.distributions.dice"
 
 #: a process's packed word holds a guard id in 4 signed bits and the
 #: dirty mask 6 bits a process in 64
@@ -145,8 +150,10 @@ class _Fn:
 
     def __init__(self, lay: _Layout, nodes, what: str):
         self.lay, self.nodes, self.what = lay, nodes, what
-        #: the engine calls a select gates (their handles are not given)
+        #: the engine calls a select gates (their handles are not given),
+        #: and each call's kind
         self.gated: set = set()
+        self.call_kinds: list = []
         self.lines: List[str] = []
         self.done = 0
         self.live = [False] * len(nodes)
@@ -203,6 +210,8 @@ class _Fn:
                 return f"SCOL(s, held_seq, {i})"
             if name == "buffers.level":
                 return f"s.buf_level[{i}]"
+            if name == "resources.holder":
+                return f"s.holder[{i}]"
         self.fail(f"{'writes' if write else 'reads'} Sim leaf {name}, which "
                   "the generated kernel does not give a block")
 
@@ -240,8 +249,9 @@ class _Fn:
                     f"{self.ref(a[0], self.lay.real)})")
         if op == "callres":
             if n.aux in self.gated:
-                self.fail("uses the handle of a timer_add that a select "
-                          "keeps or drops")
+                raise tr.TraceError(
+                    f"{self.what}: uses the handle of a "
+                    f"{self.call_kinds[n.aux]} that a select keeps or drops")
             return f"h{n.aux}"
         fl = cdt is not None and cdt.is_floating_point
         x = [self.ref(v, cdt) if v is not None else None for v in a]
@@ -307,9 +317,38 @@ class _Fn:
             return f"{libm[op]}{'f' if f32 else ''}({x[0]})"
         self.fail(f"op {op} has no CUDA counterpart")
 
+    def dice(self, i) -> List[str]:
+        """``dice(a, b)``: ``a`` plus the block's 64-bit word modulo ``b -
+        a + 1``, an int64 (samplers.cuh ``dice``)."""
+        n = self.nodes[i]
+        if len(n.args) != 2:
+            self.fail(f"sampler dice with {len(n.args)} parameters")
+        args = []
+        for a in n.args:
+            if isinstance(a, tr.Lit):
+                if not isinstance(a.value, int) or isinstance(a.value, bool):
+                    self.fail("sampler dice of a non-integer bound")
+                args.append(_lit(a.value, torch.int64))
+            else:
+                if self.nodes[a].dtype not in (torch.int32, torch.int64):
+                    self.fail("sampler dice of a non-integer bound")
+                args.append(f"int64_t(v{a})")
+        lits = [a.value for a in n.args if isinstance(a, tr.Lit)]
+        if len(lits) == 2 and not 0 < lits[1] - lits[0] + 1 < 2**47:
+            self.fail(f"sampler dice({lits[0]}, {lits[1]}): the faces' "
+                      "count must be in (0, 2**47)")
+        if n.dtype != torch.int64:
+            self.fail(f"sampler dice gives {n.dtype}, the device one int64")
+        b0, b1 = f"b{i}_0", f"b{i}_1"
+        return [f"uint32_t {b0}, {b1};", f"draw_bits(s, {b0}, {b1});",
+                f"const int64_t v{i} = dice({b0}, {b1}, {args[0]}, "
+                f"{args[1]});"]
+
     def draw(self, i) -> List[str]:
         n = self.nodes[i]
         name, _ = n.aux
+        if name == DICE:
+            return self.dice(i)
         fn = SAMPLERS.get(name)
         if fn is None:
             self.fail(f"sampler {name} has no device counterpart "
@@ -364,8 +403,9 @@ class _Fn:
 
 
 def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
-    f = _Fn(lay, ir.nodes, f"block {ir.name!r} (pc {ir.pc}) of spec "
-                           f"{spec.name!r}")
+    what = (f"handler {ir.name!r} (kind {ir.pc + 2})" if not ir.cmd
+            else f"block {ir.name!r} (pc {ir.pc})")
+    f = _Fn(lay, ir.nodes, f"{what} of spec {spec.name!r}")
     roots = list(ir.cmd)
     calls = [e for e in ir.effects if e[0] == "call"]
     for e in ir.effects:
@@ -378,6 +418,7 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
             if len(e) > 4:
                 roots.append(e[4][0])
     f.gated = {k for k, e in enumerate(calls) if len(e) > 4}
+    f.call_kinds = [e[1] for e in calls]
     f.mark(roots)
     handles = {n.aux for i, n in enumerate(ir.nodes)
                if n.op == "callres" and f.live[i]}
@@ -403,6 +444,8 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
     f.emit_upto(len(ir.nodes))
     for w in pending:
         f.store(w[1], w[2], w[3])
+    if not ir.cmd:  # a handler
+        return f.lines
     tag, f1, f2, f3, i, npc = ir.cmd
     real = lay.real
     f.lines.append(
@@ -426,6 +469,27 @@ def _call(f: _Fn, e, spec: ModelSpec, handle=False, k=0) -> List[str]:
             f.fail(f"api.pool_release of pool {k_.value}")
         return [f"release_pool<{int(k_.value)}>(s, w, int({_pid(f, p)}), "
                 f"{f.ref(amount, f.lay.real)});"]
+    if kind == "release":
+        r, p = args
+        if not isinstance(r, tr.Lit):
+            f.fail("api.release of a traced resource id")
+        if not 0 <= int(r.value) < len(spec.resources):
+            f.fail(f"api.release of resource {r.value}")
+        return [f"release_resource<{int(r.value)}>(s, w, "
+                f"int({_pid(f, p)}));"]
+    if kind == "stop_process":
+        (target,) = args
+        if isinstance(target, tr.Lit):
+            t = int(target.value)
+            # a pid out of range is no process: nothing to stop
+            return [f"stop_at<{t}>(s, w);"] if 0 <= t < spec.n_procs else []
+        return [f"stop_process(s, w, int({_pid(f, target)}));"]
+    if kind == "schedule":
+        t, prio, kind_, subj, arg = args
+        call = (f"schedule_event(s, w, {f.ref(t, f.lay.real)}, "
+                f"{f.ref(prio, torch.int32)}, {f.ref(kind_, torch.int32)}, "
+                f"{f.ref(subj, torch.int32)}, {f.ref(arg, torch.int32)})")
+        return [f"const int32_t h{k} = {call};" if handle else f"{call};"]
     if kind == "cond_signal":
         (c,) = args
         if not 0 <= int(c.value) < len(spec.conditions):
@@ -455,6 +519,29 @@ def _pred_fn(lay: _Layout, ir: tr.PredIR, spec: ModelSpec) -> List[str]:
     return f.lines
 
 
+def command_tags(ir: tr.BlockIR):
+    """The command tags a block may return: the constants its tag field
+    selects among (through ``where`` nodes), or None where a tag is
+    computed otherwise."""
+    out, stack, seen = set(), [ir.cmd[0]], set()
+    while stack:
+        i = stack.pop()
+        if isinstance(i, tr.Lit):
+            out.add(int(i.value))
+            continue
+        if i in seen:
+            continue
+        seen.add(i)
+        n = ir.nodes[i]
+        if n.op == "const":
+            out.add(int(n.aux))
+        elif n.op in ("where", "cast"):
+            stack += list(n.args[1:] if n.op == "where" else n.args)
+        else:
+            return None
+    return out
+
+
 def _ternary(name, values, default=0, fmt=str) -> str:
     """A constexpr function of a component id: nested selects."""
     out = fmt(default)
@@ -472,28 +559,36 @@ def emit(spec: ModelSpec, sims) -> str:
     R = _ctype(real, "the Sim's clock")
     blocks = [tr.trace_block(spec, pc, sims) for pc in
               range(len(spec.blocks))]
+    handlers = [tr.trace_handler(spec, k, sims) for k in
+                range(len(spec.user_handlers))]
     preds = [tr.trace_predicate(spec, c.id, sims) for c in spec.conditions]
     np_, nq = spec.n_procs, len(spec.queues)
     nk, nv, nc = len(spec.pools), len(spec.buffers), len(spec.conditions)
-    npq = len(spec.pqueues)
+    npq, nr, nh = len(spec.pqueues), len(spec.resources), len(handlers)
+    # the pool preempt's rule, where a block may issue one
+    tags = [command_tags(ir) for ir in blocks]
+    mug = nk > 0 and any(t is None or t & {16, 23} for t in tags)
     nf, ni = max(spec.n_flocals, 1), max(spec.n_ilocals, 1)
     q_acc = lay.at("queues.acc.summary.n")
     p_acc = lay.at("pools.acc.summary.n")
     b_acc = lay.at("buffers.acc.summary.n")
     pq_acc = lay.at("pqueues.acc.summary.n")
+    r_acc = lay.at("resources.acc.summary.n")
     n_qa = nq if q_acc >= 0 else 0
     n_pa = nk if p_acc >= 0 else 0
     n_ba = nv if b_acc >= 0 else 0
     n_pqa = npq if pq_acc >= 0 else 0
+    n_ra = nr if r_acc >= 0 else 0
     # a pended priority-queue put keeps its item's priority in pend_f2,
-    # the toolkit's column
-    toolkit = nk + nv + nc + npq > 0
+    # the toolkit's column; the resources' verbs are the toolkit's
+    toolkit = nk + nv + nc + npq + nr > 0
     u0 = lay.pos[lay.user[0]] if lay.user else lay.pos["done"]
     # shared memory a lane takes, to choose the block size
     rb = torch.finfo(real).bits // 8
     nka = max(nk, 1)
     per_lane = (rb * (8 + 3 * np_) + 16 * np_ + (10 * rb + 1) * (
-        n_qa + n_pa + n_ba + n_pqa) + 4 * np_ + 4 * (np_ + max(npq, 1))
+        n_qa + n_pa + n_ba + n_pqa + n_ra) + 4 * np_
+        + 4 * (np_ + max(npq, 1))
         + ((rb * (nka * np_ + np_) + 4 * nka * np_) if toolkit else 0)
         + rb * np_ * nf + 4 * np_ * ni
         + sum(lay.leaf[n].element_size() for n in lay.user))
@@ -512,22 +607,25 @@ def emit(spec: ModelSpec, sims) -> str:
     out = [
         f"// {'f32' if real == torch.float32 else 'f64'} profile of spec "
         f"{spec.name!r}: {np_} processes, {len(spec.blocks)} blocks, "
-        f"{nq} queues, {nk} pools, {nv} buffers, {npq} priority queues, "
-        f"{nc} conditions",
+        f"{nh} handlers, {nq} queues, {nr} resources, {nk} pools, {nv} "
+        f"buffers, {npq} priority queues, {nc} conditions",
         f"template <>",
         f"struct Gen<{R}> : Family {{",
         f"  static constexpr bool GEN = true, RECORD = false, SHOP = false;",
         f"  static constexpr bool TOOLKIT = {str(toolkit).lower()}, "
         f"PEND_I = true, PRED_BY_PID = true;",
         f"  static constexpr bool ABORT = {str(nk + nv > 0).lower()}, "
-        f"WSIG = true;",
+        f"WSIG = true, MUG = {str(mug).lower()};",
+        f"  static constexpr int NR = {nr}, NH = {nh}, L_R_HOLDER = "
+        f"{lay.at('resources.holder')}, L_RACC = {r_acc};",
         f"  static constexpr int NPQ = {npq}, PQW = {spec.pqueue_cap_max};",
         f"  static constexpr int NP = {np_}, NQ = {nq}, NG = "
         f"{spec.n_guards}, NK = {nk}, NV = {nv}, NC = {nc};",
         f"  static constexpr int NF = {nf}, NI = {ni}, NSUM = 1, NPAR = 1, "
         f"N_BLOCKS = {len(spec.blocks)};",
         f"  static constexpr int THREADS = {threads}, NACC = "
-        f"{n_qa + n_pa + n_ba + n_pqa}, U0 = {u0}, N_USER = {len(lay.user)};",
+        f"{n_qa + n_pa + n_ba + n_pqa + n_ra}, U0 = {u0}, N_USER = "
+        f"{len(lay.user)};",
         f"  static constexpr int L_QACC = {q_acc}, L_PACC = {p_acc}, "
         f"L_BACC = {b_acc}, L_PQACC = {pq_acc};",
         f"  static constexpr int L_PQ_ITEMS = {lay.at('pqueues.items')}, "
@@ -558,6 +656,13 @@ def emit(spec: ModelSpec, sims) -> str:
         "  " + cx(f"acc_pool(int i) {{ return {n_qa} + i; }}"),
         "  " + cx(f"acc_buf(int i) {{ return {n_qa + n_pa} + i; }}"),
         "  " + cx(f"acc_pq(int i) {{ return {n_qa + n_pa + n_ba} + i; }}"),
+        "  " + cx(f"acc_res(int i) {{ return {n_qa + n_pa + n_ba + n_pqa} "
+                  "+ i; }"),
+        "  " + cx(f"g_res(int i) {{ return "
+                  f"{_ternary('i', [r.guard for r in spec.resources])}; }}"),
+        "  " + cx(f"res_rec(int i) {{ return "
+                  f"{_ternary('i', [r.record and r_acc >= 0 for r in spec.resources], False, lambda v: str(bool(v)).lower())}; }}",
+                  ret="bool"),
         "  " + cx(f"pq_cap(int i) {{ return "
                   f"{_ternary('i', [q.capacity for q in spec.pqueues], 1)}; }}"),
         "  " + cx(f"pq_front(int i) {{ return "
@@ -628,6 +733,21 @@ def emit(spec: ModelSpec, sims) -> str:
                 "    using R = typename S::R;"]
         out += ["    " + ln for ln in _block_fn(lay, ir, spec)]
         out.append("  }")
+    for ir in handlers:
+        out += [f"  // handler {ir.pc} {ir.name!r} (event kind {ir.pc + 2}): "
+                "p is the event's subject, sig its argument",
+                "  template <class S>",
+                f"  __device__ __forceinline__ static void hdl{ir.pc}(S& s, "
+                "const Where& w, int p, int32_t sig) {",
+                "    using R = typename S::R;"]
+        out += ["    " + ln for ln in _block_fn(lay, ir, spec)]
+        out.append("  }")
+    out += ["  template <int K, class S>",
+            "  __device__ __forceinline__ static void handler(S& s, const "
+            "Where& w, int p, int32_t sig) {"]
+    for ir in handlers:
+        out.append(f"    if constexpr (K == {ir.pc}) hdl{ir.pc}(s, w, p, sig);")
+    out.append("  }")
     out += ["  template <class S>",
             "  __device__ static Cmd<typename S::R> block(S& s, const Where& "
             "w, int p, int b, int32_t sig) {",
@@ -656,10 +776,11 @@ def header_hash(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
-def op_counts(spec: ModelSpec, sims, weights=None) -> Dict[int, int]:
-    """Live float and integer ops of each block's IR (pc -> count): the
-    least the generated kernel computes a dispatch of that block, for the
-    bound (draws counted by their samplers elsewhere).  An op counts
+def op_counts(spec: ModelSpec, sims, weights=None) -> Dict[object, int]:
+    """Live float and integer ops of each block's IR (pc -> count) and of
+    each user handler's (``("h", k)`` -> count): the least the generated
+    kernel computes a dispatch of that block or handler, for the bound
+    (draws counted by their samplers elsewhere).  An op counts
     ``weights.get(op, 1)`` (a library function's operations), a division
     by a Python number one multiply.  A write by a traced pid counts as
     one store, not the candidate positions' tests and selects it is
@@ -668,8 +789,11 @@ def op_counts(spec: ModelSpec, sims, weights=None) -> Dict[int, int]:
     weights = weights or {}
     counts = {}
     lay = _Layout(spec, sims)
-    for pc in range(len(spec.blocks)):
-        ir = tr.trace_block(spec, pc, sims)
+    irs = [(pc, tr.trace_block(spec, pc, sims))
+           for pc in range(len(spec.blocks))]
+    irs += [(("h", k), tr.trace_handler(spec, k, sims))
+            for k in range(len(spec.user_handlers))]
+    for pc, ir in irs:
         f = _Fn(lay, ir.nodes, "")
         roots = list(ir.cmd) + [e[1] if e[0] == "draw" else e[3]
                                 for e in ir.effects if e[0] != "call"]

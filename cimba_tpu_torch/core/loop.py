@@ -27,18 +27,23 @@ reference's XLA path and ignores the marker.
 Ported subset: hold, exit, jump; the object-queue put/get with their
 fused ``*_hold`` verbs and queue-length recording; the priority queue's
 put/get (highest priority first, FIFO among equals) with theirs; the
-resource pool's acquire (greedy, FIFO waiters, no preempt) and release,
-inline from a block too (:func:`release_pool`); the buffer's get and put
-with partial fulfilment; the condition wait, :func:`cond_signal` and
-observer forwarding (a guard signal also signals every condition that
-observes the guard); the pools', buffers' and priority queues'
-time-weighted recording; timers (:func:`timer_add`,
-:func:`timers_clear`) and :func:`interrupt`, with the abort of a pended
+binary resource's acquire, preempt (the holder of equal or lower
+priority is kicked with PREEMPTED) and release, inline from a block too
+(:func:`release_resource`), with its utilization recording; the
+resource pool's acquire (greedy, FIFO waiters), preempt (the mug of
+holders of lower priority) and release, inline from a block too
+(:func:`release_pool`); the buffer's get and put with partial
+fulfilment; the condition wait, :func:`cond_signal` and observer
+forwarding (a guard signal also signals every condition that observes
+the guard); the pools', buffers' and priority queues' time-weighted
+recording; timers (:func:`timer_add`, :func:`timers_clear`),
+:func:`interrupt` and :func:`stop_process`, with the abort of a pended
 command on a non-SUCCESS wake (the pool rollback and the buffer's
-partial-fulfilment report, :func:`_abort_cleanup`); the guard
-pend/retry protocol, boundary blocks, failure codes and ``api.stop``.
-Other commands fail the replication with ERR_USER, as the reference's
-unknown-tag handler does.
+partial-fulfilment report, :func:`_abort_cleanup`); user event handlers
+(events of kind ``N_KINDS + k`` scheduled by ``api.schedule``); the
+guard pend/retry protocol, boundary blocks, failure codes and
+``api.stop``.  Other commands fail the replication with ERR_USER, as
+the reference's unknown-tag handler does.
 """
 
 from __future__ import annotations
@@ -81,6 +86,11 @@ class Queues(NamedTuple):
     size: torch.Tensor   # [L, NQ] i32
     acc: Any = None      # StepAccum, leaves [L, NQ]: queue-length
                          # recording (None unless some queue records)
+
+
+class Resources(NamedTuple):
+    holder: torch.Tensor  # [L, NR] i32, -1 = free
+    acc: Any = None       # StepAccum, leaves [L, NR]: utilization
 
 
 class Pools(NamedTuple):
@@ -180,8 +190,11 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
                       spec.n_ilocals, lanes, dev, real)
     procs = procs._replace(status=torch.full_like(procs.status, pr.RUNNING))
     nq = max(len(spec.queues), 1)
+    # no user state: the reference's float64 zero (jnp.zeros(()) under
+    # x64), in either profile
     user = (spec.user_init(_broadcast_params(params, lanes, dev))
-            if spec.user_init else torch.zeros((lanes,), device=dev))
+            if spec.user_init else torch.zeros((lanes,), dtype=torch.float64,
+                                               device=dev))
     # a user state written one lane at a time, as the reference's is
     # (0-dim leaves), holds the same values in every lane
     user = tree.map(lambda x: x.to(dev).expand(lanes).contiguous()
@@ -211,7 +224,13 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
             acc=ts.step_create(t0, 0.0, (lanes, nq), dev, real)
             if any(q.record for q in spec.queues) else None,
         ) if spec.queues else None,
-        resources=None,
+        resources=Resources(
+            holder=torch.full((lanes, len(spec.resources)), -1, dtype=INDEX,
+                              device=dev),
+            acc=ts.step_create(t0, 0.0, (lanes, len(spec.resources)), dev,
+                               real)
+            if any(r.record for r in spec.resources) else None,
+        ) if spec.resources else None,
         pools=Pools(
             level=torch.tensor([pl.capacity for pl in spec.pools],
                                dtype=real, device=dev)
@@ -418,18 +437,20 @@ def _unwait(spec: ModelSpec, sim: Sim, p, pred=True) -> Sim:
 def _abort_cleanup(spec: ModelSpec, sim: Sim, p, pend: pr.Command, sig,
                    pred=True) -> Sim:
     """The command-specific cleanup of an aborted wait (parity: the
-    reference's ``_abort_cleanup``): a pended pool acquire rolls p's
-    holding back to what it held before the call and signals the pool's
-    guard (except on PREEMPTED); a pended buffer get or put keeps what it
-    moved and reports it in ``got``.  As the reference's, it reads the
-    plain tags only (a pended ``*_hold`` twin is released as it is)."""
+    reference's ``_abort_cleanup``): a pended pool acquire or preempt
+    rolls p's holding back to what it held before the call and signals
+    the pool's guard (except on PREEMPTED); a pended buffer get or put
+    keeps what it moved and reports it in ``got``.  As the reference's,
+    it reads the plain tags only (a pended ``*_hold`` twin is released
+    as it is)."""
     lanes, dev = sim.clock.shape[0], sim.clock.device
     sig = torch.as_tensor(sig, dtype=INDEX, device=dev).expand(lanes)
     if spec.pools:
         po = sim.pools
         dt = po.level.dtype
         k = pend.i.clamp(0, len(spec.pools) - 1)
-        do_rb = (pend.tag == pr.C_POOL_ACQ) & (sig != pr.PREEMPTED)
+        is_pool = (pend.tag == pr.C_POOL_ACQ) | (pend.tag == pr.C_POOL_PRE)
+        do_rb = is_pool & (sig != pr.PREEMPTED)
         if pred is not True:
             do_rb = do_rb & pred
         excess = _nanmax0(ix.get2(po.held, k, p) - pend.f2)
@@ -470,8 +491,9 @@ def _abort_wait(spec: ModelSpec, sim: Sim, p, sig, pred=True) -> Sim:
 
 def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
     """Terminate process p: abort its wait, cancel its timers, mark it
-    FINISHED, return its pool units (parity: the reference's kill
-    semantics, restricted to the ported components)."""
+    FINISHED, free the resources it holds and return its pool units
+    (parity: the reference's kill semantics, restricted to the ported
+    components)."""
     sim = _abort_wait(spec, sim, p, exit_sig, pred)
     es2, _ = ev.pattern_cancel(sim.events, K_TIMER, p, pred)
     sim = sim._replace(events=es2)
@@ -479,6 +501,16 @@ def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
         status=ix.put(sim.procs.status, p, pr.FINISHED, pred),
         exit_sig=ix.put(sim.procs.exit_sig, p, exit_sig, pred),
     ))
+    # binary resources p holds are freed
+    r_rec = [r.record for r in spec.resources]
+    for rid, r in enumerate(spec.resources):
+        re = sim.resources
+        held = (re.holder[:, rid] == p) & pred
+        sim = sim._replace(resources=re._replace(
+            holder=ix.put(re.holder, rid, -1, held),
+            acc=_record_if(r_rec, re.acc, rid, sim.clock, 0.0, held),
+        ))
+        sim = _guard_signal(sim, r.guard, pred=held, spec=spec)
     # pool units p still holds return to their pools
     p_rec = [pl.record for pl in spec.pools]
     for k, pl in enumerate(spec.pools):
@@ -497,18 +529,57 @@ def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
     return sim
 
 
+def _running(spec: ModelSpec, sim: Sim, target):
+    """(pid clamped into range, whether it names a RUNNING process) of a
+    verb's target, per lane."""
+    t = torch.as_tensor(target, dtype=INDEX, device=sim.clock.device)
+    t = t.expand(sim.clock.shape[0])
+    tc = t.clamp(0, spec.n_procs - 1)
+    ok = (t >= 0) & (t < spec.n_procs)
+    return tc, ok & (ix.get(sim.procs.status, tc) == pr.RUNNING)
+
+
 def interrupt(spec: ModelSpec, sim: Sim, target, sig) -> Sim:
     """Deliver ``sig`` to process ``target`` now, aborting what it waits
     on (parity: cmb_process_interrupt); a target that is not RUNNING (or
     not a process) is left alone."""
-    lanes, dev = sim.clock.shape[0], sim.clock.device
-    t = torch.as_tensor(target, dtype=INDEX, device=dev).expand(lanes)
-    n = spec.n_procs
-    tc = t.clamp(0, n - 1)
-    alive = (t >= 0) & (t < n) & (ix.get(sim.procs.status, tc) == pr.RUNNING)
-    sig = torch.as_tensor(sig, dtype=INDEX, device=dev).expand(lanes)
+    tc, alive = _running(spec, sim, target)
+    sig = torch.as_tensor(sig, dtype=INDEX, device=sim.clock.device)
+    sig = sig.expand(sim.clock.shape[0])
     sim = _abort_wait(spec, sim, tc, sig, pred=alive)
     return _schedule_wake(sim, alive, tc, sig)
+
+
+def stop_process(spec: ModelSpec, sim: Sim, target) -> Sim:
+    """Kill process ``target`` (parity: cmb_process_stop): its wait
+    aborted with STOPPED, its timers cancelled, its resources and pool
+    units given back; a target that is not RUNNING (or not a process) is
+    left alone."""
+    tc, alive = _running(spec, sim, target)
+    return finish_process(spec, sim, tc, pr.STOPPED, alive)
+
+
+def release_resource(spec: ModelSpec, sim: Sim, p, rid, pred=True) -> Sim:
+    """Release binary resource ``rid`` held by ``p`` (parity:
+    cmb_resource_release): the body of the C_RELEASE handler, also
+    called inline from a block (``api.release``: a release never
+    blocks).  A release by a process that does not hold the resource
+    fails the replication with ERR_BAD_RELEASE."""
+    re = sim.resources
+    dev = re.holder.device
+    lanes, nr = re.holder.shape
+    rid = torch.as_tensor(rid, dtype=INDEX, device=dev).clamp(0, nr - 1)
+    rid = rid.expand(lanes) if rid.dim() == 0 else rid
+    owner_ok = ix.get(re.holder, rid) == p
+    sim = sim._replace(resources=re._replace(
+        holder=ix.put(re.holder, rid, -1, pred),
+        acc=_record_if([r.record for r in spec.resources], re.acc, rid,
+                       sim.clock, 0.0, pred),
+    ))
+    guard = _table(spec.resources, "guard", dev)[rid.long()]
+    sim = _guard_signal(sim, guard, pred=pred, spec=spec)
+    bad = ~owner_ok if pred is True else ~owner_ok & pred
+    return _set_err(sim, bad, ERR_BAD_RELEASE)
 
 
 def timer_add(sim: Sim, p, dur, sig):
@@ -521,6 +592,16 @@ def timer_add(sim: Sim, p, dur, sig):
     prio = ix.get(sim.procs.prio, p)
     es2, handle = ev.schedule(sim.events, sim.clock + _nanmax0(dur), prio,
                               K_TIMER, p, sig)
+    sim = sim._replace(events=es2)
+    return _set_err(sim, es2.overflow, ERR_EVENT_OVERFLOW), handle
+
+
+def schedule(sim: Sim, t, prio, kind, subj=0, arg=0):
+    """A user event of ``kind`` at absolute time ``t`` in the general
+    table (parity: ``api.schedule``): returns (sim, handle); a full
+    table or a non-finite time gives NULL_HANDLE and fails the
+    replication with ERR_EVENT_OVERFLOW."""
+    es2, handle = ev.schedule(sim.events, t, prio, kind, subj, arg)
     sim = sim._replace(events=es2)
     return _set_err(sim, es2.overflow, ERR_EVENT_OVERFLOW), handle
 
@@ -677,12 +758,110 @@ def _make_apply(spec: ModelSpec):
                           pred=blocked & gate)
         return sim, blocked | fused
 
-    def h_pool_acquire(sim, p, cmd, is_retry, gate):
-        """Greedy acquire (parity: the reference's ``_pool_acquire_impl``
-        without the preempt): take what is available now, pend for the
-        rest; the pended claim is the remainder (pend_f) and the holding
-        before the call (pend_f2).  Signals the pool's guard only on
-        success, then arms the fused hold."""
+    r_rec = [r.record for r in spec.resources]
+
+    def _grab(sim, p, rid, pred):
+        re = sim.resources
+        return sim._replace(resources=re._replace(
+            holder=ix.put(re.holder, rid, p, pred),
+            acc=_record_if(r_rec, re.acc, rid, sim.clock, 1.0, pred)))
+
+    def _res(cmd, gate):
+        rid = cmd.i.clamp(0, len(spec.resources) - 1)
+        return rid, _table(spec.resources, "guard", gate.device)[rid.long()]
+
+    def h_acquire(sim, p, cmd, is_retry, gate):
+        """acquire and its fused twin (parity: the reference's
+        ``h_acquire``): grab a free resource unless others wait for it
+        (a retry may), else pend on its guard."""
+        rid, guard = _res(cmd, gate)
+        free = ix.get(sim.resources.holder, rid) < 0
+        may = is_retry | gd.is_empty(sim.procs.pend_guard, guard)
+        ok = free & may
+        fused = cmd.tag == pr.C_ACQ_HOLD
+        sim = _grab(sim, p, rid, ok & gate)
+        sim = _schedule_wake(sim, fused & ok & gate, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f3))
+        sim = set_pc(sim, p, cmd.next_pc, gate)
+        sim = _guard_wait(sim, p, guard, cmd, is_retry, pred=~ok & gate)
+        return sim, ~ok | fused
+
+    def h_preempt(sim, p, cmd, is_retry, gate):
+        """preempt and its fused twin (parity: the reference's
+        ``h_preempt``): grab a free resource; kick a holder of equal or
+        lower priority (its wait aborted, a PREEMPTED wake now) and take
+        it over; else pend as an acquire."""
+        rid, guard = _res(cmd, gate)
+        holder = ix.get(sim.resources.holder, rid)
+        free = holder < 0
+        victim = holder.clamp(min=0)
+        can_kick = ~free & (ix.get(sim.procs.prio, p)
+                            >= ix.get(sim.procs.prio, victim))
+        g_free, g_kick = free & gate, can_kick & gate
+        blocked = ~free & ~can_kick
+        fused = cmd.tag == pr.C_PRE_HOLD
+        sim = _abort_wait(spec, sim, victim, pr.PREEMPTED, pred=g_kick)
+        sim = _schedule_wake(sim, g_kick, victim, pr.PREEMPTED)
+        # a holder switch records nothing (the resource stays in use)
+        sim = sim._replace(resources=sim.resources._replace(
+            holder=ix.put(sim.resources.holder, rid, p, g_kick)))
+        sim = _grab(sim, p, rid, g_free)
+        sim = _schedule_wake(sim, fused & ~blocked & gate, p, pr.SUCCESS,
+                             t=sim.clock + _nanmax0(cmd.f3))
+        sim = set_pc(sim, p, cmd.next_pc, (free | can_kick) & gate)
+        sim = _guard_wait(sim, p, guard, cmd, is_retry, pred=blocked & gate)
+        return sim, blocked | fused
+
+    def h_release(sim, p, cmd, is_retry, gate):
+        sim = release_resource(spec, sim, p, cmd.i, pred=gate)
+        return set_pc(sim, p, cmd.next_pc, gate), torch.zeros_like(gate)
+
+    def _mug(sim, p, k, rem, gate):
+        """The pool preempt's mug (parity: the reference's
+        ``_pool_acquire_impl`` with ``mug``): while the claim is short,
+        take the whole holding of a holder of strictly lower priority
+        than p, the lowest priority first, then the latest grab, then
+        the lowest pid; the victim's wait is aborted and it wakes now
+        with PREEMPTED; what the claim does not use goes back to the
+        pool.  At most ``n_procs`` passes, the reference's bound."""
+        n = spec.n_procs
+        dev = gate.device
+        pids = torch.arange(n, dtype=INDEX, device=dev)
+        my_prio = ix.get(sim.procs.prio, p)
+        for _ in range(n):
+            held = ix.get(sim.pools.held, k)          # [L, P]
+            seq = ix.get(sim.pools.held_seq, k)
+            prio = sim.procs.prio
+            vmask = ((held > 0.0) & (prio < my_prio[:, None])
+                     & (pids[None, :] != p.reshape(-1, 1)))
+            active = (rem > 0.0) & vmask.any(dim=1) & gate
+            if not bool(active.any()):
+                break
+            vprio = torch.where(vmask, prio, _I32_MAX).amin(dim=1)
+            m2 = vmask & (prio == vprio[:, None])
+            vseq = torch.where(m2, seq, -1).amax(dim=1)
+            v = ix.first_true(m2 & (seq == vseq[:, None])).clamp(
+                max=n - 1).to(INDEX)
+            loot = ix.get2(sim.pools.held, k, v)
+            used = torch.minimum(loot, rem)
+            surplus = loot - used
+            po = sim.pools
+            held2 = ix.put2(po.held, k, v, 0.0, active)
+            sim = sim._replace(pools=po._replace(
+                held=ix.add2(held2, k, p, used, active),
+                level=ix.add(po.level, k, surplus, active)))
+            sim = _abort_wait(spec, sim, v, pr.PREEMPTED, pred=active)
+            sim = _schedule_wake(sim, active, v, pr.PREEMPTED)
+            rem = torch.where(active, rem - used, rem)
+        return sim, rem
+
+    def h_pool_acquire(sim, p, cmd, is_retry, gate, mug=False):
+        """Greedy acquire and, with ``mug``, the pool preempt (parity:
+        the reference's ``_pool_acquire_impl``): take what is available
+        now, then mug (:func:`_mug`), then pend for the rest; the pended
+        claim is the remainder (pend_f) and the holding before the call
+        (pend_f2).  Signals the pool's guard only on success, then arms
+        the fused hold."""
         po = sim.pools
         dev, dt = gate.device, po.level.dtype
         k = cmd.i.clamp(0, len(spec.pools) - 1)
@@ -703,8 +882,12 @@ def _make_apply(spec: ModelSpec):
         po = po._replace(level=ix.add(po.level, k, -take, gate),
                          held=ix.add2(po.held, k, p, take, gate))
         rem = rem - take
+        if mug:
+            sim, rem = _mug(sim._replace(pools=po), p, k, rem, gate)
+            po = sim.pools
         done = rem <= 0.0
-        fused = cmd.tag == pr.C_POOL_ACQ_HOLD
+        fused = ((cmd.tag == pr.C_POOL_ACQ_HOLD)
+                 | (cmd.tag == pr.C_POOL_PRE_HOLD))
         in_use = _table(spec.pools, "capacity", dev, dt)[kl] - ix.get(
             po.level, k)
         po = po._replace(acc=_record_if(p_rec, po.acc, k, sim.clock, in_use,
@@ -718,6 +901,9 @@ def _make_apply(spec: ModelSpec):
         sim = _guard_wait(sim, p, guard, cmd._replace(f=rem, f2=init_held),
                           is_retry, pred=~done & gate)
         return sim, ~done | fused
+
+    def h_pool_preempt(sim, p, cmd, is_retry, gate):
+        return h_pool_acquire(sim, p, cmd, is_retry, gate, mug=True)
 
     def h_pool_release(sim, p, cmd, is_retry, gate):
         sim = release_pool(spec, sim, p, cmd.i, cmd.f, pred=gate)
@@ -862,9 +1048,14 @@ def _make_apply(spec: ModelSpec):
         (h_jump, (pr.C_JUMP,)),
         (queue, (pr.C_PUT, pr.C_GET, pr.C_PUT_HOLD, pr.C_GET_HOLD)),
     ]
+    if spec.resources:
+        table += [(h_acquire, (pr.C_ACQUIRE, pr.C_ACQ_HOLD)),
+                  (h_release, (pr.C_RELEASE,)),
+                  (h_preempt, (pr.C_PREEMPT, pr.C_PRE_HOLD))]
     if spec.pools:
         table += [(h_pool_acquire, (pr.C_POOL_ACQ, pr.C_POOL_ACQ_HOLD)),
-                  (h_pool_release, (pr.C_POOL_REL,))]
+                  (h_pool_release, (pr.C_POOL_REL,)),
+                  (h_pool_preempt, (pr.C_POOL_PRE, pr.C_POOL_PRE_HOLD))]
     if spec.buffers:
         table.append((h_buffer, (pr.C_BUF_GET, pr.C_BUF_PUT,
                                  pr.C_BUF_GET_HOLD, pr.C_BUF_PUT_HOLD)))
@@ -910,6 +1101,7 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
               for pc, b in enumerate(spec.blocks)]
     apply_command = _make_apply(spec)
     n_procs = spec.n_procs
+    handlers = list(spec.user_handlers)
 
     def at_boundary(pc):
         return torch.isin(pc, torch.tensor(spec.boundary_pcs, dtype=INDEX,
@@ -996,13 +1188,21 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
             n_events=sim.n_events + proceed.to(sim.n_events.dtype),
             done=sim.done | ~event.found,
         )
-        # kinds K_PROC and K_TIMER resume the subject (no user handlers
-        # are ported); an out-of-range subject reads as not RUNNING
+        # kinds K_PROC and K_TIMER resume the subject (an out-of-range
+        # subject reads as not RUNNING); kind N_KINDS + k calls user
+        # handler k, its Sim kept where the event was found; a kind out
+        # of range clips into the table (the reference's _vswitch)
+        kind = event.kind.clamp(0, N_KINDS + len(handlers) - 1)
         subj = event.subj
         in_range = (subj >= 0) & (subj < n_procs)
         p = subj.clamp(0, n_procs - 1)
         alive = in_range & (ix.get(sim.procs.status, p) == pr.RUNNING)
-        return resume(sim, p, event.arg, alive & proceed)
+        sim = resume(sim, p, event.arg, alive & proceed & (kind < N_KINDS))
+        for k, fn in enumerate(handlers):
+            gate = proceed & (kind == N_KINDS + k)
+            if bool(gate.any()):
+                sim = _where(gate, fn(sim, subj, event.arg), sim)
+        return sim
 
     return step
 

@@ -16,10 +16,10 @@ a :class:`ModelSpec`.  Block registration is the reference's::
     m.process("arrival", entry=a_hold)
 
 Blocks run on every replication lane at once: ``p`` and ``sig`` are
-``[L]`` tensors.  Object queues, resource pools, buffers, priority queues
-and conditions are ported; the other components (binary resources, user
-event handlers, spawn pools) are still to port and raise
-``NotImplementedError`` naming the feature.
+``[L]`` tensors.  Object queues, binary resources, resource pools,
+buffers, priority queues, conditions and user event handlers are
+ported; spawn pools (``process(start=False)``) are still to port and
+raise ``NotImplementedError`` naming the feature.
 """
 
 from __future__ import annotations
@@ -38,6 +38,14 @@ class QueueRef:
     front_guard: int  # getters wait here
     rear_guard: int   # putters wait here
     record: bool = False
+
+
+@dataclasses.dataclass
+class ResourceRef:
+    id: int
+    name: str
+    guard: int
+    record: bool = True  # utilization StepAccum recording
 
 
 @dataclasses.dataclass
@@ -119,6 +127,10 @@ class ModelSpec:
     pqueues: List[PQueueRef] = dataclasses.field(default_factory=list)
     #: the widest priority queue's capacity (the rows' width)
     pqueue_cap_max: int = 1
+    resources: List[ResourceRef] = dataclasses.field(default_factory=list)
+    #: ``fn(sim, subj, arg) -> sim`` of each user event kind
+    #: ``N_KINDS + k`` (Model.handler)
+    user_handlers: List[Callable] = dataclasses.field(default_factory=list)
 
     @property
     def n_procs(self) -> int:
@@ -152,6 +164,8 @@ class Model:
         self._buffers: List[BufferRef] = []
         self._conditions: List[ConditionRef] = []
         self._pqueues: List[PQueueRef] = []
+        self._resources: List[ResourceRef] = []
+        self._user_handlers: List[Callable] = []
         self._n_guards = 0
         #: see ModelSpec.constants
         self.constants: dict = {}
@@ -193,8 +207,14 @@ class Model:
         self._queues.append(q)
         return q
 
-    def resource(self, *a, **k):
-        _not_ported("resources")
+    def resource(self, name: str, record: bool = True) -> ResourceRef:
+        """Single-holder resource (parity: cmb_resource); with
+        ``record`` the engine keeps its utilization (1 held, 0 free) as
+        a time-weighted series (``Sim.resources.acc``)."""
+        r = ResourceRef(id=len(self._resources), name=name,
+                        guard=self._guard(), record=record)
+        self._resources.append(r)
+        return r
 
     def resourcepool(self, name: str, capacity: float,
                      record: bool = True) -> PoolRef:
@@ -257,8 +277,14 @@ class Model:
         self._conditions.append(c)
         return c
 
-    def handler(self, *a, **k):
-        _not_ported("user event handlers")
+    def handler(self, fn: Callable) -> Callable:
+        """Register a user event handler ``fn(sim, subj, arg) -> sim``;
+        sets ``fn.kind`` for ``api.schedule`` (parity: an event with an
+        arbitrary action, cmb_event_schedule).  Kinds 0 and 1 are the
+        engine's process resume and timer."""
+        fn.kind = 2 + len(self._user_handlers)
+        self._user_handlers.append(fn)
+        return fn
 
     def boundary_block(self, fn: Callable) -> Callable:
         """Register a block whose dispatch runs outside the chunk kernel:
@@ -312,4 +338,6 @@ class Model:
             pqueues=list(self._pqueues),
             pqueue_cap_max=max([q.capacity for q in self._pqueues],
                                default=1),
+            resources=list(self._resources),
+            user_handlers=list(self._user_handlers),
         )

@@ -5,11 +5,11 @@ command tags keep the reference's values (the CUDA kernel and the state
 carried across by :mod:`cimba_tpu_torch.interop` rely on them).  A
 command's fields are tensors over the replication lanes or plain Python
 numbers; the engine broadcasts them.  The port implements hold, exit,
-jump, the object-queue verbs, the resource-pool acquire and release, the
+jump, the object-queue verbs, the binary resource's acquire, preempt and
+release, the resource pool's acquire, preempt (the mug) and release, the
 buffer get and put, the priority queue's put and get (each blocking verb
 with its fused ``*_hold`` twin) and the condition wait; the constructors
-of the other verbs (resources, preempt, waits on processes and events)
-are still to port.
+of the waits on processes and events are still to port.
 """
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ C_EXIT = 1
 C_JUMP = 2
 C_PUT = 3
 C_GET = 4
+C_ACQUIRE = 5
+C_RELEASE = 6
+C_PREEMPT = 7
 C_POOL_ACQ = 8
 C_POOL_REL = 9
 C_BUF_GET = 10
@@ -47,9 +50,13 @@ C_BUF_PUT = 11
 C_PQ_PUT = 12
 C_PQ_GET = 13
 C_COND_WAIT = 14
+C_POOL_PRE = 16
 C_PUT_HOLD = 18
 C_GET_HOLD = 19
+C_ACQ_HOLD = 20
+C_PRE_HOLD = 21
 C_POOL_ACQ_HOLD = 22
+C_POOL_PRE_HOLD = 23
 C_BUF_GET_HOLD = 24
 C_BUF_PUT_HOLD = 25
 C_PQ_PUT_HOLD = 26
@@ -110,6 +117,36 @@ def get_hold(queue, duration, next_pc) -> Command:
     return _cmd(C_GET_HOLD, f3=duration, i=queue, next_pc=next_pc)
 
 
+def acquire(resource, next_pc) -> Command:
+    """Blocking acquire of a binary resource (parity:
+    cmb_resource_acquire)."""
+    return _cmd(C_ACQUIRE, i=resource, next_pc=next_pc)
+
+
+def release(resource, next_pc) -> Command:
+    """Release a binary resource; continues without yielding
+    (``api.release`` does it inline from a block)."""
+    return _cmd(C_RELEASE, i=resource, next_pc=next_pc)
+
+
+def preempt(resource, next_pc) -> Command:
+    """Priority acquire (parity: cmb_resource_preempt): takes the
+    resource from a holder of equal or lower priority, which resumes
+    with PREEMPTED; waits as an acquire otherwise."""
+    return _cmd(C_PREEMPT, i=resource, next_pc=next_pc)
+
+
+def acquire_hold(resource, duration, next_pc) -> Command:
+    """Fused ``acquire; hold(duration)``: the hold starts when the
+    resource is granted."""
+    return _cmd(C_ACQ_HOLD, f3=duration, i=resource, next_pc=next_pc)
+
+
+def preempt_hold(resource, duration, next_pc) -> Command:
+    """Fused ``preempt; hold(duration)`` (see :func:`preempt`)."""
+    return _cmd(C_PRE_HOLD, f3=duration, i=resource, next_pc=next_pc)
+
+
 def pool_acquire(pool, amount, next_pc) -> Command:
     """Blocking acquire of ``amount`` units of a resource pool (parity:
     cmb_resourcepool_acquire): greedily takes what is available now and
@@ -122,6 +159,22 @@ def pool_acquire_hold(pool, amount, duration, next_pc) -> Command:
     whole claim is granted (the pended claim rides f and f2, the
     duration f3)."""
     return _cmd(C_POOL_ACQ_HOLD, f=amount, f3=duration, i=pool,
+                next_pc=next_pc)
+
+
+def pool_preempt(pool, amount, next_pc) -> Command:
+    """Greedy pool acquire that may also mug holders of strictly lower
+    priority (parity: cmb_resourcepool_preempt): the lowest priority
+    first, the latest grab first among equals; each victim loses its
+    whole holding and resumes with PREEMPTED, and what the claim does
+    not use goes back to the pool."""
+    return _cmd(C_POOL_PRE, f=amount, i=pool, next_pc=next_pc)
+
+
+def pool_preempt_hold(pool, amount, duration, next_pc) -> Command:
+    """Fused ``pool_preempt; hold(duration)`` (see
+    :func:`pool_acquire_hold`)."""
+    return _cmd(C_POOL_PRE_HOLD, f=amount, f3=duration, i=pool,
                 next_pc=next_pc)
 
 

@@ -16,11 +16,15 @@ pid)``, once on a symbolic one-lane Sim and records what it computes:
   included);
 * ``api.draw`` is one ``draw`` node naming its sampler (the samplers'
   loops and tables are not traced); ``api.pool_release``,
-  ``api.cond_signal``, ``api.interrupt``, ``api.timer_add`` and
-  ``api.timers_clear`` are engine calls, since they scan guard waiters
-  or the event table; ``api.pqueue_length`` and ``api.pqueue_position``
-  are reader nodes (``pq_length``, ``pq_position``), since they scan a
-  priority queue's slots;
+  ``api.release``, ``api.cond_signal``, ``api.interrupt``,
+  ``api.stop_process``, ``api.timer_add``, ``api.timers_clear`` and
+  ``api.schedule`` are engine calls, since they scan guard waiters, the
+  processes or the event table; ``api.pqueue_length`` and
+  ``api.pqueue_position`` are reader nodes (``pq_length``,
+  ``pq_position``), since they scan a priority queue's slots;
+* a user event handler ``fn(sim, subj, arg) -> sim`` is traced as a
+  block that returns no command (:func:`trace_handler`): its subject is
+  the ``pid`` node, its argument the ``sig`` node;
 * an engine call whose effect the block keeps or drops by selecting
   between the whole Sim before and after it (``where(pred, after,
   before)`` on every leaf the call touches, the reference's
@@ -569,7 +573,12 @@ class PredIR:
 
 #: leaves an engine call may change: read afresh after one
 _CALL_TOUCHES = ("wakes.", "events.", "procs.pend_tag", "procs.pend_guard",
-                 "procs.got", "pools.", "buffers.", "err", "guards.")
+                 "procs.got", "resources.", "pools.", "buffers.", "err",
+                 "guards.")
+#: and a stop's, which also ends its target
+_STOP_TOUCHES = _CALL_TOUCHES + ("procs.status", "procs.exit_sig")
+#: the engine calls that return ``(sim, handle)``
+_HANDLE_CALLS = ("timer_add", "schedule")
 
 
 def _symbolic_sim(tr: Tracer, shadow):
@@ -625,9 +634,10 @@ def _arg(tr: Tracer, x):
 
 def engine_call(sim, kind: str, *args):
     """An engine call of a block under the tracer (``api.pool_release``,
-    ``cond_signal``, ``interrupt``, ``timer_add``, ``timers_clear``): the
-    writes so far are committed, the call recorded, and the leaves it may
-    change read afresh.  ``timer_add`` returns ``(sim, handle)``, the
+    ``release``, ``cond_signal``, ``interrupt``, ``stop_process``,
+    ``timer_add``, ``timers_clear``, ``schedule``): the writes so far are
+    committed, the call recorded, and the leaves it may change read
+    afresh.  ``timer_add`` and ``schedule`` return ``(sim, handle)``, the
     handle a ``callres`` node (which no block may use where the call is
     gated)."""
     tr = sim.clock.tracer
@@ -637,8 +647,9 @@ def engine_call(sim, kind: str, *args):
     tr.effects.append(("call", kind, refs, mark))
     touched = {}
     leaves = []
+    touches = _STOP_TOUCHES if kind == "stop_process" else _CALL_TOUCHES
     for name, x in named_leaves(sim):
-        if name.startswith(_CALL_TOUCHES):
+        if name.startswith(touches):
             t = tr.template[name]
             n = t.numel() // t.shape[0]
             pre = tr.committed[name].reshape(-1).tolist()
@@ -655,7 +666,7 @@ def engine_call(sim, kind: str, *args):
                          covered=set(), mark=mark,
                          effect=len(tr.effects) - 1, line=None))
     out = _rebuild(sim, leaves)
-    if kind == "timer_add":
+    if kind in _HANDLE_CALLS:
         h = tr.node("callres", (), torch.int32, aux=k)
         return out, tr.wrap(torch.zeros(1, dtype=torch.int32),
                             torch.tensor([h], dtype=torch.int64))
@@ -751,8 +762,21 @@ def trace_block(spec, pc: int, sims) -> BlockIR:
     """Trace block ``pc`` of ``spec`` on a one-lane copy of ``sims``
     (any Sim of the spec: it fixes the dtypes and shapes)."""
     blk = spec.blocks[pc]
-    what = f"block {getattr(blk, '__name__', pc)!r} (pc {pc}) of spec " \
-           f"{spec.name!r}"
+    return _trace(spec, blk, pc, f"block {getattr(blk, '__name__', pc)!r} "
+                  f"(pc {pc}) of spec {spec.name!r}", sims, handler=False)
+
+
+def trace_handler(spec, k: int, sims) -> BlockIR:
+    """Trace user event handler ``k`` of ``spec`` (event kind
+    ``N_KINDS + k``): a block whose ``pid`` node is the event's subject,
+    whose ``sig`` node is its argument, and which returns no command
+    (``BlockIR.cmd`` is empty)."""
+    fn = spec.user_handlers[k]
+    return _trace(spec, fn, k, f"handler {getattr(fn, '__name__', k)!r} "
+                  f"(kind {k + 2}) of spec {spec.name!r}", sims, handler=True)
+
+
+def _trace(spec, fn, pc, what, sims, handler) -> BlockIR:
     tr = Tracer(what)
     shadow = _one_lane(sims)
     real = shadow.clock.dtype
@@ -764,18 +788,24 @@ def trace_block(spec, pc: int, sims) -> BlockIR:
                         torch.tensor([tr.node("pid", (), torch.int32)]))
             sig = tr.wrap(torch.zeros(1, dtype=torch.int32),
                           torch.tensor([tr.node("sig", (), torch.int32)]))
-            out = blk(sym, p, sig)
-            if not (isinstance(out, tuple) and len(out) == 2):
-                tr.fail("a block returns (sim, Command)")
-            sim2, cmd = out
-            cmd = pr.normalize(cmd, 1, torch.device("cpu"), real)
-            _commit(tr, sim2)
+            out = fn(sym, p, sig)
             fields = []
-            for k, v in enumerate(cmd):
-                if isinstance(v, Sym):
-                    fields.append(int(v.ids.reshape(-1)[0]))
-                else:
-                    fields.append(tr.const(v.reshape(-1)[0].item(), v.dtype))
+            if handler:
+                if not is_symbolic(out):
+                    tr.fail("a handler returns the Sim")
+                _commit(tr, out)
+            else:
+                if not (isinstance(out, tuple) and len(out) == 2):
+                    tr.fail("a block returns (sim, Command)")
+                sim2, cmd = out
+                cmd = pr.normalize(cmd, 1, torch.device("cpu"), real)
+                _commit(tr, sim2)
+                for k, v in enumerate(cmd):
+                    if isinstance(v, Sym):
+                        fields.append(int(v.ids.reshape(-1)[0]))
+                    else:
+                        fields.append(tr.const(v.reshape(-1)[0].item(),
+                                               v.dtype))
     effects = list(tr.effects)
     for call in tr.calls:
         if call["gate"] is not None:
@@ -792,7 +822,7 @@ def trace_block(spec, pc: int, sims) -> BlockIR:
             if len(e) > 4:
                 roots.append(e[4][0])
     _check_calls(tr, roots)
-    return BlockIR(getattr(blk, "__name__", str(pc)), pc, tr.nodes,
+    return BlockIR(getattr(fn, "__name__", str(pc)), pc, tr.nodes,
                    effects, tuple(fields), tr.puts)
 
 
@@ -945,7 +975,9 @@ class _PQSim(NamedTuple):
 
 def replay(spec, ir: BlockIR, sim, p, sig):
     """Run ``ir`` as a block on a real batched Sim: ``(sim, Command)``
-    as the block itself returns it (fields normalised)."""
+    as the block itself returns it (fields normalised); a handler's IR
+    (no command) gives the Sim alone, ``p`` its subject and ``sig`` its
+    argument."""
     from cimba_tpu_torch.core import api
     from cimba_tpu_torch.core import loop
 
@@ -1004,6 +1036,8 @@ def replay(spec, ir: BlockIR, sim, p, sig):
     eval_nodes(ir.nodes, leaf, p, sig, lanes, dev, do_draw, None, vals,
                results)
     flush(vals)
+    if not ir.cmd:
+        return state["sim"]
     cmd = pr.Command(*[vals[f] for f in ir.cmd])
     return state["sim"], cmd
 
@@ -1019,9 +1053,17 @@ def _call(spec, s, kind, args):
         return loop.cond_signal(spec, s, args[0]), None
     if kind == "interrupt":
         return loop.interrupt(spec, s, *args), None
+    if kind == "stop_process":
+        return loop.stop_process(spec, s, args[0]), None
+
     def pid(x):
         return x.to(torch.int32) if isinstance(x, torch.Tensor) else x
 
+    if kind == "release":
+        rid, pp = args
+        return loop.release_resource(spec, s, pid(pp), rid), None
+    if kind == "schedule":
+        return loop.schedule(s, *args)
     if kind == "timer_add":
         pp, dur, sig = args
         return loop.timer_add(s, pid(pp), dur, sig)

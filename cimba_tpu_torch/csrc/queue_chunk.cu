@@ -47,7 +47,14 @@
 //           abort, then a wake with the signal), the abort's cleanup on
 //           a non-SUCCESS wake of a pended process (ABORT: the pool
 //           rollback and the buffer's partial report) and the wakes'
-//           full signals (WSIG: a column, not the packed word's bit).
+//           full signals (WSIG: a column, not the packed word's bit);
+//           binary resources (NR: h_acquire<RID, FUSED>,
+//           h_preempt<RID, FUSED>, release_resource<RID>, their drop at
+//           an end), the pool preempt's mug (MUG: h_pool<K, true,
+//           FUSED>, its victims kicked through kick_at<V>), a block's
+//           stop_process (stop_at<T>), a block's schedule of a user
+//           event (schedule_event) and the dispatch of user events to
+//           the family's handlers (NH: handler<K>).
 // The TPU kernel re-evaluates any model's traced step; here the
 // hand-written families restate their blocks and every other spec's are
 // emitted from its trace by the host loop (core/kernel_run.py).
@@ -174,14 +181,17 @@ constexpr int MAX_CHAIN = 1024;
 
 // command tags, statuses, signals, kinds, error codes: the reference's
 constexpr int C_HOLD = 0, C_EXIT = 1, C_JUMP = 2, C_PUT = 3, C_GET = 4;
+constexpr int C_ACQUIRE = 5, C_RELEASE = 6, C_PREEMPT = 7;
 constexpr int C_POOL_ACQ = 8, C_POOL_REL = 9, C_BUF_GET = 10,
               C_BUF_PUT = 11, C_PQ_PUT = 12, C_PQ_GET = 13, C_COND_WAIT = 14;
-constexpr int C_PUT_HOLD = 18, C_GET_HOLD = 19, C_POOL_ACQ_HOLD = 22,
+constexpr int C_POOL_PRE = 16;
+constexpr int C_PUT_HOLD = 18, C_GET_HOLD = 19, C_ACQ_HOLD = 20,
+              C_PRE_HOLD = 21, C_POOL_ACQ_HOLD = 22, C_POOL_PRE_HOLD = 23,
               C_BUF_GET_HOLD = 24, C_BUF_PUT_HOLD = 25, C_PQ_PUT_HOLD = 26,
               C_PQ_GET_HOLD = 27, N_COMMANDS = 28;
-constexpr int NO_PEND = -1, SUCCESS = 0, PREEMPTED = -1, RUNNING = 1,
-              FINISHED = 2;
-constexpr int K_TIMER = 1;
+constexpr int NO_PEND = -1, SUCCESS = 0, PREEMPTED = -1, STOPPED = -3,
+              RUNNING = 1, FINISHED = 2;
+constexpr int K_TIMER = 1, N_KINDS = 2;
 constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4,
               ERR_BAD_RELEASE = 5;
 constexpr int32_t I32_MIN = INT32_MIN, I32_MAX = INT32_MAX;
@@ -443,6 +453,7 @@ struct State {
   static constexpr int NQA = NQ > 0 ? NQ : 1;  // register arrays' length
   static constexpr int NKA = M::NK > 0 ? M::NK : 1;
   static constexpr int NVA = M::NV > 0 ? M::NV : 1;
+  static constexpr int NRA = M::NR > 0 ? M::NR : 1;
   static constexpr bool RECORD = M::RECORD;
   // the `dirty` mask: a bit a field and process
   using Dirty =
@@ -471,6 +482,8 @@ struct State {
   // b_slow)
   R pool_level[NKA], buf_level[NVA], b_mean;
   int32_t pool_next_seq[NKA], runs;
+  // a generated family's binary resources: each one's holder (-1 free)
+  int32_t holder[NRA];
   // user state: the model's real parameters, n_objects
   R par[M::NPAR];
   int32_t n_objects;
@@ -913,13 +926,29 @@ __device__ __forceinline__ void release_pool(S& s, const Where& w, int p,
   if (!owner_ok) set_err(s, ERR_BAD_RELEASE);
 }
 
-// pool_acquire and its fused twin (loop's h_pool_acquire) on pool K: take
-// what is available now, pend for the rest (pend_f the remainder, pend_f2
-// the holding before the call); the guard's signal only on success, then
-// the fused hold
-template <int K, class S>
+// the kick of process T: its wait aborted with sig, then a wake now with
+// sig (defined with the generated family's rules below)
+template <int T, class S>
+__device__ __forceinline__ void kick_at(S& s, const Where& w, int32_t sig);
+
+// pool_acquire (MUG false) or pool_preempt (MUG true) and their fused
+// twins (FUSED; loop's h_pool_acquire and h_pool_preempt) on pool K: take
+// what is available now; a preempt then mugs (below); pend for the rest
+// (pend_f the remainder, pend_f2 the holding before the call); the
+// guard's signal only on success, then the fused hold.  The twin and the
+// mug are compile-time choices (a twin read from the tag at run time
+// once came out wrong on the card, the priority queue's get).
+//
+// The mug (loop's _mug), while the claim is short: the victim v among
+// the processes holding units of K with a priority strictly below p's,
+// the lowest priority, then the latest grab (held_seq), then the lowest
+// pid, scanned over compile-time pids; v's whole holding is taken and
+// what the claim does not use goes back to the pool, before the kick
+// (kick_at<V> through by_id: v's wait aborted with PREEMPTED, a
+// PREEMPTED wake now).  At most NP victims.
+template <int K, bool MUG, bool FUSED, class S>
 __device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
-                                       const Cmd<typename S::R>& c, int tag,
+                                       const Cmd<typename S::R>& c,
                                        bool is_retry) {
   using R = typename S::R;
   using M = typename S::M;
@@ -933,13 +962,44 @@ __device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
   }
   s.pool_level[K] = s.pool_level[K] + -take;
   SCOL(s, held, h) = held + take;
-  const R rem = c.f - take;
+  R rem = c.f - take;
+  if constexpr (MUG) {
+    const int32_t mine = COLD(s, prio, p);
+    for (int it = 0; it < S::NP; ++it) {
+      bool any = false;
+      int32_t vp = I32_MAX, vs = -1;
+      int v = 0;
+#pragma unroll
+      for (int q = 0; q < S::NP; ++q) {
+        const int32_t pq = COLD(s, prio, q);
+        if (SCOL(s, held, K * S::NP + q) > R(0) && pq < mine && q != p) {
+          const int32_t sq = SCOL(s, held_seq, K * S::NP + q);
+          if (!any || pq < vp || (pq == vp && sq > vs)) {
+            any = true;
+            vp = pq;
+            vs = sq;
+            v = q;
+          }
+        }
+      }
+      if (!(rem > R(0) && any)) break;
+      const R loot = SCOL(s, held, K * S::NP + v);
+      const R used = nanmin(loot, rem);
+      SCOL(s, held, K * S::NP + v) = R(0);
+      SCOL(s, held, h) = SCOL(s, held, h) + used;
+      s.pool_level[K] = s.pool_level[K] + (loot - used);
+      by_id<0, S::NP>(v, [&](auto q) {
+        kick_at<decltype(q)::value>(s, w, PREEMPTED);
+        return 0;
+      });
+      rem = rem - used;
+    }
+  }
   const bool done = rem <= R(0);
-  const bool fused = tag == C_POOL_ACQ_HOLD;
   if constexpr (M::pool_rec(K))
     record(s, M::acc_pool(K), M::template pool_cap<R>(w, K) - s.pool_level[K]);
   if (done) signal_at<M::g_pool(K)>(s, w);
-  if (fused && done) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  if (FUSED && done) schedule_wake(s, p, s.clock + nanmax0(c.f3));
   if (done) {
     set(s, F_PC, p, c.next_pc);
   } else {
@@ -948,7 +1008,7 @@ __device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
     pc.f2 = init_held;
     guard_wait(s, p, M::g_pool(K), pc, is_retry);
   }
-  return !done || fused;
+  return !done || FUSED;
 }
 
 // buffer B's get (GET) or put and their fused twins (loop's h_buffer):
@@ -1020,12 +1080,29 @@ __device__ __forceinline__ void drop_pool(S& s, const Where& w, int p) {
   }
 }
 
-template <class S>
-__device__ __forceinline__ void finish(S& s, const Where& w, int p) {
+// binary resource RID (and those after it) freed where p holds it (an
+// end), its utilization recorded and its guard signalled
+template <int RID, class S>
+__device__ __forceinline__ void drop_res(S& s, const Where& w, int p) {
   using R = typename S::R;
-  set(s, F_TAG, p, NO_PEND);
-  set(s, F_GUARD, p, -1);
-  put(s.wt, p, inf_of<R>());
+  using M = typename S::M;
+  if constexpr (RID < M::NR) {
+    if (s.holder[RID] == p) {
+      s.holder[RID] = -1;
+      if constexpr (M::res_rec(RID)) record(s, M::acc_res(RID), R(0));
+      signal_at<M::g_res(RID)>(s, w);
+    }
+    drop_res<RID + 1>(s, w, p);
+  }
+}
+
+// the end of process p once its wait is gone (loop.finish_process): its
+// timers cancelled, FINISHED with exit_sig, its resources freed and its
+// pool units back
+template <class S>
+__device__ __forceinline__ void end_process(S& s, const Where& w, int p,
+                                            int32_t exit_sig) {
+  using R = typename S::R;
   if (s.any_e) {  // cancel p's timers
     const int E = w.sh.event_cap;
     R* time = row<R, S>(w, EV_TIME, E);
@@ -1040,8 +1117,19 @@ __device__ __forceinline__ void finish(S& s, const Where& w, int p) {
     scan_table(s, w);
   }
   set(s, F_STATUS, p, FINISHED);
-  row<int32_t, S>(w, EXIT_SIG, S::NP)[p] = SUCCESS;
+  row<int32_t, S>(w, EXIT_SIG, S::NP)[p] = exit_sig;
+  if constexpr (S::M::NR > 0) drop_res<0>(s, w, p);
   if constexpr (S::M::TOOLKIT) drop_pool<0>(s, w, p);
+}
+
+// the exit of the running process p: no wait to abort
+template <class S>
+__device__ __forceinline__ void finish(S& s, const Where& w, int p) {
+  using R = typename S::R;
+  set(s, F_TAG, p, NO_PEND);
+  set(s, F_GUARD, p, -1);
+  put(s.wt, p, inf_of<R>());
+  end_process(s, w, p, SUCCESS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1280,8 +1368,8 @@ __device__ __forceinline__ void rollback(S& s, const Where& w, int p,
 }
 
 // the cleanup of p's aborted wait on pend (loop._abort_cleanup): a pended
-// pool acquire rolls back (not on PREEMPTED), a pended buffer transfer
-// reports what it moved; the reference reads the plain tags only
+// pool acquire or preempt rolls back (not on PREEMPTED), a pended buffer
+// transfer reports what it moved; the reference reads the plain tags only
 template <class S>
 __device__ __forceinline__ void abort_cleanup(S& s, const Where& w, int p,
                                               const Cmd<typename S::R>& pend,
@@ -1289,7 +1377,8 @@ __device__ __forceinline__ void abort_cleanup(S& s, const Where& w, int p,
   using M = typename S::M;
   if constexpr (M::ABORT) {
     if constexpr (M::NK > 0) {
-      if (pend.tag == C_POOL_ACQ && sig != PREEMPTED)
+      if ((pend.tag == C_POOL_ACQ || pend.tag == C_POOL_PRE) &&
+          sig != PREEMPTED)
         by_id<0, M::NK>(pend.q, [&](auto k) {
           rollback<decltype(k)::value>(s, w, p, pend.f2);
           return 0;
@@ -1313,19 +1402,25 @@ __device__ __forceinline__ Cmd<typename S::R> pend_of(const S& s, int p) {
   return c;
 }
 
-// interrupt of process T (a compile-time pid; loop.interrupt): where it
-// runs, its wait aborted (unwait, then the cleanup) and a wake now with
-// sig
+// what process T (a compile-time pid) waits on, aborted with sig
+// (loop._abort_wait): the unwait (its pend, guard and wake cleared), then
+// the cleanup
 template <int T, class S>
-__device__ __forceinline__ void interrupt_at(S& s, const Where& w,
-                                             int32_t sig) {
+__device__ __forceinline__ void abort_wait_at(S& s, const Where& w,
+                                              int32_t sig) {
   using R = typename S::R;
-  if (get(s, F_STATUS, T) != RUNNING) return;
   const Cmd<R> pend = pend_of(s, T);
   set(s, F_TAG, T, NO_PEND);
   set(s, F_GUARD, T, -1);
   put(s.wt, T, inf_of<R>());
   abort_cleanup(s, w, T, pend, sig);
+}
+
+// the kick of process T: its wait aborted, then a wake now with sig; an
+// interrupt's, a resource preempt's and a mug's
+template <int T, class S>
+__device__ __forceinline__ void kick_at(S& s, const Where& w, int32_t sig) {
+  abort_wait_at<T>(s, w, sig);
   if (finite(s.clock)) {
     put(s.wt, T, s.clock);
     GCOL(s, wsig, T) = sig;
@@ -1334,6 +1429,14 @@ __device__ __forceinline__ void interrupt_at(S& s, const Where& w,
   } else {
     set_err(s, ERR_EVENT_OVERFLOW);
   }
+}
+
+// interrupt of process T (loop.interrupt): the kick, where T runs
+template <int T, class S>
+__device__ __forceinline__ void interrupt_at(S& s, const Where& w,
+                                             int32_t sig) {
+  if (get(s, F_STATUS, T) != RUNNING) return;
+  kick_at<T>(s, w, sig);
 }
 
 // api.interrupt of a pid a block computes: dispatched over the
@@ -1346,6 +1449,152 @@ __device__ __forceinline__ void interrupt(S& s, const Where& w, int target,
     interrupt_at<decltype(q)::value>(s, w, sig);
     return 0;
   });
+}
+
+// api.stop_process of process T (a compile-time pid; loop.stop_process):
+// where T runs, its wait aborted with STOPPED (unwait, then the cleanup;
+// its wake cleared, so a process stopped in a hold never wakes), then its
+// end with exit signal STOPPED
+template <int T, class S>
+__device__ __forceinline__ void stop_at(S& s, const Where& w) {
+  if (get(s, F_STATUS, T) != RUNNING) return;
+  abort_wait_at<T>(s, w, STOPPED);
+  end_process(s, w, T, STOPPED);
+}
+
+// api.stop_process of a pid a block computes: dispatched over the
+// processes; a pid out of range is no process
+template <class S>
+__device__ __forceinline__ void stop_process(S& s, const Where& w,
+                                             int target) {
+  if (target < 0 || target >= S::NP) return;
+  by_id<0, S::NP>(target, [&](auto q) {
+    stop_at<decltype(q)::value>(s, w);
+    return 0;
+  });
+}
+
+// binary resource RID's release by p (loop.release_resource), inline from
+// a block or as the C_RELEASE command: freed, its utilization recorded,
+// its guard signalled; a release by another than the holder fails the
+// lane
+template <int RID, class S>
+__device__ __forceinline__ void release_resource(S& s, const Where& w,
+                                                 int p) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const bool owner_ok = s.holder[RID] == p;
+  s.holder[RID] = -1;
+  if constexpr (M::res_rec(RID)) record(s, M::acc_res(RID), R(0));
+  signal_at<M::g_res(RID)>(s, w);
+  if (!owner_ok) set_err(s, ERR_BAD_RELEASE);
+}
+
+// acquire of binary resource RID and its fused twin (FUSED; loop's
+// h_acquire): grab it where it is free and no one waits for it (a retry
+// may), else pend on its guard
+template <int RID, bool FUSED, class S>
+__device__ __forceinline__ bool h_acquire(S& s, const Where& w, int p,
+                                          const Cmd<typename S::R>& c,
+                                          bool is_retry) {
+  using R = typename S::R;
+  using M = typename S::M;
+  constexpr int G = M::g_res(RID);
+  const bool ok = s.holder[RID] < 0 && (is_retry || !any_waiting(s, G));
+  if (ok) {
+    s.holder[RID] = p;
+    if constexpr (M::res_rec(RID)) record(s, M::acc_res(RID), R(1));
+  }
+  if (FUSED && ok) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  set(s, F_PC, p, c.next_pc);
+  if (!ok) guard_wait(s, p, G, c, is_retry);
+  return !ok || FUSED;
+}
+
+// preempt of binary resource RID and its fused twin (FUSED; loop's
+// h_preempt): grab it where it is free; where its holder's priority is at
+// most p's, kick the holder (kick_at<V> through by_id: its wait aborted
+// with PREEMPTED, a PREEMPTED wake now) and take it over, recording
+// nothing; else pend as an acquire
+template <int RID, bool FUSED, class S>
+__device__ __forceinline__ bool h_preempt(S& s, const Where& w, int p,
+                                          const Cmd<typename S::R>& c,
+                                          bool is_retry) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const int32_t holder = s.holder[RID];
+  const bool free = holder < 0;
+  const int victim = free ? 0 : holder;
+  const bool kick =
+      !free && COLD(s, prio, p) >= COLD(s, prio, victim);
+  if (kick) {
+    by_id<0, S::NP>(victim, [&](auto q) {
+      kick_at<decltype(q)::value>(s, w, PREEMPTED);
+      return 0;
+    });
+    s.holder[RID] = p;
+  } else if (free) {
+    s.holder[RID] = p;
+    if constexpr (M::res_rec(RID)) record(s, M::acc_res(RID), R(1));
+  }
+  const bool blocked = !free && !kick;
+  if (FUSED && !blocked) schedule_wake(s, p, s.clock + nanmax0(c.f3));
+  set(s, F_PC, p, c.next_pc);
+  if (blocked) guard_wait(s, p, M::g_res(RID), c, is_retry);
+  return blocked || FUSED;
+}
+
+// api.schedule (loop.schedule): an event of kind N_KINDS + k (user
+// handler k) at absolute time t with priority prio, subject subj and
+// argument arg in the first free slot of the general table, as timer_add
+// puts its K_TIMER event, the cached minimum kept; a full table or a
+// non-finite time sets the overflow flag, which fails the lane.  Returns
+// the handle, -1 where nothing was put.
+template <class S>
+__device__ __forceinline__ int32_t schedule_event(S& s, const Where& w,
+                                                  typename S::R t,
+                                                  int32_t prio, int32_t kind,
+                                                  int32_t subj, int32_t arg) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap;
+  R* time = row<R, S>(w, EV_TIME, E);
+  int32_t* prio_e = row<int32_t, S>(w, EV_PRIO, E);
+  int32_t* seq = row<int32_t, S>(w, EV_SEQ, E);
+  int slot = E;
+  for (int i = 0; i < E; ++i)
+    if (time[i] == inf_of<R>() || time[i] == -inf_of<R>()) {
+      slot = i;
+      break;
+    }
+  const bool ok = slot < E && finite(t);
+  bool* overflow = row<bool, S>(w, EV_OVERFLOW, 1);
+  int32_t h = -1;
+  if (ok) {
+    time[slot] = t;
+    prio_e[slot] = prio;
+    seq[slot] = s.next_seq;
+    row<int32_t, S>(w, EV_KIND, E)[slot] = kind;
+    row<int32_t, S>(w, EV_SUBJ, E)[slot] = subj;
+    row<int32_t, S>(w, EV_ARG, E)[slot] = arg;
+    h = int32_t(uint32_t(row<int32_t, S>(w, EV_GEN, E)[slot]) << 16) | slot;
+    bool take = !s.any_e || t < s.t_e;
+    if (!take && t == s.t_e) {
+      const int32_t pe = prio_e[s.slot_e], se = seq[s.slot_e];
+      take = prio > pe ||
+             (prio == pe && (s.next_seq < se ||
+                             (s.next_seq == se && slot < s.slot_e)));
+    }
+    if (take) {
+      s.t_e = t;
+      s.slot_e = slot;
+    }
+    s.any_e = true;
+    s.next_seq += 1;
+  } else {
+    *overflow = true;
+  }
+  if (*overflow) set_err(s, ERR_EVENT_OVERFLOW);
+  return h;
 }
 
 // the draws of a sampler that loops (samplers.cuh: gamma, beta, pert):
@@ -1370,11 +1619,68 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
   if constexpr (M::TOOLKIT) {
     switch (tag) {
       case C_POOL_ACQ:
+        if constexpr (M::NK > 0)
+          return by_id<0, M::NK>(c.q, [&](auto k) {
+            return h_pool<decltype(k)::value, false, false>(s, w, p, c,
+                                                            is_retry);
+          });
+        break;
       case C_POOL_ACQ_HOLD:
         if constexpr (M::NK > 0)
           return by_id<0, M::NK>(c.q, [&](auto k) {
-            return h_pool<decltype(k)::value>(s, w, p, c, tag, is_retry);
+            return h_pool<decltype(k)::value, false, true>(s, w, p, c,
+                                                           is_retry);
           });
+        break;
+      case C_POOL_PRE:
+        if constexpr (M::NK > 0 && M::MUG)
+          return by_id<0, M::NK>(c.q, [&](auto k) {
+            return h_pool<decltype(k)::value, true, false>(s, w, p, c,
+                                                           is_retry);
+          });
+        break;
+      case C_POOL_PRE_HOLD:
+        if constexpr (M::NK > 0 && M::MUG)
+          return by_id<0, M::NK>(c.q, [&](auto k) {
+            return h_pool<decltype(k)::value, true, true>(s, w, p, c,
+                                                          is_retry);
+          });
+        break;
+      case C_ACQUIRE:
+        if constexpr (M::NR > 0)
+          return by_id<0, M::NR>(c.q, [&](auto r) {
+            return h_acquire<decltype(r)::value, false>(s, w, p, c,
+                                                        is_retry);
+          });
+        break;
+      case C_ACQ_HOLD:
+        if constexpr (M::NR > 0)
+          return by_id<0, M::NR>(c.q, [&](auto r) {
+            return h_acquire<decltype(r)::value, true>(s, w, p, c, is_retry);
+          });
+        break;
+      case C_PREEMPT:
+        if constexpr (M::NR > 0)
+          return by_id<0, M::NR>(c.q, [&](auto r) {
+            return h_preempt<decltype(r)::value, false>(s, w, p, c,
+                                                        is_retry);
+          });
+        break;
+      case C_PRE_HOLD:
+        if constexpr (M::NR > 0)
+          return by_id<0, M::NR>(c.q, [&](auto r) {
+            return h_preempt<decltype(r)::value, true>(s, w, p, c, is_retry);
+          });
+        break;
+      case C_RELEASE:
+        if constexpr (M::NR > 0) {
+          by_id<0, M::NR>(c.q, [&](auto r) {
+            release_resource<decltype(r)::value>(s, w, p);
+            return 0;
+          });
+          set(s, F_PC, p, c.next_pc);
+          return false;
+        }
         break;
       case C_POOL_REL:
         if constexpr (M::NK > 0) {
@@ -1472,7 +1778,9 @@ struct NoUCold {};
 struct Family {
   static constexpr bool GEN = false, TOOLKIT = false, PEND_I = false;
   static constexpr bool PRED_BY_PID = false, ABORT = false, WSIG = false;
+  static constexpr bool MUG = false;  // a pool preempt's rule
   static constexpr int NK = 0, NV = 0, NC = 0, NPQ = 0, PQW = 1;
+  static constexpr int NR = 0, NH = 0;  // resources, user handlers
   using UCold = NoUCold;
 };
 
@@ -1885,6 +2193,7 @@ __device__ __forceinline__ void step(S& s, const Where& w,
     wake_first = p_w > p_e || (p_w == p_e && s_w < s_e);
   }
   int32_t subj, arg;
+  int32_t kind = 0;  // K_PROC; a table event's own where handlers exist
   if (wake_first) {
     s.clock = t_w;
     subj = pid_w;
@@ -1898,12 +2207,25 @@ __device__ __forceinline__ void step(S& s, const Where& w,
     s.clock = s.t_e;
     subj = row<int32_t, S>(w, EV_SUBJ, E)[s.slot_e];
     arg = row<int32_t, S>(w, EV_ARG, E)[s.slot_e];
+    if constexpr (S::M::NH > 0)
+      kind = row<int32_t, S>(w, EV_KIND, E)[s.slot_e];
     row<R, S>(w, EV_TIME, E)[s.slot_e] = inf_of<R>();
     row<int32_t, S>(w, EV_GEN, E)[s.slot_e] += 1;
     scan_table(s, w);
   }
-  s.n_events += 1;  // K_PROC and K_TIMER both resume; no handlers
+  s.n_events += 1;  // K_PROC and K_TIMER both resume
   if constexpr (S::M::GEN) {  // its blocks draw where they draw
+    if constexpr (S::M::NH > 0) {
+      // kind N_KINDS + k calls user handler k (a compile-time id), a kind
+      // past the table the last handler (loop's clip)
+      if (kind >= N_KINDS) {
+        by_id<0, S::M::NH>(kind - N_KINDS, [&](auto k) {
+          S::M::template handler<decltype(k)::value>(s, w, subj, arg);
+          return 0;
+        });
+        return;
+      }
+    }
     if (subj >= 0 && subj < S::NP && get(s, F_STATUS, subj) == RUNNING)
       resume(s, w, subj, arg, R(0), 0);
   } else {
@@ -1977,6 +2299,12 @@ __device__ __forceinline__ void gen_state(S& s, const Where& w) {
     for (int b = 0; b < NV; ++b)
       xfer<LOAD>(row<R, S>(w, M::L_B_LEVEL, NV) + b, s.buf_level[b]);
     acc_rows<LOAD, M::L_BACC, NV>(s, w, M::acc_buf(0));
+  }
+  if constexpr (M::NR > 0) {
+#pragma unroll
+    for (int r = 0; r < M::NR; ++r)
+      xfer<LOAD>(row<int32_t, S>(w, M::L_R_HOLDER, M::NR) + r, s.holder[r]);
+    acc_rows<LOAD, M::L_RACC, M::NR>(s, w, M::acc_res(0));
   }
   if constexpr (M::TOOLKIT) {
 #pragma unroll

@@ -4,11 +4,11 @@
 // uniform01 and uniform01_53, the standard exponential -log1p(-u53), the
 // standard normal sqrt2 * erf_inv(clip(2 u53 - 1)), and the samplers a
 // generated instance names (uniform01, exponential, uniform, normal,
-// lognormal, triangular; and gamma, beta and pert, whose Marsaglia-Tsang
-// rejection loop draws a data-dependent number of blocks through the
-// lane's own counter, `next`).  Built with --fmad=false and CUDA's math
-// library, as torch runs them on the card, so a variate equals the plain
-// version's bit for bit.
+// lognormal, triangular, the integer dice; and gamma, beta and pert,
+// whose Marsaglia-Tsang rejection loop draws a data-dependent number of
+// blocks through the lane's own counter, `next`).  Built with
+// --fmad=false and CUDA's math library, as torch runs them on the card,
+// so a variate equals the plain version's bit for bit.
 //
 // A parameter is a Python number of the block (Lit, weakly typed as torch
 // takes it: arithmetic among such numbers in double, then rounded to the
@@ -160,6 +160,15 @@ __device__ __forceinline__ out_t<R, A> triangular(uint32_t, uint32_t b1, A lo,
   const O right = O(P::raw(hi)) - sqrt_of(O(R(1) - u) * O(hl) *
                                           O(P::raw(hi) - P::raw(mode)));
   return O(u) < O(fc) ? left : right;
+}
+
+// distributions.dice(a, b): a plus the block's 64-bit word (b1 the high
+// half) modulo the faces' count b - a + 1, an int64 (discrete_uniform's
+// one draw; the count is in (0, 2^47), checked where the call is emitted)
+__device__ __forceinline__ int64_t dice(uint32_t b0, uint32_t b1, int64_t a,
+                                        int64_t b) {
+  const uint64_t n = uint64_t(b - a + 1);
+  return a + int64_t(((uint64_t(b1) << 32) | uint64_t(b0)) % n);
 }
 
 // distributions.std_gamma of a shape in R (Marsaglia-Tsang): rounds of a

@@ -6,8 +6,10 @@ The JAX package's batched Sim, as a list of numpy leaves in
 back, so a test can stop a run in one package and finish it in the
 other.  Threefry words travel as ``uint32`` on the JAX side and as
 int64 values in ``[0, 2**32)`` here; every other leaf keeps its dtype.
-A recording queue's length accumulator (``queues.acc``) travels like any
-other leaf: the spec's template gives it its place and shape.
+A recording queue's length accumulator (``queues.acc``), a binary
+resource's holder and utilization accumulator (``resources.holder``,
+``resources.acc``) travel like any other leaf: the spec's template gives
+each its place and shape.
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ Usage (from the root of a checkout)::
     python -m cimba_tpu_torch.tools.cuda_bisect --model awacs 3  # one stage
     python -m cimba_tpu_torch.tools.cuda_bisect --model harbor  # generated
     python -m cimba_tpu_torch.tools.cuda_bisect --model park3   # generated
+    python -m cimba_tpu_torch.tools.cuda_bisect --model park2   # generated
 
 Without a stage it drives the stages (default 0-5), prints one JSON line
 ``{"stage", "ok", "s", "tail"}`` for each, stops after the first failed
@@ -59,10 +60,10 @@ from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
 
 MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "jobshop", "awacs",
-          "balking", "harbor", "park3")
+          "balking", "harbor", "park3", "park2")
 #: the user programs (examples/), which run on a generated K1 instance,
 #: and the harbor's horizon (its tide never ends)
-GENERATED, HARBOR_T_END = ("balking", "harbor", "park3"), 40.0
+GENERATED, HARBOR_T_END = ("balking", "harbor", "park3", "park2"), 40.0
 #: float leaves, kernel vs plain (chip_smoke.py's RTOL)
 RTOL = {"f32": 2e-5, "f64": 1e-12}
 #: small default shapes: lanes, objects (mm1, mmc, mg1, tandem; jobs of
@@ -80,8 +81,8 @@ class Setup:
 
     def __init__(self, model: str, device, lanes: int = LANES,
                  size=None, seed: int = 2026):
-        from cimba_tpu_torch.examples import (cookbook_balking, tut_3_balking,
-                                              tut_4_harbor)
+        from cimba_tpu_torch.examples import (cookbook_balking, tut_2_park,
+                                              tut_3_balking, tut_4_harbor)
         from cimba_tpu_torch.models import (awacs, jobshop, mg1, mm1, mmc,
                                             tandem)
 
@@ -112,6 +113,8 @@ class Setup:
             spec, params = tut_4_harbor.build(), tut_4_harbor.params()
         elif model == "park3":  # tutorial 3's jockeying park
             spec, params = tut_3_balking.build(), tut_3_balking.params()
+        elif model == "park2":  # tutorial 2's cheese park
+            spec, params = tut_2_park.build()[0], tut_2_park.params()
         else:
             raise ValueError(f"unknown model {model!r}; one of {MODELS}")
         self.model, self.spec = model, spec

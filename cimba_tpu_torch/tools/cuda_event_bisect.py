@@ -34,8 +34,9 @@ process's CUDA context unusable::
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model harbor \
         --profile f64 --K 64
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model park3 --K 16
+    python -m cimba_tpu_torch.tools.cuda_event_bisect --model park2 --K 16
 
-(``balking``, ``harbor`` and ``park3``, the user programs of
+(``balking``, ``harbor``, ``park3`` and ``park2``, the user programs of
 ``cimba_tpu_torch.examples``, run on their generated K1 instances.)
 
 It exits 1 when it finds a divergence, 0 when it finds none.

@@ -23,6 +23,20 @@ draws, which may be holding or pended (on the pool, the priority queue
 or the buffer).  Lost items are possible there, so such a model runs to
 a horizon.
 
+``build(seed, lib, resources=True)`` makes a model of the verbs of
+binary resources, preemption and user events: workers that take a
+binary resource by ``acquire`` (plain or fused), the first under a
+timeout (a timer, then the acquire; the timer cleared on success), and
+give it back with ``api.release`` where they still hold it; a boss that
+takes it by ``preempt`` (plain or fused), kicking a worker; a middle
+process that preempts it under a timeout, so its pended preempt can be
+aborted; two processes of low priority that take pool units by
+``pool_acquire`` and a mugger of higher priority that takes them by
+``pool_preempt`` (plain or fused; a plain one under a timeout, so a
+pended pool preempt rolls back); and a starter that schedules a user
+event (``api.schedule``) whose handler stops one process it names by
+the event's subject.  Such a model runs to a horizon.
+
 On the card a spec built here takes the generated chunk kernel
 (``core/kernel_run.generated_kernel_for``), which the tests and
 ``chip_smoke.py`` hold against the plain engine.
@@ -51,6 +65,7 @@ def torch_lib():
         real=lambda v: torch.tensor(v, dtype=config.real()),
         where=torch.where, empty=lambda: sm.empty((), "cpu"), add=sm.add,
         floor=torch.floor, i32=lambda x: x.to(torch.int32),
+        real_of=lambda x: x.to(config.real()),
         select_sim=_torch_select_sim)
 
 
@@ -69,8 +84,11 @@ def _torch_select_sim(pred, a, b):
 TIMEOUT, INTERRUPTED = -5, -2
 
 
-def build(seed: int, lib, timers: bool = False):
-    """One random spec; returns ``(spec, n_items)``."""
+def build(seed: int, lib, timers: bool = False, resources: bool = False):
+    """One random spec; returns ``(spec, n_items)`` (``n_items`` None for
+    a ``resources`` spec)."""
+    if resources:
+        return _build_resources(seed, lib), None
     rng = random.Random(seed)
     Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
     n_items = rng.randint(12, 30)
@@ -283,6 +301,187 @@ def build(seed: int, lib, timers: bool = False):
     spec = m.build()
     box.append(spec)
     return spec, n_items
+
+
+def _build_resources(seed: int, lib):
+    """The ``resources=True`` family (see the module's docstring)."""
+    rng = random.Random(seed)
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    n_work = rng.randint(1, 2)
+    n_low = rng.randint(1, 2)
+    work_mean = rng.uniform(0.5, 1.5)
+    boss_every = rng.uniform(1.0, 3.0)
+    patience = rng.uniform(0.3, 1.5)
+    fused_acq = rng.random() < 0.5
+    fused_pre = rng.random() < 0.5
+    fused_mug = rng.random() < 0.5
+    t_stop = rng.uniform(8.0, 20.0)
+    m = Model(f"usergenr{seed}", n_flocals=1, n_ilocals=1, event_cap=16,
+              guard_cap=8)
+    tool = m.resource("tool", record=rng.random() < 0.5)
+    pool = m.resourcepool("units", capacity=float(rng.randint(3, 5)),
+                          record=rng.random() < 0.5)
+    box = []
+
+    @m.user_state
+    def init(params):
+        return {"grants": lib.zeros_i(), "timeouts": lib.zeros_i(),
+                "kicked": lib.zeros_i(), "mugged": lib.zeros_i()}
+
+    def count(sim, key, pred):
+        u = sim.user
+        return api.set_user(sim, {**u, key: u[key]
+                                  + lib.i32(lib.where(pred, 1, 0))})
+
+    def give_back(sim, p):
+        """release the tool where p still holds it (a kicked worker does
+        not)"""
+        mine = api.resource_holder(sim, tool) == p
+        return lib.select_sim(mine, api.release(sim, box[0], tool, p), sim)
+
+    # --- workers: the tool, the first one under a timeout ------------------
+    @m.block
+    def w_start(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, work_mean)
+        timed = p == 0
+        sim = lib.select_sim(timed, api.timer_add(sim, p, patience,
+                                                  TIMEOUT)[0], sim)
+        acq = (cmd.acquire_hold(tool.id, t, next_pc=w_done.pc) if fused_acq
+               else cmd.acquire(tool.id, next_pc=w_got.pc))
+        return sim, cmd.select(timed, cmd.acquire(tool.id, next_pc=w_got.pc),
+                               acq)
+
+    @m.block
+    def w_got(sim, p, sig):
+        ok = sig == 0
+        sim = count(sim, "timeouts", sig == TIMEOUT)
+        sim = count(sim, "grants", ok)
+        sim = lib.select_sim(ok, api.timers_clear(sim, p), sim)
+        sim, t = api.draw(sim, cr.exponential, work_mean)
+        return sim, cmd.select(ok, cmd.hold(t, next_pc=w_done.pc),
+                               cmd.jump(w_start.pc))
+
+    @m.block
+    def w_done(sim, p, sig):
+        sim = count(sim, "kicked", sig == pr_preempted)
+        sim = give_back(sim, p)
+        sim, t = api.draw(sim, cr.uniform, 0.1, 0.5)
+        return sim, cmd.hold(t, next_pc=w_start.pc)
+
+    # --- the boss preempts the tool; the middle one under a timeout --------
+    @m.block
+    def b_wait(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, boss_every)
+        return sim, cmd.hold(t, next_pc=b_take.pc)
+
+    @m.block
+    def b_take(sim, p, sig):
+        sim, t = api.draw(sim, cr.uniform, 0.2, 0.8)
+        return sim, (cmd.preempt_hold(tool.id, t, next_pc=b_rel.pc)
+                     if fused_pre else cmd.preempt(tool.id,
+                                                   next_pc=b_hold.pc))
+
+    @m.block
+    def b_hold(sim, p, sig):
+        sim, t = api.draw(sim, cr.uniform, 0.2, 0.8)
+        return sim, cmd.hold(t, next_pc=b_rel.pc)
+
+    @m.block
+    def b_rel(sim, p, sig):
+        sim = give_back(sim, p)
+        return sim, cmd.jump(b_wait.pc)
+
+    @m.block
+    def m_take(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, boss_every)
+        sim, _ = api.timer_add(sim, p, patience, TIMEOUT)
+        return sim, cmd.preempt(tool.id, next_pc=m_got.pc)
+
+    @m.block
+    def m_got(sim, p, sig):
+        ok = sig == 0
+        sim = count(sim, "timeouts", sig == TIMEOUT)
+        sim = lib.select_sim(ok, api.timers_clear(sim, p), sim)
+        return sim, cmd.select(ok, cmd.hold(0.3, next_pc=m_rel.pc),
+                               cmd.hold(0.5, next_pc=m_take.pc))
+
+    @m.block
+    def m_rel(sim, p, sig):
+        sim = count(sim, "kicked", sig == pr_preempted)
+        sim = give_back(sim, p)
+        return sim, cmd.jump(m_take.pc)
+
+    # --- the pool: polite takers and a mugger ------------------------------
+    @m.block
+    def l_take(sim, p, sig):
+        sim, a = api.draw(sim, cr.dice, 1, 2)
+        return sim, cmd.pool_acquire(pool.id, lib.real_of(a),
+                                     next_pc=l_hold.pc)
+
+    @m.block
+    def l_hold(sim, p, sig):
+        sim = count(sim, "mugged", sig == pr_preempted)
+        sim, t = api.draw(sim, cr.exponential, work_mean)
+        return sim, cmd.hold(t, next_pc=l_drop.pc)
+
+    @m.block
+    def l_drop(sim, p, sig):
+        sim = count(sim, "mugged", sig == pr_preempted)
+        sim = api.pool_release(sim, box[0], pool, p,
+                               api.pool_held(sim, pool, p))
+        return sim, cmd.jump(l_take.pc)
+
+    @m.block
+    def g_take(sim, p, sig):
+        sim, a = api.draw(sim, cr.dice, 2, 3)
+        sim, t = api.draw(sim, cr.exponential, 0.5 * work_mean)
+        amt = lib.real_of(a)
+        if fused_mug:
+            return sim, cmd.pool_preempt_hold(pool.id, amt, t,
+                                              next_pc=g_drop.pc)
+        sim, _ = api.timer_add(sim, p, patience, TIMEOUT)
+        return sim, cmd.pool_preempt(pool.id, amt, next_pc=g_got.pc)
+
+    @m.block
+    def g_got(sim, p, sig):
+        ok = sig == 0
+        sim = count(sim, "timeouts", sig == TIMEOUT)
+        sim = lib.select_sim(ok, api.timers_clear(sim, p), sim)
+        return sim, cmd.select(ok, cmd.hold(0.4, next_pc=g_drop.pc),
+                               cmd.hold(0.2, next_pc=g_take.pc))
+
+    @m.block
+    def g_drop(sim, p, sig):
+        sim = api.pool_release(sim, box[0], pool, p,
+                               api.pool_held(sim, pool, p))
+        sim, t = api.draw(sim, cr.exponential, work_mean)
+        return sim, cmd.hold(t, next_pc=g_take.pc)
+
+    # --- the end of one process, by a user event ---------------------------
+    @m.handler
+    def stopper(sim, subj, arg):
+        sim = api.stop_process(sim, box[0], subj)
+        u = sim.user
+        return api.set_user(sim, {**u, "grants": u["grants"] + arg})
+
+    @m.block
+    def starter(sim, p, sig):
+        sim, u = api.draw(sim, cr.uniform01)
+        victim = lib.i32(lib.floor(u * n_procs))
+        sim, _ = api.schedule(sim, t_stop, 3, stopper, victim, 100)
+        return sim, cmd.exit_()
+
+    pr_preempted = -1
+    m.process("worker", entry=w_start, count=n_work)  # pids 0 ..
+    m.process("boss", entry=b_wait, prio=2)
+    m.process("middle", entry=m_take, prio=1)
+    m.process("low", entry=l_take, count=n_low)
+    m.process("mugger", entry=g_take, prio=rng.choice([1, 3]))
+    m.process("starter", entry=starter, prio=4)
+    n_procs = n_work + n_low + 4
+    spec = m.build()
+    box.append(spec)
+    return spec
 
 
 def abort_spec(lib):

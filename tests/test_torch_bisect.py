@@ -28,7 +28,7 @@ def _lines(buf):
 
 
 @pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "jobshop",
-                                   "awacs"])
+                                   "awacs", "park2"])
 def test_every_stage_passes_on_cpu(model):
     buf = io.StringIO()
 
@@ -113,6 +113,7 @@ def _planted(st, lane, leaf, at, delta):
     ("mm1-record", 2, "queues.acc.summary.m1", 20),
     ("awacs", 3, "user.pos_x", 7),
     ("jobshop", 4, "buffers.level", 9),
+    ("park2", 1, "pools.level", 9),
 ])
 def test_event_bisect_names_a_planted_divergence(model, lane, leaf, at):
     with config.profile("f32"):

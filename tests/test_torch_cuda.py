@@ -388,6 +388,16 @@ def _user_spec(name):
 
     if name == "park3":  # to its end (every lane ends well before t=400)
         return tut_3_balking.build(), None, tut_3_balking.T_END, 11
+    if name == "park2":  # to its end: the end event stops every animal
+        from cimba_tpu_torch.examples import tut_2_park
+        return tut_2_park.build()[0], None, None, tut_2_park.SEED
+    if name == "hello":
+        from cimba_tpu_torch.examples import tut_0_hello
+        return tut_0_hello.build(), None, None, 1
+    if name.startswith("usergenr"):
+        seed = int(name[len("usergenr"):])
+        return (usergen.build(seed, usergen.torch_lib(), resources=True)[0],
+                None, 20.0, 11)
     if name == "abort":
         return usergen.abort_spec(usergen.torch_lib()), None, 15.0, 11
     if name.startswith("usergent"):
@@ -471,6 +481,36 @@ def test_generated_timers_and_interrupts_match_plain_engine(card, name,
 
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["park2", "hello", "usergenr1", "usergenr2",
+                                  "usergenr3"])
+def test_generated_preempt_resources_handlers_match_plain_engine(card, name,
+                                                                 prof):
+    """The generated instances with the pool preempt's mug, binary
+    resources (acquire, preempt, release), user event handlers and
+    stop_process (tutorial 2's park to its end; hello; three usergen
+    specs of resources=True to a horizon): driven by their host loop,
+    equal to the plain engine on the card leaf for leaf, floats bit for
+    bit; the park's gates hold."""
+    with config.profile(prof):
+        spec, params, t_end, seed = _user_spec(name)
+        s0 = loop.init_sim(spec, seed, torch.arange(512), params,
+                           device=card)
+        before = kernel_run.gen_chunk.launches
+        ker = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                         chunk_steps=64)(s0)
+        pla = loop.make_run(spec, t_end=t_end)(s0)
+        torch.cuda.synchronize()
+    assert kernel_run.gen_chunk.launches > before
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert int(ker.err.ne(0).sum()) == 0
+    if name == "park2":
+        from cimba_tpu_torch.examples import tut_2_park
+        assert tut_2_park.check_gates(ker) > 0
+    if name.startswith("usergenr"):
+        assert int(ker.user["kicked"].sum()) > 0
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
 def test_generated_trig_past_the_fast_path(card, prof):
     """sin and cos of a generated block equal torch's on the card for
     arguments past the library's fast path too (|x| >= 105615 in f32,
@@ -499,7 +539,8 @@ def test_generated_instances_have_no_stack_frame(card):
     import chip_smoke
     from cimba_tpu_torch import _build
 
-    for name in ("balking", "harbor", "park3", "abort", "usergent5"):
+    for name in ("balking", "harbor", "park3", "park2", "abort",
+                 "usergent5", "usergenr1"):
         for prof in ("f32", "f64"):
             spec, s = chip_smoke.gen_template(name, prof)
             with config.profile(prof):

@@ -92,16 +92,17 @@ def test_unported_features_raise():
     tmm1.build()  # record=True: queue-length recording is ported
     m = Model("x")
     # pools, buffers and conditions are ported (the job shop's toolkit),
-    # priority queues too
+    # priority queues, binary resources and user event handlers too
     m.resourcepool("p", 2.0)
     m.buffer("b", 1.0)
     m.condition("c", lambda sim, p: True)
     assert m.priorityqueue("q", 4).capacity == 4
+    assert m.resource("r").guard == 6  # after the pq's two
 
     def blk(sim, p, sig):
         return sim, None
 
-    for call in (lambda: m.resource("r"), lambda: m.handler(blk),
-                 lambda: m.process("s", entry=m.block(blk), start=False)):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert m.handler(blk).kind == 2
+    # spawn pools are not
+    with pytest.raises(NotImplementedError, match="spawn pools"):
+        m.process("s", entry=m.block(blk), start=False)

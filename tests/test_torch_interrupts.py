@@ -10,8 +10,9 @@ make_run))`` and the port's ``make_run`` on the CPU (2 lanes, f64), and
 compared leaf for leaf with ``interop.diff_leaves`` (integers and bools
 equal, floats within 1e-12 of each leaf's scale); the scenario's own
 expected timeline is checked on the port's result.  The reference's
-timeout scenario waits on a binary resource, which the port has not
-ported: here it waits on a resource pool of one unit, the same timeline.
+timeout scenario waits on a binary resource: here it waits on a
+resource pool of one unit, the same timeline (``test_torch_preempt.py``
+holds the binary resource's own form).
 Each scenario also runs through a traced replay of its blocks
 (``core.trace``), so the engine calls and their gates are held too.
 """

@@ -37,7 +37,9 @@ def test_importing_every_module_loads_no_jax():
     assert "cimba_tpu_torch.models.awacs" in res["mods"]
     for mod in ("models.mmc", "models.mg1", "models.tandem", "sweep.grid",
                 "stats.timeseries", "tools.bisect_kernels",
-                "tools.cuda_bisect", "tools.cuda_event_bisect"):
+                "tools.cuda_bisect", "tools.cuda_event_bisect",
+                "examples.tut_2_park", "examples.tut_0_hello",
+                "tools.usergen"):
         assert f"cimba_tpu_torch.{mod}" in res["mods"]
 
 

@@ -12,6 +12,11 @@
   holds is refused before any tracing.
 * The emitter's output is deterministic: two builds of one spec give the
   same header, and so the same hash (the library's directory).
+* A user event handler traces as a block without a command and replays
+  bit for bit, and so do the engine calls ``api.schedule``,
+  ``api.stop_process`` and ``api.release`` (tutorial 2's park, a
+  resource released under a select); a ``dice`` draw is one int64 draw
+  node; a kept handle of a gated ``api.schedule`` is a ``TraceError``.
 """
 
 import pytest
@@ -352,4 +357,149 @@ def test_timer_handle_replays_and_emits():
 
     spec, s = _gated_spec(gated_keep)
     with pytest.raises(NotImplementedError, match="handle of a timer_add"):
+        emit.emit(spec, s)
+
+
+def _park2_state(prof, lanes=LANES):
+    """Tutorial 2's park part way (animals holding and pended, the end
+    event in the table)."""
+    from cimba_tpu_torch.examples import tut_2_park as t2
+
+    with config.profile(prof):
+        spec, _ = t2.build()
+        s = loop.init_sim(spec, t2.SEED, torch.arange(lanes), device="cpu")
+        return spec, loop.make_run(spec, t_end=10.0)(s)
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_handler_and_new_calls_replay(prof):
+    """The park's blocks (``dice``, ``pool_preempt``, ``api.schedule``)
+    and its handler (seven ``api.stop_process`` calls by compile-time
+    pid), and a block releasing a binary resource and stopping a pid it
+    computes: each traced on a state part way through a run and
+    replayed, bit for bit as the block or handler itself computes."""
+    from cimba_tpu_torch.core import api
+
+    spec, s = _park2_state(prof)
+    p = torch.arange(LANES, dtype=torch.int32) % spec.n_procs
+    sig = torch.tensor([0, -1] * (LANES // 2), dtype=torch.int32)
+    with config.profile(prof):
+        for pc, blk in enumerate(spec.blocks):
+            a_sim, a_cmd = blk(s, p, sig)
+            b_sim, b_cmd = trace.replay(spec, trace.trace_block(spec, pc, s),
+                                        s, p, sig)
+            a_cmd = cmd.normalize(a_cmd, LANES, s.clock.device,
+                                  s.clock.dtype)
+            for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                                      trace.named_leaves(b_sim)):
+                assert x.dtype == y.dtype and torch.equal(x, y), (pc, n)
+            for x, y in zip(a_cmd, b_cmd):
+                assert x.dtype == y.dtype and torch.equal(x, y), pc
+        ir = trace.trace_handler(spec, 0, s)
+        assert ir.cmd == ()
+        assert [e[1] for e in ir.effects if e[0] == "call"] == [
+            "stop_process"] * 7
+        a = spec.user_handlers[0](s, p, sig)
+        b = trace.replay(spec, ir, s, p, sig)
+        for (n, x), (_, y) in zip(trace.named_leaves(a),
+                                  trace.named_leaves(b)):
+            assert x.dtype == y.dtype and torch.equal(x, y), n
+
+    m = Model("relstop", n_ilocals=1, event_cap=8)
+    res = m.resource("r")
+    box = []
+
+    @m.block
+    def grab(sim, p, sig):
+        return sim, cmd.acquire(res.id, next_pc=drop.pc)
+
+    @m.block
+    def drop(sim, p, sig):
+        mine = api.resource_holder(sim, res) == p
+        sim2 = api.release(sim, box[0], res, p)
+        sim = loop._where(mine, sim2, sim)
+        sim = api.stop_process(sim, box[0], torch.where(p == 2, 0, p + 1))
+        return sim, cmd.hold(1.0, next_pc=grab.pc)
+
+    m.process("p", entry=grab, count=3)
+    box.append(m.build())
+    with config.profile(prof):
+        spec = box[0]
+        s = loop.init_sim(spec, 1, torch.arange(LANES), device="cpu")
+        s = loop.make_run(spec, max_steps=2)(s)
+        ir = trace.trace_block(spec, 1, s)
+        assert [(e[1], len(e) > 4) for e in ir.effects if e[0] == "call"] \
+            == [("release", True), ("stop_process", False)]
+        a_sim, _ = drop(s, p % 3, sig)
+        b_sim, _ = trace.replay(spec, ir, s, p % 3, sig)
+        for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                                  trace.named_leaves(b_sim)):
+            assert torch.equal(x, y), n
+        h = emit.emit(spec, s)
+    assert "release_resource<0>(s, w, int(" in h
+    assert "stop_process(s, w, int(" in h
+
+
+def test_dice_node_traces_and_emits():
+    """``api.draw(sim, cr.dice, a, b)``: one draw node of int64 naming
+    the sampler; the replay equals the block; the emitter draws one
+    block and calls samplers.cuh's ``dice`` with int64 bounds, and
+    refuses a non-integer bound."""
+    from cimba_tpu_torch.core import api
+
+    def roll(sim, p, sig):
+        sim, k = api.draw(sim, cr.dice, 2, 7)
+        sim = api.set_local_i(sim, p, 0, k)
+        return sim, cmd.hold(k.to(torch.float64), next_pc=0)
+
+    spec, s = _one_block_spec(roll)
+    ir = trace.trace_block(spec, 0, s)
+    draws = [ir.nodes[e[1]] for e in ir.effects if e[0] == "draw"]
+    assert len(draws) == 1 and draws[0].dtype == torch.int64
+    assert draws[0].aux[0] == emit.DICE
+    p = torch.zeros(2, dtype=torch.int32)
+    sig = torch.zeros(2, dtype=torch.int32)
+    a_sim, a_cmd = roll(s, p, sig)
+    b_sim, b_cmd = trace.replay(spec, ir, s, p, sig)
+    for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                              trace.named_leaves(b_sim)):
+        assert torch.equal(x, y), n
+    h = emit.emit(spec, s)
+    assert "dice(b" in h and "int64_t(2LL), int64_t(7LL));" in h
+
+    def roll_f(sim, p, sig):
+        sim, k = api.draw(sim, cr.dice, 2.0, 7.0)
+        return sim, cmd.hold(k.to(torch.float64), next_pc=0)
+
+    spec, s = _one_block_spec(roll_f)
+    with pytest.raises(NotImplementedError, match="non-integer bound"):
+        emit.emit(spec, s)
+
+
+def test_gated_schedule_handle_raises_trace_error():
+    """The handle of an ``api.schedule`` that a select keeps or drops
+    names no event where the gate is shut: TraceError at emit, naming
+    the block and the call."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import api
+
+    m = Model("gsched", n_ilocals=1, event_cap=8)
+
+    @m.handler
+    def noop(sim, subj, arg):
+        return sim
+
+    def keep(sim, p, sig):
+        late = sim.clock > 1.0
+        sim2, h = api.schedule(sim, 3.0, 0, noop)
+        sim = tree.map(lambda x, y: torch.where(
+            late.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), sim2, sim)
+        sim = api.set_local_i(sim, p, 0, h)
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    m.process("p", entry=m.block(keep))
+    spec = m.build()
+    s = loop.init_sim(spec, 1, torch.arange(2), device="cpu")
+    with pytest.raises(trace.TraceError,
+                       match=r"block 'keep'.*handle of a schedule"):
         emit.emit(spec, s)
