@@ -8,7 +8,8 @@ Under :mod:`cimba_tpu_torch.core.trace` a block runs on a symbolic
 one-lane Sim: :func:`draw` then records one draw node naming its
 sampler; :func:`pool_release`, :func:`release`, :func:`cond_signal`,
 :func:`interrupt`, :func:`stop_process`, :func:`timer_add`,
-:func:`timers_clear` and :func:`schedule` one engine call each;
+:func:`timers_clear`, :func:`schedule` and :func:`spawn` one engine
+call each;
 :func:`pqueue_length` and :func:`pqueue_position` one reader node each
 (they scan the queue's slots); every other helper is traced through as
 torch ops."""
@@ -274,6 +275,19 @@ def stop_process(sim: Sim, spec, target) -> Sim:
     if _trace.is_symbolic(sim):
         return _trace.engine_call(sim, "stop_process", target)
     return _loop.stop_process(spec, sim, target)
+
+
+def spawn(sim: Sim, ptype, at=None, prio=None):
+    """``(sim, pid)``: activate one row of a spawn pool, a process type
+    declared ``m.process(name, entry, count=N, start=False)``: the
+    lowest-pid CREATED or FINISHED row, its state reset, its entry wake
+    at ``at`` (default now); pid -1 when all N rows are RUNNING (parity:
+    the reference's runtime ``cmb_process_create``/``start``)."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "spawn", ptype.first_pid,
+                                  ptype.count, ptype.entry_pc, ptype.prio,
+                                  at, prio)
+    return _loop.spawn_process(sim, ptype, at=at, prio=prio)
 
 
 def schedule(sim: Sim, t, prio, handler, subj=0, arg=0):

@@ -15,14 +15,17 @@ the interface the hand-written families have:
   queues', resources', pools', buffers', priority queues' and
   conditions' capacities, guards, recording flags and observer lists,
   all compile-time constants (a command's component id is dispatched
-  over them, ``by_id``), and ``MUG``, whether a block may issue a pool
-  preempt;
+  over them, ``by_id``), ``MUG``, whether a block may issue a pool
+  preempt, and each spawn pool's pids and entry (``spawn_first``,
+  ``spawn_count``, ``spawn_entry``);
 * the engine calls of a block or handler (a resource's or a pool's
   release, a condition's signal, an interrupt, a stop, a timer's insert,
-  a pattern cancel of a process's timers, a user event's insert), each
-  under its gate where a select of the whole Sim keeps or drops it, and
-  the priority queues' readers (``pq_length<Q>``, ``pq_position<Q>``);
-* the launch bounds.
+  a pattern cancel of a process's timers, a user event's insert, a spawn
+  of a pool type), each under its gate where a select of the whole Sim
+  keeps or drops it, and the priority queues' readers (``pq_length<Q>``,
+  ``pq_position<Q>``);
+* the launch bounds, the block's lanes and whether its shared columns
+  take dynamic shared memory (:func:`smem_plan`, ``DYN``).
 
 Each node is one ``const`` local of the C++ type of its dtype; an op casts
 its operands to the dtype torch computes it in, a Python number is rounded
@@ -68,13 +71,18 @@ LOOPING = {"pert", "beta", "gamma"}
 #: the integer sampler: dice(a, b), an int64 of one block
 DICE = "cimba_tpu_torch.random.distributions.dice"
 
-#: a process's packed word holds a guard id in 4 signed bits and the
-#: dirty mask 6 bits a process in 64
-MAX_GUARDS, MAX_PROCS, MAX_BLOCKS = 8, 10, 127
+#: a process's packed word holds a guard id and a pc in 8 signed bits
+#: each; past REG_NP processes the wakes and words, past REG_NG guards the
+#: guards' seq counters, live in shared columns (queue_chunk.cu Col; the
+#: header's BIG and GBIG, decided here only), which bound the processes
+#: only by a lane's shared memory and the code the kicks' dispatch inlines
+MAX_GUARDS, MAX_PROCS, MAX_BLOCKS = 127, 32, 127
+REG_NP, REG_NG = 10, 8
 #: the kernel's leaf pointer array (queue_chunk.cu MAX_LEAVES)
 MAX_LEAVES = 128
-#: static shared memory a block may use
-SMEM = 48 * 1024
+#: static shared memory a block may use, and dynamic shared memory (the
+#: card's 227 KB a block; a family past it is refused)
+SMEM, SMEM_DYN = 48 * 1024, 227 * 1024
 
 
 def _ctype(dt, what):
@@ -150,10 +158,6 @@ class _Fn:
 
     def __init__(self, lay: _Layout, nodes, what: str):
         self.lay, self.nodes, self.what = lay, nodes, what
-        #: the engine calls a select gates (their handles are not given),
-        #: and each call's kind
-        self.gated: set = set()
-        self.call_kinds: list = []
         self.lines: List[str] = []
         self.done = 0
         self.live = [False] * len(nodes)
@@ -247,11 +251,7 @@ class _Fn:
         if op == "pq_position":
             return (f"pq_position<{n.aux[0]}>(s, w, "
                     f"{self.ref(a[0], self.lay.real)})")
-        if op == "callres":
-            if n.aux in self.gated:
-                raise tr.TraceError(
-                    f"{self.what}: uses the handle of a "
-                    f"{self.call_kinds[n.aux]} that a select keeps or drops")
+        if op == "callres":  # a kept handle or pid (never a gated call's)
             return f"h{n.aux}"
         fl = cdt is not None and cdt.is_floating_point
         x = [self.ref(v, cdt) if v is not None else None for v in a]
@@ -407,7 +407,6 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
             else f"block {ir.name!r} (pc {ir.pc})")
     f = _Fn(lay, ir.nodes, f"{what} of spec {spec.name!r}")
     roots = list(ir.cmd)
-    calls = [e for e in ir.effects if e[0] == "call"]
     for e in ir.effects:
         if e[0] == "draw":
             roots.append(e[1])
@@ -417,8 +416,6 @@ def _block_fn(lay: _Layout, ir: tr.BlockIR, spec: ModelSpec) -> List[str]:
             roots += [a for a in e[2] if isinstance(a, int)]
             if len(e) > 4:
                 roots.append(e[4][0])
-    f.gated = {k for k, e in enumerate(calls) if len(e) > 4}
-    f.call_kinds = [e[1] for e in calls]
     f.mark(roots)
     handles = {n.aux for i, n in enumerate(ir.nodes)
                if n.op == "callres" and f.live[i]}
@@ -507,6 +504,20 @@ def _call(f: _Fn, e, spec: ModelSpec, handle=False, k=0) -> List[str]:
     if kind == "timers_clear":
         (p,) = args
         return [f"timers_clear(s, w, int({_pid(f, p)}));"]
+    if kind == "spawn":
+        first, count, entry, prio, at, prio_ = args
+        types = [pt.first_pid for pt in spec.spawn_types]
+        if int(first.value) not in types:
+            f.fail(f"api.spawn of a process type at pid {first.value} that "
+                   "is no spawn pool of the spec")
+        t = types.index(int(first.value))
+        at_ = ("s.clock" if isinstance(at, tr.Lit) and at.value is None
+               else f.ref(at, f.lay.real))
+        pr_ = (_lit(int(prio.value), torch.int32)
+               if isinstance(prio_, tr.Lit) and prio_.value is None
+               else f.ref(prio_, torch.int32))
+        call = f"spawn_pool<{t}>(s, w, {at_}, {pr_})"
+        return [f"const int32_t h{k} = {call};" if handle else f"{call};"]
     f.fail(f"engine call {kind}")
 
 
@@ -550,6 +561,37 @@ def _ternary(name, values, default=0, fmt=str) -> str:
     return out
 
 
+def smem_plan(spec: ModelSpec, lay: _Layout, n_acc: int,
+              toolkit: bool) -> dict:
+    """The shared columns a lane takes (``per_lane`` bytes, as the
+    kernel's Cold, ColdAcc, ColdQ, ColdShop, ColdSig, UCold, ColdWake and
+    ColdG lay them out), the block's lanes (``threads``: 64 where 64
+    lanes fit in the static 48 KB, else 32) and whether the columns take
+    dynamic shared memory (``dyn``: past the static 48 KB for 32 lanes,
+    or past the register limits, whose columns only the dynamic layout
+    has); a spec whose 32 lanes exceed the card's 227 KB is refused."""
+    np_, real = spec.n_procs, lay.real
+    rb = torch.finfo(real).bits // 8
+    nka = max(len(spec.pools), 1)
+    nf, ni = max(spec.n_flocals, 1), max(spec.n_ilocals, 1)
+    big, gbig = np_ > REG_NP, spec.n_guards > REG_NG
+    per_lane = (rb * (8 + 3 * np_) + 16 * np_ + (10 * rb + 1) * n_acc
+                + 4 * np_ + 4 * (np_ + max(len(spec.pqueues), 1))
+                + ((rb * (nka * np_ + np_) + 4 * nka * np_) if toolkit
+                   else 0)
+                + rb * np_ * nf + 4 * np_ * ni
+                + sum(lay.leaf[n].element_size() for n in lay.user)
+                + ((rb + 8) * np_ if big else 0)
+                + (4 * spec.n_guards if gbig else 0))
+    threads = 64 if per_lane * 64 <= SMEM - 1024 else 32
+    dyn = big or gbig or per_lane * threads > SMEM - 1024
+    if per_lane * threads > SMEM_DYN - 1024:
+        raise NotImplementedError(
+            f"spec {spec.name!r}: {per_lane} B of shared state a lane, more "
+            f"than a block of {threads} lanes can hold")
+    return dict(per_lane=per_lane, threads=threads, dyn=dyn)
+
+
 def emit(spec: ModelSpec, sims) -> str:
     """The generated family's header for ``spec`` in the profile (and
     with the shapes) of ``sims``."""
@@ -579,24 +621,14 @@ def emit(spec: ModelSpec, sims) -> str:
     n_ba = nv if b_acc >= 0 else 0
     n_pqa = npq if pq_acc >= 0 else 0
     n_ra = nr if r_acc >= 0 else 0
+    big, gbig = np_ > REG_NP, spec.n_guards > REG_NG
     # a pended priority-queue put keeps its item's priority in pend_f2,
-    # the toolkit's column; the resources' verbs are the toolkit's
-    toolkit = nk + nv + nc + npq + nr > 0
+    # the toolkit's column; the resources' verbs are the toolkit's; past
+    # REG_NP processes pend_f2 is a column in any family (no dirty mask)
+    toolkit = nk + nv + nc + npq + nr > 0 or big
     u0 = lay.pos[lay.user[0]] if lay.user else lay.pos["done"]
-    # shared memory a lane takes, to choose the block size
-    rb = torch.finfo(real).bits // 8
-    nka = max(nk, 1)
-    per_lane = (rb * (8 + 3 * np_) + 16 * np_ + (10 * rb + 1) * (
-        n_qa + n_pa + n_ba + n_pqa + n_ra) + 4 * np_
-        + 4 * (np_ + max(npq, 1))
-        + ((rb * (nka * np_ + np_) + 4 * nka * np_) if toolkit else 0)
-        + rb * np_ * nf + 4 * np_ * ni
-        + sum(lay.leaf[n].element_size() for n in lay.user))
-    threads = 64 if per_lane * 64 <= SMEM - 1024 else 32
-    if per_lane * threads > SMEM - 1024:
-        raise NotImplementedError(
-            f"spec {spec.name!r}: {per_lane} B of shared state a lane, more "
-            f"than a block of {threads} lanes can hold")
+    plan = smem_plan(spec, lay, n_qa + n_pa + n_ba + n_pqa + n_ra, toolkit)
+    threads, dyn = plan["threads"], plan["dyn"]
 
     def cx(expr_, args="int i", ret="int"):
         return f"__host__ __device__ static constexpr {ret} {expr_}"
@@ -616,6 +648,12 @@ def emit(spec: ModelSpec, sims) -> str:
         f"PEND_I = true, PRED_BY_PID = true;",
         f"  static constexpr bool ABORT = {str(nk + nv > 0).lower()}, "
         f"WSIG = true, MUG = {str(mug).lower()};",
+        f"  // {plan['per_lane']} B of shared columns a lane, "
+        f"{'dynamic' if dyn else 'static'} shared memory"
+        + (f"; wakes and words in shared columns ({np_} > {REG_NP} "
+           "processes)" if big else ""),
+        f"  static constexpr bool DYN = {str(dyn).lower()}, BIG = "
+        f"{str(big).lower()}, GBIG = {str(gbig).lower()};",
         f"  static constexpr int NR = {nr}, NH = {nh}, L_R_HOLDER = "
         f"{lay.at('resources.holder')}, L_RACC = {r_acc};",
         f"  static constexpr int NPQ = {npq}, PQW = {spec.pqueue_cap_max};",
@@ -688,6 +726,20 @@ def emit(spec: ModelSpec, sims) -> str:
                   f"{_ternary('i', [c.guard for c in spec.conditions])}; }}"),
         "  " + cx(f"observes(int c, int g) {{ return {observes}; }}",
                   ret="bool"),
+        f"  // spawn pools: "
+        + (", ".join(f"type {t} {pt.name!r} pids [{pt.first_pid}, "
+                     f"{pt.first_pid + pt.count})"
+                     for t, pt in enumerate(spec.spawn_types)) or "none"),
+        f"  static constexpr int N_SPAWN = {len(spec.spawn_types)};",
+        "  " + cx(f"spawn_first(int i) {{ return "
+                  f"{_ternary('i', [pt.first_pid for pt in spec.spawn_types])}"
+                  "; }"),
+        "  " + cx(f"spawn_count(int i) {{ return "
+                  f"{_ternary('i', [pt.count for pt in spec.spawn_types])}"
+                  "; }"),
+        "  " + cx(f"spawn_entry(int i) {{ return "
+                  f"{_ternary('i', [pt.entry_pc for pt in spec.spawn_types])}"
+                  "; }"),
         "  template <typename RR>",
         "  __device__ static RR pool_cap(const Where&, int i) {",
         f"    return RR({_ternary('i', [float(pl.capacity).hex() for pl in spec.pools], '0.0')});",

@@ -473,6 +473,18 @@ def gen_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
     return sims
 
 
+def gen_smem_bytes(header: str) -> int:
+    """The dynamic shared memory a block of the generated instance of
+    ``header`` (a layout's, :func:`generated_kernel_for`) takes, as its
+    library computes it; 0 where its columns are static shared memory."""
+    from cimba_tpu_torch import _build
+
+    prof = "f64" if "#define CIMBA_GEN_F64" in header else "f32"
+    fn = getattr(_build.load_gen(header), f"cimba_gen_smem_{prof}")
+    fn.restype = ctypes.c_int
+    return int(fn())
+
+
 queue_chunk.launches = 0
 awacs_chunk.launches = 0
 awacs_dwell.launches = 0

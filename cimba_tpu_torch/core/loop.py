@@ -40,9 +40,10 @@ recording; timers (:func:`timer_add`, :func:`timers_clear`),
 :func:`interrupt` and :func:`stop_process`, with the abort of a pended
 command on a non-SUCCESS wake (the pool rollback and the buffer's
 partial-fulfilment report, :func:`_abort_cleanup`); user event handlers
-(events of kind ``N_KINDS + k`` scheduled by ``api.schedule``); the
-guard pend/retry protocol, boundary blocks, failure codes and
-``api.stop``.  Other commands fail the replication with ERR_USER, as
+(events of kind ``N_KINDS + k`` scheduled by ``api.schedule``); spawn
+pools (rows CREATED at init, activated and recycled by
+:func:`spawn_process`); the guard pend/retry protocol, boundary blocks,
+failure codes and ``api.stop``.  Other commands fail the replication with ERR_USER, as
 the reference's unknown-tag handler does.
 """
 
@@ -169,7 +170,8 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
              device="cuda") -> Sim:
     """Initial state of the replications ``replications`` (a 1-D integer
     array) under the active dtype profile, every process started at
-    ``t0`` (parity: ``jax.vmap(cimba_tpu.core.loop.init_sim)``)."""
+    ``t0`` but a spawn pool's rows, which stay CREATED (parity:
+    ``jax.vmap(cimba_tpu.core.loop.init_sim)``)."""
     dev = config.resolve_device(device)
     real, tdt = config.real(), config.time()
     reps = torch.as_tensor(replications, device=dev).to(torch.int64)
@@ -177,18 +179,26 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
         raise ValueError("replications must be a 1-D array of indices")
     lanes = reps.shape[0]
     n = spec.n_procs
-    # process starts are dense wakes at t0 with seqs 0..P-1 in pid order
+    # process starts are dense wakes at t0, their seqs the started
+    # processes' ranks in pid order (0..P-1 where every process starts);
+    # a spawn pool's rows stay CREATED with no wake until api.spawn
+    started = torch.as_tensor(spec.proc_start, dtype=torch.bool,
+                              device=dev)
+    rank = torch.cumsum(started.to(INDEX), 0, dtype=INDEX) - started.to(
+        INDEX)
     wakes = ev.wakes_create(n, lanes, dev, tdt)._replace(
-        time=torch.full((lanes, n), float(t0), dtype=tdt, device=dev),
-        seq=torch.arange(n, dtype=INDEX, device=dev).expand(lanes, n)
-        .contiguous(),
+        time=torch.full((n,), float(t0), dtype=tdt, device=dev)
+        .masked_fill(~started, ev.NEVER).expand(lanes, n).contiguous(),
+        seq=rank.expand(lanes, n).contiguous(),
     )
     events = ev.create(spec.event_cap, lanes, dev, tdt)
-    events = events._replace(next_seq=torch.full((lanes,), n, dtype=INDEX,
-                                                 device=dev))
+    events = events._replace(next_seq=torch.full(
+        (lanes,), int(spec.proc_start.sum()), dtype=INDEX, device=dev))
     procs = pr.create(spec.proc_entry, spec.proc_prio, spec.n_flocals,
                       spec.n_ilocals, lanes, dev, real)
-    procs = procs._replace(status=torch.full_like(procs.status, pr.RUNNING))
+    procs = procs._replace(status=torch.where(
+        started, pr.RUNNING, pr.CREATED).to(INDEX).expand(lanes, n)
+        .contiguous())
     nq = max(len(spec.queues), 1)
     # no user state: the reference's float64 zero (jnp.zeros(()) under
     # x64), in either profile
@@ -557,6 +567,49 @@ def stop_process(spec: ModelSpec, sim: Sim, target) -> Sim:
     left alone."""
     tc, alive = _running(spec, sim, target)
     return finish_process(spec, sim, tc, pr.STOPPED, alive)
+
+
+def spawn_process(sim: Sim, pt, at=None, prio=None):
+    """Activate one row of a spawn pool (a process type declared with
+    ``start=False``); returns ``(sim, pid)``, pid -1 where every row of
+    the pool is RUNNING (parity: the reference's ``spawn_process``).  The
+    lowest CREATED or FINISHED pid of ``[first_pid, first_pid + count)``
+    gets its status, pc, priority (the type's, or ``prio``), got, exit
+    signal, waits, pend tag and guard and locals reset, and its SUCCESS
+    wake at ``at`` (default: now); a finished row's timers were cancelled
+    at its exit, so it is recycled clean."""
+    lo, n = pt.first_pid, pt.count
+    if lo < 0:
+        raise ValueError("spawn_process needs a built model's ProcessType")
+    pc = sim.procs
+    lanes, n_procs = pc.status.shape
+    dev = pc.status.device
+    pids = torch.arange(n_procs, device=dev)
+    free = ((pids >= lo) & (pids < lo + n))[None, :] & (
+        (pc.status == pr.CREATED) | (pc.status == pr.FINISHED))
+    found = free.any(dim=1)
+    slot = ix.first_true(free).to(INDEX)
+    p = torch.where(found, slot, 0)
+    new_prio = torch.as_tensor(pt.prio if prio is None else prio,
+                               dtype=INDEX, device=dev)
+    (status, pc_, prio_, got, exit_sig, await_pid, await_evt, pend_tag,
+     pend_guard) = ix.put_tree(
+        (pc.status, pc.pc, pc.prio, pc.got, pc.exit_sig, pc.await_pid,
+         pc.await_evt, pc.pend_tag, pc.pend_guard), p,
+        (pr.RUNNING, pt.entry_pc, new_prio, 0.0, pr.SUCCESS, -1, -1,
+         pr.NO_PEND, -1), found)
+    row = (found[:, None] & (pids[None, :] == p[:, None]))[:, :, None]
+    procs = pc._replace(
+        status=status, pc=pc_, prio=prio_, got=got, exit_sig=exit_sig,
+        await_pid=await_pid, await_evt=await_evt, pend_tag=pend_tag,
+        pend_guard=pend_guard,
+        locals_f=pc.locals_f.masked_fill(row, 0.0),
+        locals_i=pc.locals_i.masked_fill(row, 0))
+    sim = sim._replace(procs=procs)
+    t = sim.clock if at is None else torch.as_tensor(
+        at, dtype=sim.clock.dtype, device=dev)
+    sim = _schedule_wake(sim, found, p, pr.SUCCESS, t=t)
+    return sim, torch.where(found, slot, -1).to(INDEX)
 
 
 def release_resource(spec: ModelSpec, sim: Sim, p, rid, pred=True) -> Sim:

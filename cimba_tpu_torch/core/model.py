@@ -17,9 +17,9 @@ a :class:`ModelSpec`.  Block registration is the reference's::
 
 Blocks run on every replication lane at once: ``p`` and ``sig`` are
 ``[L]`` tensors.  Object queues, binary resources, resource pools,
-buffers, priority queues, conditions and user event handlers are
-ported; spawn pools (``process(start=False)``) are still to port and
-raise ``NotImplementedError`` naming the feature.
+buffers, priority queues, conditions, user event handlers and spawn
+pools (``process(start=False)``, activated by ``api.spawn``) are
+ported.
 """
 
 from __future__ import annotations
@@ -95,7 +95,10 @@ class ProcessType:
     entry_pc: int
     prio: int
     count: int
-    first_pid: int = -1
+    #: False = the rows exist but stay CREATED until api.spawn activates
+    #: them (a spawn pool)
+    start: bool = True
+    first_pid: int = -1  # assigned at build
 
 
 @dataclasses.dataclass
@@ -106,6 +109,9 @@ class ModelSpec:
     blocks: List[Callable]
     proc_entry: np.ndarray  # [P] i32
     proc_prio: np.ndarray   # [P] i32
+    #: [P] bool: False rows are spawn-pool members, CREATED at init until
+    #: api.spawn activates them
+    proc_start: np.ndarray
     proc_names: List[str]
     queues: List[QueueRef]
     pools: List[PoolRef]
@@ -131,17 +137,13 @@ class ModelSpec:
     #: ``fn(sim, subj, arg) -> sim`` of each user event kind
     #: ``N_KINDS + k`` (Model.handler)
     user_handlers: List[Callable] = dataclasses.field(default_factory=list)
+    #: the spawn pools' process types (``process(start=False)``), in
+    #: declaration order
+    spawn_types: List[ProcessType] = dataclasses.field(default_factory=list)
 
     @property
     def n_procs(self) -> int:
         return len(self.proc_entry)
-
-
-def _not_ported(feature: str):
-    raise NotImplementedError(
-        f"cimba_tpu_torch: {feature} is not ported yet (see ROADMAP.md, "
-        "queue A)"
-    )
 
 
 class Model:
@@ -181,10 +183,11 @@ class Model:
     def process(self, name: str, entry, *, prio: int = 0, count: int = 1,
                 start: bool = True):
         """Declare ``count`` instances of a process type starting at
-        block ``entry``."""
-        if not start:
-            _not_ported("spawn pools (process(start=False))")
-        pt = ProcessType(name, entry.pc, prio, count)
+        block ``entry``.  ``start=False`` declares a spawn pool: the rows
+        stay CREATED until a block activates one with ``api.spawn(sim,
+        pt)``, and finished rows are recycled by later spawns (parity:
+        the reference's runtime cmb_process_create/start)."""
+        pt = ProcessType(name, entry.pc, prio, count, start)
         self._types.append(pt)
         return pt
 
@@ -310,18 +313,20 @@ class Model:
     def build(self) -> ModelSpec:
         if not self._types:
             raise ValueError("model has no processes")
-        entries, prios, names = [], [], []
+        entries, prios, names, started = [], [], [], []
         for pt in self._types:
             pt.first_pid = len(entries)
             for k in range(pt.count):
                 entries.append(pt.entry_pc)
                 prios.append(pt.prio)
+                started.append(pt.start)
                 names.append(pt.name if pt.count == 1 else f"{pt.name}[{k}]")
         return ModelSpec(
             name=self.name,
             blocks=list(self._blocks),
             proc_entry=np.asarray(entries, np.int32),
             proc_prio=np.asarray(prios, np.int32),
+            proc_start=np.asarray(started, np.bool_),
             proc_names=names,
             queues=list(self._queues),
             pools=list(self._pools),
@@ -340,4 +345,5 @@ class Model:
                                default=1),
             resources=list(self._resources),
             user_handlers=list(self._user_handlers),
+            spawn_types=[pt for pt in self._types if not pt.start],
         )

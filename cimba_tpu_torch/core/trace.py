@@ -17,9 +17,10 @@ pid)``, once on a symbolic one-lane Sim and records what it computes:
 * ``api.draw`` is one ``draw`` node naming its sampler (the samplers'
   loops and tables are not traced); ``api.pool_release``,
   ``api.release``, ``api.cond_signal``, ``api.interrupt``,
-  ``api.stop_process``, ``api.timer_add``, ``api.timers_clear`` and
-  ``api.schedule`` are engine calls, since they scan guard waiters, the
-  processes or the event table; ``api.pqueue_length`` and
+  ``api.stop_process``, ``api.timer_add``, ``api.timers_clear``,
+  ``api.schedule`` and ``api.spawn`` are engine calls, since they scan
+  guard waiters, the processes or the event table (a timer's, an
+  event's handle and a spawn's pid are ``callres`` nodes); ``api.pqueue_length`` and
   ``api.pqueue_position`` are reader nodes (``pq_length``,
   ``pq_position``), since they scan a priority queue's slots;
 * a user event handler ``fn(sim, subj, arg) -> sim`` is traced as a
@@ -32,8 +33,9 @@ pid)``, once on a symbolic one-lane Sim and records what it computes:
   predicate (a chain of calls selected together, each gated); the
   leaves it touches are then read afresh after the select.  A select
   that covers only part of what a call touches, a predicate computed
-  after the call, or a read of the state after a gated call outside
-  the select raises, naming the block and the line.
+  after the call, a read of the state after a gated call outside the
+  select, or a use of a gated call's handle or pid raises, naming the
+  block and the line.
 
 A traced value is a :class:`Sym`: a tensor subclass holding the value
 torch computes on a real one-lane Sim (the *shadow*, which gives every
@@ -62,6 +64,7 @@ from torch.overrides import TorchFunctionMode
 
 from cimba_tpu_torch import config
 from cimba_tpu_torch.core import process as pr
+from cimba_tpu_torch.core.model import ProcessType
 
 
 class TraceError(NotImplementedError):
@@ -577,8 +580,13 @@ _CALL_TOUCHES = ("wakes.", "events.", "procs.pend_tag", "procs.pend_guard",
                  "guards.")
 #: and a stop's, which also ends its target
 _STOP_TOUCHES = _CALL_TOUCHES + ("procs.status", "procs.exit_sig")
-#: the engine calls that return ``(sim, handle)``
-_HANDLE_CALLS = ("timer_add", "schedule")
+#: and a spawn's, which resets the row it activates
+_SPAWN_TOUCHES = _STOP_TOUCHES + ("procs.pc", "procs.prio",
+                                  "procs.await_pid", "procs.await_evt",
+                                  "procs.locals_f", "procs.locals_i")
+#: the engine calls that return ``(sim, handle)`` (a spawn's handle is
+#: the pid it activated)
+_HANDLE_CALLS = ("timer_add", "schedule", "spawn")
 
 
 def _symbolic_sim(tr: Tracer, shadow):
@@ -635,11 +643,11 @@ def _arg(tr: Tracer, x):
 def engine_call(sim, kind: str, *args):
     """An engine call of a block under the tracer (``api.pool_release``,
     ``release``, ``cond_signal``, ``interrupt``, ``stop_process``,
-    ``timer_add``, ``timers_clear``, ``schedule``): the writes so far are
-    committed, the call recorded, and the leaves it may change read
-    afresh.  ``timer_add`` and ``schedule`` return ``(sim, handle)``, the
-    handle a ``callres`` node (which no block may use where the call is
-    gated)."""
+    ``timer_add``, ``timers_clear``, ``schedule``, ``spawn``): the writes
+    so far are committed, the call recorded, and the leaves it may change
+    read afresh.  ``timer_add``, ``schedule`` and ``spawn`` return ``(sim,
+    handle)``, the handle (a spawn's pid) a ``callres`` node, which no
+    block may use where the call is gated."""
     tr = sim.clock.tracer
     refs = tuple(_arg(tr, a) for a in args)
     _commit(tr, sim)
@@ -647,7 +655,8 @@ def engine_call(sim, kind: str, *args):
     tr.effects.append(("call", kind, refs, mark))
     touched = {}
     leaves = []
-    touches = _STOP_TOUCHES if kind == "stop_process" else _CALL_TOUCHES
+    touches = {"stop_process": _STOP_TOUCHES,
+               "spawn": _SPAWN_TOUCHES}.get(kind, _CALL_TOUCHES)
     for name, x in named_leaves(sim):
         if name.startswith(touches):
             t = tr.template[name]
@@ -710,7 +719,7 @@ def _check_calls(tr: Tracer, ir_roots) -> None:
     for nid, (k, _) in tr.post_of.items():
         if k in gated:
             post[nid] = k
-    if not post:
+    if not gated:
         return
     live, stack = set(), [r for r in ir_roots if isinstance(r, int)]
     while stack:
@@ -718,13 +727,22 @@ def _check_calls(tr: Tracer, ir_roots) -> None:
         if i in live:
             continue
         live.add(i)
+        n = tr.nodes[i]
         if i in post:
             call = tr.calls[post[i]]
             raise TraceError(
-                f"{tr.what}: reads {tr.nodes[i].aux[0]} after the engine "
+                f"{tr.what}: reads {n.aux[0]} after the engine "
                 f"call {call['kind']} outside the select at {call['line']} "
                 "that keeps or drops it")
-        stack += [a for a in tr.nodes[i].args if isinstance(a, int)]
+        if n.op == "callres" and n.aux in gated:
+            # the kernel makes a gated call under its gate only: its
+            # result names nothing where the gate is shut
+            call = tr.calls[n.aux]
+            what = "pid" if call["kind"] == "spawn" else "handle"
+            raise TraceError(
+                f"{tr.what}: uses the {what} of a {call['kind']} that the "
+                f"select at {call['line']} keeps or drops")
+        stack += [a for a in n.args if isinstance(a, int)]
 
 
 def draw(sim, dist, params):
@@ -1069,4 +1087,8 @@ def _call(spec, s, kind, args):
         return loop.timer_add(s, pid(pp), dur, sig)
     if kind == "timers_clear":
         return loop.timers_clear(s, pid(args[0])), None
+    if kind == "spawn":
+        first, count, entry, prio, at, prio_ = args
+        pt = ProcessType("", entry, prio, count, False, first)
+        return loop.spawn_process(s, pt, at=at, prio=prio_)
     raise TraceError(f"engine call {kind}")

@@ -51,10 +51,18 @@
 //           binary resources (NR: h_acquire<RID, FUSED>,
 //           h_preempt<RID, FUSED>, release_resource<RID>, their drop at
 //           an end), the pool preempt's mug (MUG: h_pool<K, true,
-//           FUSED>, its victims kicked through kick_at<V>), a block's
+//           FUSED>, its victims kicked through at_pid), a block's
 //           stop_process (stop_at<T>), a block's schedule of a user
-//           event (schedule_event) and the dispatch of user events to
-//           the family's handlers (NH: handler<K>).
+//           event (schedule_event), the dispatch of user events to
+//           the family's handlers (NH: handler<K>) and a block's spawn
+//           of a pool type (spawn_pool<T>, the pool's pids compile-time).
+//           Past the register limits (M::BIG, M::GBIG, which the
+//           emitter decides) a generated family keeps each
+//           process's wake and packed word in shared-memory columns
+//           (Col), stores every packed field back, reaches a kick's,
+//           stop's or spawn's target by its run-time pid, and takes its
+//           columns in dynamic shared memory (Smem, M::DYN); past the
+//           guards' limit their seq counters are a column too.
 // The TPU kernel re-evaluates any model's traced step; here the
 // hand-written families restate their blocks and every other spec's are
 // emitted from its trace by the host loop (core/kernel_run.py).
@@ -315,6 +323,23 @@ __device__ __forceinline__ R nanmin(R x, R y) {
   return (x != x || x < y) ? x : y;
 }
 
+// f(q) for q = 0 .. N - 1: unrolled (a register array's compile-time
+// indices), or, where ROLL (the shared columns of M::BIG or M::GBIG), a
+// loop: a chunk's load and store unrolled over 32
+// processes' columns kept their addresses in registers, and a 32-process
+// f64 family spilled.  An event's scans keep their own unrolled loops
+// (through a lambda one small family's registers moved)
+template <bool ROLL, int N, class F>
+__device__ __forceinline__ void each(F&& f) {
+  if constexpr (ROLL) {
+#pragma unroll 1
+    for (int q = 0; q < N; ++q) f(q);
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) f(q);
+  }
+}
+
 // a register array read and written by a run-time index: unrolled over
 // the compile-time indices, so the array never needs an address
 template <int N, typename T>
@@ -332,19 +357,46 @@ __device__ __forceinline__ void put(T (&a)[N], int i, T v) {
     if (i == q) a[q] = v;
 }
 
-// the small per-process fields, packed in a process's word (pc,
-// status, pend_tag, pend_guard, wakes.sig: offset and width in bits,
-// each read sign-extended), and the bits of the lane's `dirty` mask: bit
-// f * NP + q when field f of process q was written here (F_BLOCK: q
-// pended a block's command, which writes pend_f2 = 0, and pend_i = 0
-// where the model has one queue)
+// In a family of M::BIG (M::GBIG) a lane's wakes and words (its guards'
+// seq counters) live in the block's shared memory instead: a column a
+// process ([NP][THREADS], as Cold's), reached through Col, read and
+// written like the register array it replaces (a[q], pick, put), by any
+// index with one access.  The emitter sets BIG past 10 processes and
+// GBIG past 8 guards (core/emit.py REG_NP, REG_NG); below them the
+// registers and their code are as they were.
+
+template <typename T, int THREADS>
+struct Col {
+  T* base;  // this thread's element of row 0
+  __device__ __forceinline__ T& operator[](int q) const {
+    return base[q * THREADS];
+  }
+};
+
+template <typename T, int TH>
+__device__ __forceinline__ T pick(const Col<T, TH>& a, int i) {
+  return a[i];
+}
+
+template <typename T, int TH>
+__device__ __forceinline__ void put(Col<T, TH>& a, int i, T v) {
+  a[i] = v;
+}
+
+// the small per-process fields, packed in a process's word (pc 8 bits,
+// status 4, pend_tag 8, pend_guard 8, wakes.sig 4: offset and width in
+// bits, each read sign-extended, so a guard id is at most 126), and the
+// bits of the lane's `dirty` mask: bit f * NP + q when field f of
+// process q was written here (F_BLOCK: q pended a block's command, which
+// writes pend_f2 = 0, and pend_i = 0 where the model has one queue)
 enum Field { F_PC, F_STATUS, F_TAG, F_GUARD, F_SIG, F_BLOCK };
 
 __host__ __device__ constexpr int f_off(int f) {
-  return f < F_SIG ? 8 * f : 28;
+  return f == F_PC ? 0 : f == F_STATUS ? 8 : f == F_TAG ? 12
+         : f == F_GUARD ? 20 : 28;
 }
 __host__ __device__ constexpr int f_width(int f) {
-  return f < F_GUARD ? 8 : 4;
+  return f == F_STATUS || f == F_SIG ? 4 : 8;
 }
 
 __device__ __forceinline__ int32_t field(uint32_t word, int f) {
@@ -442,6 +494,41 @@ struct ColdSig {
 template <class M>
 struct ColdSig<M, false> {};
 
+// the columns of a family past the register limits: each process's wake
+// time, wake seq and packed word (M::BIG), each guard's seq counter
+// (M::GBIG)
+template <typename R, class M, bool BIG = M::BIG>
+struct ColdWake {
+  R wt[M::NP][M::THREADS];
+  int32_t wseq[M::NP][M::THREADS];
+  uint32_t word[M::NP][M::THREADS];
+};
+
+template <typename R, class M>
+struct ColdWake<R, M, false> {};
+
+template <class M, bool GBIG = M::GBIG>
+struct ColdG {
+  int32_t gseq[M::NG][M::THREADS];
+};
+
+template <class M>
+struct ColdG<M, false> {};
+
+// every column of a family whose shared memory is dynamic (M::DYN): one
+// block-wide struct carved from the launch's dynamic shared memory
+template <typename R, class M>
+struct Smem {
+  Cold<R, M> cold;
+  ColdAcc<R, M> cold_acc;
+  ColdQ<M> cold_q;
+  ColdShop<R, M> cold_shop;
+  ColdSig<M> cold_sig;
+  typename M::UCold ucold;
+  ColdWake<R, M> wake;
+  ColdG<M> g;
+};
+
 // One lane's working state: the hot part in registers, the cold part in
 // the block's shared memory.
 template <typename R_, typename C_, class M_>
@@ -455,9 +542,19 @@ struct State {
   static constexpr int NVA = M::NV > 0 ? M::NV : 1;
   static constexpr int NRA = M::NR > 0 ? M::NR : 1;
   static constexpr bool RECORD = M::RECORD;
+  // past the register limits: the wakes and words, the guards' seqs in
+  // shared columns (ColdWake, ColdG); no dirty mask, every packed field
+  // stored back; pend_f2 and pend_i are columns (the emitter's TOOLKIT)
+  static constexpr bool BIG = M::BIG, GBIG = M::GBIG;
+  static_assert(!BIG || (M::TOOLKIT && M::PEND_I),
+                "a family of BIG keeps pend_f2 and pend_i in columns");
   // the `dirty` mask: a bit a field and process
   using Dirty =
       std::conditional_t<(6 * NP <= 32), uint32_t, unsigned long long>;
+  using Wt = std::conditional_t<BIG, Col<R, M::THREADS>, R[NP]>;
+  using Wi = std::conditional_t<BIG, Col<int32_t, M::THREADS>, int32_t[NP]>;
+  using Ww = std::conditional_t<BIG, Col<uint32_t, M::THREADS>, uint32_t[NP]>;
+  using Gs = std::conditional_t<GBIG, Col<int32_t, M::THREADS>, int32_t[NG]>;
 
   Cold<R, M>* cold;  // the block's
   ColdAcc<R, M>* cold_acc;
@@ -470,11 +567,11 @@ struct State {
   uint32_t k0, k1, lo, hi;
   int32_t next_seq;
   // dense wakes and the processes' small fields
-  R wt[NP];
-  int32_t wseq[NP];
-  uint32_t word[NP];  // pc, status, pend_tag, pend_guard, wakes.sig
+  Wt wt;
+  Wi wseq;
+  Ww word;  // pc, status, pend_tag, pend_guard, wakes.sig
   Dirty dirty;
-  int32_t gseq[NG];
+  Gs gseq;
   // the queues: heads and sizes here, the rings in device memory
   int32_t head[NQA], size[NQA];
   // the pools (their levels and grab counters) and the buffers' levels;
@@ -541,12 +638,23 @@ __device__ __forceinline__ int32_t get(const S& s, int f, int p) {
   return field(pick(s.word, p), f);
 }
 
+// field f of process p written: its dirty bit (a family of BIG stores
+// every packed field back)
+template <class S>
+__device__ __forceinline__ void mark(S& s, int f, int p) {
+  if constexpr (!S::BIG) s.dirty |= typename S::Dirty(1) << (f * S::NP + p);
+}
+
 template <class S>
 __device__ __forceinline__ void set(S& s, int f, int p, int32_t v) {
+  if constexpr (S::BIG) {
+    s.word[p] = with(s.word[p], f, v);
+  } else {
 #pragma unroll
-  for (int q = 0; q < S::NP; ++q)
-    if (p == q) s.word[q] = with(s.word[q], f, v);
-  s.dirty |= typename S::Dirty(1) << (f * S::NP + p);
+    for (int q = 0; q < S::NP; ++q)
+      if (p == q) s.word[q] = with(s.word[q], f, v);
+  }
+  mark(s, f, p);
 }
 
 template <class S>
@@ -719,15 +827,15 @@ __device__ __forceinline__ void guard_signal(S& s, int gid) {
   int pid = 0;
 #pragma unroll
   for (int q = 0; q < S::NP; ++q)
-    if (field(s.word[q], F_GUARD) == gid) {
-      const int32_t pq = COLD(s, prio, q), sq = COLD(s, pend_seq, q);
-      if (!found || pq > bp || (pq == bp && sq < bs)) {
-        found = true;
-        bp = pq;
-        bs = sq;
-        pid = q;
+      if (field(s.word[q], F_GUARD) == gid) {
+        const int32_t pq = COLD(s, prio, q), sq = COLD(s, pend_seq, q);
+        if (!found || pq > bp || (pq == bp && sq < bs)) {
+          found = true;
+          bp = pq;
+          bs = sq;
+          pid = q;
+        }
       }
-    }
   if (!found) return;
   set(s, F_GUARD, pid, -1);
   schedule_wake(s, pid, s.clock);
@@ -753,7 +861,7 @@ __device__ __forceinline__ void guard_wait(S& s, int p, int gid,
   // a retry re-pends the pended command as it was: its pend_f2 (and
   // pend_i) stay; a block's command writes its 0s (the job shop's
   // pend_f2 is the column written above)
-  if (!is_retry) s.dirty |= typename S::Dirty(1) << (F_BLOCK * S::NP + p);
+  if (!is_retry) mark(s, F_BLOCK, p);
 }
 
 template <class S>
@@ -761,7 +869,7 @@ __device__ __forceinline__ bool any_waiting(const S& s, int gid) {
   bool any = false;
 #pragma unroll
   for (int q = 0; q < S::NP; ++q)
-    any = any || field(s.word[q], F_GUARD) == gid;
+      any = any || field(s.word[q], F_GUARD) == gid;
   return any;
 }
 
@@ -777,6 +885,21 @@ __device__ __forceinline__ auto by_id(int i, F&& f) {
   } else {
     if (i <= J) return f(std::integral_constant<int, J>{});
     return by_id<J + 1, N>(i, f);
+  }
+}
+
+// f(q) for process p of [LO, HI): q a compile-time pid through by_id
+// where the processes' wakes and words are registers, p itself where
+// they are shared columns (S::BIG), which any index reaches in one access
+template <class S, int LO = 0, int HI = S::NP, class F>
+__device__ __forceinline__ void at_pid(int p, F&& f) {
+  if constexpr (S::BIG) {
+    f(p);
+  } else {
+    by_id<LO, HI>(p, [&](auto q) {
+      f(decltype(q)::value);
+      return 0;
+    });
   }
 }
 
@@ -869,18 +992,18 @@ __device__ __forceinline__ void cond_signal(S& s, const Where& w) {
     if (!M::template cond_holds<C>(s, w, 0)) return;
 #pragma unroll
     for (int q = 0; q < S::NP; ++q)
-      if (field(s.word[q], F_GUARD) == M::g_cond(C)) {
-        set(s, F_GUARD, q, -1);
-        schedule_wake(s, q, s.clock);
-      }
+        if (field(s.word[q], F_GUARD) == M::g_cond(C)) {
+          set(s, F_GUARD, q, -1);
+          schedule_wake(s, q, s.clock);
+        }
   } else {
 #pragma unroll
     for (int q = 0; q < S::NP; ++q)
-      if (field(s.word[q], F_GUARD) == M::g_cond(C) &&
-          M::template cond_holds<C>(s, w, q)) {
-        set(s, F_GUARD, q, -1);
-        schedule_wake(s, q, s.clock);
-      }
+        if (field(s.word[q], F_GUARD) == M::g_cond(C) &&
+            M::template cond_holds<C>(s, w, q)) {
+          set(s, F_GUARD, q, -1);
+          schedule_wake(s, q, s.clock);
+        }
   }
 }
 
@@ -926,10 +1049,11 @@ __device__ __forceinline__ void release_pool(S& s, const Where& w, int p,
   if (!owner_ok) set_err(s, ERR_BAD_RELEASE);
 }
 
-// the kick of process T: its wait aborted with sig, then a wake now with
+// the kick of process p: its wait aborted with sig, then a wake now with
 // sig (defined with the generated family's rules below)
-template <int T, class S>
-__device__ __forceinline__ void kick_at(S& s, const Where& w, int32_t sig);
+template <class S>
+__device__ __forceinline__ void kick(S& s, const Where& w, int p,
+                                     int32_t sig);
 
 // pool_acquire (MUG false) or pool_preempt (MUG true) and their fused
 // twins (FUSED; loop's h_pool_acquire and h_pool_preempt) on pool K: take
@@ -944,8 +1068,8 @@ __device__ __forceinline__ void kick_at(S& s, const Where& w, int32_t sig);
 // the lowest priority, then the latest grab (held_seq), then the lowest
 // pid, scanned over compile-time pids; v's whole holding is taken and
 // what the claim does not use goes back to the pool, before the kick
-// (kick_at<V> through by_id: v's wait aborted with PREEMPTED, a
-// PREEMPTED wake now).  At most NP victims.
+// (kick through at_pid: v's wait aborted with PREEMPTED, a PREEMPTED
+// wake now).  At most NP victims.
 template <int K, bool MUG, bool FUSED, class S>
 __device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
                                        const Cmd<typename S::R>& c,
@@ -988,10 +1112,7 @@ __device__ __forceinline__ bool h_pool(S& s, const Where& w, int p,
       SCOL(s, held, K * S::NP + v) = R(0);
       SCOL(s, held, h) = SCOL(s, held, h) + used;
       s.pool_level[K] = s.pool_level[K] + (loot - used);
-      by_id<0, S::NP>(v, [&](auto q) {
-        kick_at<decltype(q)::value>(s, w, PREEMPTED);
-        return 0;
-      });
+      at_pid<S>(v, [&](int q) { kick(s, w, q, PREEMPTED); });
       rem = rem - used;
     }
   }
@@ -1402,52 +1523,45 @@ __device__ __forceinline__ Cmd<typename S::R> pend_of(const S& s, int p) {
   return c;
 }
 
-// what process T (a compile-time pid) waits on, aborted with sig
-// (loop._abort_wait): the unwait (its pend, guard and wake cleared), then
-// the cleanup
-template <int T, class S>
-__device__ __forceinline__ void abort_wait_at(S& s, const Where& w,
-                                              int32_t sig) {
+// what process p (a compile-time pid where the words are registers, see
+// at_pid) waits on, aborted with sig (loop._abort_wait): the unwait (its
+// pend, guard and wake cleared), then the cleanup
+template <class S>
+__device__ __forceinline__ void abort_wait(S& s, const Where& w, int p,
+                                           int32_t sig) {
   using R = typename S::R;
-  const Cmd<R> pend = pend_of(s, T);
-  set(s, F_TAG, T, NO_PEND);
-  set(s, F_GUARD, T, -1);
-  put(s.wt, T, inf_of<R>());
-  abort_cleanup(s, w, T, pend, sig);
+  const Cmd<R> pend = pend_of(s, p);
+  set(s, F_TAG, p, NO_PEND);
+  set(s, F_GUARD, p, -1);
+  put(s.wt, p, inf_of<R>());
+  abort_cleanup(s, w, p, pend, sig);
 }
 
-// the kick of process T: its wait aborted, then a wake now with sig; an
+// the kick of process p: its wait aborted, then a wake now with sig; an
 // interrupt's, a resource preempt's and a mug's
-template <int T, class S>
-__device__ __forceinline__ void kick_at(S& s, const Where& w, int32_t sig) {
-  abort_wait_at<T>(s, w, sig);
+template <class S>
+__device__ __forceinline__ void kick(S& s, const Where& w, int p,
+                                     int32_t sig) {
+  abort_wait(s, w, p, sig);
   if (finite(s.clock)) {
-    put(s.wt, T, s.clock);
-    GCOL(s, wsig, T) = sig;
-    put(s.wseq, T, s.next_seq);
+    put(s.wt, p, s.clock);
+    GCOL(s, wsig, p) = sig;
+    put(s.wseq, p, s.next_seq);
     s.next_seq += 1;
   } else {
     set_err(s, ERR_EVENT_OVERFLOW);
   }
 }
 
-// interrupt of process T (loop.interrupt): the kick, where T runs
-template <int T, class S>
-__device__ __forceinline__ void interrupt_at(S& s, const Where& w,
-                                             int32_t sig) {
-  if (get(s, F_STATUS, T) != RUNNING) return;
-  kick_at<T>(s, w, sig);
-}
-
-// api.interrupt of a pid a block computes: dispatched over the
-// processes (a compile-time pid each); a pid out of range is no process
+// api.interrupt of a pid a block computes (loop.interrupt): the kick,
+// where the target runs, reached through at_pid; a pid out of range is
+// no process
 template <class S>
 __device__ __forceinline__ void interrupt(S& s, const Where& w, int target,
                                           int32_t sig) {
   if (target < 0 || target >= S::NP) return;
-  by_id<0, S::NP>(target, [&](auto q) {
-    interrupt_at<decltype(q)::value>(s, w, sig);
-    return 0;
+  at_pid<S>(target, [&](int q) {
+    if (get(s, F_STATUS, q) == RUNNING) kick(s, w, q, sig);
   });
 }
 
@@ -1455,23 +1569,75 @@ __device__ __forceinline__ void interrupt(S& s, const Where& w, int target,
 // where T runs, its wait aborted with STOPPED (unwait, then the cleanup;
 // its wake cleared, so a process stopped in a hold never wakes), then its
 // end with exit signal STOPPED
-template <int T, class S>
-__device__ __forceinline__ void stop_at(S& s, const Where& w) {
-  if (get(s, F_STATUS, T) != RUNNING) return;
-  abort_wait_at<T>(s, w, STOPPED);
-  end_process(s, w, T, STOPPED);
+template <class S>
+__device__ __forceinline__ void stop_one(S& s, const Where& w, int p) {
+  if (get(s, F_STATUS, p) != RUNNING) return;
+  abort_wait(s, w, p, STOPPED);
+  end_process(s, w, p, STOPPED);
 }
 
-// api.stop_process of a pid a block computes: dispatched over the
-// processes; a pid out of range is no process
+template <int T, class S>
+__device__ __forceinline__ void stop_at(S& s, const Where& w) {
+  stop_one(s, w, T);
+}
+
+// api.stop_process of a pid a block computes: reached through at_pid; a
+// pid out of range is no process
 template <class S>
 __device__ __forceinline__ void stop_process(S& s, const Where& w,
                                              int target) {
   if (target < 0 || target >= S::NP) return;
-  by_id<0, S::NP>(target, [&](auto q) {
-    stop_at<decltype(q)::value>(s, w);
-    return 0;
+  at_pid<S>(target, [&](int q) { stop_one(s, w, q); });
+}
+
+// process p's row reset by a spawn of pool type T (loop.spawn_process):
+// RUNNING at the type's entry with priority prio, no pend, got, exit
+// signal and locals 0, no waits; its SUCCESS wake at t with the next seq
+// (a non-finite t fails the lane).  prio, exit_sig and the waits are
+// written through to device memory (a chunk stores none of them back).
+// A finished row's timers were cancelled and its holdings dropped at its
+// end, and its wake is NEVER, so nothing of its last life is read again.
+template <int T, class S>
+__device__ __forceinline__ void spawn_reset(S& s, const Where& w, int p,
+                                            typename S::R t, int32_t prio) {
+  using R = typename S::R;
+  using M = typename S::M;
+  constexpr int NP = S::NP;
+  set(s, F_STATUS, p, RUNNING);
+  set(s, F_PC, p, M::spawn_entry(T));
+  set(s, F_TAG, p, NO_PEND);
+  set(s, F_GUARD, p, -1);
+  COLD(s, prio, p) = prio;
+  row<int32_t, S>(w, PRIO, NP)[p] = prio;
+  COLD(s, got, p) = R(0);
+  row<int32_t, S>(w, EXIT_SIG, NP)[p] = SUCCESS;
+  row<int32_t, S>(w, AWAIT_PID, NP)[p] = -1;
+  row<int32_t, S>(w, AWAIT_EVT, NP)[p] = -1;
+#pragma unroll
+  for (int i = 0; i < M::NF; ++i) UCOL(s, lf, p * M::NF + i) = R(0);
+#pragma unroll
+  for (int i = 0; i < M::NI; ++i) UCOL(s, li, p * M::NI + i) = 0;
+  schedule_wake(s, p, t);
+}
+
+// api.spawn of pool type T (a compile-time id: its rows are the pids
+// [spawn_first(T), spawn_first(T) + spawn_count(T))): the lowest row that
+// is not RUNNING (CREATED or FINISHED) reset by spawn_reset, reached
+// through at_pid over the pool's pids only; returns its pid, or -1 where
+// every row runs
+template <int T, class S>
+__device__ __forceinline__ int32_t spawn_pool(S& s, const Where& w,
+                                              typename S::R t,
+                                              int32_t prio) {
+  using M = typename S::M;
+  constexpr int LO = M::spawn_first(T), HI = LO + M::spawn_count(T);
+  int p = -1;
+  each<S::BIG, HI - LO>([&](int j) {
+    if (p < 0 && get(s, F_STATUS, LO + j) != RUNNING) p = LO + j;
   });
+  if (p < 0) return -1;
+  at_pid<S, LO, HI>(p, [&](int q) { spawn_reset<T>(s, w, q, t, prio); });
+  return p;
 }
 
 // binary resource RID's release by p (loop.release_resource), inline from
@@ -1513,7 +1679,7 @@ __device__ __forceinline__ bool h_acquire(S& s, const Where& w, int p,
 
 // preempt of binary resource RID and its fused twin (FUSED; loop's
 // h_preempt): grab it where it is free; where its holder's priority is at
-// most p's, kick the holder (kick_at<V> through by_id: its wait aborted
+// most p's, kick the holder (kick through at_pid: its wait aborted
 // with PREEMPTED, a PREEMPTED wake now) and take it over, recording
 // nothing; else pend as an acquire
 template <int RID, bool FUSED, class S>
@@ -1525,19 +1691,16 @@ __device__ __forceinline__ bool h_preempt(S& s, const Where& w, int p,
   const int32_t holder = s.holder[RID];
   const bool free = holder < 0;
   const int victim = free ? 0 : holder;
-  const bool kick =
+  const bool kick_ =
       !free && COLD(s, prio, p) >= COLD(s, prio, victim);
-  if (kick) {
-    by_id<0, S::NP>(victim, [&](auto q) {
-      kick_at<decltype(q)::value>(s, w, PREEMPTED);
-      return 0;
-    });
+  if (kick_) {
+    at_pid<S>(victim, [&](int q) { kick(s, w, q, PREEMPTED); });
     s.holder[RID] = p;
   } else if (free) {
     s.holder[RID] = p;
     if constexpr (M::res_rec(RID)) record(s, M::acc_res(RID), R(1));
   }
-  const bool blocked = !free && !kick;
+  const bool blocked = !free && !kick_;
   if (FUSED && !blocked) schedule_wake(s, p, s.clock + nanmax0(c.f3));
   set(s, F_PC, p, c.next_pc);
   if (blocked) guard_wait(s, p, M::g_res(RID), c, is_retry);
@@ -1779,6 +1942,11 @@ struct Family {
   static constexpr bool GEN = false, TOOLKIT = false, PEND_I = false;
   static constexpr bool PRED_BY_PID = false, ABORT = false, WSIG = false;
   static constexpr bool MUG = false;  // a pool preempt's rule
+  // the columns in dynamic shared memory (Smem), a generated family's
+  // choice where they pass the static 48 KB or the register limits
+  static constexpr bool DYN = false;
+  // the wakes and words, the guards' seqs in shared columns (Col)
+  static constexpr bool BIG = false, GBIG = false;
   static constexpr int NK = 0, NV = 0, NC = 0, NPQ = 0, PQW = 1;
   static constexpr int NR = 0, NH = 0;  // resources, user handlers
   using UCold = NoUCold;
@@ -2284,13 +2452,12 @@ __device__ __forceinline__ void gen_state(S& s, const Where& w) {
       xfer<LOAD>(row<R, S>(w, M::L_P_LEVEL, NK) + k, s.pool_level[k]);
       xfer<LOAD>(row<int32_t, S>(w, M::L_P_NEXT_SEQ, NK) + k,
                  s.pool_next_seq[k]);
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
+      each<S::BIG, NP>([&](int q) {
         xfer<LOAD>(row<R, S>(w, M::L_P_HELD, NK * NP) + k * NP + q,
                    SCOL(s, held, k * NP + q));
         xfer<LOAD>(row<int32_t, S>(w, M::L_P_HELD_SEQ, NK * NP) + k * NP + q,
                    SCOL(s, held_seq, k * NP + q));
-      }
+      });
     }
     acc_rows<LOAD, M::L_PACC, NK>(s, w, M::acc_pool(0));
   }
@@ -2307,14 +2474,14 @@ __device__ __forceinline__ void gen_state(S& s, const Where& w) {
     acc_rows<LOAD, M::L_RACC, M::NR>(s, w, M::acc_res(0));
   }
   if constexpr (M::TOOLKIT) {
-#pragma unroll
-    for (int q = 0; q < NP; ++q)
+    each<S::BIG, NP>([&](int q) {
       xfer<LOAD>(row<R, S>(w, PEND_F2, NP) + q, SCOL(s, pend_f2, q));
+    });
   }
   if constexpr (M::WSIG) {
-#pragma unroll
-    for (int q = 0; q < NP; ++q)
+    each<S::BIG, NP>([&](int q) {
       xfer<LOAD>(row<int32_t, S>(w, WK_SIG, NP) + q, GCOL(s, wsig, q));
+    });
   }
   if constexpr (M::NPQ > 0) {
 #pragma unroll
@@ -2323,12 +2490,12 @@ __device__ __forceinline__ void gen_state(S& s, const Where& w) {
                  GCOL(s, pq_next_seq, k));
     acc_rows<LOAD, M::L_PQACC, M::NPQ>(s, w, M::acc_pq(0));
   }
-#pragma unroll
-  for (int i = 0; i < NP * M::NF; ++i)
+  each<S::BIG, NP * M::NF>([&](int i) {
     xfer<LOAD>(row<R, S>(w, LOCALS_F, NP * M::NF) + i, UCOL(s, lf, i));
-#pragma unroll
-  for (int i = 0; i < NP * M::NI; ++i)
+  });
+  each<S::BIG, NP * M::NI>([&](int i) {
     xfer<LOAD>(row<int32_t, S>(w, LOCALS_I, NP * M::NI) + i, UCOL(s, li, i));
+  });
   M::template xfer_user<LOAD>(s, w);
 }
 
@@ -2344,8 +2511,7 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
   s.lo = uint32_t(row<int64_t, S>(w, CTR_LO, 1)[0]);
   s.hi = uint32_t(row<int64_t, S>(w, CTR_HI, 1)[0]);
   s.next_seq = row<int32_t, S>(w, EV_NEXT_SEQ, 1)[0];
-#pragma unroll
-  for (int q = 0; q < NP; ++q) {
+  each<S::BIG, NP>([&](int q) {
     s.wt[q] = row<R, S>(w, WK_TIME, NP)[q];
     s.wseq[q] = row<int32_t, S>(w, WK_SEQ, NP)[q];
     s.word[q] = pack<M::N_BLOCKS, NG>(row<int32_t, S>(w, PC, NP)[q],
@@ -2364,11 +2530,11 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
           w, LOCALS_I, NP * w.sh.n_ilocals)[q * w.sh.n_ilocals];
     if constexpr (M::PEND_I)
       s.cold_q->pend_i[q][s.t] = row<int32_t, S>(w, PEND_I, NP)[q];
-  }
+  });
   s.dirty = 0u;
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
+  each<S::GBIG, NG>([&](int g) {
     s.gseq[g] = row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g];
+  });
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     s.head[q] = row<int32_t, S>(w, Q_HEAD, NQ)[q];
@@ -2425,8 +2591,10 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
 }
 
 // the fields a chunk can change (the packed ones where they were
-// written); prio, the keys, the parameters and the general table's
-// other columns are only read
+// written, or all of them in a family of BIG, which read the same as
+// they were loaded where not written); prio, the keys, the parameters
+// and the general table's other columns are only read (a spawn writes
+// the prio, exit signal and waits of the row it resets through)
 template <class S>
 __device__ __forceinline__ void store(const S& s, const Where& w) {
   using R = typename S::R;
@@ -2438,14 +2606,18 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
   row<int64_t, S>(w, CTR_HI, 1)[0] = int64_t(s.hi);
   row<int32_t, S>(w, EV_NEXT_SEQ, 1)[0] = s.next_seq;
   constexpr Leaf packed[5] = {PC, STATUS, PEND_TAG, PEND_GUARD, WK_SIG};
-#pragma unroll
-  for (int q = 0; q < NP; ++q) {
+  each<S::BIG, NP>([&](int q) {
     row<R, S>(w, WK_TIME, NP)[q] = s.wt[q];
     row<int32_t, S>(w, WK_SEQ, NP)[q] = s.wseq[q];
 #pragma unroll
-    for (int f = 0; f < 5; ++f)
-      if (s.dirty & (typename S::Dirty(1) << (f * NP + q)))
+    for (int f = 0; f < 5; ++f) {
+      if constexpr (S::BIG) {  // every field but the wake's signal column
+        if (f != F_SIG || !M::WSIG)
+          row<int32_t, S>(w, packed[f], NP)[q] = field(s.word[q], f);
+      } else if (s.dirty & (typename S::Dirty(1) << (f * NP + q))) {
         row<int32_t, S>(w, packed[f], NP)[q] = field(s.word[q], f);
+      }
+    }
     row<int32_t, S>(w, PEND_PC, NP)[q] = COLD(s, pend_pc, q);
     row<int32_t, S>(w, PEND_SEQ, NP)[q] = COLD(s, pend_seq, q);
     row<R, S>(w, PEND_F, NP)[q] = COLD(s, pend_f, q);
@@ -2461,14 +2633,16 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
       row<int32_t, S>(w, P_HELD_SEQ, NP)[q] = SCOL(s, held_seq, q);
       row<R, S>(w, PEND_F2, NP)[q] = SCOL(s, pend_f2, q);
     }
-    if (s.dirty & (typename S::Dirty(1) << (F_BLOCK * NP + q))) {
-      if constexpr (!M::TOOLKIT) row<R, S>(w, PEND_F2, NP)[q] = R(0);
-      if constexpr (!M::PEND_I) row<int32_t, S>(w, PEND_I, NP)[q] = 0;
+    if constexpr (!S::BIG) {
+      if (s.dirty & (typename S::Dirty(1) << (F_BLOCK * NP + q))) {
+        if constexpr (!M::TOOLKIT) row<R, S>(w, PEND_F2, NP)[q] = R(0);
+        if constexpr (!M::PEND_I) row<int32_t, S>(w, PEND_I, NP)[q] = 0;
+      }
     }
-  }
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
+  });
+  each<S::GBIG, NG>([&](int g) {
     row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g] = s.gseq[g];
+  });
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     row<int32_t, S>(w, Q_HEAD, NQ)[q] = s.head[q];
@@ -2523,7 +2697,9 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          ColdQ<M>& cold_q,
                                          ColdShop<R, M>& cold_shop,
                                          ColdSig<M>& cold_sig,
-                                         typename M::UCold& ucold) {
+                                         typename M::UCold& ucold,
+                                         ColdWake<R, M>* wake = nullptr,
+                                         ColdG<M>* g = nullptr) {
   using S = State<R, C, M>;
   S s;
   s.cold = &cold;
@@ -2533,6 +2709,12 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
   s.cold_sig = &cold_sig;
   s.ucold = &ucold;
   s.t = threadIdx.x;
+  if constexpr (S::BIG) {
+    s.wt.base = &wake->wt[0][s.t];
+    s.wseq.base = &wake->wseq[0][s.t];
+    s.word.base = &wake->word[0][s.t];
+  }
+  if constexpr (S::GBIG) s.gseq.base = &g->gseq[0][s.t];
   load(s, Where{ps, sh, l});
   scan_table(s, Where{ps, sh, l});
   for (int k = 0; k < chunk_steps; ++k) {
@@ -2576,16 +2758,36 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
              const __grid_constant__ Shape sh, int chunk_steps,
              bool has_t_end, R t_end) {
   using M = typename ModelOf<FAMILY, NS, RECORD, R>::type;
-  __shared__ Cold<R, M> cold;
-  __shared__ ColdAcc<R, M> cold_acc;
-  __shared__ ColdQ<M> cold_q;
-  __shared__ ColdShop<R, M> cold_shop;
-  __shared__ ColdSig<M> cold_sig;
-  __shared__ typename M::UCold ucold;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < lanes)
-    run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
-                      cold_acc, cold_q, cold_shop, cold_sig, ucold);
+  if constexpr (M::DYN) {
+    // the launch's dynamic shared memory (launch sets its size)
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    auto& m = *reinterpret_cast<Smem<R, M>*>(dyn_smem);
+    if (l < lanes)
+      run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, m.cold,
+                        m.cold_acc, m.cold_q, m.cold_shop, m.cold_sig,
+                        m.ucold, &m.wake, &m.g);
+  } else {
+    __shared__ Cold<R, M> cold;
+    __shared__ ColdAcc<R, M> cold_acc;
+    __shared__ ColdQ<M> cold_q;
+    __shared__ ColdShop<R, M> cold_shop;
+    __shared__ ColdSig<M> cold_sig;
+    __shared__ typename M::UCold ucold;
+    if (l < lanes)
+      run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
+                        cold_acc, cold_q, cold_shop, cold_sig, ucold);
+  }
+}
+
+// the dynamic shared memory a launch of the family takes (0: static)
+template <class M, typename R>
+constexpr int dyn_bytes() {
+  if constexpr (M::DYN) {
+    return int(sizeof(Smem<R, M>));
+  } else {
+    return 0;
+  }
 }
 
 template <typename R, typename C, int FAMILY, int NS, bool RECORD>
@@ -2598,7 +2800,16 @@ int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
   for (int i = 0; i < n_leaves; ++i) ps.p[i] = leaves[i];
   const int blocks = (lanes + M::THREADS - 1) / M::THREADS;
   const auto st = static_cast<cudaStream_t>(stream);
-  chunk_kernel<R, C, FAMILY, NS, RECORD><<<blocks, M::THREADS, 0, st>>>(
+  constexpr int smem = dyn_bytes<M, R>();
+  if constexpr (smem > 0) {
+    // above 48 KB a block takes dynamic shared memory only once allowed;
+    // a launch refused for it never runs, so the error is returned here
+    const cudaError_t e = cudaFuncSetAttribute(
+        chunk_kernel<R, C, FAMILY, NS, RECORD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chunk_kernel<R, C, FAMILY, NS, RECORD><<<blocks, M::THREADS, smem, st>>>(
       ps, lanes, sh, chunk_steps, has_t_end != 0, R(t_end));
   return static_cast<int>(cudaGetLastError());
 }
@@ -2708,6 +2919,10 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
     return cimba::queue::launch<R, C, cimba::queue::F_GEN, 0, false>(       \
         leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
         stream);                                                             \
+  }                                                                          \
+  /* the dynamic shared memory a block of the instance takes (0: static) */ \
+  extern "C" int cimba_gen_smem_##SUFFIX() {                                 \
+    return cimba::queue::dyn_bytes<cimba::queue::Gen<R>, R>();              \
   }
 
 #ifdef CIMBA_GEN_F32

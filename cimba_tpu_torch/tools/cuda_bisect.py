@@ -36,6 +36,7 @@ Usage (from the root of a checkout)::
     python -m cimba_tpu_torch.tools.cuda_bisect --model harbor  # generated
     python -m cimba_tpu_torch.tools.cuda_bisect --model park3   # generated
     python -m cimba_tpu_torch.tools.cuda_bisect --model park2   # generated
+    python -m cimba_tpu_torch.tools.cuda_bisect --model spawnshop  # generated
 
 Without a stage it drives the stages (default 0-5), prints one JSON line
 ``{"stage", "ok", "s", "tail"}`` for each, stops after the first failed
@@ -60,10 +61,9 @@ from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
 
 MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "jobshop", "awacs",
-          "balking", "harbor", "park3", "park2")
-#: the user programs (examples/), which run on a generated K1 instance,
-#: and the harbor's horizon (its tide never ends)
-GENERATED, HARBOR_T_END = ("balking", "harbor", "park3", "park2"), 40.0
+          "balking", "harbor", "park3", "park2", "spawnshop")
+#: the harbor's horizon (its tide never ends)
+HARBOR_T_END = 40.0
 #: float leaves, kernel vs plain (chip_smoke.py's RTOL)
 RTOL = {"f32": 2e-5, "f64": 1e-12}
 #: small default shapes: lanes, objects (mm1, mmc, mg1, tandem; jobs of
@@ -81,8 +81,9 @@ class Setup:
 
     def __init__(self, model: str, device, lanes: int = LANES,
                  size=None, seed: int = 2026):
-        from cimba_tpu_torch.examples import (cookbook_balking, tut_2_park,
-                                              tut_3_balking, tut_4_harbor)
+        from cimba_tpu_torch.examples import (cookbook_balking, spawn_shop,
+                                              tut_2_park, tut_3_balking,
+                                              tut_4_harbor)
         from cimba_tpu_torch.models import (awacs, jobshop, mg1, mm1, mmc,
                                             tandem)
 
@@ -115,6 +116,8 @@ class Setup:
             spec, params = tut_3_balking.build(), tut_3_balking.params()
         elif model == "park2":  # tutorial 2's cheese park
             spec, params = tut_2_park.build()[0], tut_2_park.params()
+        elif model == "spawnshop":  # a process spawned per arrival
+            spec, params = spawn_shop.build(), spawn_shop.params()
         else:
             raise ValueError(f"unknown model {model!r}; one of {MODELS}")
         self.model, self.spec = model, spec

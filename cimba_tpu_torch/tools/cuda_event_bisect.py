@@ -35,9 +35,12 @@ process's CUDA context unusable::
         --profile f64 --K 64
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model park3 --K 16
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model park2 --K 16
+    python -m cimba_tpu_torch.tools.cuda_event_bisect --model spawnshop \
+        --profile f64 --K 64
 
-(``balking``, ``harbor``, ``park3`` and ``park2``, the user programs of
-``cimba_tpu_torch.examples``, run on their generated K1 instances.)
+(``balking``, ``harbor``, ``park3``, ``park2`` and ``spawnshop``, the user
+programs of ``cimba_tpu_torch.examples``, run on their generated K1
+instances.)
 
 It exits 1 when it finds a divergence, 0 when it finds none.
 """

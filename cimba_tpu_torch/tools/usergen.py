@@ -37,6 +37,22 @@ pended pool preempt rolls back); and a starter that schedules a user
 event (``api.schedule``) whose handler stops one process it names by
 the event's subject.  Such a model runs to a horizon.
 
+``build(seed, lib, spawn=True)`` makes a model of spawn pools
+(``process(start=False)``, ``api.spawn``) with 11 to 32 processes in all,
+past the generated kernel's old limit of 10: a door that spawns a client
+process per arrival from a pool of 7 to 30 rows, some at a later time
+(``at``) or at another priority (``prio``), into an overloaded desk (a
+binary resource, plain or fused acquire, command or inline release), so
+the pool runs out and a spawn returns -1, and finished rows are
+recycled; where a second pool of 1 to 3 runners exists, the door spawns
+one a arrival too (runners take a unit of a resource pool, hold it and
+give it back); its first block spawns the smaller pool one more time than
+it has rows, so every lane sees a -1; a watcher waits on a condition that
+observes the desk and is never signalled by hand.  Some seeds declare six
+spare resources first, so the spec has 9 guards and its desk, pool and
+condition take guard ids past 7.  Every lane ends: the door exits after
+``n_items`` arrivals, and the clients and runners finish.
+
 On the card a spec built here takes the generated chunk kernel
 (``core/kernel_run.generated_kernel_for``), which the tests and
 ``chip_smoke.py`` hold against the plain engine.
@@ -84,11 +100,14 @@ def _torch_select_sim(pred, a, b):
 TIMEOUT, INTERRUPTED = -5, -2
 
 
-def build(seed: int, lib, timers: bool = False, resources: bool = False):
+def build(seed: int, lib, timers: bool = False, resources: bool = False,
+          spawn: bool = False):
     """One random spec; returns ``(spec, n_items)`` (``n_items`` None for
-    a ``resources`` spec)."""
+    a ``resources`` spec; the door's arrivals for a ``spawn`` one)."""
     if resources:
         return _build_resources(seed, lib), None
+    if spawn:
+        return _build_spawn(seed, lib)
     rng = random.Random(seed)
     Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
     n_items = rng.randint(12, 30)
@@ -484,6 +503,138 @@ def _build_resources(seed: int, lib):
     return spec
 
 
+def _build_spawn(seed: int, lib):
+    """The ``spawn=True`` family (see the module's docstring)."""
+    rng = random.Random(seed)
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    two = rng.random() < 0.5
+    n_b = rng.randint(1, 3) if two else 0
+    n_a = rng.randint(9 - n_b, 30 - n_b)
+    n_items = n_a + rng.randint(8, 20)
+    arr_mean = rng.uniform(0.3, 0.6)
+    srv_mean = rng.uniform(0.6, 1.0)
+    fused = rng.random() < 0.5
+    inline_release = rng.random() < 0.5
+    at_delay = rng.choice([None, rng.uniform(0.1, 2.0)])
+    prio = rng.choice([None, 1])
+    n_spare = rng.choice([0, 6])
+    m = Model(f"usergens{seed}", n_flocals=1, n_ilocals=1, event_cap=16)
+    for i in range(n_spare):
+        m.resource(f"spare{i}", record=False)
+    desk = m.resource("desk", record=rng.random() < 0.5)
+    seats = m.resourcepool("seats", capacity=float(rng.randint(1, 3)),
+                           record=rng.random() < 0.5)
+    free = m.condition(
+        "desk_free", lambda sim, pid: api.resource_holder(sim, desk) < 0,
+        observes=[desk])
+    box = []
+
+    @m.user_state
+    def init(params):
+        return {"arrivals": lib.zeros_i(), "spawned": lib.zeros_i(),
+                "missed": lib.zeros_i(), "served": lib.zeros_i(),
+                "seen": lib.zeros_i(), "sum_t": lib.real(0.0)}
+
+    def count(sim, key, v):
+        u = sim.user
+        return api.set_user(sim, {**u, key: u[key] + v})
+
+    def spawned(sim, pid):
+        sim = count(sim, "spawned", lib.i32(lib.where(pid >= 0, 1, 0)))
+        return count(sim, "missed", lib.i32(lib.where(pid < 0, 1, 0)))
+
+    # --- the door: a burst into the smaller pool, then one client an
+    # arrival (and a runner where there are runners) ------------------------
+    @m.block
+    def d_burst(sim, p, sig):
+        small = runners if two else clients
+        for _ in range(small.count + 1):
+            sim, pid = api.spawn(sim, small)
+            sim = spawned(sim, pid)
+        return sim, cmd.jump(d_arrive.pc)
+
+    @m.block
+    def d_arrive(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, arr_mean)
+        return sim, cmd.hold(t, next_pc=d_spawn.pc)
+
+    @m.block
+    def d_spawn(sim, p, sig):
+        at = None if at_delay is None else api.clock(sim) + at_delay
+        sim, pid = api.spawn(sim, clients, at=at, prio=prio)
+        sim = spawned(sim, pid)
+        if two:
+            sim, pid = api.spawn(sim, runners)
+            sim = spawned(sim, pid)
+        sim = count(sim, "arrivals", 1)
+        done = sim.user["arrivals"] >= n_items
+        return sim, cmd.select(done, cmd.exit_(), cmd.jump(d_arrive.pc))
+
+    # --- clients: the desk -------------------------------------------------
+    @m.block
+    def c_start(sim, p, sig):
+        sim = api.set_local_f(sim, p, 0, api.clock(sim))
+        if fused:
+            sim, t = api.draw(sim, cr.exponential, srv_mean)
+            return sim, cmd.acquire_hold(desk.id, t, next_pc=c_done.pc)
+        return sim, cmd.acquire(desk.id, next_pc=c_serve.pc)
+
+    @m.block
+    def c_serve(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, srv_mean)
+        return sim, cmd.hold(t, next_pc=c_done.pc)
+
+    @m.block
+    def c_done(sim, p, sig):
+        u = sim.user
+        sim = api.set_user(sim, {**u, "served": u["served"] + 1,
+                                 "sum_t": u["sum_t"] + (
+                                     api.clock(sim) - api.local_f(sim, p, 0))})
+        if inline_release:
+            sim = api.release(sim, box[0], desk, p)
+            return sim, cmd.exit_()
+        return sim, cmd.release(desk.id, next_pc=c_exit.pc)
+
+    @m.block
+    def c_exit(sim, p, sig):
+        return sim, cmd.exit_()
+
+    # --- runners: a unit of the seats --------------------------------------
+    @m.block
+    def r_take(sim, p, sig):
+        return sim, cmd.pool_acquire(seats.id, 1.0, next_pc=r_hold.pc)
+
+    @m.block
+    def r_hold(sim, p, sig):
+        sim, t = api.draw(sim, cr.uniform, 0.2, 1.0)
+        return sim, cmd.hold(t, next_pc=r_drop.pc)
+
+    @m.block
+    def r_drop(sim, p, sig):
+        sim = api.pool_release(sim, box[0], seats, p,
+                               api.pool_held(sim, seats, p))
+        return sim, cmd.exit_()
+
+    # --- the watcher: woken by the desk's releases only --------------------
+    @m.block
+    def w_wait(sim, p, sig):
+        return sim, cmd.cond_wait(free.id, next_pc=w_saw.pc)
+
+    @m.block
+    def w_saw(sim, p, sig):
+        sim = count(sim, "seen", 1)
+        return sim, cmd.hold(0.05, next_pc=w_wait.pc)
+
+    m.process("door", entry=d_burst, prio=rng.choice([0, 2]))
+    m.process("watcher", entry=w_wait)
+    clients = m.process("client", entry=c_start, count=n_a, start=False)
+    runners = (m.process("runner", entry=r_take, count=n_b, start=False)
+               if two else None)
+    spec = m.build()
+    box.append(spec)
+    return spec, n_items
+
+
 def abort_spec(lib):
     """A model whose waits are aborted from outside, every few events:
     two hogs contend for a pool of 4 units; a waiter claims 2.5 under a
@@ -575,3 +726,84 @@ def abort_spec(lib):
     spec = m.build()
     box.append(spec)
     return spec
+
+
+#: spawn_mm1_spec's customers, and its pool's rows
+SPAWN_MM1_CUSTOMERS, SPAWN_MM1_POOL = 30, 8
+
+
+def spawn_mm1_spec(lib):
+    """The per-customer M/M/1 of spawn pools (the reference's
+    ``tests/test_spawn.py`` ``_build``), 9 processes: an arrival process
+    spawns one customer process per arrival from a pool of
+    SPAWN_MM1_POOL rows; a customer stamps its birth in its float local,
+    checks that the local was zeroed, takes the server (a binary
+    resource), holds, releases it, zeroes its local and exits, so its row
+    is recycled.  ``order_ok`` holds while service follows birth order
+    and every spawned row's local starts at zero.  Every lane ends, by
+    ``api.stop`` once SPAWN_MM1_CUSTOMERS are done."""
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    n = SPAWN_MM1_CUSTOMERS
+    m = Model("spawnmm1", n_flocals=1, n_ilocals=1, event_cap=16)
+    srv = m.resource("server", record=False)
+
+    @m.user_state
+    def init(params):
+        return {"spawned": lib.zeros_i(), "done": lib.zeros_i(),
+                "sum_t": lib.real(0.0), "misses": lib.zeros_i(),
+                "last_start": lib.real(-1.0),
+                "order_ok": lib.zeros_i() == 0}
+
+    @m.block
+    def arrive(sim, p, sig):
+        fin = sim.user["spawned"] >= n
+        sim, t = api.draw(sim, cr.exponential, 1.0)
+        return sim, cmd.select(fin, cmd.exit_(),
+                               cmd.hold(t, next_pc=a_spawn.pc))
+
+    @m.block
+    def a_spawn(sim, p, sig):
+        sim, pid = api.spawn(sim, customers)
+        ok = pid >= 0
+        u = sim.user
+        sim = api.set_user(sim, {
+            **u, "spawned": u["spawned"] + lib.i32(ok),
+            "misses": u["misses"] + lib.i32(~ok)})
+        return sim, cmd.jump(arrive.pc)
+
+    @m.block
+    def c_start(sim, p, sig):
+        zeroed = api.local_f(sim, p, 0) == 0.0
+        sim = api.set_user(
+            sim, {**sim.user, "order_ok": sim.user["order_ok"] & zeroed})
+        sim = api.set_local_f(sim, p, 0, api.clock(sim))
+        return sim, cmd.acquire(srv.id, next_pc=c_serve.pc)
+
+    @m.block
+    def c_serve(sim, p, sig):
+        u = sim.user
+        birth = api.local_f(sim, p, 0)
+        sim = api.set_user(sim, {
+            **u, "order_ok": u["order_ok"] & (birth >= u["last_start"]),
+            "last_start": birth})
+        sim, t = api.draw(sim, cr.exponential, 0.8)
+        return sim, cmd.hold(t, next_pc=c_done.pc)
+
+    @m.block
+    def c_done(sim, p, sig):
+        u = sim.user
+        t_sys = api.clock(sim) - api.local_f(sim, p, 0)
+        sim = api.set_user(sim, {**u, "done": u["done"] + 1,
+                                 "sum_t": u["sum_t"] + t_sys})
+        sim = api.stop(sim, u["done"] + 1 >= n)
+        sim = api.set_local_f(sim, p, 0, 0.0)
+        return sim, cmd.release(srv.id, next_pc=c_exit.pc)
+
+    @m.block
+    def c_exit(sim, p, sig):
+        return sim, cmd.exit_()
+
+    m.process("arrival", entry=arrive, prio=1)
+    customers = m.process("customer", entry=c_start,
+                          count=SPAWN_MM1_POOL, start=False)
+    return m.build()

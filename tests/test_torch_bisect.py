@@ -28,7 +28,7 @@ def _lines(buf):
 
 
 @pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "jobshop",
-                                   "awacs", "park2"])
+                                   "awacs", "park2", "spawnshop"])
 def test_every_stage_passes_on_cpu(model):
     buf = io.StringIO()
 
@@ -114,6 +114,7 @@ def _planted(st, lane, leaf, at, delta):
     ("awacs", 3, "user.pos_x", 7),
     ("jobshop", 4, "buffers.level", 9),
     ("park2", 1, "pools.level", 9),
+    ("spawnshop", 6, "procs.locals_f", 12),
 ])
 def test_event_bisect_names_a_planted_divergence(model, lane, leaf, at):
     with config.profile("f32"):

@@ -400,6 +400,15 @@ def _user_spec(name):
                 None, 20.0, 11)
     if name == "abort":
         return usergen.abort_spec(usergen.torch_lib()), None, 15.0, 11
+    if name == "spawnshop":  # to its end: api.stop once 200 are served
+        from cimba_tpu_torch.examples import spawn_shop
+        return spawn_shop.build(), None, None, spawn_shop.SEED
+    if name == "spawnmm1":  # to its end: api.stop once 30 are done
+        return usergen.spawn_mm1_spec(usergen.torch_lib()), None, None, 11
+    if name.startswith("usergens"):  # to its end
+        seed = int(name[len("usergens"):])
+        return (usergen.build(seed, usergen.torch_lib(), spawn=True)[0],
+                None, None, 11)
     if name.startswith("usergent"):
         seed = int(name[len("usergent"):])
         return (usergen.build(seed, usergen.torch_lib(), timers=True)[0],
@@ -511,6 +520,52 @@ def test_generated_preempt_resources_handlers_match_plain_engine(card, name,
 
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["spawnshop", "usergens1", "usergens2",
+                                  "usergens4", "usergens13", "usergens14",
+                                  "spawnmm1"])
+def test_generated_spawn_pools_match_plain_engine(card, name, prof):
+    """The generated instances with spawn pools: past 10 processes their
+    wakes and words in shared columns and their columns in dynamic shared
+    memory (the spawn shop, 17 processes; usergen specs of spawn=True, 12
+    to 32 processes, seeds 1, 4 and 14 with 9 guards), and the reference's
+    per-customer M/M/1 (9 processes, its wakes and words in registers, the
+    spawned row reached through their compile-time pids): driven by their
+    host loop to the end, equal to the plain engine on the card leaf for
+    leaf, floats bit for bit; the shop's gates hold; the 32-process
+    instance takes more than 48 KB of shared memory a block."""
+    with config.profile(prof):
+        spec, params, t_end, seed = _user_spec(name)
+        s0 = loop.init_sim(spec, seed, torch.arange(512), params,
+                           device=card)
+        lay = kernel_run.generated_kernel_for(spec, s0)[0]
+        before = kernel_run.gen_chunk.launches
+        ker = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                         chunk_steps=64)(s0)
+        pla = loop.make_run(spec, t_end=t_end)(s0)
+        torch.cuda.synchronize()
+    big = spec.n_procs > 10
+    assert big == (name != "spawnmm1")
+    assert f"BIG = {str(big).lower()}," in lay["header"]
+    assert kernel_run.gen_chunk.launches > before
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert int(ker.err.ne(0).sum()) == 0
+    smem = kernel_run.gen_smem_bytes(lay["header"])
+    assert (smem > 0) == big
+    if name == "spawnshop":
+        from cimba_tpu_torch.examples import spawn_shop
+        spawn_shop.check_gates(ker)
+    if name == "usergens13":
+        assert spec.n_procs == 32 and smem > 48 * 1024
+    if name.startswith("usergens"):
+        assert bool((ker.user["missed"] > 0).all())
+    if name == "spawnmm1":
+        from cimba_tpu_torch.tools import usergen
+
+        assert bool((ker.user["done"] == usergen.SPAWN_MM1_CUSTOMERS).all())
+        assert bool(ker.user["order_ok"].all())
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
 def test_generated_trig_past_the_fast_path(card, prof):
     """sin and cos of a generated block equal torch's on the card for
     arguments past the library's fast path too (|x| >= 105615 in f32,
@@ -540,7 +595,8 @@ def test_generated_instances_have_no_stack_frame(card):
     from cimba_tpu_torch import _build
 
     for name in ("balking", "harbor", "park3", "park2", "abort",
-                 "usergent5", "usergenr1"):
+                 "usergent5", "usergenr1", "spawnshop", "usergens13",
+                 "usergens14", "spawnmm1"):
         for prof in ("f32", "f64"):
             spec, s = chip_smoke.gen_template(name, prof)
             with config.profile(prof):

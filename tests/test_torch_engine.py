@@ -103,6 +103,12 @@ def test_unported_features_raise():
         return sim, None
 
     assert m.handler(blk).kind == 2
-    # spawn pools are not
-    with pytest.raises(NotImplementedError, match="spawn pools"):
-        m.process("s", entry=m.block(blk), start=False)
+    # spawn pools too: their rows are declared, CREATED until api.spawn
+    pt = m.process("s", entry=m.block(blk), count=3, start=False)
+    assert not pt.start and pt.count == 3
+    # per-lane horizons (Sim.t_stop) are not
+    spec = m.build()
+    s = tloop.init_sim(spec, 1, torch.arange(2), device="cpu")
+    s = s._replace(t_stop=torch.full((2,), 5.0, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="per-lane horizons"):
+        tloop.make_cond(spec)(s)

@@ -17,6 +17,11 @@
   ``api.stop_process`` and ``api.release`` (tutorial 2's park, a
   resource released under a select); a ``dice`` draw is one int64 draw
   node; a kept handle of a gated ``api.schedule`` is a ``TraceError``.
+* ``api.spawn`` is an engine call whose pid is a ``callres`` node: a
+  block that spawns (at a traced time and priority too) and uses the pid
+  in arithmetic replays bit for bit and emits ``spawn_pool<T>``; a use of
+  the pid of a spawn that a select keeps or drops is a ``TraceError``
+  naming the block and the select's line.
 """
 
 import pytest
@@ -132,8 +137,10 @@ def test_sampler_without_device_counterpart_raises_at_emit():
 
 
 def test_too_many_guards_refused_before_tracing():
+    """A guard id past the packed word's 8 signed bits (127 guards, 0 to
+    126) is refused before any tracing, naming the count."""
     m = Model("wide")
-    for i in range(5):
+    for i in range(64):
         m.objectqueue(f"q{i}", capacity=2)
 
     @m.block
@@ -142,7 +149,8 @@ def test_too_many_guards_refused_before_tracing():
 
     m.process("p", entry=idle)
     spec = m.build()
-    with pytest.raises(NotImplementedError, match="10 guards"):
+    with pytest.raises(NotImplementedError, match=r"128 guards \(at most "
+                                                  r"127\)"):
         kernel_run.make_kernel_run(spec)
 
 
@@ -503,3 +511,101 @@ def test_gated_schedule_handle_raises_trace_error():
     with pytest.raises(trace.TraceError,
                        match=r"block 'keep'.*handle of a schedule"):
         emit.emit(spec, s)
+
+
+def _spawn_spec(body):
+    m = Model("spawner", n_flocals=1, n_ilocals=1, event_cap=8)
+    blk = m.block(body)
+
+    @m.block
+    def child(sim, p, sig):
+        return sim, cmd.hold(2.0, next_pc=gone.pc)
+
+    @m.block
+    def gone(sim, p, sig):
+        return sim, cmd.exit_()
+
+    m.process("door", entry=blk, prio=1)
+    box.append(m.process("kids", entry=child, count=2, start=False))
+    spec = m.build()
+    return spec, loop.init_sim(spec, 1, torch.arange(LANES), device="cpu")
+
+
+box = []
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_spawn_replays_and_emits(prof):
+    """Three spawns into a pool of two (the third finds none while the
+    first two hold: pid -1), one at a traced time and priority; the pids
+    in arithmetic, kept in a local and the user state: the replay equals
+    the block bit for bit on a fresh state and part way through a run
+    (rows running, finished and recycled), and the emitter calls the
+    pool's rule with each pid kept."""
+    from cimba_tpu_torch.core import api
+
+    def door(sim, p, sig):
+        sim, a = api.spawn(sim, box[-1])
+        sim, b = api.spawn(sim, box[-1], at=api.clock(sim) + 0.5,
+                           prio=a + 3)
+        sim, c = api.spawn(sim, box[-1])
+        sim = api.set_local_i(sim, p, 0, a * 100 + b * 10 + (c < 0).to(
+            torch.int32))
+        return sim, cmd.hold(1.5, next_pc=0)
+
+    with config.profile(prof):
+        spec, s = _spawn_spec(door)
+        ir = trace.trace_block(spec, 0, s)
+        assert [e[1] for e in ir.effects if e[0] == "call"] == ["spawn"] * 3
+        p = torch.zeros(LANES, dtype=torch.int32)
+        sig = torch.zeros(LANES, dtype=torch.int32)
+        for steps in (0, 5, 9):
+            st = loop.make_run(spec, max_steps=steps)(s) if steps else s
+            a_sim, a_cmd = door(st, p, sig)
+            b_sim, b_cmd = trace.replay(spec, ir, st, p, sig)
+            for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                                      trace.named_leaves(b_sim)):
+                assert x.dtype == y.dtype and torch.equal(x, y), (steps, n)
+            assert bool((b_sim.procs.locals_i[:, 0, 0] % 10 == 1).any())
+        h = emit.emit(spec, s)
+    for piece in ("const int32_t h0 = spawn_pool<0>(s, w, s.clock, "
+                  "int32_t(0));", "const int32_t h1 = spawn_pool<0>(s, w, ",
+                  "const int32_t h2 = spawn_pool<0>(s, w, s.clock,",
+                  "type 0 'kids' pids [1, 3)"):
+        assert piece in h, piece
+
+
+def test_gated_spawn_pid_raises_trace_error():
+    """A spawn that a select of the whole Sim keeps or drops runs under
+    its gate in the kernel: its pid names nothing where the gate is
+    shut, so a use of it is a TraceError naming the block and the
+    select's line; the gated spawn whose pid is unused traces."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import api
+
+    def keep(sim, p, sig):
+        late = sim.clock > 1.0
+        sim2, pid = api.spawn(sim, box[-1])
+        sim = tree.map(lambda x, y: torch.where(
+            late.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), sim2, sim)
+        sim = api.set_local_i(sim, p, 0, pid)
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _spawn_spec(keep)
+    with pytest.raises(trace.TraceError,
+                       match=r"block 'keep'.*uses the pid of a spawn that "
+                             r"the select at .*test_torch_trace"):
+        trace.trace_block(spec, 0, s)
+
+    def drop_pid(sim, p, sig):
+        late = sim.clock > 1.0
+        sim2, _ = api.spawn(sim, box[-1])
+        sim = tree.map(lambda x, y: torch.where(
+            late.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), sim2, sim)
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _spawn_spec(drop_pid)
+    ir = trace.trace_block(spec, 0, s)
+    assert [(e[1], len(e) > 4) for e in ir.effects if e[0] == "call"] == [
+        ("spawn", True)]
+    assert "if (v" in emit.emit(spec, s)

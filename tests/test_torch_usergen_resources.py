@@ -12,7 +12,8 @@ stops the process the event's subject names.  Each seed runs through
 ``jax.jit(jax.vmap(make_run))`` and the port's plain engine on the CPU
 (4 lanes, seed 11) to t=20, leaf for leaf (integers exact, floats within
 1e-9 of each leaf's scale in f64, 2e-5 in f32).  Seed 1 is here, with
-the generated kernel's header and the refusal of spawn pools; seed 2, a
+the generated kernel's header and the refusal of a spec past the
+generated family's process limit; seed 2, a
 reference state carried in and the tracer's replay in
 ``test_torch_usergen_resources_2.py``; seed 3 and the f32 profile in
 ``test_torch_usergen_resources_3.py`` (one reference compile, ~15 s, a
@@ -99,7 +100,8 @@ def test_plain_engine_matches_reference():
 def test_generated_kernel_header_and_spawn_refusal():
     """The spec takes the generated family, with the resource's verbs,
     the inline release, the stop by a computed pid, the event's insert
-    and the handler; a spawn pool is still refused, naming it."""
+    and the handler; a spec past the process limit is refused, naming
+    its count."""
     with tconfig.profile("f64"):
         spec, _ = usergen.build(1, usergen.torch_lib(), resources=True)
         s = tloop.init_sim(spec, RUN_SEED, torch.arange(2), device="cpu")
@@ -113,6 +115,10 @@ def test_generated_kernel_header_and_spawn_refusal():
         assert piece in h, piece
     names = [n for n, _, _ in table]
     assert names[names.index("resources.holder") - 1] == "guards.next_seq"
+    # spawn pools are taken now; 33 processes, one past the generated
+    # family's limit, are refused, naming the count
     m = TModel("spawner")
-    with pytest.raises(NotImplementedError, match="spawn pools"):
-        m.process("p", entry=m.block(lambda sim, p, sig: None), start=False)
+    m.process("p", entry=m.block(lambda sim, p, sig: None), count=33,
+              start=False)
+    with pytest.raises(NotImplementedError, match="33 processes"):
+        kernel_run.kernel_for(m.build(), s)
