@@ -1,18 +1,22 @@
 """Block-author helpers (torch port of :mod:`cimba_tpu.core.api`): the
 readers of a lane's state and the calls a block makes between yields.
 ``p`` is the ``[L]`` pid tensor a block receives; every helper acts on
-all replication lanes at once.  The reader of a component not ported
-yet (``queue_position``) comes with its verbs.
+all replication lanes at once.
 
 Under :mod:`cimba_tpu_torch.core.trace` a block runs on a symbolic
 one-lane Sim: :func:`draw` then records one draw node naming its
 sampler; :func:`pool_release`, :func:`release`, :func:`cond_signal`,
 :func:`interrupt`, :func:`stop_process`, :func:`timer_add`,
-:func:`timers_clear`, :func:`schedule` and :func:`spawn` one engine
-call each;
-:func:`pqueue_length` and :func:`pqueue_position` one reader node each
-(they scan the queue's slots); every other helper is traced through as
-torch ops."""
+:func:`timers_clear`, :func:`schedule`, :func:`spawn`,
+:func:`timer_cancel`, :func:`event_cancel`, :func:`event_reschedule`,
+:func:`event_reprioritize`, :func:`event_pattern_cancel`,
+:func:`priority_set`, :func:`pqueue_cancel` and
+:func:`pqueue_reprioritize` one engine call each; :func:`pqueue_length`,
+:func:`pqueue_position`, :func:`queue_position`,
+:func:`event_is_scheduled`, :func:`event_time`, :func:`event_priority`,
+:func:`event_pattern_count` and :func:`event_pattern_find` one reader
+node each (they scan a queue's slots or the event table); every other
+helper is traced through as torch ops."""
 
 from __future__ import annotations
 
@@ -20,12 +24,11 @@ import torch
 
 from cimba_tpu_torch import config
 from cimba_tpu_torch.config import INDEX
+from cimba_tpu_torch.core import eventset as _ev
 from cimba_tpu_torch.core import ix
 from cimba_tpu_torch.core import loop as _loop
 from cimba_tpu_torch.core import trace as _trace
 from cimba_tpu_torch.core.loop import ERR_USER, Sim
-
-_I32_MAX = 2**31 - 1
 
 
 def clock(sim: Sim):
@@ -139,28 +142,35 @@ def queue_space(sim: Sim, q):
             - size).to(INDEX)
 
 
+def queue_position(sim: Sim, q, item):
+    """1-based position of the first item equal to ``item`` from the
+    front of an object queue, 0 if absent (parity:
+    cmb_objectqueue_position; the payload is the key): each ring slot's
+    place is (slot - head) mod the ring's width, as the reference counts
+    it."""
+    qid = _id(q)
+    if _trace.is_symbolic(sim):
+        item = torch.as_tensor(item).to(sim.queues.items.dtype)
+        return _trace.read(sim, "q_position", qid, item)
+    qu = sim.queues
+    items = qu.items[:, qid]
+    cap = items.shape[1]
+    item = torch.as_tensor(item, device=items.device).to(items.dtype)
+    item = item.reshape(-1, 1) if item.dim() else item
+    c = torch.arange(cap, device=items.device)
+    pos = (c[None, :] - qu.head[:, qid, None]) % cap
+    hit = (pos < qu.size[:, qid, None]) & (items == item)
+    best = torch.where(hit, pos, cap).amin(dim=1)
+    return torch.where(hit.any(dim=1), best + 1, 0).to(INDEX)
+
+
 def pqueue_length(sim: Sim, q):
     """Items in a priority queue (parity: cmb_priorityqueue_length), as
     an int64 count: the reference's sum of int32 flags promotes to it."""
     qid = _id(q)
     if _trace.is_symbolic(sim):
-        return _trace.pq_read(sim, "pq_length", qid)
+        return _trace.read(sim, "pq_length", qid)
     return sim.pqueues.live[:, qid].to(INDEX).sum(dim=1)
-
-
-def _pq_match(sim: Sim, qid: int, item):
-    """The earliest-dequeuing live item equal to ``item`` (parity: the
-    reference's ``_pq_match``): ``(one_hot, match, p_best, s_best)``,
-    the greatest priority among the matches, then the least seq."""
-    pq = sim.pqueues
-    live, prio, seq = pq.live[:, qid], pq.prio[:, qid], pq.seq[:, qid]
-    item = torch.as_tensor(item, device=prio.device).to(prio.dtype)
-    item = item.reshape(-1, 1) if item.dim() else item
-    match = live & (pq.items[:, qid] == item)
-    p_best = torch.where(match, prio, -torch.inf).amax(dim=1)
-    m2 = match & (prio == p_best[:, None])
-    s_best = torch.where(m2, seq, _I32_MAX).amin(dim=1)
-    return m2 & (seq == s_best[:, None]), match, p_best, s_best
 
 
 def pqueue_position(sim: Sim, q, item):
@@ -171,14 +181,41 @@ def pqueue_position(sim: Sim, q, item):
     qid = _id(q)
     if _trace.is_symbolic(sim):
         item = torch.as_tensor(item).to(sim.pqueues.prio.dtype)
-        return _trace.pq_read(sim, "pq_position", qid, item)
-    _, match, p_best, s_best = _pq_match(sim, qid, item)
+        return _trace.read(sim, "pq_position", qid, item)
+    _, match, p_best, s_best = _loop._pq_match(sim, qid, item)
     pq = sim.pqueues
     live, prio, seq = pq.live[:, qid], pq.prio[:, qid], pq.seq[:, qid]
     ahead = live & ((prio > p_best[:, None])
                     | ((prio == p_best[:, None]) & (seq < s_best[:, None])))
     pos = ahead.to(INDEX).sum(dim=1, dtype=INDEX) + 1
     return torch.where(match.any(dim=1), pos, 0).to(INDEX)
+
+
+def pqueue_cancel(sim: Sim, q, item):
+    """``(sim, existed)``: remove the earliest-dequeuing item equal to
+    ``item`` from a priority queue (parity: cmb_priorityqueue_cancel; the
+    payload is the key, as in :func:`pqueue_position`).  It takes the
+    PQueueRef: the freed slot signals the rear guard, so a blocked putter
+    wakes, and a recording queue records its length."""
+    if not hasattr(q, "rear_guard"):
+        raise TypeError("pqueue_cancel needs the PQueueRef, not a bare id")
+    if _trace.is_symbolic(sim):
+        item = torch.as_tensor(item).to(sim.pqueues.prio.dtype)
+        return _trace.engine_call(sim, "pqueue_cancel", q.id, item)
+    return _loop.pqueue_cancel(sim, q, item)
+
+
+def pqueue_reprioritize(sim: Sim, q, item, new_prio):
+    """``(sim, existed)``: give the earliest-dequeuing item equal to
+    ``item`` the priority ``new_prio``, keeping its FIFO seq (parity:
+    cmb_priorityqueue_reprioritize; the payload is the key)."""
+    qid = _id(q)
+    if _trace.is_symbolic(sim):
+        dt = sim.pqueues.prio.dtype
+        return _trace.engine_call(sim, "pqueue_reprioritize", qid,
+                                  torch.as_tensor(item).to(dt),
+                                  torch.as_tensor(new_prio).to(dt))
+    return _loop.pqueue_reprioritize(sim, qid, item, new_prio)
 
 
 def resource_holder(sim: Sim, r):
@@ -300,3 +337,118 @@ def schedule(sim: Sim, t, prio, handler, subj=0, arg=0):
     if _trace.is_symbolic(sim):
         return _trace.engine_call(sim, "schedule", t, prio, kind, subj, arg)
     return _loop.schedule(sim, t, prio, kind, subj, arg)
+
+
+def timer_cancel(sim: Sim, handle, spec=None):
+    """``(sim, existed)``: cancel a timer by handle (parity:
+    cmb_process_timer_cancel).  With the model's ``spec`` the processes
+    waiting on the handle (``cmd.wait_event``) wake with CANCELLED now,
+    without it at the next dispatch."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "event_cancel", handle,
+                                  spec is not None)
+    return _loop.timer_cancel(sim, handle, spec)
+
+
+def event_cancel(sim: Sim, handle, spec=None):
+    """``(sim, existed)``: cancel any scheduled event by handle (parity:
+    cmb_event_cancel); its waiters wake with CANCELLED, now with
+    ``spec``, else at the next dispatch."""
+    return timer_cancel(sim, handle, spec)
+
+
+def priority_set(sim: Sim, p, new_prio) -> Sim:
+    """Change process ``p``'s priority (parity: cmb_process_priority_set):
+    its wake and its place among a guard's waiters follow."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "priority_set", p, new_prio)
+    return _loop.priority_set(sim, p, new_prio)
+
+
+def event_is_scheduled(sim: Sim, handle):
+    """Whether ``handle`` names a live scheduled event (parity:
+    cmb_event_is_scheduled: a fired, cancelled or reused slot does not)."""
+    if _trace.is_symbolic(sim):
+        return _trace.read(sim, "ev_scheduled", None, handle)
+    return _ev._valid(sim.events, handle)
+
+
+def _at_handle(sim: Sim, column, handle, dead):
+    """``column`` of the event table at a live handle's slot, ``dead``
+    for a dead handle."""
+    h = _ev._handles(sim.events, handle)
+    (x,) = _ev._at_slots(h, column)
+    return torch.where(_ev._valid(sim.events, h), x,
+                       torch.as_tensor(dead, dtype=column.dtype,
+                                       device=column.device))
+
+
+def event_time(sim: Sim, handle):
+    """The time a live event is scheduled at, ``+inf`` for a dead handle
+    (parity: cmb_event_time, the reference's sentinel)."""
+    if _trace.is_symbolic(sim):
+        return _trace.read(sim, "ev_time", None, handle)
+    return _at_handle(sim, sim.events.time, handle, float("inf"))
+
+
+def event_priority(sim: Sim, handle):
+    """The dispatch priority of a live event, 0 for a dead handle
+    (parity: cmb_event_priority)."""
+    if _trace.is_symbolic(sim):
+        return _trace.read(sim, "ev_prio", None, handle)
+    return _at_handle(sim, sim.events.prio, handle, 0)
+
+
+def event_reschedule(sim: Sim, handle, new_t):
+    """``(sim, existed)``: move a scheduled event to ``new_t`` keeping its
+    FIFO seq (parity: cmb_event_reschedule); a non-finite ``new_t`` moves
+    nothing and gives existed false."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "event_reschedule", handle, new_t)
+    es2, ok = _ev.reschedule(sim.events, handle, new_t)
+    return sim._replace(events=es2), ok
+
+
+def event_reprioritize(sim: Sim, handle, new_prio):
+    """``(sim, existed)``: change a scheduled event's priority in place
+    (parity: cmb_event_reprioritize)."""
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "event_reprioritize", handle,
+                                  new_prio)
+    es2, ok = _ev.reprioritize(sim.events, handle, new_prio)
+    return sim._replace(events=es2), ok
+
+
+def _pattern(kind, subj):
+    """(kind, subj) of a pattern: None a wildcard, ``kind`` a handler
+    registered with ``Model.handler`` or its kind."""
+    k = _ev.WILDCARD if kind is None else getattr(kind, "kind", kind)
+    return k, _ev.WILDCARD if subj is None else subj
+
+
+def event_pattern_count(sim: Sim, kind=None, subj=None):
+    """The scheduled events matching (kind, subj) (parity:
+    cmb_event_pattern_count)."""
+    k, sj = _pattern(kind, subj)
+    if _trace.is_symbolic(sim):
+        return _trace.read(sim, "ev_pcount", None, k, sj)
+    return _ev.pattern_count(sim.events, k, sj)
+
+
+def event_pattern_find(sim: Sim, kind=None, subj=None):
+    """Handle of the soonest scheduled event matching (kind, subj), -1
+    where none does (parity: cmb_event_pattern_find)."""
+    k, sj = _pattern(kind, subj)
+    if _trace.is_symbolic(sim):
+        return _trace.read(sim, "ev_pfind", None, k, sj)
+    return _ev.pattern_find(sim.events, k, sj)
+
+
+def event_pattern_cancel(sim: Sim, kind=None, subj=None):
+    """``(sim, n)``: cancel every scheduled event matching (kind, subj)
+    (parity: cmb_event_pattern_cancel)."""
+    k, sj = _pattern(kind, subj)
+    if _trace.is_symbolic(sim):
+        return _trace.engine_call(sim, "event_pattern_cancel", k, sj)
+    es2, n = _ev.pattern_cancel(sim.events, k, sj)
+    return sim._replace(events=es2), n

@@ -21,9 +21,16 @@ the interface the hand-written families have:
 * the engine calls of a block or handler (a resource's or a pool's
   release, a condition's signal, an interrupt, a stop, a timer's insert,
   a pattern cancel of a process's timers, a user event's insert, a spawn
-  of a pool type), each under its gate where a select of the whole Sim
-  keeps or drops it, and the priority queues' readers (``pq_length<Q>``,
-  ``pq_position<Q>``);
+  of a pool type, an event's cancel, move or reprioritize by handle, a
+  pattern cancel, a process's priority, a priority queue's item cancel
+  or reprioritize), each under its gate where a select of the whole Sim
+  keeps or drops it, and the readers of the queues and the event table
+  (``pq_length<Q>``, ``pq_position<Q>``, ``queue_position<Q>``,
+  ``ev_valid``, ``ev_time``, ``ev_prio``, ``pattern_count``,
+  ``pattern_find``);
+* ``WAITP`` and ``WAITE``, whether a block may return ``wait_process`` or
+  ``wait_event`` (the kernel compiles the waits' rules, and keeps each
+  process's awaited pid or handle, only where it may);
 * the launch bounds, the block's lanes and whether its shared columns
   take dynamic shared memory (:func:`smem_plan`, ``DYN``).
 
@@ -45,6 +52,7 @@ from typing import Dict, List
 
 import torch
 
+from cimba_tpu_torch.core import process as pr
 from cimba_tpu_torch.core import trace as tr
 from cimba_tpu_torch.core.model import ModelSpec
 
@@ -248,9 +256,17 @@ class _Fn:
             return out
         if op == "pq_length":
             return f"pq_length<{n.aux[0]}>(s, w)"
-        if op == "pq_position":
-            return (f"pq_position<{n.aux[0]}>(s, w, "
+        if op in ("pq_position", "q_position"):
+            fn = "pq_position" if op == "pq_position" else "queue_position"
+            return (f"{fn}<{n.aux[0]}>(s, w, "
                     f"{self.ref(a[0], self.lay.real)})")
+        if op in ("ev_scheduled", "ev_time", "ev_prio"):
+            fn = {"ev_scheduled": "ev_valid"}.get(op, op)
+            return f"{fn}(s, w, {self.ref(a[0], torch.int32)})"
+        if op in ("ev_pcount", "ev_pfind"):
+            fn = "pattern_count" if op == "ev_pcount" else "pattern_find"
+            return (f"{fn}(s, w, {self.ref(a[0], torch.int32)}, "
+                    f"{self.ref(a[1], torch.int32)})")
         if op == "callres":  # a kept handle or pid (never a gated call's)
             return f"h{n.aux}"
         fl = cdt is not None and cdt.is_floating_point
@@ -299,6 +315,9 @@ class _Fn:
             return f"({x[0]} != {x[0]})" if fl else "false"
         if op == "isfinite":
             return f"finite({x[0]})" if fl else "true"
+        if op == "isinf":
+            return (f"({x[0]} == {_lit(math.inf, cdt)} || {x[0]} == "
+                    f"{_lit(-math.inf, cdt)})") if fl else "false"
         if op in ("sin", "cos") and fl:
             # frame-free, the library's slow path in registers
             # (queue_chunk.cu trig_of)
@@ -456,6 +475,23 @@ def _pid(f: _Fn, p) -> str:
     return str(int(p.value)) if isinstance(p, tr.Lit) else f.ref(p, None)
 
 
+def _result(call: str, kind: str, handle: bool, k: int) -> List[str]:
+    """An engine call's line: its result ``h<k>`` kept where a live node
+    reads it."""
+    if not handle:
+        return [f"{call};"]
+    ct = _CTYPE[tr._RESULTS[kind]]
+    return [f"const {ct} h{k} = {call};"]
+
+
+def _queue_id(f: _Fn, q, refs, what) -> int:
+    if not isinstance(q, tr.Lit):
+        f.fail(f"api.{what} of a traced queue id")
+    if not 0 <= int(q.value) < len(refs):
+        f.fail(f"api.{what} of queue {q.value}")
+    return int(q.value)
+
+
 def _call(f: _Fn, e, spec: ModelSpec, handle=False, k=0) -> List[str]:
     kind, args = e[1], e[2]
     if kind == "pool_release":
@@ -518,7 +554,37 @@ def _call(f: _Fn, e, spec: ModelSpec, handle=False, k=0) -> List[str]:
                else f.ref(prio_, torch.int32))
         call = f"spawn_pool<{t}>(s, w, {at_}, {pr_})"
         return [f"const int32_t h{k} = {call};" if handle else f"{call};"]
-    f.fail(f"engine call {kind}")
+    real, i32 = f.lay.real, torch.int32
+    if kind == "event_cancel":
+        h, eager = args
+        call = (f"event_cancel<{str(bool(eager.value)).lower()}>(s, w, "
+                f"{f.ref(h, i32)})")
+    elif kind == "event_reschedule":
+        h, t = args
+        call = f"event_reschedule(s, w, {f.ref(h, i32)}, {f.ref(t, real)})"
+    elif kind == "event_reprioritize":
+        h, prio = args
+        call = (f"event_reprioritize(s, w, {f.ref(h, i32)}, "
+                f"{f.ref(prio, i32)})")
+    elif kind == "event_pattern_cancel":
+        kind_, subj = args
+        call = (f"pattern_cancel(s, w, {f.ref(kind_, i32)}, "
+                f"{f.ref(subj, i32)})")
+    elif kind == "priority_set":
+        p, prio = args
+        call = f"priority_set(s, w, int({_pid(f, p)}), {f.ref(prio, i32)})"
+    elif kind == "pqueue_cancel":
+        q, item = args
+        qid = _queue_id(f, q, spec.pqueues, "pqueue_cancel")
+        call = f"pq_cancel<{qid}>(s, w, {f.ref(item, real)})"
+    elif kind == "pqueue_reprioritize":
+        q, item, prio = args
+        qid = _queue_id(f, q, spec.pqueues, "pqueue_reprioritize")
+        call = (f"pq_reprioritize<{qid}>(s, w, {f.ref(item, real)}, "
+                f"{f.ref(prio, real)})")
+    else:
+        f.fail(f"engine call {kind}")
+    return _result(call, kind, handle, k)
 
 
 def _pred_fn(lay: _Layout, ir: tr.PredIR, spec: ModelSpec) -> List[str]:
@@ -562,10 +628,11 @@ def _ternary(name, values, default=0, fmt=str) -> str:
 
 
 def smem_plan(spec: ModelSpec, lay: _Layout, n_acc: int,
-              toolkit: bool) -> dict:
+              toolkit: bool, waits: bool = False) -> dict:
     """The shared columns a lane takes (``per_lane`` bytes, as the
-    kernel's Cold, ColdAcc, ColdQ, ColdShop, ColdSig, UCold, ColdWake and
-    ColdG lay them out), the block's lanes (``threads``: 64 where 64
+    kernel's Cold, ColdAcc, ColdQ, ColdShop, ColdSig, UCold, ColdWake,
+    ColdG and, where the family waits past the register limit, ColdAwait
+    lay them out), the block's lanes (``threads``: 64 where 64
     lanes fit in the static 48 KB, else 32) and whether the columns take
     dynamic shared memory (``dyn``: past the static 48 KB for 32 lanes,
     or past the register limits, whose columns only the dynamic layout
@@ -582,6 +649,7 @@ def smem_plan(spec: ModelSpec, lay: _Layout, n_acc: int,
                 + rb * np_ * nf + 4 * np_ * ni
                 + sum(lay.leaf[n].element_size() for n in lay.user)
                 + ((rb + 8) * np_ if big else 0)
+                + (8 * np_ if big and waits else 0)
                 + (4 * spec.n_guards if gbig else 0))
     threads = 64 if per_lane * 64 <= SMEM - 1024 else 32
     dyn = big or gbig or per_lane * threads > SMEM - 1024
@@ -610,6 +678,9 @@ def emit(spec: ModelSpec, sims) -> str:
     # the pool preempt's rule, where a block may issue one
     tags = [command_tags(ir) for ir in blocks]
     mug = nk > 0 and any(t is None or t & {16, 23} for t in tags)
+    # the waits' rules, where a block may return the wait
+    waitp, waite = (any(t is None or tag in t for t in tags)
+                    for tag in (pr.C_WAIT_PROC, pr.C_WAIT_EVT))
     nf, ni = max(spec.n_flocals, 1), max(spec.n_ilocals, 1)
     q_acc = lay.at("queues.acc.summary.n")
     p_acc = lay.at("pools.acc.summary.n")
@@ -627,7 +698,8 @@ def emit(spec: ModelSpec, sims) -> str:
     # REG_NP processes pend_f2 is a column in any family (no dirty mask)
     toolkit = nk + nv + nc + npq + nr > 0 or big
     u0 = lay.pos[lay.user[0]] if lay.user else lay.pos["done"]
-    plan = smem_plan(spec, lay, n_qa + n_pa + n_ba + n_pqa + n_ra, toolkit)
+    plan = smem_plan(spec, lay, n_qa + n_pa + n_ba + n_pqa + n_ra, toolkit,
+                     waitp or waite)
     threads, dyn = plan["threads"], plan["dyn"]
 
     def cx(expr_, args="int i", ret="int"):
@@ -648,6 +720,8 @@ def emit(spec: ModelSpec, sims) -> str:
         f"PEND_I = true, PRED_BY_PID = true;",
         f"  static constexpr bool ABORT = {str(nk + nv > 0).lower()}, "
         f"WSIG = true, MUG = {str(mug).lower()};",
+        f"  static constexpr bool WAITP = {str(waitp).lower()}, WAITE = "
+        f"{str(waite).lower()};",
         f"  // {plan['per_lane']} B of shared columns a lane, "
         f"{'dynamic' if dyn else 'static'} shared memory"
         + (f"; wakes and words in shared columns ({np_} > {REG_NP} "

@@ -102,20 +102,78 @@ def _slot_of(handle):
     return handle & ((1 << _GEN_SHIFT) - 1)
 
 
+def _at_slots(handles, *columns):
+    """Each ``[L, CAP]`` column at the slot each handle names
+    (``handles`` ``[L]`` or ``[L, k]``); a slot past the table reads 0,
+    as the reference's one-hot pick of no slot does."""
+    cap = columns[0].shape[1]
+    flat = handles.dim() == 1
+    slot = _slot_of(handles.clamp(min=0))
+    slot = slot.reshape(-1, 1) if flat else slot
+    inr = slot < cap
+    sc = slot.clamp(max=cap - 1).to(torch.int64)
+    out = [torch.where(inr, c.gather(1, sc),
+                       torch.zeros((), dtype=c.dtype, device=c.device))
+           for c in columns]
+    return [x.squeeze(1) for x in out] if flat else out
+
+
+def _handles(es: EventSet, handle):
+    h = torch.as_tensor(handle, dtype=INDEX, device=es.time.device)
+    return h.expand(es.time.shape[0]) if h.dim() == 0 else h
+
+
+def _valid(es: EventSet, handle):
+    """Whether each lane's handle (``[L]``, or ``[L, k]`` handles a lane:
+    the reference's ``_valid_vec``) names a live event: its slot holds a
+    finite time and the slot's generation is the handle's (a fired,
+    cancelled or reused slot names nothing)."""
+    h = _handles(es, handle)
+    t_at, g_at = _at_slots(h, es.time, es.gen)
+    return (h >= 0) & torch.isfinite(t_at) & (g_at == (h >> _GEN_SHIFT))
+
+
+def _handle_mask(es: EventSet, handle):
+    """(``[L, CAP]`` mask of the slot a live handle names, ok): the slot
+    each handle-addressed op writes."""
+    h = _handles(es, handle)
+    ok = _valid(es, h)
+    ramp = torch.arange(es.time.shape[1], device=h.device)
+    m = (ramp[None, :] == _slot_of(h.clamp(min=0))[:, None]) & ok[:, None]
+    return m, ok
+
+
 def cancel(es: EventSet, handle):
     """Remove an event by handle; returns (es, existed): a handle whose
     slot is free or whose generation has moved on names nothing."""
-    cap = es.time.shape[1]
-    h = torch.as_tensor(handle, dtype=INDEX, device=es.time.device)
-    h = h.expand(es.time.shape[0]) if h.dim() == 0 else h
-    slot = _slot_of(h.clamp(min=0)).clamp(max=cap - 1)
-    ok = ((h >= 0) & torch.isfinite(ix.get(es.time, slot))
-          & (ix.get(es.gen, slot) == (h >> _GEN_SHIFT)))
+    m, ok = _handle_mask(es, handle)
     es2 = es._replace(
-        time=ix.put(es.time, slot, NEVER, ok),
-        gen=ix.add(es.gen, slot, 1, ok),
+        time=torch.where(m, NEVER, es.time),
+        gen=es.gen + m.to(INDEX),
     )
     return es2, ok
+
+
+def reschedule(es: EventSet, handle, new_t):
+    """Move an event to ``new_t`` keeping its FIFO seq (parity:
+    cmb_event_reschedule); returns (es, existed), existed false and
+    nothing moved for a non-finite ``new_t``."""
+    m, ok = _handle_mask(es, handle)
+    t = torch.as_tensor(new_t, dtype=es.time.dtype, device=es.time.device)
+    t = t.expand(es.time.shape[0]) if t.dim() == 0 else t
+    fin = torch.isfinite(t)
+    es2 = es._replace(time=torch.where(m & fin[:, None], t[:, None],
+                                       es.time))
+    return es2, ok & fin
+
+
+def reprioritize(es: EventSet, handle, new_prio):
+    """Change an event's dispatch priority in place (parity:
+    cmb_event_reprioritize); returns (es, existed)."""
+    m, ok = _handle_mask(es, handle)
+    pr = torch.as_tensor(new_prio, dtype=INDEX, device=es.time.device)
+    pr = pr.expand(es.time.shape[0]) if pr.dim() == 0 else pr
+    return es._replace(prio=torch.where(m, pr[:, None], es.prio)), ok
 
 
 #: a pattern's "any kind" / "any subject"
@@ -146,6 +204,26 @@ def pattern_cancel(es: EventSet, kind=WILDCARD, subj=WILDCARD, pred=True):
         gen=es.gen + mw.to(INDEX),
     )
     return es2, m.to(INDEX).sum(dim=1, dtype=INDEX)
+
+
+def pattern_count(es: EventSet, kind=WILDCARD, subj=WILDCARD):
+    """The live events matching (kind, subj) (parity:
+    cmb_event_pattern_count)."""
+    return _match(es, kind, subj).to(INDEX).sum(dim=1, dtype=INDEX)
+
+
+def pattern_find(es: EventSet, kind=WILDCARD, subj=WILDCARD):
+    """Handle of the soonest matching event, the lowest slot among equal
+    times, else NULL_HANDLE (parity: cmb_event_pattern_find)."""
+    m = _match(es, kind, subj)
+    t = torch.where(m, es.time, NEVER)
+    t_min = t.amin(dim=1)
+    found = torch.isfinite(t_min)
+    slot = ix.first_true(m & (t == t_min[:, None])).clamp(
+        max=es.time.shape[1] - 1)
+    gen = ix.get(es.gen, slot)
+    return torch.where(found, (gen << _GEN_SHIFT) | slot.to(INDEX),
+                       NULL_HANDLE).to(INDEX)
 
 
 def _lexmin(time, prio, seq):

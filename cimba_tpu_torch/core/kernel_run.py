@@ -605,6 +605,11 @@ def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
     launch of the dwell kernel on the card (counted where it launches,
     :func:`awacs_dwell`).
 
+    The liveness check between chunks is ``loop.make_cond``: a lane of a
+    spec that waits on events stays live while a RUNNING process waits on
+    a handle that died with the tables (the next chunk's first step wakes
+    it with CANCELLED), as the kernel's own loop keeps it.
+
     Budget (parity: ``pallas_run``): a boundary freeze can cut a chunk
     short, so a chunk followed by a boundary round does not count against
     ``max_chunks``; boundary rounds have their own budget of ``max_chunks

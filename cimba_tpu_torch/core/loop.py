@@ -29,22 +29,24 @@ fused ``*_hold`` verbs and queue-length recording; the priority queue's
 put/get (highest priority first, FIFO among equals) with theirs; the
 binary resource's acquire, preempt (the holder of equal or lower
 priority is kicked with PREEMPTED) and release, inline from a block too
-(:func:`release_resource`), with its utilization recording; the
-resource pool's acquire (greedy, FIFO waiters), preempt (the mug of
-holders of lower priority) and release, inline from a block too
+(:func:`release_resource`), with its utilization recording; the resource
+pool's acquire (greedy, FIFO waiters), preempt (the mug of holders of
+lower priority) and release, inline from a block too
 (:func:`release_pool`); the buffer's get and put with partial
-fulfilment; the condition wait, :func:`cond_signal` and observer
-forwarding (a guard signal also signals every condition that observes
-the guard); the pools', buffers' and priority queues' time-weighted
-recording; timers (:func:`timer_add`, :func:`timers_clear`),
-:func:`interrupt` and :func:`stop_process`, with the abort of a pended
-command on a non-SUCCESS wake (the pool rollback and the buffer's
-partial-fulfilment report, :func:`_abort_cleanup`); user event handlers
-(events of kind ``N_KINDS + k`` scheduled by ``api.schedule``); spawn
-pools (rows CREATED at init, activated and recycled by
-:func:`spawn_process`); the guard pend/retry protocol, boundary blocks,
-failure codes and ``api.stop``.  Other commands fail the replication with ERR_USER, as
-the reference's unknown-tag handler does.
+fulfilment; the waits on a process (its waiters woken in pid order at
+its end) and on an event (woken at its dispatch, before its action, or
+with CANCELLED at its cancel or once its handle is dead); the condition
+wait, :func:`cond_signal` and observer forwarding (a guard signal also
+signals every condition that observes the guard); the pools', buffers'
+and priority queues' time-weighted recording; timers (:func:`timer_add`,
+:func:`timers_clear`), :func:`interrupt` and :func:`stop_process`, with
+the abort of a pended command on a non-SUCCESS wake (the pool rollback
+and the buffer's partial-fulfilment report, :func:`_abort_cleanup`);
+user event handlers (events of kind ``N_KINDS + k`` scheduled by
+``api.schedule``); spawn pools (rows CREATED at init, activated and
+recycled by :func:`spawn_process`); the guard pend/retry protocol,
+boundary blocks, failure codes and ``api.stop``. Other commands fail the
+replication with ERR_USER, as the reference's unknown-tag handler does.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.overrides
 
 from cimba_tpu_torch import config, tree
 from cimba_tpu_torch.config import INDEX
@@ -59,6 +62,7 @@ from cimba_tpu_torch.core import eventset as ev
 from cimba_tpu_torch.core import guard as gd
 from cimba_tpu_torch.core import ix
 from cimba_tpu_torch.core import process as pr
+from cimba_tpu_torch.core import trace as _trace
 from cimba_tpu_torch.core.model import ModelSpec
 from cimba_tpu_torch.random import bits as rb
 from cimba_tpu_torch.stats import timeseries as ts
@@ -437,11 +441,170 @@ def _cancel_wake(sim: Sim, p, pred=True) -> Sim:
     return sim._replace(wakes=ev.wake_clear(sim.wakes, p, pred))
 
 
+def _clear_awaits(spec: ModelSpec, sim: Sim, p, pred=True) -> Sim:
+    """p waits on no process and no event any more (each only where the
+    spec can return the wait)."""
+    procs = sim.procs
+    if _may_wait_procs(spec, sim):
+        procs = procs._replace(await_pid=ix.put(procs.await_pid, p, -1, pred))
+    if _may_wait_events(spec, sim):
+        procs = procs._replace(await_evt=ix.put(procs.await_evt, p, -1, pred))
+    return sim._replace(procs=procs)
+
+
 def _unwait(spec: ModelSpec, sim: Sim, p, pred=True) -> Sim:
     """Detach p from what it waits on: its pend (and with it its guard
-    membership) and its wake (parity: the reference's ``_unwait``; waits
-    on processes and events are not ported)."""
-    return _cancel_wake(_clear_pend(sim, p, pred), p, pred)
+    membership), its wake and its waits on a process or an event (parity:
+    the reference's ``_unwait``)."""
+    sim = _cancel_wake(_clear_pend(sim, p, pred), p, pred)
+    return _clear_awaits(spec, sim, p, pred)
+
+
+# --- waits on processes and events ----------------------------------------
+
+
+class _NoHostBranch(torch.overrides.TorchFunctionMode):
+    """Refuses a Python branch on a tensor: the tag inference below must
+    see every command a block can build, not the one this lane's data
+    picks."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in _trace.HOST_BRANCH:
+            raise TypeError("a block branches in Python on a tensor")
+        return func(*args, **(kwargs or {}))
+
+
+def _used_tags(spec: ModelSpec, sim: Sim):
+    """The command tags the spec's blocks can build, collected by running
+    each block once on lane 0 of ``sim`` (moved to the CPU) with the
+    constructors registering their tags (parity: the reference's
+    ``_infer_used_tags``, which traces each block abstractly); None (any
+    tag) where a block branches in Python on a tensor or raises, or
+    inside another inference.  Memoized on the spec object."""
+    memo = getattr(spec, "_used_tags_memo", False)
+    if memo is not False:
+        return memo
+    if pr._tag_collector is not None:
+        return None
+    tags: set = set()
+    one = tree.map(lambda x: x[:1].detach().to("cpu"), sim)
+    zero = torch.zeros((1,), dtype=INDEX)
+    pr._tag_collector = tags
+    try:
+        with _NoHostBranch():
+            for blk in spec.blocks:
+                blk(one, zero, zero)
+        out = frozenset(tags)
+    except Exception:
+        out = None
+    finally:
+        pr._tag_collector = None
+    spec._used_tags_memo = out
+    return out
+
+
+def _may_wait_events(spec: ModelSpec, sim: Sim) -> bool:
+    """Static: can this spec return C_WAIT_EVT?  Gates the dispatch's
+    waiter scan, the eager cancel arm and the stranding term out of
+    specs that never wait on an event."""
+    used = _used_tags(spec, sim)
+    return used is None or pr.C_WAIT_EVT in used
+
+
+def _may_wait_procs(spec: ModelSpec, sim: Sim) -> bool:
+    """Static: can this spec return C_WAIT_PROC?  Gates the exit's mass
+    wake out of specs that never wait on a process."""
+    used = _used_tags(spec, sim)
+    return used is None or pr.C_WAIT_PROC in used
+
+
+def _exclusive_rank(mask):
+    """``[L, P]`` bool -> i32: how many true elements precede each one
+    in its row (pid order)."""
+    x = mask.to(INDEX)
+    return torch.cumsum(x, dim=1, dtype=INDEX) - x
+
+
+def _mass_wake(sim: Sim, mask, sig) -> Sim:
+    """Arm a wake now for every process in ``mask`` (``[L, P]``), their
+    seqs drawn in pid order from ``events.next_seq`` (parity: the
+    reference's ``_mass_wake``, which both waits share)."""
+    base = sim.events.next_seq
+    wk = sim.wakes
+    sig = torch.as_tensor(sig, dtype=INDEX, device=mask.device)
+    sig = sig[:, None] if sig.dim() == 1 else sig
+    wk2 = ev.Wakes(
+        time=torch.where(mask, sim.clock[:, None], wk.time),
+        sig=torch.where(mask, sig, wk.sig),
+        seq=torch.where(mask, base[:, None] + _exclusive_rank(mask),
+                        wk.seq),
+    )
+    n = mask.to(INDEX).sum(dim=1, dtype=INDEX)
+    return sim._replace(wakes=wk2, events=sim.events._replace(
+        next_seq=base + n))
+
+
+def _wake_waiters(spec: ModelSpec, sim: Sim, target, sig, pred=True) -> Sim:
+    """Wake every RUNNING process waiting on ``target`` finishing, with
+    ``sig`` (parity: the reference's ``_wake_waiters``), their waits on a
+    process cleared."""
+    if not _may_wait_procs(spec, sim):
+        return sim
+    pc = sim.procs
+    t = torch.as_tensor(target, dtype=INDEX, device=pc.status.device)
+    t = t.reshape(-1, 1) if t.dim() else t
+    waiting = (pc.await_pid == t) & (pc.status == pr.RUNNING)
+    if pred is not True:
+        waiting = waiting & pred.reshape(-1, 1)
+    sig = torch.as_tensor(sig, dtype=INDEX, device=pc.status.device)
+    sim = _mass_wake(sim, waiting, sig)
+    return sim._replace(procs=sim.procs._replace(
+        await_pid=torch.where(waiting, -1, pc.await_pid).to(INDEX)))
+
+
+def _scan_evt_waiters(sim: Sim, decide) -> Sim:
+    """The event waiters' scan: ``decide(sim, h) -> (wake, sig)`` over
+    every process's awaited handle ``h`` (``[L, P]``); the RUNNING
+    waiters it wakes get their wakes in pid order (:func:`_mass_wake`)
+    and their waits cleared."""
+    h = sim.procs.await_evt
+    awaiting = (h >= 0) & (sim.procs.status == pr.RUNNING)
+    wake, sig = decide(sim, h)
+    wake = wake & awaiting
+    sim = _mass_wake(sim, wake, sig)
+    return sim._replace(procs=sim.procs._replace(
+        await_evt=torch.where(wake, -1, h).to(INDEX)))
+
+
+def _dispatch_evt_wakes(sim: Sim, handle, found, pred=None) -> Sim:
+    """Wake the waiters of the event just popped with SUCCESS, before
+    its action runs, and (the lazy arm of a cancel) every waiter whose
+    handle has died with CANCELLED (parity: the reference's
+    ``_dispatch_evt_wakes``).  ``pred`` (``[L]``) suppresses both arms on
+    a lane whose dispatch is deferred to a boundary step: its wakes would
+    come before the deferred event."""
+
+    def decide(sim, h):
+        fired = found[:, None] & (h == handle[:, None])
+        stale = ~fired & ~ev._valid(sim.events, h)
+        wake = fired | stale
+        if pred is not None:
+            wake = wake & pred[:, None]
+        return wake, torch.where(fired, pr.SUCCESS, pr.CANCELLED).to(INDEX)
+
+    return _scan_evt_waiters(sim, decide)
+
+
+def _cancel_evt_wakes(sim: Sim, handle, pred) -> Sim:
+    """The eager arm of a cancel: the waiters of the cancelled event
+    wake now with CANCELLED."""
+    hd = torch.as_tensor(handle, dtype=INDEX, device=sim.clock.device)
+    hd = hd.reshape(-1, 1) if hd.dim() else hd
+
+    def decide(sim, h):
+        return pred.reshape(-1, 1) & (h == hd), pr.CANCELLED
+
+    return _scan_evt_waiters(sim, decide)
 
 
 def _abort_cleanup(spec: ModelSpec, sim: Sim, p, pend: pr.Command, sig,
@@ -501,9 +664,9 @@ def _abort_wait(spec: ModelSpec, sim: Sim, p, sig, pred=True) -> Sim:
 
 def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
     """Terminate process p: abort its wait, cancel its timers, mark it
-    FINISHED, free the resources it holds and return its pool units
-    (parity: the reference's kill semantics, restricted to the ported
-    components)."""
+    FINISHED, wake its waiters with its exit signal, free the resources
+    it holds and return its pool units (parity: the reference's kill
+    semantics)."""
     sim = _abort_wait(spec, sim, p, exit_sig, pred)
     es2, _ = ev.pattern_cancel(sim.events, K_TIMER, p, pred)
     sim = sim._replace(events=es2)
@@ -511,6 +674,8 @@ def finish_process(spec: ModelSpec, sim: Sim, p, exit_sig, pred) -> Sim:
         status=ix.put(sim.procs.status, p, pr.FINISHED, pred),
         exit_sig=ix.put(sim.procs.exit_sig, p, exit_sig, pred),
     ))
+    # its waiters wake, in pid order
+    sim = _wake_waiters(spec, sim, p, exit_sig, pred)
     # binary resources p holds are freed
     r_rec = [r.record for r in spec.resources]
     for rid, r in enumerate(spec.resources):
@@ -663,6 +828,80 @@ def timers_clear(sim: Sim, p) -> Sim:
     """Cancel every timer aimed at p (parity: cmb_process_timers_clear)."""
     es2, _ = ev.pattern_cancel(sim.events, K_TIMER, p)
     return sim._replace(events=es2)
+
+
+def timer_cancel(sim: Sim, handle, spec: Optional[ModelSpec] = None):
+    """Cancel a timer, or any event, by handle (parity:
+    cmb_process_timer_cancel, cmb_event_cancel); returns (sim, existed).
+    With ``spec`` (and a spec that can wait on events) the event's waiters
+    wake now with CANCELLED; without it they wake at the next dispatch
+    (:func:`_dispatch_evt_wakes`)."""
+    es2, ok = ev.cancel(sim.events, handle)
+    sim = sim._replace(events=es2)
+    if spec is not None and _may_wait_events(spec, sim):
+        sim = _cancel_evt_wakes(sim, handle, ok)
+    return sim, ok
+
+
+def priority_set(sim: Sim, p, new_prio) -> Sim:
+    """Change a process's priority (parity: cmb_process_priority_set):
+    the wakes' pick and the guards' best waiter read ``procs.prio`` live,
+    which is the reference's reshuffle of its wake and guard entry.  A pid
+    out of range changes nothing."""
+    lanes, n = sim.procs.prio.shape
+    t = torch.as_tensor(p, dtype=INDEX, device=sim.clock.device)
+    t = t.expand(lanes) if t.dim() == 0 else t
+    ok = (t >= 0) & (t < n)
+    return sim._replace(procs=sim.procs._replace(prio=ix.put(
+        sim.procs.prio, t.clamp(0, n - 1), new_prio, ok)))
+
+
+def _pq_match(sim: Sim, qid: int, item):
+    """The earliest-dequeuing live item equal to ``item`` (parity: the
+    reference's ``_pq_match``): ``(one_hot, match, p_best, s_best)``,
+    the greatest priority among the matches, then the least seq."""
+    pq = sim.pqueues
+    live, prio, seq = pq.live[:, qid], pq.prio[:, qid], pq.seq[:, qid]
+    item = torch.as_tensor(item, device=prio.device).to(prio.dtype)
+    item = item.reshape(-1, 1) if item.dim() else item
+    match = live & (pq.items[:, qid] == item)
+    p_best = torch.where(match, prio, -torch.inf).amax(dim=1)
+    m2 = match & (prio == p_best[:, None])
+    s_best = torch.where(m2, seq, _I32_MAX).amin(dim=1)
+    return m2 & (seq == s_best[:, None]), match, p_best, s_best
+
+
+def pqueue_cancel(sim: Sim, q, item):
+    """``(sim, existed)``: the earliest-dequeuing item of priority queue
+    ``q`` (its PQueueRef) equal to ``item`` removed (parity: the
+    reference's ``api.pqueue_cancel``): a recording queue records its
+    length where one was, and the rear guard is signalled (without
+    observer forwarding, as the reference signals it)."""
+    m, _, _, _ = _pq_match(sim, q.id, item)
+    existed = m.any(dim=1)
+    pq = sim.pqueues
+    live = pq.live.clone()
+    live[:, q.id] = pq.live[:, q.id] & ~m
+    pq2 = pq._replace(live=live)
+    if q.record and pq.acc is not None:
+        n = live[:, q.id].to(INDEX).sum(dim=1).to(pq.items.dtype)
+        pq2 = pq2._replace(acc=_record_row(pq.acc, q.id, sim.clock, n,
+                                           existed))
+    sim = sim._replace(pqueues=pq2)
+    return _guard_signal(sim, q.rear_guard, pred=existed), existed
+
+
+def pqueue_reprioritize(sim: Sim, qid: int, item, new_prio):
+    """``(sim, existed)``: the earliest-dequeuing item of priority queue
+    ``qid`` equal to ``item`` takes priority ``new_prio``, its FIFO seq
+    kept (parity: the reference's ``api.pqueue_reprioritize``)."""
+    m, _, _, _ = _pq_match(sim, qid, item)
+    pq = sim.pqueues
+    pr_ = torch.as_tensor(new_prio, device=pq.prio.device).to(pq.prio.dtype)
+    pr_ = pr_.reshape(-1, 1) if pr_.dim() else pr_
+    prio = pq.prio.clone()
+    prio[:, qid] = torch.where(m, pr_, pq.prio[:, qid])
+    return sim._replace(pqueues=pq._replace(prio=prio)), m.any(dim=1)
 
 
 def release_pool(spec: ModelSpec, sim: Sim, p, k, amount, pred=True) -> Sim:
@@ -1091,6 +1330,36 @@ def _make_apply(spec: ModelSpec):
         sim = _guard_wait(sim, p, front, cmd, is_retry, pred=empty & gate)
         return sim, empty | fused
 
+    def _target(sim, i, col, empty):
+        """Column ``col`` of process ``i`` per lane; ``empty`` where
+        ``i`` is no process (the reference's one-hot read of no row)."""
+        n = spec.n_procs
+        ok = (i >= 0) & (i < n)
+        return torch.where(ok, ix.get(col, i.clamp(0, n - 1)), empty)
+
+    def h_wait_proc(sim, p, cmd, is_retry, gate):
+        """Wait for process cmd.i to finish (parity: the reference's
+        ``h_wait_proc``): a target finished already wakes p now with its
+        exit signal, else p waits on it; either way p yields."""
+        tgt = cmd.i
+        finished = _target(sim, tgt, sim.procs.status, 0) == pr.FINISHED
+        sig = _target(sim, tgt, sim.procs.exit_sig, 0)
+        sim = _schedule_wake(sim, finished & gate, p, sig)
+        sim = sim._replace(procs=sim.procs._replace(await_pid=ix.put(
+            sim.procs.await_pid, p, tgt, ~finished & gate)))
+        return set_pc(sim, p, cmd.next_pc, gate), torch.ones_like(gate)
+
+    def h_wait_evt(sim, p, cmd, is_retry, gate):
+        """Wait for event handle cmd.i to be dispatched (parity: the
+        reference's ``h_wait_evt``): a dead handle wakes p now with
+        CANCELLED, else p waits on it; either way p yields."""
+        h = cmd.i
+        valid = ev._valid(sim.events, h)
+        sim = _schedule_wake(sim, ~valid & gate, p, pr.CANCELLED)
+        sim = sim._replace(procs=sim.procs._replace(await_evt=ix.put(
+            sim.procs.await_evt, p, h, valid & gate)))
+        return set_pc(sim, p, cmd.next_pc, gate), torch.ones_like(gate)
+
     def h_invalid(sim, p, cmd, is_retry, gate):
         return _set_err(sim, gate, ERR_USER), torch.ones_like(gate)
 
@@ -1117,6 +1386,8 @@ def _make_apply(spec: ModelSpec):
                   (h_pq_get, (pr.C_PQ_GET, pr.C_PQ_GET_HOLD))]
     if spec.conditions:
         table.append((h_cond_wait, (pr.C_COND_WAIT,)))
+    table += [(h_wait_proc, (pr.C_WAIT_PROC,)),
+              (h_wait_evt, (pr.C_WAIT_EVT,))]
     handled = [t for _, tags in table for t in tags]
 
     def apply_command(sim, p, cmd, is_retry, active):
@@ -1184,6 +1455,9 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
         retry a pended command on a SUCCESS wake, then chain blocks until
         the process yields."""
         sim = _cancel_wake(sim, p, gate)
+        # any delivery ends a wait on a process or an event (the
+        # reference's resume: a timer's wake bypasses the abort)
+        sim = _clear_awaits(spec, sim, p, gate)
         pend = _pend_of(sim, p)
         has_pend = pend.tag != pr.NO_PEND
         # unwait before the cleanup (the reference's order): the pend's
@@ -1239,8 +1513,21 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
             wakes=wk2,
             clock=torch.where(proceed, event.time, sim.clock),
             n_events=sim.n_events + proceed.to(sim.n_events.dtype),
-            done=sim.done | ~event.found,
         )
+        if _may_wait_events(spec, sim):
+            # the event's waiters wake before its action runs; the stale
+            # arm may arm wakes on an empty pop, so "out of events" is
+            # judged after the scan (a cancel that drains the set must
+            # still wake its waiter).  A deferred boundary lane scans
+            # nothing: its wakes would come before the deferred event
+            sim = _dispatch_evt_wakes(sim, event.handle, proceed,
+                                      ~sim.boundary_pending if defer
+                                      else None)
+            sim = sim._replace(done=sim.done | (
+                ~event.found & ev.is_empty(sim.events)
+                & ev.wakes_empty(sim.wakes)))
+        else:
+            sim = sim._replace(done=sim.done | ~event.found)
         # kinds K_PROC and K_TIMER resume the subject (an out-of-range
         # subject reads as not RUNNING); kind N_KINDS + k calls user
         # handler k, its Sim kept where the event was found; a kind out
@@ -1263,24 +1550,31 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
 def make_cond(spec: ModelSpec, t_end: Optional[float] = None,
               defer_boundary: bool = False):
     """Per-lane liveness ``cond(sim) -> [L] bool`` (parity:
-    ``cimba_tpu.core.loop.make_cond`` without wait-event stranding).
-    With ``defer_boundary`` a lane waiting on a boundary step is not
-    live."""
+    ``cimba_tpu.core.loop.make_cond``).  A lane whose tables are empty
+    stays live while a RUNNING process waits on an event (its handle died
+    with the set: the next step's scan wakes it with CANCELLED).  With
+    ``defer_boundary`` a lane waiting on a boundary step is not live."""
     defer = defer_boundary and bool(spec.boundary_pcs)
 
     def cond(sim: Sim):
-        empty = ev.is_empty(sim.events) & ev.wakes_empty(sim.wakes)
-        live = ~sim.done & (sim.err == 0) & ~empty
-        if defer:
-            live = live & ~sim.boundary_pending
         if sim.t_stop is not None:
             raise NotImplementedError(
                 "cimba_tpu_torch: per-lane horizons (Sim.t_stop) are not "
                 "ported yet")
+        empty = ev.is_empty(sim.events) & ev.wakes_empty(sim.wakes)
+        if _may_wait_events(spec, sim):
+            stranded = ((sim.procs.await_evt >= 0)
+                        & (sim.procs.status == pr.RUNNING)).any(dim=1)
+            out_of_work = empty & ~stranded
+        else:
+            out_of_work = empty
+        live = ~sim.done & (sim.err == 0) & ~out_of_work
+        if defer:
+            live = live & ~sim.boundary_pending
         if t_end is not None:
             nxt = torch.minimum(ev.min_time(sim.events),
                                 sim.wakes.time.amin(dim=1))
-            live = live & (nxt <= t_end)
+            live = live & ((nxt <= t_end) | (empty & ~out_of_work))
         return live
 
     return cond

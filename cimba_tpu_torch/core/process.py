@@ -8,8 +8,8 @@ numbers; the engine broadcasts them.  The port implements hold, exit,
 jump, the object-queue verbs, the binary resource's acquire, preempt and
 release, the resource pool's acquire, preempt (the mug) and release, the
 buffer get and put, the priority queue's put and get (each blocking verb
-with its fused ``*_hold`` twin) and the condition wait; the constructors
-of the waits on processes and events are still to port.
+with its fused ``*_hold`` twin), the condition wait and the waits on a
+process and on an event.
 """
 
 from __future__ import annotations
@@ -50,7 +50,9 @@ C_BUF_PUT = 11
 C_PQ_PUT = 12
 C_PQ_GET = 13
 C_COND_WAIT = 14
+C_WAIT_PROC = 15
 C_POOL_PRE = 16
+C_WAIT_EVT = 17
 C_PUT_HOLD = 18
 C_GET_HOLD = 19
 C_ACQ_HOLD = 20
@@ -78,7 +80,14 @@ class Command(NamedTuple):
     next_pc: object  # i32 block to continue at
 
 
+#: where set (by core.loop's used-tag inference), every command built
+#: registers its tag here (parity: the reference's ``_tag_collector``)
+_tag_collector = None
+
+
 def _cmd(tag, f=0.0, f2=0.0, f3=0.0, i=0, next_pc=0) -> Command:
+    if _tag_collector is not None:
+        _tag_collector.add(tag)
     return Command(tag, f, f2, f3, i, next_pc)
 
 
@@ -237,6 +246,23 @@ def cond_wait(condition, next_pc) -> Command:
     (parity: cmb_condition_wait; a woken waiter whose predicate no longer
     holds waits again)."""
     return _cmd(C_COND_WAIT, i=condition, next_pc=next_pc)
+
+
+def wait_process(pid, next_pc) -> Command:
+    """Wait for process ``pid`` to finish (parity:
+    cmb_process_wait_process): the continuation receives SUCCESS if it
+    exited, STOPPED if it was stopped (at once, where it has finished
+    already)."""
+    return _cmd(C_WAIT_PROC, i=pid, next_pc=next_pc)
+
+
+def wait_event(handle, next_pc) -> Command:
+    """Wait for the scheduled event ``handle`` (parity:
+    cmb_process_wait_event): SUCCESS when it is dispatched (waiters wake
+    before its action runs), CANCELLED if it is cancelled or the handle
+    is already dead, or the signal of an interrupt or timer that ends the
+    wait first."""
+    return _cmd(C_WAIT_EVT, i=handle, next_pc=next_pc)
 
 
 _REAL_FIELDS = (1, 2, 3)

@@ -18,11 +18,22 @@ pid)``, once on a symbolic one-lane Sim and records what it computes:
   loops and tables are not traced); ``api.pool_release``,
   ``api.release``, ``api.cond_signal``, ``api.interrupt``,
   ``api.stop_process``, ``api.timer_add``, ``api.timers_clear``,
-  ``api.schedule`` and ``api.spawn`` are engine calls, since they scan
-  guard waiters, the processes or the event table (a timer's, an
-  event's handle and a spawn's pid are ``callres`` nodes); ``api.pqueue_length`` and
-  ``api.pqueue_position`` are reader nodes (``pq_length``,
-  ``pq_position``), since they scan a priority queue's slots;
+  ``api.schedule``, ``api.spawn``, ``api.timer_cancel`` and
+  ``api.event_cancel`` (``event_cancel``, whether the call passed the
+  spec a constant of it), ``api.event_reschedule``,
+  ``api.event_reprioritize``, ``api.event_pattern_cancel``,
+  ``api.priority_set``, ``api.pqueue_cancel`` and
+  ``api.pqueue_reprioritize`` are engine calls, since they scan guard
+  waiters, the processes, a queue or the event table (a timer's, an
+  event's handle, a spawn's pid, a cancel's or a move's ``existed`` and
+  a pattern cancel's count are ``callres`` nodes); the readers
+  ``api.pqueue_length``, ``pqueue_position``, ``queue_position``,
+  ``event_is_scheduled``, ``event_time``, ``event_priority``,
+  ``event_pattern_count`` and ``event_pattern_find`` are one node each
+  (``pq_length``, ``pq_position``, ``q_position``, ``ev_scheduled``,
+  ``ev_time``, ``ev_prio``, ``ev_pcount``, ``ev_pfind``), since they
+  scan a queue's slots or the event table, read where they stand
+  between the calls;
 * a user event handler ``fn(sim, subj, arg) -> sim`` is traced as a
   block that returns no command (:func:`trace_handler`): its subject is
   the ``pid`` node, its argument the ``sig`` node;
@@ -34,8 +45,8 @@ pid)``, once on a symbolic one-lane Sim and records what it computes:
   leaves it touches are then read afresh after the select.  A select
   that covers only part of what a call touches, a predicate computed
   after the call, a read of the state after a gated call outside the
-  select, or a use of a gated call's handle or pid raises, naming the
-  block and the line.
+  select, or a use of a gated call's result (a handle, a pid,
+  ``existed`` or a count) raises, naming the block and the line.
 
 A traced value is a :class:`Sym`: a tensor subclass holding the value
 torch computes on a real one-lane Sim (the *shadow*, which gives every
@@ -120,7 +131,7 @@ _UN = {
     "__abs__": "abs", "absolute": "abs", "sin": "sin", "cos": "cos",
     "exp": "exp", "log": "log", "log1p": "log1p", "sqrt": "sqrt",
     "floor": "floor", "ceil": "ceil", "isnan": "isnan",
-    "isfinite": "isfinite", "__invert__": "not", "bitwise_not": "not",
+    "isfinite": "isfinite", "isinf": "isinf", "__invert__": "not", "bitwise_not": "not",
     "logical_not": "not", "reciprocal": "reciprocal", "round": "round",
 }
 _CAST = {"double": torch.float64, "float": torch.float32,
@@ -133,8 +144,10 @@ _META = {"__get__", "dim", "size", "numel", "is_floating_point",
          "is_contiguous", "element_size", "__len__", "nelement", "ndimension",
          "get_device", "__format__", "__repr__", "__str__", "data_ptr"}
 _LIKE = {"ones_like", "zeros_like", "full_like", "empty_like"}
-_HOST = {"__bool__", "item", "tolist", "__int__", "__float__", "__index__",
-         "numpy", "__array__", "__nonzero__"}
+#: the ops of a Python branch on a tensor's value (the tracer refuses
+#: them, and so does the plain engine's tag inference)
+HOST_BRANCH = {"__bool__", "item", "tolist", "__int__", "__float__",
+               "__index__", "numpy", "__array__", "__nonzero__"}
 
 
 class Sym(torch.Tensor):
@@ -225,7 +238,8 @@ class Tracer(TorchFunctionMode):
     # --- nodes ----------------------------------------------------------
     def node(self, op, args, dtype, cdt=None, aux=None) -> int:
         n = Node(op, tuple(args), dtype, cdt, aux)
-        if op not in ("draw", "leaf"):  # reads are epoch-tagged by position
+        if op not in ("draw", "leaf") and op not in READERS:
+            # reads of the state are tagged by their position
             key = (op, n.args, dtype, cdt, aux)
             got = self._memo.get(key)
             if got is not None:
@@ -264,7 +278,7 @@ class Tracer(TorchFunctionMode):
         syms = list(_syms(args)) + list(_syms(kwargs))
         if not syms:
             return func(*args, **kwargs)
-        if name in _HOST:
+        if name in HOST_BRANCH:
             self.fail("branches in Python on a traced value "
                       f"({name} of a traced tensor)")
         out = func(*_unwrap(args), **_unwrap(kwargs))
@@ -369,6 +383,8 @@ class Tracer(TorchFunctionMode):
                                     else a,
                                     _plain(b) if isinstance(b, torch.Tensor)
                                     else b)
+        elif op in ("isnan", "isfinite", "isinf"):
+            cdt = operands[0].dtype  # a bool of its operand's dtype
         else:
             cdt = dtype
         n = math.prod(shape) if shape else 1
@@ -576,17 +592,29 @@ class PredIR:
 
 #: leaves an engine call may change: read afresh after one
 _CALL_TOUCHES = ("wakes.", "events.", "procs.pend_tag", "procs.pend_guard",
-                 "procs.got", "resources.", "pools.", "buffers.", "err",
-                 "guards.")
+                 "procs.got", "procs.await_pid", "procs.await_evt",
+                 "resources.", "pools.", "buffers.", "err", "guards.")
 #: and a stop's, which also ends its target
 _STOP_TOUCHES = _CALL_TOUCHES + ("procs.status", "procs.exit_sig")
 #: and a spawn's, which resets the row it activates
 _SPAWN_TOUCHES = _STOP_TOUCHES + ("procs.pc", "procs.prio",
-                                  "procs.await_pid", "procs.await_evt",
                                   "procs.locals_f", "procs.locals_i")
-#: the engine calls that return ``(sim, handle)`` (a spawn's handle is
-#: the pid it activated)
-_HANDLE_CALLS = ("timer_add", "schedule", "spawn")
+#: the touches of the calls that change more than _CALL_TOUCHES
+_TOUCHES = {"stop_process": _STOP_TOUCHES, "spawn": _SPAWN_TOUCHES,
+            "priority_set": _CALL_TOUCHES + ("procs.prio",),
+            "pqueue_cancel": _CALL_TOUCHES + ("pqueues.",),
+            "pqueue_reprioritize": _CALL_TOUCHES + ("pqueues.",)}
+#: the engine calls that return ``(sim, result)``, and the result's dtype
+#: (a spawn's is the pid it activated)
+_RESULTS = {"timer_add": torch.int32, "schedule": torch.int32,
+            "spawn": torch.int32, "event_cancel": torch.bool,
+            "event_reschedule": torch.bool, "event_reprioritize": torch.bool,
+            "event_pattern_cancel": torch.int32, "pqueue_cancel": torch.bool,
+            "pqueue_reprioritize": torch.bool}
+#: the reader nodes: each scans a queue or the event table where it
+#: stands (never shared with a read of the same state elsewhere)
+READERS = ("pq_length", "pq_position", "q_position", "ev_scheduled",
+           "ev_time", "ev_prio", "ev_pcount", "ev_pfind")
 
 
 def _symbolic_sim(tr: Tracer, shadow):
@@ -655,8 +683,7 @@ def engine_call(sim, kind: str, *args):
     tr.effects.append(("call", kind, refs, mark))
     touched = {}
     leaves = []
-    touches = {"stop_process": _STOP_TOUCHES,
-               "spawn": _SPAWN_TOUCHES}.get(kind, _CALL_TOUCHES)
+    touches = _TOUCHES.get(kind, _CALL_TOUCHES)
     for name, x in named_leaves(sim):
         if name.startswith(touches):
             t = tr.template[name]
@@ -675,26 +702,40 @@ def engine_call(sim, kind: str, *args):
                          covered=set(), mark=mark,
                          effect=len(tr.effects) - 1, line=None))
     out = _rebuild(sim, leaves)
-    if kind in _HANDLE_CALLS:
-        h = tr.node("callres", (), torch.int32, aux=k)
-        return out, tr.wrap(torch.zeros(1, dtype=torch.int32),
+    dt = _RESULTS.get(kind)
+    if dt is not None:
+        h = tr.node("callres", (), dt, aux=k)
+        return out, tr.wrap(torch.zeros(1, dtype=dt),
                             torch.tensor([h], dtype=torch.int64))
     return out
 
 
-def pq_read(sim, op: str, qid, *args):
-    """``api.pqueue_length`` (op ``pq_length``) or ``api.pqueue_position``
-    (``pq_position``, of the item ``args[0]``) under the tracer: one node
-    that scans queue ``qid``'s slots (no call or block write changes a
-    priority queue within a block)."""
+_API_OF = {"pq_length": "pqueue_length", "pq_position": "pqueue_position",
+           "q_position": "queue_position"}
+
+
+def read(sim, op: str, qid, *args):
+    """A reader of the state under the tracer (``READERS``): one node,
+    read where it stands between the block's engine calls.  ``pq_length``
+    and ``pq_position`` (of the item ``args[0]``) scan priority queue
+    ``qid``'s slots, ``q_position`` object queue ``qid``'s ring;
+    ``ev_scheduled``, ``ev_time`` and ``ev_prio`` read the event table at
+    the handle ``args[0]``, ``ev_pcount`` and ``ev_pfind`` scan it for
+    the pattern (kind, subject) ``args``."""
     tr = sim.clock.tracer
-    if not isinstance(qid, int):
-        tr.fail(f"api.{op.replace('pq_', 'pqueue_')} of a traced queue id")
-    width = tr.template["pqueues.live"].shape[2]
+    if op in _API_OF:
+        if not isinstance(qid, int):
+            tr.fail(f"api.{_API_OF[op]} of a traced queue id")
+        leaf = "queues.items" if op == "q_position" else "pqueues.live"
+        aux = (qid, tr.template[leaf].shape[2])
+    else:
+        aux = (tr.template["events.time"].shape[1],)
     refs = tuple(_arg(tr, a) for a in args)
-    # the length is the reference's int64 sum, the position its int32
-    dt = torch.int64 if op == "pq_length" else torch.int32
-    nid = tr.node(op, refs, dt, aux=(qid, width))
+    # pqueue_length is the reference's int64 sum, event_time the table's
+    # time, event_is_scheduled a bool, the rest int32
+    dt = {"pq_length": torch.int64, "ev_scheduled": torch.bool,
+          "ev_time": tr.template["events.time"].dtype}.get(op, torch.int32)
+    nid = tr.node(op, refs, dt, aux=aux)
     return tr.wrap(torch.zeros(1, dtype=dt),
                    torch.tensor([nid], dtype=torch.int64))
 
@@ -738,7 +779,8 @@ def _check_calls(tr: Tracer, ir_roots) -> None:
             # the kernel makes a gated call under its gate only: its
             # result names nothing where the gate is shut
             call = tr.calls[n.aux]
-            what = "pid" if call["kind"] == "spawn" else "handle"
+            what = {"spawn": "pid", "timer_add": "handle",
+                    "schedule": "handle"}.get(call["kind"], "result")
             raise TraceError(
                 f"{tr.what}: uses the {what} of a {call['kind']} that the "
                 f"select at {call['line']} keeps or drops")
@@ -946,6 +988,8 @@ def _eval(n: Node, vals, env_leaf, pid, sig, lanes, device, draw_fn):
         pq = _PQ(items=items[:, None], prio=prio[:, None],
                  seq=seq[:, None], live=live[:, None])
         return api.pqueue_position(_PQSim(pq), 0, vals[n.args[0]])
+    if op in READERS:
+        return _read_state(n, vals, env_leaf)
     if op == "where":
         c = vals[n.args[0]]
         a = _lit(n.args[1], vals, n.cdt)
@@ -968,6 +1012,7 @@ def _eval(n: Node, vals, env_leaf, pid, sig, lanes, device, draw_fn):
         "cos": torch.cos, "exp": torch.exp, "log": torch.log,
         "log1p": torch.log1p, "sqrt": torch.sqrt, "floor": torch.floor,
         "ceil": torch.ceil, "isnan": torch.isnan, "isfinite": torch.isfinite,
+        "isinf": torch.isinf,
         "not": torch.bitwise_not, "reciprocal": torch.reciprocal,
         "round": torch.round,
         "add": torch.add, "sub": torch.sub, "mul": torch.mul,
@@ -978,6 +1023,48 @@ def _eval(n: Node, vals, env_leaf, pid, sig, lanes, device, draw_fn):
         "maximum": torch.maximum,
     }[op]
     return fn(*args).to(n.dtype)
+
+
+def _read_state(n: Node, vals, env_leaf):
+    """A reader node of the object queues or the event table, evaluated
+    by the api's own reader on the rows it scans."""
+    from cimba_tpu_torch.core import api
+    from cimba_tpu_torch.core import eventset as ev
+    from cimba_tpu_torch.core import loop
+
+    args = [a.value if isinstance(a, Lit) else vals[a] for a in n.args]
+
+    def rows(name, lo, width):
+        return torch.stack([env_leaf(name, lo + j) for j in range(width)],
+                           dim=1)
+
+    if n.op == "q_position":
+        qid, width = n.aux
+        q = loop.Queues(items=rows("queues.items", qid * width, width)[
+            :, None], head=env_leaf("queues.head", qid)[:, None],
+            size=env_leaf("queues.size", qid)[:, None])
+        return api.queue_position(_QSim(q), 0, args[0])
+    (cap,) = n.aux
+    time = rows("events.time", 0, cap)
+    z = torch.zeros_like(time, dtype=torch.int32)
+    es = ev.EventSet(time=time, prio=rows("events.prio", 0, cap), seq=z,
+                     kind=rows("events.kind", 0, cap),
+                     subj=rows("events.subj", 0, cap),
+                     arg=z, gen=rows("events.gen", 0, cap),
+                     next_seq=z[:, 0], overflow=z[:, 0].bool())
+    fn = {"ev_scheduled": api.event_is_scheduled, "ev_time": api.event_time,
+          "ev_prio": api.event_priority,
+          "ev_pcount": lambda s, k, sj: ev.pattern_count(s.events, k, sj),
+          "ev_pfind": lambda s, k, sj: ev.pattern_find(s.events, k, sj)}
+    return fn[n.op](_ESim(es), *args)
+
+
+class _QSim(NamedTuple):
+    queues: Any
+
+
+class _ESim(NamedTuple):
+    events: Any
 
 
 class _PQ(NamedTuple):
@@ -1091,4 +1178,21 @@ def _call(spec, s, kind, args):
         first, count, entry, prio, at, prio_ = args
         pt = ProcessType("", entry, prio, count, False, first)
         return loop.spawn_process(s, pt, at=at, prio=prio_)
+    from cimba_tpu_torch.core import api
+
+    if kind == "event_cancel":
+        h, eager = args
+        return loop.timer_cancel(s, h, spec if eager else None)
+    if kind == "event_reschedule":
+        return api.event_reschedule(s, *args)
+    if kind == "event_reprioritize":
+        return api.event_reprioritize(s, *args)
+    if kind == "event_pattern_cancel":
+        return api.event_pattern_cancel(s, *args)
+    if kind == "priority_set":
+        return loop.priority_set(s, pid(args[0]), args[1]), None
+    if kind == "pqueue_cancel":
+        return loop.pqueue_cancel(s, spec.pqueues[args[0]], args[1])
+    if kind == "pqueue_reprioritize":
+        return loop.pqueue_reprioritize(s, *args)
     raise TraceError(f"engine call {kind}")

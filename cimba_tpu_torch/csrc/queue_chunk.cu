@@ -55,7 +55,20 @@
 //           stop_process (stop_at<T>), a block's schedule of a user
 //           event (schedule_event), the dispatch of user events to
 //           the family's handlers (NH: handler<K>) and a block's spawn
-//           of a pool type (spawn_pool<T>, the pool's pids compile-time).
+//           of a pool type (spawn_pool<T>, the pool's pids compile-time);
+//           the waits on a process and on an event (M::WAITP, M::WAITE,
+//           which the emitter sets where a block may return the wait:
+//           h_wait_proc, h_wait_evt, each process's awaited pid and
+//           handle in registers or, past the register limit, shared
+//           columns; the exit's wake of its waiters in pid order; the
+//           dispatch's scan of the event waiters before the action, its
+//           stale arm, and the liveness term of a waiter stranded by a
+//           cancel that drained the tables) and the event-handle API on
+//           the general table (event_cancel<EAGER>, event_reschedule,
+//           event_reprioritize, pattern_cancel and the readers ev_valid,
+//           ev_time, ev_prio, pattern_count, pattern_find), priority_set,
+//           the priority queue's pq_cancel<Q> and pq_reprioritize<Q> and
+//           the object queue's queue_position<Q>.
 //           Past the register limits (M::BIG, M::GBIG, which the
 //           emitter decides) a generated family keeps each
 //           process's wake and packed word in shared-memory columns
@@ -192,13 +205,13 @@ constexpr int C_HOLD = 0, C_EXIT = 1, C_JUMP = 2, C_PUT = 3, C_GET = 4;
 constexpr int C_ACQUIRE = 5, C_RELEASE = 6, C_PREEMPT = 7;
 constexpr int C_POOL_ACQ = 8, C_POOL_REL = 9, C_BUF_GET = 10,
               C_BUF_PUT = 11, C_PQ_PUT = 12, C_PQ_GET = 13, C_COND_WAIT = 14;
-constexpr int C_POOL_PRE = 16;
+constexpr int C_WAIT_PROC = 15, C_POOL_PRE = 16, C_WAIT_EVT = 17;
 constexpr int C_PUT_HOLD = 18, C_GET_HOLD = 19, C_ACQ_HOLD = 20,
               C_PRE_HOLD = 21, C_POOL_ACQ_HOLD = 22, C_POOL_PRE_HOLD = 23,
               C_BUF_GET_HOLD = 24, C_BUF_PUT_HOLD = 25, C_PQ_PUT_HOLD = 26,
               C_PQ_GET_HOLD = 27, N_COMMANDS = 28;
 constexpr int NO_PEND = -1, SUCCESS = 0, PREEMPTED = -1, STOPPED = -3,
-              RUNNING = 1, FINISHED = 2;
+              CANCELLED = -4, RUNNING = 1, FINISHED = 2;
 constexpr int K_TIMER = 1, N_KINDS = 2;
 constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4,
               ERR_BAD_RELEASE = 5;
@@ -515,6 +528,34 @@ struct ColdG {
 template <class M>
 struct ColdG<M, false> {};
 
+// each process's awaited pid and event handle (-1: none), in a family of
+// M::BIG that waits (M::WAITP, M::WAITE)
+template <class M, bool ON = M::BIG && (M::WAITP || M::WAITE)>
+struct ColdAwait {
+  int32_t apid[M::NP][M::THREADS], aevt[M::NP][M::THREADS];
+};
+
+template <class M>
+struct ColdAwait<M, false> {};
+
+// each process's awaited pid (P) and event handle (E) of a lane, where
+// the family waits: a base of State, empty (and so no room in it) where
+// the family has neither wait
+template <class Wa, bool P, bool E>
+struct Awaits {};
+template <class Wa>
+struct Awaits<Wa, true, false> {
+  Wa apid;
+};
+template <class Wa>
+struct Awaits<Wa, false, true> {
+  Wa aevt;
+};
+template <class Wa>
+struct Awaits<Wa, true, true> {
+  Wa apid, aevt;
+};
+
 // every column of a family whose shared memory is dynamic (M::DYN): one
 // block-wide struct carved from the launch's dynamic shared memory
 template <typename R, class M>
@@ -527,12 +568,16 @@ struct Smem {
   typename M::UCold ucold;
   ColdWake<R, M> wake;
   ColdG<M> g;
+  ColdAwait<M> await_;
 };
 
 // One lane's working state: the hot part in registers, the cold part in
 // the block's shared memory.
 template <typename R_, typename C_, class M_>
-struct State {
+struct State
+    : Awaits<std::conditional_t<M_::BIG, Col<int32_t, M_::THREADS>,
+                                int32_t[M_::NP]>,
+             M_::WAITP, M_::WAITE> {
   using R = R_;
   using C = C_;
   using M = M_;
@@ -811,6 +856,20 @@ __device__ __forceinline__ void schedule_wake(S& s, int p, typename S::R t) {
     } else {
       set(s, F_SIG, p, SUCCESS);
     }
+    put(s.wseq, p, s.next_seq);
+    s.next_seq += 1;
+  } else {
+    set_err(s, ERR_EVENT_OVERFLOW);
+  }
+}
+
+// a wake of process p now with signal sig, the next seq (a kick's, a
+// waiter's: a generated family's, whose wake signals are a column)
+template <class S>
+__device__ __forceinline__ void wake_sig(S& s, int p, int32_t sig) {
+  if (finite(s.clock)) {
+    put(s.wt, p, s.clock);
+    GCOL(s, wsig, p) = sig;
     put(s.wseq, p, s.next_seq);
     s.next_seq += 1;
   } else {
@@ -1239,6 +1298,16 @@ __device__ __forceinline__ void end_process(S& s, const Where& w, int p,
   }
   set(s, F_STATUS, p, FINISHED);
   row<int32_t, S>(w, EXIT_SIG, S::NP)[p] = exit_sig;
+  if constexpr (S::M::WAITP) {
+    // its waiters wake with its exit signal, their seqs in pid order
+    // (loop._wake_waiters)
+#pragma unroll
+    for (int q = 0; q < S::NP; ++q)
+      if (s.apid[q] == p && get(s, F_STATUS, q) == RUNNING) {
+        wake_sig(s, q, exit_sig);
+        s.apid[q] = -1;
+      }
+  }
   if constexpr (S::M::NR > 0) drop_res<0>(s, w, p);
   if constexpr (S::M::TOOLKIT) drop_pool<0>(s, w, p);
 }
@@ -1534,6 +1603,8 @@ __device__ __forceinline__ void abort_wait(S& s, const Where& w, int p,
   set(s, F_TAG, p, NO_PEND);
   set(s, F_GUARD, p, -1);
   put(s.wt, p, inf_of<R>());
+  if constexpr (S::M::WAITP) put(s.apid, p, -1);
+  if constexpr (S::M::WAITE) put(s.aevt, p, -1);
   abort_cleanup(s, w, p, pend, sig);
 }
 
@@ -1543,14 +1614,7 @@ template <class S>
 __device__ __forceinline__ void kick(S& s, const Where& w, int p,
                                      int32_t sig) {
   abort_wait(s, w, p, sig);
-  if (finite(s.clock)) {
-    put(s.wt, p, s.clock);
-    GCOL(s, wsig, p) = sig;
-    put(s.wseq, p, s.next_seq);
-    s.next_seq += 1;
-  } else {
-    set_err(s, ERR_EVENT_OVERFLOW);
-  }
+  wake_sig(s, p, sig);
 }
 
 // api.interrupt of a pid a block computes (loop.interrupt): the kick,
@@ -1611,8 +1675,16 @@ __device__ __forceinline__ void spawn_reset(S& s, const Where& w, int p,
   row<int32_t, S>(w, PRIO, NP)[p] = prio;
   COLD(s, got, p) = R(0);
   row<int32_t, S>(w, EXIT_SIG, NP)[p] = SUCCESS;
-  row<int32_t, S>(w, AWAIT_PID, NP)[p] = -1;
-  row<int32_t, S>(w, AWAIT_EVT, NP)[p] = -1;
+  if constexpr (M::WAITP) {
+    put(s.apid, p, -1);
+  } else {
+    row<int32_t, S>(w, AWAIT_PID, NP)[p] = -1;
+  }
+  if constexpr (M::WAITE) {
+    put(s.aevt, p, -1);
+  } else {
+    row<int32_t, S>(w, AWAIT_EVT, NP)[p] = -1;
+  }
 #pragma unroll
   for (int i = 0; i < M::NF; ++i) UCOL(s, lf, p * M::NF + i) = R(0);
 #pragma unroll
@@ -1760,6 +1832,320 @@ __device__ __forceinline__ int32_t schedule_event(S& s, const Where& w,
   return h;
 }
 
+// --- the event-handle API on the general table ----------------------------
+// A handle is the slot's generation above bit 16 and the slot below; it
+// names a live event where the slot holds a finite time and the slot's
+// generation is the handle's (eventset._valid: a slot past the table
+// reads time 0 and generation 0, as the reference's one-hot read of no
+// slot does).
+
+__device__ __forceinline__ int ev_slot(int32_t h) {
+  return (h < 0 ? 0 : h) & 0xFFFF;
+}
+
+template <class S>
+__device__ __forceinline__ bool ev_valid(const S&, const Where& w,
+                                         int32_t h) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap, slot = ev_slot(h);
+  if (h < 0) return false;
+  if (slot >= E) return (h >> 16) == 0;
+  return finite(row<R, S>(w, EV_TIME, E)[slot]) &&
+         row<int32_t, S>(w, EV_GEN, E)[slot] == (h >> 16);
+}
+
+// api.event_time: a live event's time, +inf for a dead handle
+template <class S>
+__device__ __forceinline__ typename S::R ev_time(const S& s, const Where& w,
+                                                 int32_t h) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap, slot = ev_slot(h);
+  if (!ev_valid(s, w, h)) return inf_of<R>();
+  return slot < E ? row<R, S>(w, EV_TIME, E)[slot] : R(0);
+}
+
+// api.event_priority: a live event's priority, 0 for a dead handle
+template <class S>
+__device__ __forceinline__ int32_t ev_prio(const S& s, const Where& w,
+                                           int32_t h) {
+  const int E = w.sh.event_cap, slot = ev_slot(h);
+  if (!ev_valid(s, w, h) || slot >= E) return 0;
+  return row<int32_t, S>(w, EV_PRIO, E)[slot];
+}
+
+// the waiters of handle h (every RUNNING process awaiting it) woken with
+// CANCELLED in pid order, their waits cleared: the eager arm of a cancel
+template <class S>
+__device__ __forceinline__ void cancel_waiters(S& s, int32_t h) {
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q)
+    if (s.aevt[q] == h && get(s, F_STATUS, q) == RUNNING) {
+      wake_sig(s, q, CANCELLED);
+      s.aevt[q] = -1;
+    }
+}
+
+// api.event_cancel / timer_cancel (loop.timer_cancel): the event of a live
+// handle removed (its slot freed, its generation bumped, the cached
+// minimum scanned again); with the spec (EAGER) its waiters wake now with
+// CANCELLED, without it at the next dispatch's stale scan.  Returns
+// whether the handle was live
+template <bool EAGER, class S>
+__device__ __forceinline__ bool event_cancel(S& s, const Where& w,
+                                             int32_t h) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const bool ok = ev_valid(s, w, h);
+  if (ok && slot < E) {
+    row<R, S>(w, EV_TIME, E)[slot] = inf_of<R>();
+    row<int32_t, S>(w, EV_GEN, E)[slot] += 1;
+    scan_table(s, w);
+  }
+  if constexpr (EAGER && S::M::WAITE) {
+    if (ok) cancel_waiters(s, h);
+  }
+  return ok;
+}
+
+// api.event_reschedule: a live event moved to t, its seq kept; a
+// non-finite t moves nothing and gives false
+template <class S>
+__device__ __forceinline__ bool event_reschedule(S& s, const Where& w,
+                                                 int32_t h,
+                                                 typename S::R t) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const bool ok = ev_valid(s, w, h) && finite(t);
+  if (ok && slot < E) {
+    row<R, S>(w, EV_TIME, E)[slot] = t;
+    scan_table(s, w);
+  }
+  return ok;
+}
+
+// api.event_reprioritize: a live event's priority changed in place
+template <class S>
+__device__ __forceinline__ bool event_reprioritize(S& s, const Where& w,
+                                                   int32_t h, int32_t prio) {
+  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const bool ok = ev_valid(s, w, h);
+  if (ok && slot < E) {
+    row<int32_t, S>(w, EV_PRIO, E)[slot] = prio;
+    scan_table(s, w);
+  }
+  return ok;
+}
+
+// slot i of the general table matches the pattern (kind, subj), either -1
+// a wildcard (eventset._match)
+template <class S>
+__device__ __forceinline__ bool ev_match(const Where& w, int i,
+                                         int32_t kind, int32_t subj) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap;
+  return finite(row<R, S>(w, EV_TIME, E)[i]) &&
+         (kind == -1 || row<int32_t, S>(w, EV_KIND, E)[i] == kind) &&
+         (subj == -1 || row<int32_t, S>(w, EV_SUBJ, E)[i] == subj);
+}
+
+// api.event_pattern_count
+template <class S>
+__device__ __forceinline__ int32_t pattern_count(const S&, const Where& w,
+                                                 int32_t kind, int32_t subj) {
+  int32_t n = 0;
+  for (int i = 0; i < w.sh.event_cap; ++i)
+    n += ev_match<S>(w, i, kind, subj) ? 1 : 0;
+  return n;
+}
+
+// api.event_pattern_find: the soonest match's handle, the lowest slot
+// among equal times; -1 where none
+template <class S>
+__device__ __forceinline__ int32_t pattern_find(const S&, const Where& w,
+                                                int32_t kind, int32_t subj) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap;
+  const R* time = row<R, S>(w, EV_TIME, E);
+  int slot = -1;
+  R t = inf_of<R>();
+  for (int i = 0; i < E; ++i)
+    if (ev_match<S>(w, i, kind, subj) && (slot < 0 || time[i] < t)) {
+      slot = i;
+      t = time[i];
+    }
+  if (slot < 0) return -1;
+  return int32_t(uint32_t(row<int32_t, S>(w, EV_GEN, E)[slot]) << 16) | slot;
+}
+
+// api.event_pattern_cancel: every match removed, the minimum scanned
+// again where one was; returns their count
+template <class S>
+__device__ __forceinline__ int32_t pattern_cancel(S& s, const Where& w,
+                                                  int32_t kind,
+                                                  int32_t subj) {
+  using R = typename S::R;
+  const int E = w.sh.event_cap;
+  int32_t n = 0;
+  for (int i = 0; i < E; ++i)
+    if (ev_match<S>(w, i, kind, subj)) {
+      row<R, S>(w, EV_TIME, E)[i] = inf_of<R>();
+      row<int32_t, S>(w, EV_GEN, E)[i] += 1;
+      n += 1;
+    }
+  if (n > 0) scan_table(s, w);
+  return n;
+}
+
+// api.priority_set (loop.priority_set): the pick and the guards read the
+// priority live; written through, since a chunk stores no prio back.  A
+// pid out of range changes nothing
+template <class S>
+__device__ __forceinline__ void priority_set(S& s, const Where& w, int p,
+                                             int32_t prio) {
+  if (p < 0 || p >= S::NP) return;
+  COLD(s, prio, p) = prio;
+  row<int32_t, S>(w, PRIO, S::NP)[p] = prio;
+}
+
+// wait_process (loop's h_wait_proc): a target finished already wakes p
+// now with its exit signal; else p awaits it (a pid out of range reads as
+// no process that finishes); p yields either way
+template <class S>
+__device__ __forceinline__ bool h_wait_proc(S& s, const Where& w, int p,
+                                            const Cmd<typename S::R>& c) {
+  const int32_t tgt = c.q;
+  const bool in = tgt >= 0 && tgt < S::NP;
+  if (in && get(s, F_STATUS, tgt) == FINISHED) {
+    wake_sig(s, p, row<int32_t, S>(w, EXIT_SIG, S::NP)[tgt]);
+  } else {
+    put(s.apid, p, tgt);
+  }
+  set(s, F_PC, p, c.next_pc);
+  return true;
+}
+
+// wait_event (loop's h_wait_evt): a dead handle wakes p now with
+// CANCELLED; else p awaits it; p yields either way
+template <class S>
+__device__ __forceinline__ bool h_wait_evt(S& s, const Where& w, int p,
+                                           const Cmd<typename S::R>& c) {
+  if (ev_valid(s, w, c.q)) {
+    put(s.aevt, p, c.q);
+  } else {
+    wake_sig(s, p, CANCELLED);
+  }
+  set(s, F_PC, p, c.next_pc);
+  return true;
+}
+
+// the dispatch's scan of the event waiters (loop._dispatch_evt_wakes),
+// before the event's action: a RUNNING waiter of the handle just popped
+// (h_pop, -1 for a wake or an empty pop) wakes with SUCCESS, one whose
+// handle has died (the lazy arm of a cancel) with CANCELLED; their seqs
+// in pid order, their waits cleared
+template <class S>
+__device__ __forceinline__ void evt_scan(S& s, const Where& w,
+                                         int32_t h_pop) {
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q) {
+    const int32_t h = s.aevt[q];
+    if (h >= 0 && get(s, F_STATUS, q) == RUNNING) {
+      const bool fired = h == h_pop;
+      if (fired || !ev_valid(s, w, h)) {
+        wake_sig(s, q, fired ? SUCCESS : CANCELLED);
+        s.aevt[q] = -1;
+      }
+    }
+  }
+}
+
+// a RUNNING process awaits an event: with the tables empty the lane stays
+// live, the next step's scan wakes it with CANCELLED (make_cond)
+template <class S>
+__device__ __forceinline__ bool stranded(const S& s) {
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < S::NP; ++q)
+    any = any || (s.aevt[q] >= 0 && get(s, F_STATUS, q) == RUNNING);
+  return any;
+}
+
+// --- the queues' readers and the priority queue's item verbs --------------
+
+// api.queue_position: the 1-based place from the front of the first item
+// of object queue Q equal to item, 0 if none; a ring slot's place is
+// (slot - head) mod the ring's width, as the reference counts it
+template <int Q, class S>
+__device__ __forceinline__ int32_t queue_position(const S& s, const Where& w,
+                                                  typename S::R item) {
+  using R = typename S::R;
+  const int W = w.sh.ring_width;
+  const R* ring = row<R, S>(w, Q_ITEMS, S::NQ * W) + Q * W;
+  int32_t best = W;
+  for (int c = 0; c < W; ++c) {
+    const int32_t pos = ((c - s.head[Q]) % W + W) % W;
+    if (pos < s.size[Q] && ring[c] == item && pos < best) best = pos;
+  }
+  return best < W ? best + 1 : 0;
+}
+
+// the earliest-dequeuing live item of priority queue Q equal to item (the
+// reference's _pq_match: the greatest priority, then the least seq), its
+// slot, or -1
+template <int Q, class S>
+__device__ __forceinline__ int pq_match(const Where& w, typename S::R item) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
+  const R* items = pq_row<R, S>(w, M::L_PQ_ITEMS, Q);
+  const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
+  const int32_t* seq = pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q);
+  R pb = -inf_of<R>();
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && items[j] == item) {
+      const R x = prio[j];
+      pb = (x != x || x > pb) ? x : pb;  // amax: NaN propagates
+    }
+  int32_t sb = I32_MAX;
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && items[j] == item && prio[j] == pb && seq[j] < sb)
+      sb = seq[j];
+  for (int j = 0; j < M::PQW; ++j)
+    if (live[j] && items[j] == item && prio[j] == pb && seq[j] == sb)
+      return j;
+  return -1;
+}
+
+// api.pqueue_cancel: the matching item removed, the length recorded where
+// the queue records, the rear guard signalled (no observer forwarding, as
+// the reference signals it); returns whether one matched
+template <int Q, class S>
+__device__ __forceinline__ bool pq_cancel(S& s, const Where& w,
+                                          typename S::R item) {
+  using R = typename S::R;
+  using M = typename S::M;
+  const int j = pq_match<Q, S>(w, item);
+  if (j < 0) return false;
+  bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
+  live[j] = false;
+  if constexpr (M::pq_rec(Q)) record(s, M::acc_pq(Q), R(pq_length<Q>(s, w)));
+  guard_signal(s, M::pq_rear(Q));
+  return true;
+}
+
+// api.pqueue_reprioritize: the matching item's priority changed, its seq
+// kept; returns whether one matched
+template <int Q, class S>
+__device__ __forceinline__ bool pq_reprioritize(S&, const Where& w,
+                                                typename S::R item,
+                                                typename S::R prio) {
+  using M = typename S::M;
+  const int j = pq_match<Q, S>(w, item);
+  if (j < 0) return false;
+  pq_row<typename S::R, S>(w, M::L_PQ_PRIO, Q)[j] = prio;
+  return true;
+}
+
 // the draws of a sampler that loops (samplers.cuh: gamma, beta, pert):
 // one Threefry block at the lane's counter a call
 template <class S>
@@ -1779,6 +2165,14 @@ __device__ __forceinline__ bool apply(S& s, const Where& w, int p,
   using M = typename S::M;
   const int tag = c.tag < 0 ? 0 : (c.tag > N_COMMANDS - 1 ? N_COMMANDS - 1
                                                           : c.tag);
+  // the waits, where the family has them (a family without them keeps
+  // the switches below as they were)
+  if constexpr (M::WAITP) {
+    if (tag == C_WAIT_PROC) return h_wait_proc(s, w, p, c);
+  }
+  if constexpr (M::WAITE) {
+    if (tag == C_WAIT_EVT) return h_wait_evt(s, w, p, c);
+  }
   if constexpr (M::TOOLKIT) {
     switch (tag) {
       case C_POOL_ACQ:
@@ -1942,6 +2336,9 @@ struct Family {
   static constexpr bool GEN = false, TOOLKIT = false, PEND_I = false;
   static constexpr bool PRED_BY_PID = false, ABORT = false, WSIG = false;
   static constexpr bool MUG = false;  // a pool preempt's rule
+  // the waits on a process and on an event (a generated family's, where a
+  // block may return them)
+  static constexpr bool WAITP = false, WAITE = false;
   // the columns in dynamic shared memory (Smem), a generated family's
   // choice where they pass the static 48 KB or the register limits
   static constexpr bool DYN = false;
@@ -2290,6 +2687,9 @@ __device__ __forceinline__ void resume(S& s, const Where& w, int p,
                                        int xkind) {
   using R = typename S::R;
   put(s.wt, p, inf_of<R>());
+  // any delivery ends a wait on a process or an event (loop's resume)
+  if constexpr (S::M::WAITP) put(s.apid, p, -1);
+  if constexpr (S::M::WAITE) put(s.aevt, p, -1);
   const int32_t tag = get(s, F_TAG, p);
   const bool has_pend = tag != NO_PEND;
   bool use_pend = has_pend && sig == SUCCESS;
@@ -2334,7 +2734,17 @@ __device__ __forceinline__ void step(S& s, const Where& w,
   const bool found_e = finite(s.t_e);
   const bool found_w = finite(t_w);
   if (!(found_e || found_w)) {
-    s.done = true;
+    if constexpr (S::M::WAITE) {
+      // a stale waiter's CANCELLED wake may come of an empty pop: out of
+      // events only where none was armed
+      evt_scan(s, w, -1);
+      bool any_w = false;
+#pragma unroll
+      for (int q = 0; q < S::NP; ++q) any_w = any_w || finite(s.wt[q]);
+      s.done = !any_w;
+    } else {
+      s.done = true;
+    }
     return;
   }
   // dense wakes at t_w: prio desc (read live from procs.prio), seq asc,
@@ -2362,6 +2772,7 @@ __device__ __forceinline__ void step(S& s, const Where& w,
   }
   int32_t subj, arg;
   int32_t kind = 0;  // K_PROC; a table event's own where handlers exist
+  int32_t h_pop = -1;  // the popped table event's handle (M::WAITE)
   if (wake_first) {
     s.clock = t_w;
     subj = pid_w;
@@ -2378,10 +2789,15 @@ __device__ __forceinline__ void step(S& s, const Where& w,
     if constexpr (S::M::NH > 0)
       kind = row<int32_t, S>(w, EV_KIND, E)[s.slot_e];
     row<R, S>(w, EV_TIME, E)[s.slot_e] = inf_of<R>();
+    if constexpr (S::M::WAITE)
+      h_pop = int32_t(uint32_t(row<int32_t, S>(w, EV_GEN, E)[s.slot_e])
+                      << 16) | s.slot_e;
     row<int32_t, S>(w, EV_GEN, E)[s.slot_e] += 1;
     scan_table(s, w);
   }
   s.n_events += 1;  // K_PROC and K_TIMER both resume
+  // the event's waiters wake before its action runs
+  if constexpr (S::M::WAITE) evt_scan(s, w, h_pop);
   if constexpr (S::M::GEN) {  // its blocks draw where they draw
     if constexpr (S::M::NH > 0) {
       // kind N_KINDS + k calls user handler k (a compile-time id), a kind
@@ -2535,6 +2951,14 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
   each<S::GBIG, NG>([&](int g) {
     s.gseq[g] = row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g];
   });
+  if constexpr (M::WAITP)
+    each<S::BIG, NP>([&](int q) {
+      s.apid[q] = row<int32_t, S>(w, AWAIT_PID, NP)[q];
+    });
+  if constexpr (M::WAITE)
+    each<S::BIG, NP>([&](int q) {
+      s.aevt[q] = row<int32_t, S>(w, AWAIT_EVT, NP)[q];
+    });
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     s.head[q] = row<int32_t, S>(w, Q_HEAD, NQ)[q];
@@ -2643,6 +3067,14 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
   each<S::GBIG, NG>([&](int g) {
     row<int32_t, S>(w, GUARD_NEXT_SEQ, NG)[g] = s.gseq[g];
   });
+  if constexpr (M::WAITP)
+    each<S::BIG, NP>([&](int q) {
+      row<int32_t, S>(w, AWAIT_PID, NP)[q] = s.apid[q];
+    });
+  if constexpr (M::WAITE)
+    each<S::BIG, NP>([&](int q) {
+      row<int32_t, S>(w, AWAIT_EVT, NP)[q] = s.aevt[q];
+    });
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     row<int32_t, S>(w, Q_HEAD, NQ)[q] = s.head[q];
@@ -2699,7 +3131,8 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          ColdSig<M>& cold_sig,
                                          typename M::UCold& ucold,
                                          ColdWake<R, M>* wake = nullptr,
-                                         ColdG<M>* g = nullptr) {
+                                         ColdG<M>* g = nullptr,
+                                         ColdAwait<M>* aw = nullptr) {
   using S = State<R, C, M>;
   S s;
   s.cold = &cold;
@@ -2715,6 +3148,8 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
     s.word.base = &wake->word[0][s.t];
   }
   if constexpr (S::GBIG) s.gseq.base = &g->gseq[0][s.t];
+  if constexpr (S::BIG && M::WAITP) s.apid.base = &aw->apid[0][s.t];
+  if constexpr (S::BIG && M::WAITE) s.aevt.base = &aw->aevt[0][s.t];
   load(s, Where{ps, sh, l});
   scan_table(s, Where{ps, sh, l});
   for (int k = 0; k < chunk_steps; ++k) {
@@ -2728,8 +3163,13 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
       t_w = s.wt[q] < t_w ? s.wt[q] : t_w;
     }
     const R nxt = t_w < s.t_e ? t_w : s.t_e;
-    const bool live = !s.done && s.err == 0 && (s.any_e || any_w) &&
-                      (!has_t_end || nxt <= t_end);
+    bool live = !s.done && s.err == 0 && (s.any_e || any_w) &&
+                (!has_t_end || nxt <= t_end);
+    if constexpr (M::WAITE) {
+      // a waiter stranded by a cancel that drained the tables keeps the
+      // lane live, the horizon aside (make_cond)
+      if (!s.done && s.err == 0 && !(s.any_e || any_w)) live = stranded(s);
+    }
     if (!live) break;
     step(s, Where{ps, sh, opaque(l)}, t_w);
   }
@@ -2766,7 +3206,7 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
     if (l < lanes)
       run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, m.cold,
                         m.cold_acc, m.cold_q, m.cold_shop, m.cold_sig,
-                        m.ucold, &m.wake, &m.g);
+                        m.ucold, &m.wake, &m.g, &m.await_);
   } else {
     __shared__ Cold<R, M> cold;
     __shared__ ColdAcc<R, M> cold_acc;

@@ -37,6 +37,7 @@ Usage (from the root of a checkout)::
     python -m cimba_tpu_torch.tools.cuda_bisect --model park3   # generated
     python -m cimba_tpu_torch.tools.cuda_bisect --model park2   # generated
     python -m cimba_tpu_torch.tools.cuda_bisect --model spawnshop  # generated
+    python -m cimba_tpu_torch.tools.cuda_bisect --model waitev  # generated
 
 Without a stage it drives the stages (default 0-5), prints one JSON line
 ``{"stage", "ok", "s", "tail"}`` for each, stops after the first failed
@@ -61,7 +62,7 @@ from cimba_tpu_torch import config, interop, tree
 from cimba_tpu_torch.core import kernel_run, loop
 
 MODELS = ("mm1", "mm1-record", "mmc", "mg1", "tandem", "jobshop", "awacs",
-          "balking", "harbor", "park3", "park2", "spawnshop")
+          "balking", "harbor", "park3", "park2", "spawnshop", "waitev")
 #: the harbor's horizon (its tide never ends)
 HARBOR_T_END = 40.0
 #: float leaves, kernel vs plain (chip_smoke.py's RTOL)
@@ -118,6 +119,10 @@ class Setup:
             spec, params = tut_2_park.build()[0], tut_2_park.params()
         elif model == "spawnshop":  # a process spawned per arrival
             spec, params = spawn_shop.build(), spawn_shop.params()
+        elif model == "waitev":  # processes waiting on their events
+            from cimba_tpu_torch.tools import usergen
+
+            spec, params = usergen.wait_event_spec(usergen.torch_lib()), None
         else:
             raise ValueError(f"unknown model {model!r}; one of {MODELS}")
         self.model, self.spec = model, spec

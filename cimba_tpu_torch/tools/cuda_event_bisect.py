@@ -37,10 +37,12 @@ process's CUDA context unusable::
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model park2 --K 16
     python -m cimba_tpu_torch.tools.cuda_event_bisect --model spawnshop \
         --profile f64 --K 64
+    python -m cimba_tpu_torch.tools.cuda_event_bisect --model waitev --K 64
 
 (``balking``, ``harbor``, ``park3``, ``park2`` and ``spawnshop``, the user
-programs of ``cimba_tpu_torch.examples``, run on their generated K1
-instances.)
+programs of ``cimba_tpu_torch.examples``, and ``waitev``, the reference's
+kernel-path model of ``wait_event`` (``tools/usergen.wait_event_spec``),
+run on their generated K1 instances.)
 
 It exits 1 when it finds a divergence, 0 when it finds none.
 """

@@ -53,6 +53,27 @@ spare resources first, so the spec has 9 guards and its desk, pool and
 condition take guard ids past 7.  Every lane ends: the door exits after
 ``n_items`` arrivals, and the clients and runners finish.
 
+``build(seed, lib, waits=True)`` makes a model of the waits and the
+event-handle API, 9 to 18 processes: a dispatcher that joins 3 to 8
+workers one after another by ``wait_process`` (one exits at its start,
+so it has finished when joined; one holds long and is stopped by
+``stop_process``, before or after the dispatcher reaches it); a
+watcher that schedules a user event and ``wait_event``s its handle,
+which a controller reschedules, reprioritizes, or cancels with the spec
+(the eager arm) or without it (the lazy arm), or, on some seeds, cancels
+lazily as the lane's last activity, so that the cancel drains the event
+set and only the stranding term keeps the lane live; a process that sets
+three timers on itself, is woken by the first, and counts, finds and
+cancels the rest by pattern (``event_pattern_count``, ``_find``,
+``_cancel``); an impatient acquirer of a binary resource whose timeout
+is cancelled by handle (``timer_cancel``) on success, kept or dropped
+by a select of the whole Sim; on some seeds a claimant pended on the
+resource's guard whose priority a booster raises (``priority_set``);
+and on some seeds a priority queue of two whose third put blocks until
+``pqueue_cancel`` frees it, a ``pqueue_reprioritize``, and a
+``queue_position`` of an object queue read into a local.  Every lane
+ends: each process exits.
+
 On the card a spec built here takes the generated chunk kernel
 (``core/kernel_run.generated_kernel_for``), which the tests and
 ``chip_smoke.py`` hold against the plain engine.
@@ -101,11 +122,14 @@ TIMEOUT, INTERRUPTED = -5, -2
 
 
 def build(seed: int, lib, timers: bool = False, resources: bool = False,
-          spawn: bool = False):
+          spawn: bool = False, waits: bool = False):
     """One random spec; returns ``(spec, n_items)`` (``n_items`` None for
-    a ``resources`` spec; the door's arrivals for a ``spawn`` one)."""
+    a ``resources`` or a ``waits`` spec; the door's arrivals for a
+    ``spawn`` one)."""
     if resources:
         return _build_resources(seed, lib), None
+    if waits:
+        return _build_waits(seed, lib), None
     if spawn:
         return _build_spawn(seed, lib)
     rng = random.Random(seed)
@@ -635,6 +659,241 @@ def _build_spawn(seed: int, lib):
     return spec, n_items
 
 
+def _build_waits(seed: int, lib):
+    """The ``waits=True`` family (see the module's docstring)."""
+    rng = random.Random(seed)
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    n_work = rng.randint(3, 8)
+    arm = rng.choice(["reschedule", "reprioritize", "eager", "lazy",
+                      "drain"])
+    work_mean = rng.uniform(0.5, 2.0)
+    patience = rng.uniform(0.3, 3.0)
+    act_at = rng.uniform(0.5, 4.0)
+    gated_cancel = rng.random() < 0.5
+    with_prio = rng.random() < 0.5
+    with_pq = rng.random() < 0.5
+    m = Model(f"usergenw{seed}", n_flocals=1, n_ilocals=2, event_cap=16,
+              guard_cap=8)
+    desk = m.resource("desk", record=rng.random() < 0.5)
+    pq = m.priorityqueue("pq", capacity=2, record=rng.random() < 0.5)
+    q = m.objectqueue("q", capacity=4, record=False)
+    box = []
+    stopped_sig, timeout = -3, TIMEOUT
+
+    @m.user_state
+    def init(params):
+        return {"h": lib.zeros_i() - 1, "joined": lib.zeros_i(),
+                "stopped": lib.zeros_i(), "fired": lib.zeros_i(),
+                "woke_sig": lib.zeros_i() + 99, "woke_t": lib.real(-1.0),
+                "moved": lib.zeros_i(), "pat": lib.zeros_i(),
+                "grants": lib.zeros_i(), "timeouts": lib.zeros_i(),
+                "freed": lib.zeros_i(), "pos": lib.zeros_i()}
+
+    def count(sim, key, v):
+        u = sim.user
+        v = v if isinstance(v, int) else lib.i32(v)
+        return api.set_user(sim, {**u, key: u[key] + v})
+
+    # --- workers: joined one after another ---------------------------------
+    @m.block
+    def w_go(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, work_mean)
+        t = lib.where(p == 1, 1000.0, t)  # the victim, stopped
+        return sim, cmd.select(p == n_work - 1, cmd.exit_(),
+                               cmd.hold(t, next_pc=w_end.pc))
+
+    @m.block
+    def w_end(sim, p, sig):
+        return sim, cmd.exit_()
+
+    # --- the dispatcher ----------------------------------------------------
+    @m.block
+    def d_go(sim, p, sig):
+        return sim, cmd.wait_process(api.local_i(sim, p, 0),
+                                     next_pc=d_joined.pc)
+
+    @m.block
+    def d_joined(sim, p, sig):
+        sim = count(sim, "joined", sig == 0)
+        sim = count(sim, "stopped", sig == stopped_sig)
+        sim = api.add_local_i(sim, p, 0, 1)
+        last = api.local_i(sim, p, 0) >= n_work
+        return sim, cmd.select(last, cmd.exit_(), cmd.jump(d_go.pc))
+
+    # --- the watcher and its event -----------------------------------------
+    @m.handler
+    def on_fire(sim, subj, arg):
+        return api.set_user(sim, {**sim.user,
+                                  "fired": sim.user["fired"] + 1})
+
+    @m.block
+    def v_sched(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, 2.0)
+        t = t + (100.0 if arm == "drain" else 1.0)
+        sim, h = api.schedule(sim, api.clock(sim) + t, 0, on_fire)
+        sim = api.set_user(sim, {**sim.user, "h": h})
+        return sim, cmd.wait_event(h, next_pc=v_woke.pc)
+
+    @m.block
+    def v_woke(sim, p, sig):
+        sim = api.set_user(sim, {**sim.user, "woke_sig": sig,
+                                 "woke_t": lib.real_of(api.clock(sim))})
+        return sim, cmd.exit_()
+
+    # --- the controller: the victim's stop, the event's move or cancel -----
+    @m.block
+    def c_go(sim, p, sig):
+        return sim, cmd.hold(act_at, next_pc=c_act.pc)
+
+    @m.block
+    def c_act(sim, p, sig):
+        sim = api.stop_process(sim, box[0], 1)
+        h = sim.user["h"]
+        if arm == "reschedule":
+            sim, ok = api.event_reschedule(sim, h, api.clock(sim) + 2.5)
+            sim = count(sim, "moved", ok)
+        elif arm == "reprioritize":
+            sim, ok = api.event_reprioritize(sim, h, 5)
+            sim = count(sim, "moved", ok)
+        elif arm == "eager":
+            sim, ok = api.event_cancel(sim, h, box[0])
+            sim = count(sim, "moved", ok)
+        elif arm == "lazy":
+            sim, ok = api.timer_cancel(sim, h)
+            sim = count(sim, "moved", ok)
+        else:  # drain: the lane's last activity, later
+            return sim, cmd.hold(60.0, next_pc=c_last.pc)
+        return sim, cmd.exit_()
+
+    @m.block
+    def c_last(sim, p, sig):
+        sim, ok = api.event_cancel(sim, sim.user["h"])
+        sim = count(sim, "moved", ok)
+        return sim, cmd.exit_()
+
+    # --- a process's timers by pattern -------------------------------------
+    @m.block
+    def t_go(sim, p, sig):
+        sim, _ = api.timer_add(sim, p, 2.0, 8)
+        sim, _ = api.timer_add(sim, p, 5.0, 7)
+        sim, _ = api.timer_add(sim, p, 9.0, 9)
+        return sim, cmd.hold(20.0, next_pc=t_fired.pc)
+
+    @m.block
+    def t_fired(sim, p, sig):
+        n = api.event_pattern_count(sim, kind=1, subj=p)
+        h = api.event_pattern_find(sim, kind=1, subj=p)
+        soon = api.event_time(sim, h) == api.clock(sim) + 3.0
+        sim, gone = api.event_pattern_cancel(sim, kind=1, subj=p)
+        ok = ((sig == 8) & (n == 2) & soon & (gone == 2)
+              & (api.event_pattern_count(sim, subj=p) == 0)
+              & (api.event_pattern_find(sim, kind=1, subj=p) == -1))
+        sim = count(sim, "pat", ok)
+        return sim, cmd.exit_()
+
+    # --- an impatient acquirer whose timeout is cancelled on success -------
+    @m.block
+    def i_go(sim, p, sig):
+        sim, h = api.timer_add(sim, p, patience, timeout)
+        sim = api.set_local_i(sim, p, 1, h)
+        return sim, cmd.acquire(desk.id, next_pc=i_got.pc)
+
+    @m.block
+    def i_got(sim, p, sig):
+        ok = sig == 0
+        sim = count(sim, "grants", ok)
+        sim = count(sim, "timeouts", sig == timeout)
+        h = api.local_i(sim, p, 1)
+        if gated_cancel:
+            sim = lib.select_sim(ok, api.timer_cancel(sim, h)[0], sim)
+        else:
+            sim, _ = api.timer_cancel(sim, h)
+        return sim, cmd.select(ok, cmd.hold(0.5, next_pc=i_rel.pc),
+                               cmd.exit_())
+
+    @m.block
+    def i_rel(sim, p, sig):
+        return sim, cmd.release(desk.id, next_pc=w_end.pc)
+
+    @m.block
+    def h_go(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, 2.0 * work_mean)
+        return sim, cmd.acquire_hold(desk.id, t, next_pc=i_rel.pc)
+
+    # --- a claimant pended on the desk, promoted ---------------------------
+    @m.block
+    def k_go(sim, p, sig):
+        return sim, cmd.hold(0.3, next_pc=k_claim.pc)
+
+    @m.block
+    def k_claim(sim, p, sig):
+        return sim, cmd.acquire_hold(desk.id, 0.2, next_pc=i_rel.pc)
+
+    @m.block
+    def b_go(sim, p, sig):
+        return sim, cmd.hold(0.6, next_pc=b_boost.pc)
+
+    @m.block
+    def b_boost(sim, p, sig):
+        sim = api.priority_set(sim, box[1], 5)
+        return sim, cmd.exit_()
+
+    # --- the priority queue's cancel, and the positions --------------------
+    @m.block
+    def f_go(sim, p, sig):
+        return sim, cmd.pq_put(pq.id, 1.0, 0.0, next_pc=f_2.pc)
+
+    @m.block
+    def f_2(sim, p, sig):
+        return sim, cmd.pq_put(pq.id, 2.0, 0.0, next_pc=f_3.pc)
+
+    @m.block
+    def f_3(sim, p, sig):
+        return sim, cmd.pq_put(pq.id, 3.0, 0.0, next_pc=f_done.pc)
+
+    @m.block
+    def f_done(sim, p, sig):
+        sim = count(sim, "freed", 1)
+        return sim, cmd.exit_()
+
+    @m.block
+    def g_go(sim, p, sig):
+        return sim, cmd.hold(1.5, next_pc=g_cancel.pc)
+
+    @m.block
+    def g_cancel(sim, p, sig):
+        sim, gone = api.pqueue_cancel(sim, pq, 1.0)
+        sim, moved = api.pqueue_reprioritize(sim, pq, 2.0, 9.0)
+        sim = count(sim, "moved", gone & moved)
+        return sim, cmd.put(q.id, 4.0, next_pc=g_look.pc)
+
+    @m.block
+    def g_look(sim, p, sig):
+        pos = (api.queue_position(sim, q, 4.0) * 10
+               + api.pqueue_position(sim, pq, 2.0))
+        sim = api.set_local_i(sim, p, 0, pos)
+        sim = count(sim, "pos", pos)
+        return sim, cmd.exit_()
+
+    m.process("worker", entry=w_go, count=n_work)   # pids 0 .. n_work - 1
+    m.process("dispatcher", entry=d_go)
+    m.process("watcher", entry=v_sched)
+    m.process("controller", entry=c_go, prio=1)
+    m.process("timers", entry=t_go)
+    m.process("impatient", entry=i_go, prio=1)
+    m.process("holder", entry=h_go, prio=2)
+    claimant = n_work + 6
+    if with_prio:
+        m.process("claimant", entry=k_go)            # pid n_work + 6
+        m.process("booster", entry=b_go)
+    if with_pq:
+        m.process("filler", entry=f_go)
+        m.process("pq_man", entry=g_go)
+    box.append(m.build())
+    box.append(claimant)
+    return box[0]
+
+
 def abort_spec(lib):
     """A model whose waits are aborted from outside, every few events:
     two hogs contend for a pool of 4 units; a waiter claims 2.5 under a
@@ -807,3 +1066,136 @@ def spawn_mm1_spec(lib):
     customers = m.process("customer", entry=c_start,
                           count=SPAWN_MM1_POOL, start=False)
     return m.build()
+
+
+#: wait_event_spec's horizon: a process exits at its first wake past it
+WAITEV_T_DONE = 6.0
+
+
+def wait_event_spec(lib):
+    """The reference's kernel-path model of ``cmd.wait_event``
+    (``tests/test_wait_event.py``, ``test_wait_event_model_through_kernel``),
+    its constants unchanged: three ``sched`` processes each schedule a
+    user event (``on_fire``, which counts ``fires``) at an exponential
+    delay of mean 1, wait on its handle, record the wake's signal and
+    time in their locals and hold 0.1, until the clock passes
+    WAITEV_T_DONE.  Every lane ends: each process exits."""
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    m = Model("waitev", n_flocals=2, n_ilocals=2, event_cap=16)
+
+    @m.user_state
+    def init(params):
+        return {"fires": lib.zeros_i()}
+
+    @m.handler
+    def on_fire(sim, subj, arg):
+        return api.set_user(sim, {**sim.user,
+                                  "fires": sim.user["fires"] + 1})
+
+    @m.block
+    def s_go(sim, p, sig):
+        sim, dt = api.draw(sim, cr.exponential, 1.0)
+        sim, h = api.schedule(sim, api.clock(sim) + dt, 0, on_fire)
+        sim = api.set_local_i(sim, p, 1, h)
+        return sim, cmd.wait_event(h, next_pc=s_woke.pc)
+
+    @m.block
+    def s_woke(sim, p, sig):
+        sim = api.set_local_i(sim, p, 0, sig)
+        sim = api.set_local_f(sim, p, 0, api.clock(sim))
+        done = api.clock(sim) > WAITEV_T_DONE
+        return sim, cmd.select(done, cmd.exit_(),
+                               cmd.hold(0.1, next_pc=s_go.pc))
+
+    m.process("sched", entry=s_go, count=3)
+    return m.build()
+
+
+def wait_process_spec(lib, joins: bool = False):
+    """The reference's scripted ``cmd.wait_process`` models
+    (``tests/test_toolkit.py``).  Without ``joins``,
+    ``test_wait_process_mass_wake_preserves_pid_order``: a target holds 5
+    and exits, and its exit wakes three waiters in pid order; each waiter
+    records its place in that order in its integer local (the reference
+    writes the pids into a user array of 4, which the generated kernel
+    does not take: a user leaf is one value a lane).  With ``joins``,
+    ``test_wait_process_success_and_stopped``: a worker exits at 5 and a
+    victim holding 50 is stopped at 3 by a killer; one waiter joins each
+    and records the wake's time and signal (SUCCESS at 5, STOPPED at 3)
+    in its float locals."""
+    Model, api, cmd = lib.Model, lib.api, lib.cmd
+    if not joins:
+        m = Model("masswake", n_ilocals=1, event_cap=8, guard_cap=4)
+
+        @m.user_state
+        def init(params):
+            return {"k": lib.zeros_i()}
+
+        @m.block
+        def target(sim, p, sig):
+            return sim, cmd.hold(5.0, next_pc=t_exit.pc)
+
+        @m.block
+        def t_exit(sim, p, sig):
+            return sim, cmd.exit_()
+
+        @m.block
+        def waiter(sim, p, sig):
+            return sim, cmd.wait_process(0, next_pc=woke.pc)
+
+        @m.block
+        def woke(sim, p, sig):
+            k = sim.user["k"]
+            sim = api.set_local_i(sim, p, 0, k)
+            sim = api.set_user(sim, {**sim.user, "k": k + 1})
+            return sim, cmd.exit_()
+
+        m.process("target", entry=target)
+        m.process("waiter", entry=waiter, count=3)
+        return m.build()
+
+    m = Model("waitp", n_flocals=2, event_cap=16, guard_cap=4)
+    box = []
+
+    @m.block
+    def worker(sim, p, sig):
+        return sim, cmd.hold(5.0, next_pc=worker_done.pc)
+
+    @m.block
+    def worker_done(sim, p, sig):
+        return sim, cmd.exit_()
+
+    @m.block
+    def victim(sim, p, sig):
+        return sim, cmd.hold(50.0, next_pc=worker_done.pc)
+
+    @m.block
+    def waiter1(sim, p, sig):
+        return sim, cmd.wait_process(0, next_pc=w1done.pc)
+
+    @m.block
+    def w1done(sim, p, sig):
+        sim = api.set_local_f(sim, p, 0, api.clock(sim))
+        sim = api.set_local_f(sim, p, 1, lib.real_of(sig))
+        return sim, cmd.exit_()
+
+    @m.block
+    def waiter2(sim, p, sig):
+        return sim, cmd.wait_process(1, next_pc=w1done.pc)
+
+    @m.block
+    def killer(sim, p, sig):
+        return sim, cmd.hold(3.0, next_pc=kill.pc)
+
+    @m.block
+    def kill(sim, p, sig):
+        sim = api.stop_process(sim, box[0], 1)
+        return sim, cmd.exit_()
+
+    m.process("worker", entry=worker)    # pid 0
+    m.process("victim", entry=victim)    # pid 1
+    m.process("waiter1", entry=waiter1)  # pid 2
+    m.process("waiter2", entry=waiter2)  # pid 3
+    m.process("killer", entry=killer)    # pid 4
+    box.append(m.build())
+    return box[0]

@@ -28,7 +28,7 @@ def _lines(buf):
 
 
 @pytest.mark.parametrize("model", ["mm1", "mm1-record", "mmc", "jobshop",
-                                   "awacs", "park2", "spawnshop"])
+                                   "awacs", "park2", "spawnshop", "waitev"])
 def test_every_stage_passes_on_cpu(model):
     buf = io.StringIO()
 
@@ -115,6 +115,7 @@ def _planted(st, lane, leaf, at, delta):
     ("jobshop", 4, "buffers.level", 9),
     ("park2", 1, "pools.level", 9),
     ("spawnshop", 6, "procs.locals_f", 12),
+    ("waitev", 3, "procs.await_evt", 10),
 ])
 def test_event_bisect_names_a_planted_divergence(model, lane, leaf, at):
     with config.profile("f32"):

@@ -405,6 +405,16 @@ def _user_spec(name):
         return spawn_shop.build(), None, None, spawn_shop.SEED
     if name == "spawnmm1":  # to its end: api.stop once 30 are done
         return usergen.spawn_mm1_spec(usergen.torch_lib()), None, None, 11
+    if name == "waitev":  # the reference's wait_event model, to its end
+        return usergen.wait_event_spec(usergen.torch_lib()), None, None, 17
+    if name in ("masswake", "joins"):  # wait_process, to the end
+        return (usergen.wait_process_spec(usergen.torch_lib(),
+                                          joins=name == "joins"),
+                None, None, 1)
+    if name.startswith("usergenw"):  # to its end
+        seed = int(name[len("usergenw"):])
+        return (usergen.build(seed, usergen.torch_lib(), waits=True)[0],
+                None, None, 11)
     if name.startswith("usergens"):  # to its end
         seed = int(name[len("usergens"):])
         return (usergen.build(seed, usergen.torch_lib(), spawn=True)[0],
@@ -566,6 +576,42 @@ def test_generated_spawn_pools_match_plain_engine(card, name, prof):
 
 
 @pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["waitev", "masswake", "joins",
+                                  "usergenw21", "usergenw3", "usergenw5",
+                                  "usergenw1", "usergenw4"])
+def test_generated_waits_match_plain_engine(card, name, prof):
+    """The generated instances of the waits and the event-handle API: the
+    reference's wait_event model (the cell waitev's), wait_process's
+    mass wake and joins, and usergen specs of waits=True (10 processes,
+    the waits in registers; 12 to 15, in shared columns; the draining,
+    eager, lazy arms, a reschedule): driven by their host loop to the
+    end, equal to the plain engine on the card leaf for leaf, floats bit
+    for bit; every lane ends with every process finished; the header
+    carries the waits the spec returns."""
+    with config.profile(prof):
+        spec, params, t_end, seed = _user_spec(name)
+        s0 = loop.init_sim(spec, seed, torch.arange(512), params,
+                           device=card)
+        lay = kernel_run.generated_kernel_for(spec, s0)[0]
+        before = kernel_run.gen_chunk.launches
+        ker = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                         chunk_steps=64)(s0)
+        pla = loop.make_run(spec, t_end=t_end)(s0)
+        torch.cuda.synchronize()
+    assert kernel_run.gen_chunk.launches > before
+    assert interop.diff_leaves(tree.leaves(pla), tree.leaves(ker), 0.0) == []
+    assert int(ker.err.ne(0).sum()) == 0
+    assert bool((ker.procs.status == 2).all())
+    h = lay["header"]
+    assert ("WAITP = true" in h) == (name != "waitev")
+    assert ("WAITE = true" in h) == (name == "waitev"
+                                     or name.startswith("usergenw"))
+    if name == "waitev":
+        fires = ker.user["fires"].to(ker.n_events.dtype)
+        assert bool((ker.n_events == 3 * fires).all())
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
 def test_generated_trig_past_the_fast_path(card, prof):
     """sin and cos of a generated block equal torch's on the card for
     arguments past the library's fast path too (|x| >= 105615 in f32,
@@ -588,15 +634,17 @@ def test_generated_trig_past_the_fast_path(card, prof):
 
 def test_generated_instances_have_no_stack_frame(card):
     """ptxas' report of the generated harbor, balking, park3, abort and
-    a timed usergen instance: the chunk kernel keeps no stack frame and
-    spills nothing in either profile (the harbor's sin is
-    queue_chunk.cu's frame-free trig_of)."""
+    a timed usergen instance, and the waits' instances (waitev,
+    wait_process's two forms, usergen specs of waits=True): the chunk
+    kernel keeps no stack frame and spills nothing in either profile (the
+    harbor's sin is queue_chunk.cu's frame-free trig_of)."""
     import chip_smoke
     from cimba_tpu_torch import _build
 
     for name in ("balking", "harbor", "park3", "park2", "abort",
                  "usergent5", "usergenr1", "spawnshop", "usergens13",
-                 "usergens14", "spawnmm1"):
+                 "usergens14", "spawnmm1", "waitev", "masswake", "joins",
+                 "usergenw21", "usergenw3", "usergenw5"):
         for prof in ("f32", "f64"):
             spec, s = chip_smoke.gen_template(name, prof)
             with config.profile(prof):

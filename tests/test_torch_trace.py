@@ -609,3 +609,152 @@ def test_gated_spawn_pid_raises_trace_error():
     assert [(e[1], len(e) > 4) for e in ir.effects if e[0] == "call"] == [
         ("spawn", True)]
     assert "if (v" in emit.emit(spec, s)
+
+
+evbox = {}
+
+
+def _event_api_spec(body):
+    m = Model("evapi", n_flocals=1, n_ilocals=2, event_cap=8)
+    m.objectqueue("q", capacity=4, record=False)
+    pq = m.priorityqueue("pq", capacity=4, record=True)
+
+    @m.handler
+    def noop(sim, subj, arg):
+        return sim
+
+    @m.block
+    def fill(sim, p, sig):
+        return sim, cmd.select(p == 0, cmd.put(0, 2.0, next_pc=1),
+                               cmd.pq_put(0, 2.0, 1.0, next_pc=1))
+
+    m.block(body)
+    m.process("p", entry=fill, count=3)
+    evbox.update(noop=noop, pq=pq)
+    spec = m.build()
+    evbox["spec"] = spec
+    return spec, loop.init_sim(spec, 1, torch.arange(LANES), device="cpu")
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_event_api_calls_and_readers_replay_and_emit(prof):
+    """Every call and reader of the event-handle API, the priority
+    queue's item verbs, ``priority_set`` and ``queue_position`` in one
+    block (some of the calls gated by a select of the whole Sim, the
+    others' results used): the replay equals the block bit for bit on a
+    fresh state and part way through a run, and the emitter writes each
+    call and reader."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import api
+
+    def sel(pred, a, b):
+        return tree.map(lambda x, y: torch.where(
+            pred.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
+
+    def body(sim, p, sig):
+        noop, pq = evbox["noop"], evbox["pq"]
+        late = sim.clock > 0.5
+        sim, h1 = api.schedule(sim, api.clock(sim) + 3.0, 1, noop, subj=p)
+        sim, h2 = api.schedule(sim, api.clock(sim) + 2.0, 0, noop, arg=4)
+        look = (api.event_is_scheduled(sim, h1).to(torch.int32)
+                + api.event_priority(sim, h1) * 10
+                + api.event_pattern_count(sim, kind=noop) * 100
+                + (api.event_pattern_find(sim, subj=p) == h1).to(
+                    torch.int32) * 1000)
+        t = api.event_time(sim, h2)
+        sim, ok1 = api.event_reschedule(sim, h1, t + 1.0)
+        sim, ok2 = api.event_reprioritize(sim, h2, 7)
+        sim = sel(late, api.event_cancel(sim, h2, evbox["spec"])[0], sim)
+        sim, ok3 = api.timer_cancel(sim, h1)
+        sim, n = api.event_pattern_cancel(sim, kind=noop, subj=p)
+        sim = sel(late, api.priority_set(sim, p, 4), sim)
+        sim, ok4 = api.pqueue_cancel(sim, pq, 2.0)
+        sim = sel(late, api.pqueue_reprioritize(sim, pq, 2.0, 5.0)[0], sim)
+        look = look + (ok1 & ok2 & ok3 & ok4).to(torch.int32) * 10000 + n
+        sim = api.set_local_i(sim, p, 0, look)
+        sim = api.set_local_i(sim, p, 1, api.queue_position(sim, 0, 2.0))
+        sim = api.set_local_f(sim, p, 0, t)
+        return sim, cmd.hold(0.7, next_pc=1)
+
+    with config.profile(prof):
+        spec, s = _event_api_spec(body)
+        ir = trace.trace_block(spec, 1, s)
+        assert [e[1] for e in ir.effects if e[0] == "call"] == [
+            "schedule", "schedule", "event_reschedule", "event_reprioritize",
+            "event_cancel", "event_cancel", "event_pattern_cancel",
+            "priority_set", "pqueue_cancel", "pqueue_reprioritize"]
+        gated = [e[1] for e in ir.effects if e[0] == "call" and len(e) > 4]
+        assert gated == ["event_cancel", "priority_set",
+                         "pqueue_reprioritize"]
+        sig = torch.zeros(LANES, dtype=torch.int32)
+        for steps in (0, 2, 5):
+            st = loop.make_run(spec, max_steps=steps)(s) if steps else s
+            for p0 in range(3):
+                p = torch.full((LANES,), p0, dtype=torch.int32)
+                a_sim, a_cmd = body(st, p, sig)
+                b_sim, b_cmd = trace.replay(spec, ir, st, p, sig)
+                for (n, x), (_, y) in zip(trace.named_leaves(a_sim),
+                                          trace.named_leaves(b_sim)):
+                    assert x.dtype == y.dtype and torch.equal(x, y), (
+                        steps, p0, n)
+        h = emit.emit(spec, s)
+    for piece in ("= ev_valid(s, w, ", "= ev_prio(s, w, ",
+                  "= pattern_count(s, w, int32_t(2), int32_t(-1))",
+                  "= pattern_find(s, w, int32_t(-1), ", "= ev_time(s, w, ",
+                  "const bool h2 = event_reschedule(s, w, ",
+                  "const bool h3 = event_reprioritize(s, w, ",
+                  "  event_cancel<true>(s, w, ",
+                  "const bool h5 = event_cancel<false>(s, w, ",
+                  "const int32_t h6 = pattern_cancel(s, w, int32_t(2), ",
+                  "  priority_set(s, w, int(",
+                  "const bool h8 = pq_cancel<0>(s, w, ",
+                  "  pq_reprioritize<0>(s, w, ",
+                  "= queue_position<0>(s, w, ",
+                  "WAITP = false, WAITE = false;"):
+        assert piece in h, piece
+
+
+def test_gated_cancel_result_raises_trace_error():
+    """The ``existed`` of an ``api.event_cancel`` that a select of the
+    whole Sim keeps or drops means nothing where the gate is shut: its
+    use is a TraceError naming the block and the select's line."""
+    from cimba_tpu_torch import tree
+    from cimba_tpu_torch.core import api
+
+    def keep(sim, p, sig):
+        late = sim.clock > 1.0
+        sim2, ok = api.event_cancel(sim, api.local_i(sim, p, 0))
+        sim = tree.map(lambda x, y: torch.where(
+            late.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), sim2, sim)
+        sim = api.set_local_i(sim, p, 0, ok.to(torch.int32))
+        return sim, cmd.hold(1.0, next_pc=0)
+
+    spec, s = _gated_spec(keep)
+    with pytest.raises(trace.TraceError,
+                       match=r"block 'keep'.*uses the result of a "
+                             r"event_cancel that the select at "
+                             r".*test_torch_trace"):
+        trace.trace_block(spec, 0, s)
+
+
+def test_waits_set_the_header_flags():
+    """A block that may return ``wait_process`` or ``wait_event`` turns on
+    the kernel's waits (``WAITP``, ``WAITE``); the other family keeps
+    them off."""
+    def waits(sim, p, sig):
+        return sim, cmd.select(p == 0, cmd.wait_process(1, next_pc=0),
+                               cmd.wait_event(api_local(sim, p), next_pc=0))
+
+    def api_local(sim, p):
+        from cimba_tpu_torch.core import api
+
+        return api.local_i(sim, p, 0)
+
+    spec, s = _gated_spec(waits)
+    assert "WAITP = true, WAITE = true;" in emit.emit(spec, s)
+
+    def only_proc(sim, p, sig):
+        return sim, cmd.wait_process(1 - p, next_pc=0)
+
+    spec, s = _gated_spec(only_proc)
+    assert "WAITP = true, WAITE = false;" in emit.emit(spec, s)
