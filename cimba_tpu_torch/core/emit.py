@@ -628,36 +628,79 @@ def _ternary(name, values, default=0, fmt=str) -> str:
 
 
 def smem_plan(spec: ModelSpec, lay: _Layout, n_acc: int,
-              toolkit: bool, waits: bool = False) -> dict:
+              toolkit: bool, waits: bool = False, masks: int = 0) -> dict:
     """The shared columns a lane takes (``per_lane`` bytes, as the
     kernel's Cold, ColdAcc, ColdQ, ColdShop, ColdSig, UCold, ColdWake,
     ColdG and, where the family waits past the register limit, ColdAwait
-    lay them out), the block's lanes (``threads``: 64 where 64
-    lanes fit in the static 48 KB, else 32) and whether the columns take
-    dynamic shared memory (``dyn``: past the static 48 KB for 32 lanes,
+    lay them out, and the ``masks`` words of the live-slot masks'
+    ColdMask), the block's lanes (``threads``: 64 where 64 lanes fit in
+    the static 48 KB, else 32) and whether the
+    columns take dynamic shared memory (``dyn``: past the static 48 KB,
     or past the register limits, whose columns only the dynamic layout
-    has); a spec whose 32 lanes exceed the card's 227 KB is refused."""
+    has); a spec whose block exceeds the card's 227 KB is refused.
+    ``columns`` gives each struct's bytes a lane."""
     np_, real = spec.n_procs, lay.real
     rb = torch.finfo(real).bits // 8
     nka = max(len(spec.pools), 1)
     nf, ni = max(spec.n_flocals, 1), max(spec.n_ilocals, 1)
     big, gbig = np_ > REG_NP, spec.n_guards > REG_NG
-    per_lane = (rb * (8 + 3 * np_) + 16 * np_ + (10 * rb + 1) * n_acc
-                + 4 * np_ + 4 * (np_ + max(len(spec.pqueues), 1))
-                + ((rb * (nka * np_ + np_) + 4 * nka * np_) if toolkit
-                   else 0)
-                + rb * np_ * nf + 4 * np_ * ni
-                + sum(lay.leaf[n].element_size() for n in lay.user)
-                + ((rb + 8) * np_ if big else 0)
-                + (8 * np_ if big and waits else 0)
-                + (4 * spec.n_guards if gbig else 0))
+    columns = {
+        # the summary, pend_f, pend_f3, got; pend_pc, pend_seq, prio,
+        # produced
+        "Cold": rb * (8 + 3 * np_) + 16 * np_,
+        "ColdAcc": (10 * rb + 1) * n_acc,
+        "ColdQ": 4 * np_,
+        "ColdSig": 4 * (np_ + max(len(spec.pqueues), 1)),
+        "ColdShop": ((rb * (nka * np_ + np_) + 4 * nka * np_) if toolkit
+                     else 0),
+        "UCold": (rb * np_ * nf + 4 * np_ * ni
+                  + sum(lay.leaf[n].element_size() for n in lay.user)),
+        "ColdWake": (rb + 8) * np_ if big else 0,
+        "ColdAwait": 8 * np_ if big and waits else 0,
+        "ColdG": 4 * spec.n_guards if gbig else 0,
+        "ColdMask": 4 * masks,
+    }
+    per_lane = sum(columns.values())
     threads = 64 if per_lane * 64 <= SMEM - 1024 else 32
     dyn = big or gbig or per_lane * threads > SMEM - 1024
     if per_lane * threads > SMEM_DYN - 1024:
         raise NotImplementedError(
             f"spec {spec.name!r}: {per_lane} B of shared state a lane, more "
             f"than a block of {threads} lanes can hold")
-    return dict(per_lane=per_lane, threads=threads, dyn=dyn)
+    return dict(per_lane=per_lane, threads=threads, dyn=dyn,
+                columns=columns)
+
+
+#: the general table's and a priority queue's widest mask (wider tables
+#: keep the linear scans)
+MASK_MAX = 128
+
+
+#: the resident warps an SM a generated instance asks for (the register
+#: cap 65536 / (32 x warps)): 16 for a small family (at most SMALL_NP
+#: processes and no pool, buffer, resource, priority queue or
+#: condition), 8 for the others
+WARPS_SMALL, WARPS, SMALL_NP = 16, 8, 3
+
+
+def launch_plan(spec: ModelSpec, plan: dict) -> dict:
+    """The generated instance's launch shape: the block's lanes
+    (``threads``, :func:`smem_plan`'s) and the register cap (``minb``,
+    the blocks an SM that ``__launch_bounds__`` asks for).  The rule the
+    measurements justify (PERF.md): a small family fits 128 registers
+    without a spill and runs faster at 16 warps an SM than at 8 where
+    it needs more (waitev and the generated mm1 in f64: 0.83x and 0.82x
+    of their 8-warp K=512 chunks; one under 128 registers builds the
+    same either way); a larger one lost up to 20 % at 12 or 16 warps
+    (harbor f32) or gained nothing, held at 6-8 warps by its shared
+    columns (park3, spawnshop), so it keeps 8 warps and 255
+    registers."""
+    threads = plan["threads"]
+    small = (spec.n_procs <= SMALL_NP and not (
+        spec.pools or spec.buffers or spec.resources or spec.pqueues
+        or spec.conditions))
+    warps = WARPS_SMALL if small else WARPS
+    return dict(threads=threads, minb=warps * 32 // threads)
 
 
 def emit(spec: ModelSpec, sims) -> str:
@@ -698,8 +741,21 @@ def emit(spec: ModelSpec, sims) -> str:
     # REG_NP processes pend_f2 is a column in any family (no dirty mask)
     toolkit = nk + nv + nc + npq + nr > 0 or big
     u0 = lay.pos[lay.user[0]] if lay.user else lay.pos["done"]
+    # the live-slot masks, shared columns: the general table's where a
+    # block or handler inserts into it (a table nothing fills is scanned
+    # once a chunk, and the mask cost such a cell up to 4 %, PERF.md) and
+    # it has at most MASK_MAX slots, the priority queues' where they are
+    # that narrow
+    ecap, pqw = spec.event_cap, spec.pqueue_cap_max
+    inserts = any(e[0] == "call" and e[1] in ("timer_add", "schedule")
+                  for ir in blocks + handlers for e in ir.effects)
+    emask = inserts and 0 < ecap <= MASK_MAX
+    pmask = npq > 0 and pqw <= MASK_MAX
+    mask_words = ((ecap + 31) // 32 if emask else 0) + (
+        npq * ((pqw + 31) // 32) if pmask else 0)
     plan = smem_plan(spec, lay, n_qa + n_pa + n_ba + n_pqa + n_ra, toolkit,
-                     waitp or waite)
+                     waitp or waite, mask_words)
+    choice = launch_plan(spec, plan)
     threads, dyn = plan["threads"], plan["dyn"]
 
     def cx(expr_, args="int i", ret="int"):
@@ -722,6 +778,8 @@ def emit(spec: ModelSpec, sims) -> str:
         f"WSIG = true, MUG = {str(mug).lower()};",
         f"  static constexpr bool WAITP = {str(waitp).lower()}, WAITE = "
         f"{str(waite).lower()};",
+        f"  // shared columns a lane, B: "
+        + ", ".join(f"{k} {v}" for k, v in plan["columns"].items() if v),
         f"  // {plan['per_lane']} B of shared columns a lane, "
         f"{'dynamic' if dyn else 'static'} shared memory"
         + (f"; wakes and words in shared columns ({np_} > {REG_NP} "
@@ -730,7 +788,11 @@ def emit(spec: ModelSpec, sims) -> str:
         f"{str(big).lower()}, GBIG = {str(gbig).lower()};",
         f"  static constexpr int NR = {nr}, NH = {nh}, L_R_HOLDER = "
         f"{lay.at('resources.holder')}, L_RACC = {r_acc};",
-        f"  static constexpr int NPQ = {npq}, PQW = {spec.pqueue_cap_max};",
+        f"  static constexpr int NPQ = {npq}, PQW = {pqw}, ECAP = {ecap};",
+        f"  // live-slot masks of the general table and the priority "
+        f"queues (shared columns)",
+        f"  static constexpr bool EMASK = {str(emask).lower()}, PMASK = "
+        f"{str(pmask).lower()};",
         f"  static constexpr int NP = {np_}, NQ = {nq}, NG = "
         f"{spec.n_guards}, NK = {nk}, NV = {nv}, NC = {nc};",
         f"  static constexpr int NF = {nf}, NI = {ni}, NSUM = 1, NPAR = 1, "
@@ -750,11 +812,12 @@ def emit(spec: ModelSpec, sims) -> str:
         f"{lay.at('pools.next_seq')}, L_B_LEVEL = "
         f"{lay.at('buffers.level')};",
         f"  static constexpr int LN_MU = 0, LN_SIGMA = 0;",
-        f"  // a generous register cap: a frame or a spill fails the build's "
-        f"check",
+        f"  // {threads} lanes a block, at most "
+        f"{min(255, 65536 // (threads * choice['minb']))} registers a thread "
+        f"(launch_plan); a frame or a spill fails the build's check",
         f"  template <typename RR>",
         f"  __host__ __device__ static constexpr int minb() {{ return "
-        f"{4 if threads == 64 else 8}; }}",
+        f"{choice['minb']}; }}",
         "  " + cx(f"q_cap(int i) {{ return "
                   f"{_ternary('i', [q.capacity for q in spec.queues], 1)}; }}"),
         "  " + cx(f"q_front(int i) {{ return "

@@ -41,7 +41,8 @@
 //           draw inline through samplers.cuh, with no converged draw).
 //           Its own rules, compiled in for it alone: the priority queues
 //           (h_pq_put<Q>, h_pq_get<Q> and the readers pq_length<Q>,
-//           pq_position<Q>, their slots in device memory), a block's
+//           pq_position<Q>, their slots in device memory, searched
+//           through live-slot masks, M::PMASK), a block's
 //           timer_add (an insert into the general event table) and
 //           timers_clear (a pattern cancel), interrupt (the target's
 //           abort, then a wake with the signal), the abort's cleanup on
@@ -86,7 +87,15 @@
 // of a warp sit in different blocks, so the warp issues each block's
 // code once for each branch it takes.  With ~1,000 lanes on each SM the
 // SM's issue slots, not the lane's latency, set the pace: the time is
-// the instructions a warp issues per event.  What the design does:
+// the instructions a warp issues per event.  That holds for the
+// hand-written families.  A generated instance holds 4-16 warps on an
+// SM (PERF.md: 128-255 registers a thread, or 26-55 KB of shared
+// columns a block of 32 lanes), too few to hide a lane's serial chain:
+// its loads from the lane's rows of device memory (a warp's 32 lanes
+// read 32 rows E x 4-8 B apart, 32 sectors a load), its Threefry rounds
+// and log1p; there the latency of that chain sets the pace, and a
+// search that walks a table's slots one load after another is the
+// longest link (design points 4 and 6).  What the design does:
 //
 // 1. The lane's hot state lives in registers, with no local-memory
 //    frame: the clock, the counter, the dense wakes and the processes'
@@ -143,6 +152,25 @@
 //    inline.  One apply serves the retried command and a block's, so the
 //    handlers (and the record's merge) are issued once for both kinds of
 //    lane.
+// 4. A generated family's searches visit only the live slots.  At chunk
+//    start each lane derives a mask of its general table's slots whose
+//    time is not +inf (M::EMASK, where a block inserts into the table)
+//    and of each priority queue's live slots (M::PMASK); every write
+//    keeps them current.  A first free slot is the lowest clear bit, a
+//    count the bits set, and the minimum, best and position searches
+//    one pass over the set bits, ascending, on the lexicographic key
+//    the linear scans used (time, prio desc, seq, slot; priority desc
+//    with the amax's NaN, seq, slot), so every result is the same.  The
+//    masks are shared columns (ColdMask: register words kept a stack
+//    frame where a mask took two or more).  The table's size is the
+//    header's (M::ECAP); a table past 128 slots keeps the walk.  No
+//    writer stores a time that is -inf or NaN (an insert or a
+//    reschedule refuses a time that is not finite, a pop or a cancel
+//    writes +inf), so the set slots are those with a finite time and a
+//    clear one is free.
+// 5. The launch shape is the emitter's (core/emit.py launch_plan): a
+//    small family asks for 16 warps an SM (128 registers), the others 8
+//    (255), which the measured cells justify.
 //
 // What is left: the ring stays lane-first in device memory (a lane-last
 // ring would not coalesce either, since each lane's head differs; the
@@ -556,6 +584,76 @@ struct Awaits<Wa, true, true> {
   Wa apid, aevt;
 };
 
+// A table's live-slot mask (a generated family's EMASK, PMASK): bit i of
+// word i / 32 is set where slot i is live, so a search visits only the
+// live slots, a free slot is the lowest clear bit (__ffs of the
+// complement) and a count is __popc of the words.  N slots take W words;
+// a table past 128 slots keeps the linear scan (the emitter's choice).
+template <int N>
+struct Bits {
+  static constexpr int W = N > 0 ? (N + 31) / 32 : 1;
+  // the valid bits of word k
+  __host__ __device__ static constexpr uint32_t valid(int k) {
+    return (k < W - 1 || N % 32 == 0) ? ~0u : (1u << (N % 32)) - 1u;
+  }
+};
+
+// f(i) for every set bit i of the W words a[OFF .. OFF + W), ascending:
+// word K a compile-time index by recursion (an unrolled loop around the
+// visits is not always unrolled)
+template <int W, int OFF, int K = 0, class A, class F>
+__device__ __forceinline__ void each_bit(const A& a, F&& f) {
+  if constexpr (K < W) {
+    uint32_t m = a[OFF + K];
+    while (m != 0u) {
+      const int b = __ffs(int(m)) - 1;
+      m &= m - 1u;
+      f(32 * K + b);
+    }
+    each_bit<W, OFF, K + 1>(a, f);
+  }
+}
+
+// the lowest clear bit of an N-slot mask, N where every bit is set
+template <int N, class A>
+__device__ __forceinline__ int first_clear(const A& a, int off) {
+  int slot = N;
+#pragma unroll
+  for (int k = Bits<N>::W - 1; k >= 0; --k) {
+    const uint32_t z = ~a[off + k] & Bits<N>::valid(k);
+    if (z != 0u) slot = 32 * k + __ffs(int(z)) - 1;
+  }
+  return slot;
+}
+
+template <int N, class A>
+__device__ __forceinline__ int32_t popc(const A& a, int off) {
+  int32_t n = 0;
+#pragma unroll
+  for (int k = 0; k < Bits<N>::W; ++k) n += __popc(a[off + k]);
+  return n;
+}
+
+// bit i (a run-time slot) of the mask at word off set (on) or cleared
+template <class A>
+__device__ __forceinline__ void set_bit(A& a, int off, int i, bool on) {
+  const uint32_t b = 1u << (i & 31);
+  const int k = off + (i >> 5);
+  a[k] = on ? (a[k] | b) : (a[k] & ~b);
+}
+
+// the masks' shared columns (M::EMASK, M::PMASK): the general table's
+// words, then each priority queue's
+template <class M, bool ON = M::EMASK || M::PMASK>
+struct ColdMask {
+  static constexpr int EW = M::EMASK ? Bits<M::ECAP>::W : 0;
+  static constexpr int PW = M::PMASK ? M::NPQ * Bits<M::PQW>::W : 0;
+  uint32_t words[EW + PW > 0 ? EW + PW : 1][M::THREADS];
+};
+
+template <class M>
+struct ColdMask<M, false> {};
+
 // every column of a family whose shared memory is dynamic (M::DYN): one
 // block-wide struct carved from the launch's dynamic shared memory
 template <typename R, class M>
@@ -569,6 +667,25 @@ struct Smem {
   ColdWake<R, M> wake;
   ColdG<M> g;
   ColdAwait<M> await_;
+  ColdMask<M> mask;
+};
+
+// a lane's masks (a base of State, empty where the family has none),
+// each a view of its ColdMask column: the general table's words
+// em[0 .. EW), each priority queue q's words pm[q PW .. (q + 1) PW)
+template <class Wm, bool E, bool P>
+struct Masks {};
+template <class Wm>
+struct Masks<Wm, true, false> {
+  Wm em;
+};
+template <class Wm>
+struct Masks<Wm, false, true> {
+  Wm pm;
+};
+template <class Wm>
+struct Masks<Wm, true, true> {
+  Wm em, pm;
 };
 
 // One lane's working state: the hot part in registers, the cold part in
@@ -577,7 +694,8 @@ template <typename R_, typename C_, class M_>
 struct State
     : Awaits<std::conditional_t<M_::BIG, Col<int32_t, M_::THREADS>,
                                 int32_t[M_::NP]>,
-             M_::WAITP, M_::WAITE> {
+             M_::WAITP, M_::WAITE>,
+      Masks<Col<uint32_t, M_::THREADS>, M_::EMASK, M_::PMASK> {
   using R = R_;
   using C = C_;
   using M = M_;
@@ -765,15 +883,63 @@ __device__ __forceinline__ typename S::R variate(const S& s, int kind,
   return v;
 }
 
+// the general table's slots: the header's count where its mask is
+// compiled in (M::EMASK), else the run-time shape (mm1.build() and
+// mmc.build(1) share an instance; a generated family's walks over a
+// compile-time count were unrolled into 16-64 copies, up to 255
+// registers and 5 % slower, PERF.md)
+template <class S>
+__device__ __forceinline__ int ecap(const Where& w) {
+  if constexpr (S::M::EMASK) {
+    return S::M::ECAP;
+  } else {
+    return w.sh.event_cap;
+  }
+}
+
 // the general table's minimum, read from device memory (chunk start,
-// and after the kernel wrote the table)
+// and after the kernel wrote the table).  With the table's mask
+// (M::EMASK) one pass over the slots whose time is not +inf, ascending,
+// keeps the lexicographic best (time asc, then prio desc and seq asc,
+// read only on a tie of times, then the lowest slot): the same slot and
+// flags as the four passes over every slot
 template <class S>
 __device__ __forceinline__ void scan_table(S& s, const Where& w) {
   using R = typename S::R;
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   const R* time = row<R, S>(w, EV_TIME, E);
   const int32_t* prio = row<int32_t, S>(w, EV_PRIO, E);
   const int32_t* seq = row<int32_t, S>(w, EV_SEQ, E);
+  if constexpr (S::M::EMASK) {
+    R t = inf_of<R>();
+    bool any = false, have = false;
+    int32_t slot = 0, bp = 0, bs = 0;
+    each_bit<Bits<S::M::ECAP>::W, 0>(s.em, [&](int i) {
+      const R x = time[i];
+      any = any || finite(x);
+      if (x < t) {
+        t = x;
+        slot = i;
+        have = false;
+      } else if (x == t) {
+        if (!have) {
+          bp = prio[slot];
+          bs = seq[slot];
+          have = true;
+        }
+        const int32_t pi = prio[i], si = seq[i];
+        if (pi > bp || (pi == bp && si < bs)) {
+          bp = pi;
+          bs = si;
+          slot = i;
+        }
+      }
+    });
+    s.t_e = t;
+    s.any_e = any;
+    s.slot_e = finite(t) ? slot : 0;
+    return;
+  }
   R t = inf_of<R>();
   bool any = false;
   for (int i = 0; i < E; ++i) {
@@ -797,6 +963,85 @@ __device__ __forceinline__ void scan_table(S& s, const Where& w) {
   s.t_e = t;
   s.any_e = any;
   s.slot_e = slot;
+}
+
+// general-table slot i's mask bit: set where the kernel writes a finite
+// time, cleared where it writes +inf (M::EMASK; nothing else)
+template <class S>
+__device__ __forceinline__ void ev_mark(S& s, int i, bool on) {
+  if constexpr (S::M::EMASK) set_bit(s.em, 0, i, on);
+}
+
+// f(i) for each slot i of the general table that may hold a finite time,
+// ascending: the slots of the mask (M::EMASK), else every slot
+template <class S, class F>
+__device__ __forceinline__ void each_slot(const S& s, const Where& w,
+                                          F&& f) {
+  if constexpr (S::M::EMASK) {
+    each_bit<Bits<S::M::ECAP>::W, 0>(s.em, f);
+  } else {
+    const int E = ecap<S>(w);
+    for (int i = 0; i < E; ++i) f(i);
+  }
+}
+
+// the first free slot of the general table (a free slot holds +inf or
+// -inf), E where none: the mask's lowest clear bit (M::EMASK), else a
+// walk
+template <class S>
+__device__ __forceinline__ int free_slot(const S& s, const Where& w) {
+  using R = typename S::R;
+  if constexpr (S::M::EMASK) {
+    return first_clear<S::M::ECAP>(s.em, 0);
+  } else {
+    const int E = ecap<S>(w);
+    const R* time = row<R, S>(w, EV_TIME, E);
+    for (int i = 0; i < E; ++i)
+      if (time[i] == inf_of<R>() || time[i] == -inf_of<R>()) return i;
+    return E;
+  }
+}
+
+// queue Q's slot rows in device memory (each [PQW], lane-first)
+template <typename T, class S>
+__device__ __forceinline__ T* pq_row(const Where& w, int leaf, int q) {
+  using M = typename S::M;
+  return row<T, S>(w, leaf, M::NPQ * M::PQW) + q * M::PQW;
+}
+
+// the words of an N-slot mask from live(i) (word K a compile-time index,
+// as in each_bit)
+template <int N, int OFF, int K = 0, class A, class G>
+__device__ __forceinline__ void fill_bits(A& a, G&& live) {
+  if constexpr (K < Bits<N>::W) {
+    uint32_t m = 0u;
+    for (int b = 0; b < 32 && 32 * K + b < N; ++b)
+      m |= live(32 * K + b) ? 1u << b : 0u;
+    a[OFF + K] = m;
+    fill_bits<N, OFF, K + 1>(a, live);
+  }
+}
+
+// the masks from the lane's leaves at chunk start: a general-table slot
+// is set where its time is not +inf (the same as finite on every state
+// the kernel or the engine writes; this test leaves park2 f64 at 255
+// registers with no spill, where finite() spilled 28 B), a
+// priority-queue slot where its live flag is
+template <class S, int Q = 0>
+__device__ __forceinline__ void load_masks(S& s, const Where& w) {
+  using R = typename S::R;
+  using M = typename S::M;
+  if constexpr (M::EMASK && Q == 0) {
+    const R* time = row<R, S>(w, EV_TIME, M::ECAP);
+    fill_bits<M::ECAP, 0>(s.em,
+                          [&](int i) { return time[i] != inf_of<R>(); });
+  }
+  if constexpr (M::PMASK && Q < M::NPQ) {
+    const bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
+    fill_bits<M::PQW, Q * Bits<M::PQW>::W>(s.pm,
+                                            [&](int j) { return live[j]; });
+    load_masks<S, Q + 1>(s, w);
+  }
 }
 
 // timeseries.step_record(acc, clock, v) on queue q's accumulator: the
@@ -1284,16 +1529,26 @@ __device__ __forceinline__ void end_process(S& s, const Where& w, int p,
                                             int32_t exit_sig) {
   using R = typename S::R;
   if (s.any_e) {  // cancel p's timers
-    const int E = w.sh.event_cap;
+    const int E = ecap<S>(w);
     R* time = row<R, S>(w, EV_TIME, E);
     const int32_t* kind = row<int32_t, S>(w, EV_KIND, E);
     const int32_t* subj = row<int32_t, S>(w, EV_SUBJ, E);
     int32_t* gen = row<int32_t, S>(w, EV_GEN, E);
-    for (int i = 0; i < E; ++i)
-      if (finite(time[i]) && kind[i] == K_TIMER && subj[i] == p) {
-        time[i] = inf_of<R>();
-        gen[i] += 1;
-      }
+    if constexpr (S::M::EMASK) {
+      each_slot(s, w, [&](int i) {
+        if (finite(time[i]) && kind[i] == K_TIMER && subj[i] == p) {
+          time[i] = inf_of<R>();
+          gen[i] += 1;
+          ev_mark(s, i, false);
+        }
+      });
+    } else {
+      for (int i = 0; i < E; ++i)
+        if (finite(time[i]) && kind[i] == K_TIMER && subj[i] == p) {
+          time[i] = inf_of<R>();
+          gen[i] += 1;
+        }
+    }
     scan_table(s, w);
   }
   set(s, F_STATUS, p, FINISHED);
@@ -1329,17 +1584,60 @@ __device__ __forceinline__ void finish(S& s, const Where& w, int p) {
 // a generated one without priority queues, timers or interrupts keep
 // their code).
 
-// queue Q's slot rows in device memory (each [PQW], lane-first)
-template <typename T, class S>
-__device__ __forceinline__ T* pq_row(const Where& w, int leaf, int q) {
+// priority queue Q's first mask word (M::PMASK)
+template <int Q, class S>
+__device__ __forceinline__ constexpr int pq_off() {
+  return Q * Bits<S::M::PQW>::W;
+}
+
+// Priority queue Q's best live slot among those holding item (ITEM) or
+// among all: the greatest priority (the reference's amax, NaN
+// propagating: then no slot matches), then the least seq, then the
+// lowest slot.  One pass over the mask's live slots, ascending, the
+// candidates dropped whenever the maximum rises; returns whether a slot
+// of priority pb was found, with pb, its seq sb and its slot col
+template <int Q, bool ITEM, class S>
+__device__ __forceinline__ bool pq_best(const S& s, const Where& w,
+                                        typename S::R item,
+                                        typename S::R& pb, int32_t& sb,
+                                        int& col) {
+  using R = typename S::R;
   using M = typename S::M;
-  return row<T, S>(w, leaf, M::NPQ * M::PQW) + q * M::PQW;
+  const R* items = pq_row<R, S>(w, M::L_PQ_ITEMS, Q);
+  const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
+  const int32_t* seq = pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q);
+  bool found = false;
+  pb = -inf_of<R>();
+  sb = I32_MAX;
+  col = 0;
+  each_bit<Bits<M::PQW>::W, pq_off<Q, S>()>(s.pm, [&](int j) {
+    if (ITEM && !(items[j] == item)) return;
+    const R x = prio[j];
+    if (x != x || x > pb) {
+      pb = x;
+      found = false;
+    }
+    if (x == pb) {
+      const int32_t sj = seq[j];
+      if (!found || sj < sb) {
+        sb = sj;
+        col = j;
+        found = true;
+      }
+    }
+  });
+  if (!found) {  // none (an empty queue, or a NaN maximum): column 0
+    sb = I32_MAX;
+    col = 0;
+  }
+  return found;
 }
 
 // api.pqueue_length: the live slots of queue Q
 template <int Q, class S>
-__device__ __forceinline__ int32_t pq_length(const S&, const Where& w) {
+__device__ __forceinline__ int32_t pq_length(const S& s, const Where& w) {
   using M = typename S::M;
+  if constexpr (M::PMASK) return popc<M::PQW>(s.pm, pq_off<Q, S>());
   const bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
   int32_t n = 0;
   for (int j = 0; j < M::PQW; ++j) n += live[j] ? 1 : 0;
@@ -1350,10 +1648,31 @@ __device__ __forceinline__ int32_t pq_length(const S&, const Where& w) {
 // descending, then seq) of the earliest-dequeuing live item equal to
 // item, 0 if none
 template <int Q, class S>
-__device__ __forceinline__ int32_t pq_position(const S&, const Where& w,
+__device__ __forceinline__ int32_t pq_position(const S& s, const Where& w,
                                                typename S::R item) {
   using R = typename S::R;
   using M = typename S::M;
+  if constexpr (M::PMASK) {
+    // the best match, then the live slots that dequeue before it
+    R pb;
+    int32_t sb;
+    int col;
+    bool any = false;
+    const R* items = pq_row<R, S>(w, M::L_PQ_ITEMS, Q);
+    each_bit<Bits<M::PQW>::W, pq_off<Q, S>()>(s.pm, [&](int j) {
+      any = any || items[j] == item;
+    });
+    if (!any) return 0;
+    pq_best<Q, true>(s, w, item, pb, sb, col);
+    const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
+    const int32_t* seq = pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q);
+    int32_t ahead = 0;
+    each_bit<Bits<M::PQW>::W, pq_off<Q, S>()>(s.pm, [&](int j) {
+      const R x = prio[j];
+      ahead += (x > pb || (x == pb && seq[j] < sb)) ? 1 : 0;
+    });
+    return ahead + 1;
+  }
   const bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
   const R* items = pq_row<R, S>(w, M::L_PQ_ITEMS, Q);
   const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
@@ -1391,13 +1710,19 @@ __device__ __forceinline__ bool h_pq_put(S& s, const Where& w, int p,
   bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
   int32_t n = 0;
   int col = M::PQW - 1;
-  bool free_found = false;
-  for (int j = 0; j < M::PQW; ++j) {
-    if (live[j]) {
-      n += 1;
-    } else if (!free_found) {
-      free_found = true;
-      col = j;
+  if constexpr (M::PMASK) {
+    n = popc<M::PQW>(s.pm, pq_off<Q, S>());
+    const int j = first_clear<M::PQW>(s.pm, pq_off<Q, S>());
+    col = j < M::PQW ? j : col;
+  } else {
+    bool free_found = false;
+    for (int j = 0; j < M::PQW; ++j) {
+      if (live[j]) {
+        n += 1;
+      } else if (!free_found) {
+        free_found = true;
+        col = j;
+      }
     }
   }
   const bool may = is_retry || !any_waiting(s, M::pq_rear(Q));
@@ -1407,6 +1732,8 @@ __device__ __forceinline__ bool h_pq_put(S& s, const Where& w, int p,
     pq_row<R, S>(w, M::L_PQ_PRIO, Q)[col] = c.f2;
     pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q)[col] = GCOL(s, pq_next_seq, Q);
     live[col] = true;
+    if constexpr (M::PMASK)
+      set_bit(s.pm, pq_off<Q, S>(), col, true);
     GCOL(s, pq_next_seq, Q) += 1;
     if constexpr (M::pq_rec(Q)) record(s, M::acc_pq(Q), R(n + 1));
     signal_at<M::pq_front(Q)>(s, w);
@@ -1428,30 +1755,39 @@ __device__ __forceinline__ bool h_pq_get(S& s, const Where& w, int p,
   using R = typename S::R;
   using M = typename S::M;
   bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
-  const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
-  const int32_t* seq = pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q);
   int32_t n = 0;
-  R pb = -inf_of<R>();
-  for (int j = 0; j < M::PQW; ++j)
-    if (live[j]) {
-      n += 1;
-      const R x = prio[j];
-      pb = (x != x || x > pb) ? x : pb;  // amax: NaN propagates
-    }
-  int32_t sm = I32_MAX;
-  for (int j = 0; j < M::PQW; ++j)
-    if (live[j] && prio[j] == pb && seq[j] < sm) sm = seq[j];
   int col = 0;
-  for (int j = 0; j < M::PQW; ++j)
-    if (live[j] && prio[j] == pb && seq[j] == sm) {
-      col = j;
-      break;
-    }
+  if constexpr (M::PMASK) {
+    n = popc<M::PQW>(s.pm, pq_off<Q, S>());
+    R pb;
+    int32_t sb;
+    pq_best<Q, false>(s, w, R(0), pb, sb, col);
+  } else {
+    const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
+    const int32_t* seq = pq_row<int32_t, S>(w, M::L_PQ_SEQ, Q);
+    R pb = -inf_of<R>();
+    for (int j = 0; j < M::PQW; ++j)
+      if (live[j]) {
+        n += 1;
+        const R x = prio[j];
+        pb = (x != x || x > pb) ? x : pb;  // amax: NaN propagates
+      }
+    int32_t sm = I32_MAX;
+    for (int j = 0; j < M::PQW; ++j)
+      if (live[j] && prio[j] == pb && seq[j] < sm) sm = seq[j];
+    for (int j = 0; j < M::PQW; ++j)
+      if (live[j] && prio[j] == pb && seq[j] == sm) {
+        col = j;
+        break;
+      }
+  }
   const bool may = is_retry || !any_waiting(s, M::pq_front(Q));
   const bool empty = n == 0 || !may;
   if (!empty) {
     COLD(s, got, p) = pq_row<R, S>(w, M::L_PQ_ITEMS, Q)[col];
     live[col] = false;
+    if constexpr (M::PMASK)
+      set_bit(s.pm, pq_off<Q, S>(), col, false);
     if constexpr (M::pq_rec(Q)) record(s, M::acc_pq(Q), R(n - 1));
     signal_at<M::pq_rear(Q)>(s, w);
     signal_at<M::pq_front(Q)>(s, w);
@@ -1473,23 +1809,19 @@ __device__ __forceinline__ int32_t timer_add(S& s, const Where& w, int p,
                                              typename S::R dur,
                                              int32_t sig) {
   using R = typename S::R;
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   R* time = row<R, S>(w, EV_TIME, E);
   int32_t* prio = row<int32_t, S>(w, EV_PRIO, E);
   int32_t* seq = row<int32_t, S>(w, EV_SEQ, E);
   const R t = s.clock + nanmax0(dur);
-  int slot = E;
-  for (int i = 0; i < E; ++i)
-    if (time[i] == inf_of<R>() || time[i] == -inf_of<R>()) {
-      slot = i;
-      break;
-    }
+  const int slot = free_slot(s, w);
   const bool ok = slot < E && finite(t);
   bool* overflow = row<bool, S>(w, EV_OVERFLOW, 1);
   int32_t h = -1;
   if (ok) {
     const int32_t pr = COLD(s, prio, p);
     time[slot] = t;
+    ev_mark(s, slot, true);
     prio[slot] = pr;
     seq[slot] = s.next_seq;
     row<int32_t, S>(w, EV_KIND, E)[slot] = K_TIMER;
@@ -1524,18 +1856,20 @@ template <class S>
 __device__ __forceinline__ void timers_clear(S& s, const Where& w, int p) {
   using R = typename S::R;
   if (!s.any_e) return;
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   R* time = row<R, S>(w, EV_TIME, E);
   const int32_t* kind = row<int32_t, S>(w, EV_KIND, E);
   const int32_t* subj = row<int32_t, S>(w, EV_SUBJ, E);
   int32_t* gen = row<int32_t, S>(w, EV_GEN, E);
   bool hit = false;
-  for (int i = 0; i < E; ++i)
+  each_slot(s, w, [&](int i) {
     if (finite(time[i]) && kind[i] == K_TIMER && subj[i] == p) {
       time[i] = inf_of<R>();
       gen[i] += 1;
+      ev_mark(s, i, false);
       hit = true;
     }
+  });
   if (hit) scan_table(s, w);
 }
 
@@ -1791,21 +2125,17 @@ __device__ __forceinline__ int32_t schedule_event(S& s, const Where& w,
                                                   int32_t prio, int32_t kind,
                                                   int32_t subj, int32_t arg) {
   using R = typename S::R;
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   R* time = row<R, S>(w, EV_TIME, E);
   int32_t* prio_e = row<int32_t, S>(w, EV_PRIO, E);
   int32_t* seq = row<int32_t, S>(w, EV_SEQ, E);
-  int slot = E;
-  for (int i = 0; i < E; ++i)
-    if (time[i] == inf_of<R>() || time[i] == -inf_of<R>()) {
-      slot = i;
-      break;
-    }
+  const int slot = free_slot(s, w);
   const bool ok = slot < E && finite(t);
   bool* overflow = row<bool, S>(w, EV_OVERFLOW, 1);
   int32_t h = -1;
   if (ok) {
     time[slot] = t;
+    ev_mark(s, slot, true);
     prio_e[slot] = prio;
     seq[slot] = s.next_seq;
     row<int32_t, S>(w, EV_KIND, E)[slot] = kind;
@@ -1847,7 +2177,7 @@ template <class S>
 __device__ __forceinline__ bool ev_valid(const S&, const Where& w,
                                          int32_t h) {
   using R = typename S::R;
-  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const int E = ecap<S>(w), slot = ev_slot(h);
   if (h < 0) return false;
   if (slot >= E) return (h >> 16) == 0;
   return finite(row<R, S>(w, EV_TIME, E)[slot]) &&
@@ -1859,7 +2189,7 @@ template <class S>
 __device__ __forceinline__ typename S::R ev_time(const S& s, const Where& w,
                                                  int32_t h) {
   using R = typename S::R;
-  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const int E = ecap<S>(w), slot = ev_slot(h);
   if (!ev_valid(s, w, h)) return inf_of<R>();
   return slot < E ? row<R, S>(w, EV_TIME, E)[slot] : R(0);
 }
@@ -1868,7 +2198,7 @@ __device__ __forceinline__ typename S::R ev_time(const S& s, const Where& w,
 template <class S>
 __device__ __forceinline__ int32_t ev_prio(const S& s, const Where& w,
                                            int32_t h) {
-  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const int E = ecap<S>(w), slot = ev_slot(h);
   if (!ev_valid(s, w, h) || slot >= E) return 0;
   return row<int32_t, S>(w, EV_PRIO, E)[slot];
 }
@@ -1894,11 +2224,12 @@ template <bool EAGER, class S>
 __device__ __forceinline__ bool event_cancel(S& s, const Where& w,
                                              int32_t h) {
   using R = typename S::R;
-  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const int E = ecap<S>(w), slot = ev_slot(h);
   const bool ok = ev_valid(s, w, h);
   if (ok && slot < E) {
     row<R, S>(w, EV_TIME, E)[slot] = inf_of<R>();
     row<int32_t, S>(w, EV_GEN, E)[slot] += 1;
+    ev_mark(s, slot, false);
     scan_table(s, w);
   }
   if constexpr (EAGER && S::M::WAITE) {
@@ -1914,7 +2245,7 @@ __device__ __forceinline__ bool event_reschedule(S& s, const Where& w,
                                                  int32_t h,
                                                  typename S::R t) {
   using R = typename S::R;
-  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const int E = ecap<S>(w), slot = ev_slot(h);
   const bool ok = ev_valid(s, w, h) && finite(t);
   if (ok && slot < E) {
     row<R, S>(w, EV_TIME, E)[slot] = t;
@@ -1927,7 +2258,7 @@ __device__ __forceinline__ bool event_reschedule(S& s, const Where& w,
 template <class S>
 __device__ __forceinline__ bool event_reprioritize(S& s, const Where& w,
                                                    int32_t h, int32_t prio) {
-  const int E = w.sh.event_cap, slot = ev_slot(h);
+  const int E = ecap<S>(w), slot = ev_slot(h);
   const bool ok = ev_valid(s, w, h);
   if (ok && slot < E) {
     row<int32_t, S>(w, EV_PRIO, E)[slot] = prio;
@@ -1942,7 +2273,7 @@ template <class S>
 __device__ __forceinline__ bool ev_match(const Where& w, int i,
                                          int32_t kind, int32_t subj) {
   using R = typename S::R;
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   return finite(row<R, S>(w, EV_TIME, E)[i]) &&
          (kind == -1 || row<int32_t, S>(w, EV_KIND, E)[i] == kind) &&
          (subj == -1 || row<int32_t, S>(w, EV_SUBJ, E)[i] == subj);
@@ -1950,29 +2281,29 @@ __device__ __forceinline__ bool ev_match(const Where& w, int i,
 
 // api.event_pattern_count
 template <class S>
-__device__ __forceinline__ int32_t pattern_count(const S&, const Where& w,
+__device__ __forceinline__ int32_t pattern_count(const S& s, const Where& w,
                                                  int32_t kind, int32_t subj) {
   int32_t n = 0;
-  for (int i = 0; i < w.sh.event_cap; ++i)
-    n += ev_match<S>(w, i, kind, subj) ? 1 : 0;
+  each_slot(s, w, [&](int i) { n += ev_match<S>(w, i, kind, subj) ? 1 : 0; });
   return n;
 }
 
 // api.event_pattern_find: the soonest match's handle, the lowest slot
 // among equal times; -1 where none
 template <class S>
-__device__ __forceinline__ int32_t pattern_find(const S&, const Where& w,
+__device__ __forceinline__ int32_t pattern_find(const S& s, const Where& w,
                                                 int32_t kind, int32_t subj) {
   using R = typename S::R;
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   const R* time = row<R, S>(w, EV_TIME, E);
   int slot = -1;
   R t = inf_of<R>();
-  for (int i = 0; i < E; ++i)
+  each_slot(s, w, [&](int i) {
     if (ev_match<S>(w, i, kind, subj) && (slot < 0 || time[i] < t)) {
       slot = i;
       t = time[i];
     }
+  });
   if (slot < 0) return -1;
   return int32_t(uint32_t(row<int32_t, S>(w, EV_GEN, E)[slot]) << 16) | slot;
 }
@@ -1984,14 +2315,16 @@ __device__ __forceinline__ int32_t pattern_cancel(S& s, const Where& w,
                                                   int32_t kind,
                                                   int32_t subj) {
   using R = typename S::R;
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   int32_t n = 0;
-  for (int i = 0; i < E; ++i)
+  each_slot(s, w, [&](int i) {
     if (ev_match<S>(w, i, kind, subj)) {
       row<R, S>(w, EV_TIME, E)[i] = inf_of<R>();
       row<int32_t, S>(w, EV_GEN, E)[i] += 1;
+      ev_mark(s, i, false);
       n += 1;
     }
+  });
   if (n > 0) scan_table(s, w);
   return n;
 }
@@ -2093,9 +2426,16 @@ __device__ __forceinline__ int32_t queue_position(const S& s, const Where& w,
 // reference's _pq_match: the greatest priority, then the least seq), its
 // slot, or -1
 template <int Q, class S>
-__device__ __forceinline__ int pq_match(const Where& w, typename S::R item) {
+__device__ __forceinline__ int pq_match(const S& s, const Where& w,
+                                        typename S::R item) {
   using R = typename S::R;
   using M = typename S::M;
+  if constexpr (M::PMASK) {
+    R pb;
+    int32_t sb;
+    int col;
+    return pq_best<Q, true>(s, w, item, pb, sb, col) ? col : -1;
+  }
   const bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
   const R* items = pq_row<R, S>(w, M::L_PQ_ITEMS, Q);
   const R* prio = pq_row<R, S>(w, M::L_PQ_PRIO, Q);
@@ -2124,10 +2464,12 @@ __device__ __forceinline__ bool pq_cancel(S& s, const Where& w,
                                           typename S::R item) {
   using R = typename S::R;
   using M = typename S::M;
-  const int j = pq_match<Q, S>(w, item);
+  const int j = pq_match<Q, S>(s, w, item);
   if (j < 0) return false;
   bool* live = pq_row<bool, S>(w, M::L_PQ_LIVE, Q);
   live[j] = false;
+  if constexpr (M::PMASK)
+    set_bit(s.pm, pq_off<Q, S>(), j, false);
   if constexpr (M::pq_rec(Q)) record(s, M::acc_pq(Q), R(pq_length<Q>(s, w)));
   guard_signal(s, M::pq_rear(Q));
   return true;
@@ -2136,11 +2478,11 @@ __device__ __forceinline__ bool pq_cancel(S& s, const Where& w,
 // api.pqueue_reprioritize: the matching item's priority changed, its seq
 // kept; returns whether one matched
 template <int Q, class S>
-__device__ __forceinline__ bool pq_reprioritize(S&, const Where& w,
+__device__ __forceinline__ bool pq_reprioritize(S& s, const Where& w,
                                                 typename S::R item,
                                                 typename S::R prio) {
   using M = typename S::M;
-  const int j = pq_match<Q, S>(w, item);
+  const int j = pq_match<Q, S>(s, w, item);
   if (j < 0) return false;
   pq_row<typename S::R, S>(w, M::L_PQ_PRIO, Q)[j] = prio;
   return true;
@@ -2344,6 +2686,11 @@ struct Family {
   static constexpr bool DYN = false;
   // the wakes and words, the guards' seqs in shared columns (Col)
   static constexpr bool BIG = false, GBIG = false;
+  // a generated family's live-slot masks (shared columns) of the
+  // general table (EMASK, its ECAP slots compile-time) and of the
+  // priority queues (PMASK)
+  static constexpr bool EMASK = false, PMASK = false;
+  static constexpr int ECAP = 0;
   static constexpr int NK = 0, NV = 0, NC = 0, NPQ = 0, PQW = 1;
   static constexpr int NR = 0, NH = 0;  // resources, user handlers
   using UCold = NoUCold;
@@ -2763,7 +3110,7 @@ __device__ __forceinline__ void step(S& s, const Where& w,
         pid_w = q;
       }
     }
-  const int E = w.sh.event_cap;
+  const int E = ecap<S>(w);
   bool wake_first = found_w && (!found_e || t_w < s.t_e);
   if (found_w && found_e && t_w == s.t_e) {  // a tie: the slot's prio, seq
     const int32_t p_e = row<int32_t, S>(w, EV_PRIO, E)[s.slot_e];
@@ -2789,6 +3136,7 @@ __device__ __forceinline__ void step(S& s, const Where& w,
     if constexpr (S::M::NH > 0)
       kind = row<int32_t, S>(w, EV_KIND, E)[s.slot_e];
     row<R, S>(w, EV_TIME, E)[s.slot_e] = inf_of<R>();
+    ev_mark(s, s.slot_e, false);
     if constexpr (S::M::WAITE)
       h_pop = int32_t(uint32_t(row<int32_t, S>(w, EV_GEN, E)[s.slot_e])
                       << 16) | s.slot_e;
@@ -3132,7 +3480,8 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          typename M::UCold& ucold,
                                          ColdWake<R, M>* wake = nullptr,
                                          ColdG<M>* g = nullptr,
-                                         ColdAwait<M>* aw = nullptr) {
+                                         ColdAwait<M>* aw = nullptr,
+                                         ColdMask<M>* mk = nullptr) {
   using S = State<R, C, M>;
   S s;
   s.cold = &cold;
@@ -3150,7 +3499,10 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
   if constexpr (S::GBIG) s.gseq.base = &g->gseq[0][s.t];
   if constexpr (S::BIG && M::WAITP) s.apid.base = &aw->apid[0][s.t];
   if constexpr (S::BIG && M::WAITE) s.aevt.base = &aw->aevt[0][s.t];
+  if constexpr (M::EMASK) s.em.base = &mk->words[0][s.t];
+  if constexpr (M::PMASK) s.pm.base = &mk->words[ColdMask<M>::EW][s.t];
   load(s, Where{ps, sh, l});
+  load_masks(s, Where{ps, sh, l});
   scan_table(s, Where{ps, sh, l});
   for (int k = 0; k < chunk_steps; ++k) {
     // liveness: a finite time in either table, not done, no error,
@@ -3206,7 +3558,7 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
     if (l < lanes)
       run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, m.cold,
                         m.cold_acc, m.cold_q, m.cold_shop, m.cold_sig,
-                        m.ucold, &m.wake, &m.g, &m.await_);
+                        m.ucold, &m.wake, &m.g, &m.await_, &m.mask);
   } else {
     __shared__ Cold<R, M> cold;
     __shared__ ColdAcc<R, M> cold_acc;
@@ -3214,9 +3566,15 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
     __shared__ ColdShop<R, M> cold_shop;
     __shared__ ColdSig<M> cold_sig;
     __shared__ typename M::UCold ucold;
+    ColdMask<M>* mk = nullptr;
+    if constexpr (M::EMASK || M::PMASK) {
+      __shared__ ColdMask<M> mask;
+      mk = &mask;
+    }
     if (l < lanes)
       run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
-                        cold_acc, cold_q, cold_shop, cold_sig, ucold);
+                        cold_acc, cold_q, cold_shop, cold_sig, ucold,
+                        nullptr, nullptr, nullptr, mk);
   }
 }
 
@@ -3236,6 +3594,10 @@ int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
   using M = typename ModelOf<FAMILY, NS, RECORD, R>::type;
   if (n_leaves != at<M>(M::U0 + M::N_USER + N_TAIL)) return -1;
   if (lanes <= 0 || chunk_steps <= 0) return -2;
+  // a generated family's general table has its header's slots
+  if constexpr (M::GEN) {
+    if (sh.event_cap != M::ECAP) return -4;
+  }
   Ptrs ps{};
   for (int i = 0; i < n_leaves; ++i) ps.p[i] = leaves[i];
   const int blocks = (lanes + M::THREADS - 1) / M::THREADS;
@@ -3252,6 +3614,27 @@ int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
   chunk_kernel<R, C, FAMILY, NS, RECORD><<<blocks, M::THREADS, smem, st>>>(
       ps, lanes, sh, chunk_steps, has_t_end != 0, R(t_end));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instance's resident blocks on an SM (cudaOccupancyMaxActiveBlocks
+// PerMultiprocessor at its lanes a block and dynamic shared memory, once
+// the launch's attribute allows that memory), its lanes a block in
+// *threads; a negative CUDA error where the query fails
+template <typename R, typename C, int FAMILY, int NS, bool RECORD>
+int occupancy(int* threads) {
+  using M = typename ModelOf<FAMILY, NS, RECORD, R>::type;
+  constexpr int smem = dyn_bytes<M, R>();
+  if constexpr (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chunk_kernel<R, C, FAMILY, NS, RECORD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+  }
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, chunk_kernel<R, C, FAMILY, NS, RECORD>, M::THREADS, smem);
+  *threads = M::THREADS;
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // the MM instances: (1, false) mm1.build(record=False); (1, true)
@@ -3345,6 +3728,28 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
     return cimba::queue::launch<R, C, cimba::queue::F_SHOP, 2, true>(       \
         leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
         stream);                                                             \
+  }                                                                          \
+  /* an instance's resident blocks an SM (its lanes a block in *threads): */ \
+  /* family 0 the mm instances (n_servers, record), 1 mg1, 2 tandem, 3    */ \
+  /* the job shop; -3 for no instance                                     */ \
+  extern "C" int cimba_queue_occupancy_##SUFFIX(int family, int n_servers,  \
+                                                int record, int* threads) { \
+    using namespace cimba::queue;                                            \
+    switch (family) {                                                        \
+      case F_MG1: return occupancy<R, C, F_MG1, 1, true>(threads);           \
+      case F_TANDEM: return occupancy<R, C, F_TANDEM, 2, true>(threads);     \
+      case F_SHOP: return occupancy<R, C, F_SHOP, 2, true>(threads);         \
+      default: break;                                                        \
+    }                                                                        \
+    if (!record)                                                             \
+      return n_servers == 1 ? occupancy<R, C, F_MM, 1, false>(threads) : -3; \
+    switch (n_servers) {                                                     \
+      case 1: return occupancy<R, C, F_MM, 1, true>(threads);                \
+      case 2: return occupancy<R, C, F_MM, 2, true>(threads);                \
+      case 3: return occupancy<R, C, F_MM, 3, true>(threads);                \
+      case 4: return occupancy<R, C, F_MM, 4, true>(threads);                \
+      default: return -3;                                                    \
+    }                                                                        \
   }
 
 // A generated instance (CIMBA_GEN_HEADER): its shape is compiled in, so
@@ -3363,6 +3768,11 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
   /* the dynamic shared memory a block of the instance takes (0: static) */ \
   extern "C" int cimba_gen_smem_##SUFFIX() {                                 \
     return cimba::queue::dyn_bytes<cimba::queue::Gen<R>, R>();              \
+  }                                                                          \
+  /* its resident blocks an SM, its lanes a block in *threads */            \
+  extern "C" int cimba_gen_occupancy_##SUFFIX(int* threads) {                \
+    return cimba::queue::occupancy<R, C, cimba::queue::F_GEN, 0, false>(    \
+        threads);                                                            \
   }
 
 #ifdef CIMBA_GEN_F32
