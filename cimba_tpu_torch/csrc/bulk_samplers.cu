@@ -7,22 +7,40 @@
 // kernel: sample j of stream r uses counter base_r + j (K4: counters
 // strided by n, see exp_zig_kernel).
 //
-// Design: one thread per sample (r, j), in a grid-stride loop over the
-// 64-bit flat index r * n + j; consecutive threads write consecutive
-// samples of a row.  The thread of sample (r, 0) also writes stream r's
-// advanced counter, so a call is one launch.  K4's two 256-entry tables
-// are loaded once per block into shared memory: lanes index different
-// layers, which constant memory would serialise.
+// What bounds them on this card: operations, not bytes.  Each sample costs
+// one 20-round Threefry-2x32 block (~73 integer operations as Hopper
+// executes them; K4 one to three blocks, as its rounds accept) and a log1p
+// or erf_inv, against 4 or 8 bytes of output.  Of a block's instructions,
+// ptxas issues the adds on the FMA pipe (IMAD) and the 20 funnel-shift
+// rotates, the 20 xors and the key injections on the integer ALU pipe,
+// 64 lanes a clock an SM: that pipe holds f32's K2 and K3.  In f64, CUDA's
+// log1p and K3's polynomial (22 multiplies and 22 adds, separately
+// rounded) on the FP64 pipe take more than the words do.
 //
-// What bounds it on this card: instruction issue.  Each sample costs one
-// 20-round Threefry-2x32 block (~73 integer operations as Hopper executes
-// them, a rotate being one funnel shift; K4 one to three blocks, as its
-// rounds accept) and a log1p or erf_inv, against 4 or 8 bytes of output:
-// ~20 (f32) or ~10 (f64) integer operations per byte, where the card
-// issues ~10 per byte it can move, so f32 is bound by issue and f64 by
-// issue and bytes about equally.  K4's rounds stop at the first accept
-// (the counters are positional, so skipping a round an earlier one made
-// moot changes no value).
+// K2 and K3: each thread draws a run of consecutive samples of one row (8
+// in f32; in f64 8 for K2, 4 for K3: kRun), in a grid-stride loop over
+// the runs of the block, with 32-bit in-row indices.  A run loads its
+// stream's four words once, computes the key schedule once
+// (ThreefryKey), and draws all its words before its values, so the
+// samples' chains interleave; its samples are stored as 16-byte vectors
+// where the row allows, so a warp's stores cover contiguous bytes.  The
+// grid is the card's SMs times the blocks the occupancy calculator lets
+// reside on one.  In f64, CUDA's log1p branches on its argument, and a
+// warp of uniform draws runs both of its paths: a whole warp sorts its
+// arguments by that branch through shared memory first (log1p_run).
+// K3's erf_inv takes its central branch alone (erf_inv_w_central, no
+// selects, no sqrt) in a warp whose lanes all fall in it: ~90 % of the
+// votes in f32 (one a sample) and ~88 % in f64 (one a run of 4).  The
+// thread of run (r, 0) also writes stream r's advanced counter, so a call
+// is one launch.
+//
+// K4: one thread per sample (r, j), in a grid-stride loop over the 64-bit
+// flat index r * n + j; consecutive threads write consecutive samples of a
+// row.  Its two 256-entry tables are loaded once per block into shared
+// memory: lanes index different layers, which constant memory would
+// serialise.  Its rounds stop at the first accept (the counters are
+// positional, so skipping a round an earlier one made moot changes no
+// value).
 //
 // Built with --fmad=false so float results follow the plain PyTorch
 // version's separately rounded operations (the same CUDA log1p, exp and
@@ -40,8 +58,14 @@ namespace cimba {
 namespace blocks {
 
 constexpr int kThreads = 256;
+// K4's grid (K2 and K3 size theirs from the card, launch_runs)
 constexpr int64_t kMaxBlocks = 132 * 16;
 constexpr int kZigRounds = 2;
+// K2 and K3: consecutive samples a thread draws from one row (kRun)
+constexpr int kRun32 = 8;     // K2 and K3, f32
+constexpr int kRunExp64 = 8;  // K2, f64
+constexpr int kRunNor64 = 4;  // K3, f64: 8 took 76 registers and ran slower
+constexpr int kMaxDevices = 64;
 
 struct Streams {
   const int64_t* k0;
@@ -62,6 +86,48 @@ __device__ __forceinline__ void bits_at(const Streams& s, int64_t r,
   threefry2x32(uint32_t(s.k0[r]), uint32_t(s.k1[r]), lo, hi, b0, b1);
 }
 
+// One stream's Threefry-2x32 key schedule, held in registers for a run
+// of its counters: block() gives threefry2x32's words (threefry.cuh,
+// which K1 keeps as it is).  With threefry2x32 called for each sample,
+// ptxas gave K2 f64's run of 8 an 8 B stack frame.
+struct ThreefryKey {
+  uint32_t k0, k1, a1, a2, a3, a4, a5, b1, b2, b3, b4, b5;
+
+  __device__ __forceinline__ ThreefryKey(uint32_t key0, uint32_t key1)
+      : k0(key0), k1(key1) {
+    const uint32_t ks2 = key0 ^ key1 ^ 0x1BD11BDAu;
+    a1 = key1; b1 = ks2 + 1u;
+    a2 = ks2;  b2 = key0 + 2u;
+    a3 = key0; b3 = key1 + 3u;
+    a4 = key1; b4 = ks2 + 4u;
+    a5 = ks2;  b5 = key0 + 5u;
+  }
+
+  __device__ __forceinline__ void block(uint32_t c0, uint32_t c1,
+                                        uint32_t& o0, uint32_t& o1) const {
+    uint32_t x0 = c0 + k0;
+    uint32_t x1 = c1 + k1;
+#define CIMBA_TFK_ROUND(r) \
+  x0 += x1;                \
+  x1 = rotl32(x1, r);      \
+  x1 ^= x0;
+#define CIMBA_TFK_A \
+  CIMBA_TFK_ROUND(13) CIMBA_TFK_ROUND(15) CIMBA_TFK_ROUND(26) CIMBA_TFK_ROUND(6)
+#define CIMBA_TFK_B \
+  CIMBA_TFK_ROUND(17) CIMBA_TFK_ROUND(29) CIMBA_TFK_ROUND(16) CIMBA_TFK_ROUND(24)
+    CIMBA_TFK_A x0 += a1; x1 += b1;
+    CIMBA_TFK_B x0 += a2; x1 += b2;
+    CIMBA_TFK_A x0 += a3; x1 += b3;
+    CIMBA_TFK_B x0 += a4; x1 += b4;
+    CIMBA_TFK_A x0 += a5; x1 += b5;
+#undef CIMBA_TFK_B
+#undef CIMBA_TFK_A
+#undef CIMBA_TFK_ROUND
+    o0 = x0;
+    o1 = x1;
+  }
+};
+
 // uniform01_53 of the profile: f32 takes 24 bits of the high word, f64 a
 // 53-bit significand from both words
 __device__ __forceinline__ float u53(uint32_t, uint32_t b1, float) {
@@ -77,7 +143,7 @@ __device__ __forceinline__ float exp_of(float x) { return expf(x); }
 __device__ __forceinline__ double exp_of(double x) { return exp(x); }
 
 // out[r * n + j] = value(r, j) for every sample, grid-stride; the thread
-// of (r, 0) writes stream r's counter advanced by `consumed`
+// of (r, 0) writes stream r's counter advanced by `consumed` (K4)
 template <typename R, typename F>
 __device__ void for_each_sample(const Streams& s, R* out, int64_t rows,
                                 int64_t n, uint32_t consumed, F value) {
@@ -102,31 +168,225 @@ __device__ void for_each_sample(const Streams& s, R* out, int64_t rows,
   }
 }
 
+// 16 bytes of samples, v[0..] to p (16-byte aligned)
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// out[r, j] = the value of (b0, b1), the Threefry words of stream r at
+// counter base_r + j (the u32 carry of bits_at), for every sample: each
+// thread takes runs of S consecutive samples of one row, grid-stride over
+// the block's rows x ceil(n / S) runs.  A run's words are all drawn
+// before its values are computed (`values`, a functor on N words at once:
+// N = S, or 1 for each sample of a row's short last run, n % S), so the
+// samples' chains interleave.  `vec`: every full run starts 16-byte
+// aligned (n and the output's address allow it), and is stored as
+// 16-byte vectors.  The thread of run (r, 0) writes stream r's counter
+// advanced by n.
+template <typename R, int S, typename F>
+__device__ __forceinline__ void for_each_run(const Streams& s, R* out,
+                                             int64_t rows, uint32_t n,
+                                             bool vec, F values) {
+  static_assert(S * sizeof(R) % 16 == 0, "a run fills 16-byte vectors");
+  const uint32_t runs = (n - 1) / S + 1;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t dr = stride / runs, dk = stride % runs;
+  int64_t r = t / runs;
+  uint32_t k = t % runs;
+  while (r < rows) {
+    const ThreefryKey key(uint32_t(s.k0[r]), uint32_t(s.k1[r]));
+    const uint32_t lo = uint32_t(s.lo[r]), hi = uint32_t(s.hi[r]);
+    const uint32_t j0 = k * S;
+    if (k == 0) {
+      const uint32_t nlo = lo + n;
+      s.new_lo[r] = nlo;
+      s.new_hi[r] = hi + (nlo < n ? 1u : 0u);
+    }
+    R* row = out + r * int64_t(n);
+    if (n - j0 >= uint32_t(S)) {
+      uint32_t b0[S], b1[S];
+      R v[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const uint32_t off = j0 + uint32_t(i);
+        const uint32_t c0 = lo + off;
+        key.block(c0, hi + (c0 < off ? 1u : 0u), b0[i], b1[i]);
+      }
+      values(b0, b1, v);
+      if (vec) {
+#pragma unroll
+        for (int i = 0; i < S; i += 16 / int(sizeof(R)))
+          store16(row + j0 + i, v + i);
+      } else {
+#pragma unroll
+        for (int i = 0; i < S; ++i) row[j0 + i] = v[i];
+      }
+    } else {
+      for (uint32_t off = j0; off < n; ++off) {
+        const uint32_t c0 = lo + off;
+        uint32_t b0[1], b1[1];
+        R v[1];
+        key.block(c0, hi + (c0 < off ? 1u : 0u), b0[0], b1[0]);
+        values(b0, b1, v);
+        row[off] = v[0];
+      }
+    }
+    r += dr;
+    k += dk;
+    if (k >= runs) {
+      k -= runs;
+      ++r;
+    }
+  }
+}
+
+// the run of kernel KIND (0: K2, 1: K3) in the profile of R
+template <typename R, int KIND>
+constexpr int kRun = sizeof(R) == 4 ? kRun32 : KIND == 0 ? kRunExp64
+                                                         : kRunNor64;
+
+// a[i] = log1p(a[i]) for a run of f64 samples.  CUDA's log1p takes one
+// of two paths by its argument (|a| below about 0.4, or not), and a warp
+// whose lanes hold both runs both, one after the other: a warp of uniform
+// draws always does.  So where all 32 lanes are here together, the
+// warp's 32 N arguments are first sorted by that test through shared
+// memory (a value moves to another lane and back; its log1p is the same
+// wherever it is computed), so that at most one of the N calls holds both
+// kinds.  f32's log1pf costs the same either way and is called in place.
+template <int N>
+__device__ __forceinline__ void log1p_run(double (&a)[N]) {
+  __shared__ double slots[kThreads * N];
+  if (__activemask() == 0xFFFFFFFFu) {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned lt = (1u << lane) - 1u;
+    double* warp = slots + (threadIdx.x - lane) * N;
+    unsigned small[N], tot = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      small[i] = __ballot_sync(0xFFFFFFFFu, fabs(a[i]) < 0.4);
+      tot += __popc(small[i]);
+    }
+    // the sorted order: the small arguments by (i, lane), then the rest
+    unsigned dest[N], below = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      dest[i] = (small[i] >> lane) & 1u
+                    ? below + __popc(small[i] & lt)
+                    : tot + 32u * i - below + __popc(~small[i] & lt);
+      below += __popc(small[i]);
+      warp[dest[i]] = a[i];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      warp[32 * i + lane] = log1p(warp[32 * i + lane]);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < N; ++i) a[i] = warp[dest[i]];
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) a[i] = log1p(a[i]);
+  }
+}
+
+// whether a run of N samples of R computes its log1ps through log1p_run
+template <typename R, int N>
+constexpr bool kSorted = sizeof(R) == 8 && N > 1;
+
+// K2's values: -log1p(-u), u the profile's uniform01_53 of the words
+template <typename R>
+struct Exponentials {
+  template <int N>
+  __device__ __forceinline__ void operator()(const uint32_t (&b0)[N],
+                                             const uint32_t (&b1)[N],
+                                             R (&v)[N]) const {
+    if constexpr (kSorted<R, N>) {
+      R a[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) a[i] = -u53(b0[i], b1[i], R(0));
+      log1p_run(a);
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = -a[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = -log1p_of(-u53(b0[i], b1[i], R(0)));
+    }
+  }
+};
+
+// erf_inv's central branch ends at w = 5 (f32) or 6.25 (f64)
+__device__ __forceinline__ bool central(float w) { return w < 5.0f; }
+__device__ __forceinline__ bool central(double w) { return w < 6.25; }
+
+// K3's values: sqrt(2) * erf_inv(clip(2u - 1, -1 + eps/2, 1 - eps/2)).
+// Every sample's w first; then a warp whose lanes all have w in the
+// central branch evaluates it alone (the same operations, so the same
+// bits): in f64 one vote for the run (0.1 % of samples have w >= 6.25,
+// so a warp's 128 miss it ~12 % of the time), in f32 one a sample (0.34 %
+// have w >= 5: a vote over a warp's 256 would miss ~58 %)
+template <typename R>
+struct Normals {
+  template <int N>
+  __device__ __forceinline__ void operator()(const uint32_t (&b0)[N],
+                                             const uint32_t (&b1)[N],
+                                             R (&v)[N]) const {
+    const double tiny = (sizeof(R) == 4 ? 0x1p-23 : 0x1p-52) / 2.0;
+    const R lo = R(-1.0 + tiny), hi = R(1.0 - tiny);
+    const R sqrt2 = R(1.4142135623730951);
+    R x[N], w[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      x[i] = R(2) * u53(b0[i], b1[i], R(0)) - R(1);
+      x[i] = x[i] < lo ? lo : (x[i] > hi ? hi : x[i]);
+      if constexpr (kSorted<R, N>)
+        w[i] = x[i] * -x[i];
+      else
+        w[i] = -log1p_of(x[i] * -x[i]);
+    }
+    if constexpr (kSorted<R, N>) {
+      log1p_run(w);
+#pragma unroll
+      for (int i = 0; i < N; ++i) w[i] = -w[i];
+    }
+    if constexpr (sizeof(R) == 8) {
+      bool all = true;
+#pragma unroll
+      for (int i = 0; i < N; ++i) all = all && central(w[i]);
+      if (__all_sync(__activemask(), all)) {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          v[i] = sqrt2 * erf_inv_w_central(x[i], w[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) v[i] = sqrt2 * erf_inv_w(x[i], w[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        v[i] = __all_sync(__activemask(), central(w[i]))
+                   ? sqrt2 * erf_inv_w_central(x[i], w[i])
+                   : sqrt2 * erf_inv_w(x[i], w[i]);
+    }
+  }
+};
+
 // K2: -log1p(-u), u the profile's uniform01_53 of counter base + j
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
-exponential_kernel(Streams s, R* out, int64_t rows, int64_t n) {
-  for_each_sample(s, out, rows, n, uint32_t(n), [&](int64_t r, uint32_t j) {
-    uint32_t b0, b1;
-    bits_at(s, r, j, b0, b1);
-    return -log1p_of(-u53(b0, b1, R(0)));
-  });
+exponential_kernel(Streams s, R* out, int64_t rows, uint32_t n, bool vec) {
+  for_each_run<R, kRun<R, 0>>(s, out, rows, n, vec, Exponentials<R>());
 }
 
-// K3: sqrt(2) * erf_inv(clip(2u - 1, -1 + eps/2, 1 - eps/2))
+// K3: sqrt(2) * erf_inv(clip(2u - 1)), as Normals computes it
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
-normal_kernel(Streams s, R* out, int64_t rows, int64_t n) {
-  const double tiny = (sizeof(R) == 4 ? 0x1p-23 : 0x1p-52) / 2.0;
-  const R lo = R(-1.0 + tiny), hi = R(1.0 - tiny);
-  const R sqrt2 = R(1.4142135623730951);
-  for_each_sample(s, out, rows, n, uint32_t(n), [&](int64_t r, uint32_t j) {
-    uint32_t b0, b1;
-    bits_at(s, r, j, b0, b1);
-    R x = R(2) * u53(b0, b1, R(0)) - R(1);
-    x = x < lo ? lo : (x > hi ? hi : x);
-    return sqrt2 * erf_inv(x);
-  });
+normal_kernel(Streams s, R* out, int64_t rows, uint32_t n, bool vec) {
+  for_each_run<R, kRun<R, 1>>(s, out, rows, n, vec, Normals<R>());
 }
 
 // K4: up to kZigRounds ziggurat rounds, then an exact inversion.  Round
@@ -178,6 +438,43 @@ exp_zig_kernel(Streams s, R* out, const R* xt, const R* yt, int64_t rows,
       });
 }
 
+// K2's or K3's launch: the grid is the card's SMs times the blocks of
+// the kernel that reside on one (looked up once a device)
+template <typename R, int KIND>
+int launch_runs(const Streams& s, R* out, int64_t rows, int64_t n,
+                cudaStream_t st) {
+  static int resident[kMaxDevices];
+  const auto kern = KIND == 0 ? exponential_kernel<R> : normal_kernel<R>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return -3;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kThreads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (sms * per_sm <= 0) return -3;
+    resident[dev] = sms * per_sm;
+  }
+  constexpr int S = kRun<R, KIND>;
+  const int64_t units = rows * ((n - 1) / S + 1);
+  const int64_t want = (units + kThreads - 1) / kThreads;
+  const int blocks = int(want < resident[dev] ? want : resident[dev]);
+  const bool vec = n % (16 / sizeof(R)) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if constexpr (KIND == 0) {
+    exponential_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows,
+                                                       uint32_t(n), vec);
+  } else {
+    normal_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows, uint32_t(n),
+                                                  vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename R>
 int launch(int kind, const int64_t* k0, const int64_t* k1,
            const int64_t* lo, const int64_t* hi, int64_t* new_lo,
@@ -185,17 +482,13 @@ int launch(int kind, const int64_t* k0, const int64_t* k1,
            int64_t n, double r_exp, double v_exp, void* stream) {
   if (rows <= 0 || n <= 0) return -2;
   const Streams s{k0, k1, lo, hi, new_lo, new_hi};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == 0) return launch_runs<R, 0>(s, out, rows, n, st);
+  if (kind == 1) return launch_runs<R, 1>(s, out, rows, n, st);
   const int64_t want = (rows * n + kThreads - 1) / kThreads;
   const int blocks = int(want < kMaxBlocks ? want : kMaxBlocks);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == 0) {
-    exponential_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows, n);
-  } else if (kind == 1) {
-    normal_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows, n);
-  } else {
-    exp_zig_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, xt, yt, rows, n,
-                                                   r_exp, v_exp);
-  }
+  exp_zig_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, xt, yt, rows, n,
+                                                 r_exp, v_exp);
   return static_cast<int>(cudaGetLastError());
 }
 

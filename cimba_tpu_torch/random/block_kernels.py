@@ -3,7 +3,9 @@
 Counterpart of :mod:`cimba_tpu.random.pallas_kernels`, whose three Pallas
 kernels (``_run`` <- ``exponential_block``, ``normal_block``,
 ``exponential_block_zig``) become the hand-written CUDA kernels of
-``csrc/bulk_samplers.cu``, one thread per sample.
+``csrc/bulk_samplers.cu``: K2 and K3 draw a run of consecutive samples of
+one row a thread (8 in f32; 8 and 4 in f64) on a grid sized from the
+card, K4 one sample a thread.
 
 Counter contract: sample j of stream r consumes counter base_r + j, so
 ``exponential_block``/``normal_block`` equal n sequential
@@ -148,14 +150,17 @@ def exponential_block_zig_plain(states: RandomState, n: int):
 
 # --- the CUDA kernels --------------------------------------------------------
 
-#: (name, dtype) -> bound C entry; (dtype, device) -> K4's tables there
+#: (name, dtype, library) -> bound C entry; (dtype, device) -> K4's tables
 _FNS: dict = {}
 _TABLES: dict = {}
 
 
-def _launch(name: str, states: RandomState, n: int, per_sample: int):
+def _launch(name: str, states: RandomState, n: int, per_sample: int,
+            lib=None):
     """One launch of ``cimba_<name>_<f32|f64>`` on the current stream:
-    the [R, n] samples and the advanced counters."""
+    the [R, n] samples and the advanced counters.  ``lib``: another build
+    of a sampler source with the same C interface (``chip_smoke.py
+    --ab`` times one against this checkout's, the default)."""
     from cimba_tpu_torch import _build
 
     _check(states, n, per_sample)
@@ -167,14 +172,15 @@ def _launch(name: str, states: RandomState, n: int, per_sample: int):
             raise ValueError("stream words must be int64 tensors of one "
                              "shape on one device")
     real = config.real()
-    fn = _FNS.get((name, real))
+    fn = _FNS.get((name, real, lib))
     if fn is None:
         tag = "f32" if real == torch.float32 else "f64"
-        fn = getattr(_build.load("bulk_samplers"), f"cimba_{name}_{tag}")
+        fn = getattr(lib or _build.load("bulk_samplers"),
+                     f"cimba_{name}_{tag}")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [
             ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
-        _FNS[(name, real)] = fn
+        _FNS[(name, real, lib)] = fn
     rows = words[0].shape[0]
     dev = words[0].device
     out = torch.empty((rows, n), dtype=real, device=dev)

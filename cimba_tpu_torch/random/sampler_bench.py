@@ -34,11 +34,11 @@ VARIANTS = (
 )
 
 
-def device_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` calls, after
-    one warm-up call: CUDA events around each call, queued behind a ~1 ms
-    spin of the card so that the host's time to issue the call is not
-    counted."""
+def device_ms(fn, reps: int = 5, calls: int = 1) -> float:
+    """Median device time of ``fn()`` in ms over ``reps`` timings, after
+    one warm-up call: CUDA events around ``calls`` calls back to back
+    (the time divided by ``calls``), queued behind a ~1 ms spin of the
+    card so that the host's time to issue them is not counted."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -47,10 +47,11 @@ def device_ms(fn, reps: int = 5) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(calls):
+            fn()
         e1.record()
         torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / calls)
     return sorted(times)[reps // 2]
 
 

@@ -1,31 +1,48 @@
-"""The generated chunk kernel built with g++ and run on the CPU.
+"""The generated chunk kernel and the bulk samplers built with g++ and run
+on the CPU.
 
 ``csrc/queue_chunk.cu`` with a generated header (``core/emit.py``) is a
 CUDA source, but apart from its launch and a handful of intrinsics it is
 plain C++17.  This module builds it for the host, so a generated
 instance (or a redesign of the engine) can be held against the plain
-engine (``loop.make_run``) without a card:
+engine (``loop.make_run``) without a card; and ``csrc/bulk_samplers.cu``
+(:func:`build_samplers`, :func:`block`), so K2-K4 can be held against
+their plain versions (``random/block_kernels.py``):
 
 * a stand-in for ``cuda_runtime.h`` (:data:`SHIM_H`): ``__device__``,
   ``__global__``, ``__host__``, ``__forceinline__``,
   ``__launch_bounds__(...)`` and ``__grid_constant__`` defined away,
   ``__align__(n)`` as ``alignas(n)``, ``__shared__`` as ``static``,
-  ``threadIdx``/``blockIdx``/``blockDim`` thread-local globals, the
-  runtime calls the launcher makes (``cudaFuncSetAttribute``,
-  ``cudaGetLastError``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-  as stubs, and the intrinsics the engine's headers call as host code,
+  ``threadIdx``/``blockIdx``/``blockDim``/``gridDim`` thread-local
+  globals, ``float4``/``double2`` and their ``make_*``, the runtime calls
+  the launchers make (``cudaFuncSetAttribute``, ``cudaGetLastError``,
+  ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (1 block),
+  ``cudaGetDevice``, ``cudaDeviceGetAttribute`` (``SHIM_SMS`` SMs)) as
+  stubs, the warp intrinsics as for a warp of one lane (each thread runs
+  as a warp of its own: ``__activemask()`` its own bit, ``__all_sync(mask,
+  p)`` its own ``p``, ``__ballot_sync`` its own bit where ``p``,
+  ``__syncwarp`` nothing; exact in value where, as in K3's vote, a vote
+  only picks between paths that compute the same value; code that moves
+  values between the lanes of a whole warp, as K2's and K3's f64
+  ``log1p_run`` does, never runs here and is left to the card), and the
+  intrinsics the engine's headers call as host code,
   each exact: the bit casts, ``__fma_rn``/``__fmaf_rn`` as ``fma``, the
   ``_rn`` conversions by round-to-nearest-even, ``__umul64hi`` through a
   128-bit product, ``__clzll``, and ``__ffs``, ``__ffsll``, ``__popc``,
   ``__popcll`` as the compiler's builtins (1-based lowest set bit, 0 for
   no bit; the count of set bits);
-* the source rewritten (:func:`rewrite`): each launch ``chunk_kernel<...>
+* the source rewritten (:func:`rewrite`): each launch ``name_kernel<...>
   <<<grid, threads, smem, stream>>>(args);`` into ``shim_launch(grid,
-  threads, smem, stream, [&] { chunk_kernel<...>(args); });``, which runs
+  threads, smem, stream, [&] { name_kernel<...>(args); });``, which runs
   the grid's threads one after another (the generated family's lanes
-  share nothing but their own shared-memory columns), and the dynamic
-  shared memory ``extern __shared__ ... dyn_smem[];`` into a pointer to
-  a zeroed buffer the launch allocates;
+  share nothing but their own shared-memory columns; nor do K2's and
+  K3's), or, for a kernel whose threads meet at ``__syncthreads()`` (K4
+  loads its tables behind one), ``shim_launch_block``, which runs each
+  block's threads as fibers (``ucontext``) that take turns: one runs at a
+  time, and a ``__syncthreads()`` hands the turn on until all have
+  reached it;
+  and the dynamic shared memory ``extern __shared__ ... dyn_smem[];``
+  into a pointer to a zeroed buffer the launch allocates;
 * ``g++ -std=c++17 -O1 -ffp-contract=off -fno-gnu-unique -shared -fPIC``
   (separately rounded float operations, as ``nvcc --fmad=false``; no GNU
   unique symbols, or the ``static`` columns of two instances loaded in
@@ -40,6 +57,8 @@ Usage::
     lay = kernel_run.generated_kernel_for(spec, sims)[0]
     lib = gxx_shim.build(lay["header"])
     gxx_shim.chunk(lib, sims, lay, 64)        # in place, CPU tensors
+    lib = gxx_shim.load(gxx_shim.build_samplers())
+    states, x = gxx_shim.block(lib, "normal_block", states, n)
 """
 
 from __future__ import annotations
@@ -60,6 +79,8 @@ from cimba_tpu_torch import _build, tree
 #: the stand-in for cuda_runtime.h
 SHIM_H = r"""
 #pragma once
+#include <ucontext.h>
+
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -75,7 +96,14 @@ SHIM_H = r"""
 #define __shared__ static
 
 struct shim_dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local shim_dim3 threadIdx, blockIdx, blockDim;
+inline thread_local shim_dim3 threadIdx, blockIdx, blockDim, gridDim;
+
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline double2 make_double2(double x, double y) { return {x, y}; }
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -92,6 +120,26 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+constexpr int SHIM_SMS = 3;
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = SHIM_SMS;
+  return cudaSuccess;
+}
+
+// each thread runs as a warp of its own: a vote is the lane's own
+// predicate, a ballot its own bit, and no warp is ever whole, so code
+// that moves values between the lanes of a whole warp never runs here
+inline unsigned __activemask() { return 1u << (threadIdx.x & 31u); }
+inline int __all_sync(unsigned, int p) { return p; }
+inline unsigned __ballot_sync(unsigned mask, int p) {
+  return p ? mask & (1u << (threadIdx.x & 31u)) : 0u;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 
 inline thread_local unsigned char* shim_dyn_smem = nullptr;
 
@@ -103,6 +151,7 @@ inline void shim_launch(int grid, int threads, int smem, cudaStream_t,
   shim_dyn_smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(buf.data()) + 63) & ~uintptr_t(63));
   blockDim.x = threads;
+  gridDim.x = grid;
   for (int b = 0; b < grid; ++b) {
     blockIdx.x = b;
     for (int t = 0; t < threads; ++t) {
@@ -110,6 +159,66 @@ inline void shim_launch(int grid, int threads, int smem, cudaStream_t,
       f();
     }
   }
+}
+
+// the threads of a block launched by shim_launch_block are fibers
+// (ucontext) of the launching thread that take turns: one runs until it
+// ends or reaches __syncthreads(), which hands the turn to the next
+// (round the block, so all have reached it when the turn comes back)
+struct shim_fibers {
+  ucontext_t sched;
+  std::vector<ucontext_t> ctx;
+  std::vector<char> done;
+  int cur = 0;
+  void (*run)(void*) = nullptr;
+  void* arg = nullptr;
+};
+inline thread_local shim_fibers* shim_block = nullptr;
+
+inline void __syncthreads() {
+  if (shim_block == nullptr) return;  // shim_launch: one thread at a time
+  swapcontext(&shim_block->ctx[shim_block->cur], &shim_block->sched);
+}
+
+inline void shim_fiber_main() {
+  shim_block->run(shim_block->arg);
+  shim_block->done[shim_block->cur] = 1;
+}
+
+template <class F>
+inline void shim_launch_block(int grid, int threads, int, cudaStream_t,
+                              F&& f) {
+  constexpr size_t stack = size_t(1) << 16;
+  std::vector<char> stacks(stack * size_t(threads));
+  shim_fibers fb;
+  fb.ctx.resize(threads);
+  fb.run = [](void* p) { (*static_cast<F*>(p))(); };
+  fb.arg = &f;
+  shim_block = &fb;
+  blockDim.x = threads;
+  gridDim.x = grid;
+  for (int b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    fb.done.assign(threads, 0);
+    for (int t = 0; t < threads; ++t) {
+      getcontext(&fb.ctx[t]);
+      fb.ctx[t].uc_stack.ss_sp = stacks.data() + stack * size_t(t);
+      fb.ctx[t].uc_stack.ss_size = stack;
+      fb.ctx[t].uc_link = &fb.sched;
+      makecontext(&fb.ctx[t], shim_fiber_main, 0);
+    }
+    for (bool left = true; left;) {
+      left = false;
+      for (int t = 0; t < threads; ++t) {
+        if (fb.done[t]) continue;
+        fb.cur = t;
+        threadIdx.x = t;
+        swapcontext(&fb.sched, &fb.ctx[t]);
+        left = left || !fb.done[t];
+      }
+    }
+  }
+  shim_block = nullptr;
 }
 
 inline double __longlong_as_double(long long x) {
@@ -151,7 +260,7 @@ FLAGS = ["-std=c++17", "-O1", "-ffp-contract=off", "-fno-gnu-unique",
          "-shared", "-fPIC", "-w"]
 OUT = _build.BUILD / "shim"
 
-_LAUNCH = re.compile(r"chunk_kernel<([^;]*?)><<<(.*?)>>>\((.*?)\);", re.S)
+_LAUNCH = re.compile(r"\b(\w+_kernel)<([^;]*?)><<<(.*?)>>>\((.*?)\);", re.S)
 _DYN = re.compile(r"extern __shared__[^;]*?dyn_smem\[\];")
 
 
@@ -160,13 +269,51 @@ def available() -> bool:
     return shutil.which("g++") is not None
 
 
-def rewrite(src: str) -> str:
-    """``queue_chunk.cu`` (or a variant) with its launches and dynamic
-    shared memory rewritten for the host."""
-    src = _LAUNCH.sub(lambda m: (f"shim_launch({m.group(2)}, [&] {{ "
-                                 f"chunk_kernel<{m.group(1)}>({m.group(3)}); "
-                                 "});"), src)
+def rewrite(src: str, blocking=()) -> str:
+    """A kernel source (``queue_chunk.cu``, ``bulk_samplers.cu``, or a
+    variant) with its launches and dynamic shared memory rewritten for
+    the host; the kernels named in ``blocking`` launch through
+    ``shim_launch_block`` (their threads meet at ``__syncthreads()``)."""
+    def launch(m):
+        name, targs, cfg, args = m.groups()
+        how = "shim_launch_block" if name in blocking else "shim_launch"
+        return f"{how}({cfg}, [&] {{ {name}<{targs}>({args}); }});"
+
+    src = _LAUNCH.sub(launch, src)
     return _DYN.sub("unsigned char* dyn_smem = shim_dyn_smem;", src)
+
+
+def _compile(cc_name: str, text: str, flags: list, files: dict = {},
+             defines: tuple = ()) -> Path:
+    """g++ of the rewritten source ``text`` (saved as ``cc_name``) with
+    the shim's ``cuda_runtime.h``, ``files`` (name: text) beside it and
+    the headers of ``csrc/``, into ``build/shim/<hash>/lib.so``, once per
+    content.  Raises with g++'s output where it fails."""
+    h = hashlib.sha256()
+    for part in (SHIM_H, text, " ".join(flags), *files.values(), *defines):
+        h.update(part.encode())
+    for src in sorted(_build.CSRC.glob("*.cuh")):
+        h.update(src.read_bytes())
+    d = OUT / h.hexdigest()[:16]
+    lib = d / "lib.so"
+    if lib.exists():
+        return lib
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "cuda_runtime.h").write_text(SHIM_H)
+    for name, body in files.items():
+        (d / name).write_text(body)
+    cc = d / cc_name
+    cc.write_text(text)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        ["g++", *flags, "-I", str(d), "-I", str(_build.CSRC),
+         *[x.replace("{dir}", str(d)) for x in defines], "-o", str(tmp),
+         str(cc)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {cc}:\n{proc.stdout[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def build(header: str, source: Optional[str] = None,
@@ -179,30 +326,22 @@ def build(header: str, source: Optional[str] = None,
     if source is None:
         source = (_build.CSRC / "queue_chunk.cu").read_text()
     flags = [f for f in FLAGS if not f.startswith("-O")] + [opt]
-    h = hashlib.sha256()
-    for part in (SHIM_H, header, source, " ".join(flags)):
-        h.update(part.encode())
-    for src in sorted(_build.CSRC.glob("*.cuh")):
-        h.update(src.read_bytes())
-    d = OUT / h.hexdigest()[:16]
-    lib = d / "lib.so"
-    if lib.exists():
-        return lib
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "cuda_runtime.h").write_text(SHIM_H)
-    (d / "gen.cuh").write_text(header)
-    cc = d / "queue_chunk.cc"
-    cc.write_text(rewrite(source))
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        ["g++", *flags, "-I", str(d), "-I", str(_build.CSRC),
-         f'-DCIMBA_GEN_HEADER="{d / "gen.cuh"}"', "-DCIMBA_GEN_ONLY",
-         "-o", str(tmp), str(cc)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {cc}:\n{proc.stdout[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
+    return _compile("queue_chunk.cc", rewrite(source), flags,
+                    {"gen.cuh": header},
+                    ('-DCIMBA_GEN_HEADER="{dir}/gen.cuh"', "-DCIMBA_GEN_ONLY"))
+
+
+def build_samplers(source: Optional[str] = None, opt: str = "-O1") -> Path:
+    """The host library of ``csrc/bulk_samplers.cu`` (or of ``source``,
+    the text of another version of it), K4's blocks launched as fibers
+    that take turns; built once per content into
+    ``build/shim/<hash>/lib.so``."""
+    if source is None:
+        source = (_build.CSRC / "bulk_samplers.cu").read_text()
+    flags = [f for f in FLAGS if not f.startswith("-O")] + [
+        opt, "-fno-strict-aliasing"]
+    return _compile("bulk_samplers.cc",
+                    rewrite(source, blocking=("exp_zig_kernel",)), flags)
 
 
 def load(path) -> ctypes.CDLL:
@@ -232,3 +371,37 @@ def chunk(lib: ctypes.CDLL, sims, lay: dict, chunk_steps: int,
     if rc != 0:
         raise RuntimeError(f"cimba_gen_chunk: launch refused (code {rc})")
     return sims
+
+
+def block(lib: ctypes.CDLL, name: str, states, n: int):
+    """One call of the host-built sampler ``cimba_<name>_<f32|f64>``
+    (``name`` as in ``random.block_kernels``: ``exponential_block``,
+    ``normal_block``, ``exponential_block_zig``) on a batch of CPU
+    streams, as ``block_kernels`` launches it on the card: ``(advanced
+    states, [R, n] samples)`` in the current profile."""
+    from cimba_tpu_torch import config
+    from cimba_tpu_torch.random import _ziggurat_tables as zt
+    from cimba_tpu_torch.random import block_kernels as bk
+
+    per_sample = 2 * bk._ZK + 1 if name == "exponential_block_zig" else 1
+    bk._check(states, n, per_sample)
+    words = [x.contiguous() for x in states]
+    if words[0].is_cuda:
+        raise ValueError("the host-built samplers take streams on the CPU")
+    real = config.real()
+    fn = getattr(lib, f"cimba_{name}_"
+                      f"{'f32' if real == torch.float32 else 'f64'}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [
+        ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
+    rows = words[0].shape[0]
+    out = torch.empty((rows, n), dtype=real)
+    lo, hi = torch.empty_like(words[2]), torch.empty_like(words[3])
+    xt = torch.tensor(zt.X_EXP, dtype=real)
+    yt = torch.tensor(zt.Y_EXP, dtype=real)
+    rc = fn(*[w.data_ptr() for w in words], lo.data_ptr(), hi.data_ptr(),
+            out.data_ptr(), xt.data_ptr(), yt.data_ptr(), rows, n, zt.R_EXP,
+            zt.V_EXP, None)
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch refused (code {rc})")
+    return states._replace(ctr_lo=lo, ctr_hi=hi), out

@@ -81,6 +81,29 @@ def test_block_kernels_match_plain(card, name, prof):
     assert bool(torch.isfinite(kx).all())
 
 
+@pytest.mark.parametrize("n", [1, 3, 4097])
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("name", ["exponential_block", "normal_block"])
+def test_block_kernels_edge_shapes(card, name, prof, n):
+    """K2 and K3 at one stream and rows of 1, 3 and 4097 samples (a row
+    of one short run, a long row with a short last run and no vector
+    stores), the counter crossing 2**32 inside the row: each call one
+    launch, bit for bit the plain version."""
+    with config.profile(prof):
+        st = bits.initialize(2026, torch.arange(1), device=card)
+        for lo in (None, 2**32 - 1 - n // 2):
+            s = st if lo is None else st._replace(
+                ctr_lo=torch.full_like(st.ctr_lo, lo))
+            kernel = getattr(block_kernels, name)
+            before = kernel.launches
+            ks, kx = kernel(s, n)
+            ps, px = getattr(block_kernels, f"{name}_plain")(s, n)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            assert all(torch.equal(a, b) for a, b in zip(ks, ps))
+            assert kx.shape == (1, n) and torch.equal(kx, px)
+
+
 def test_nn_scores_kernel_matches_plain(card):
     rng = torch.Generator().manual_seed(7)
     for m in (137, 40_000):
