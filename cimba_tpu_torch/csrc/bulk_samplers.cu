@@ -34,13 +34,23 @@
 // thread of run (r, 0) also writes stream r's advanced counter, so a call
 // is one launch.
 //
-// K4: one thread per sample (r, j), in a grid-stride loop over the 64-bit
-// flat index r * n + j; consecutive threads write consecutive samples of a
-// row.  Its two 256-entry tables are loaded once per block into shared
-// memory: lanes index different layers, which constant memory would
-// serialise.  Its rounds stop at the first accept (the counters are
-// positional, so skipping a round an earlier one made moot changes no
-// value).
+// K4 (the ziggurat): runs of kRunZig samples of one row a thread, on the
+// same card-sized grid, with the run's stream and key schedule loaded
+// once.  Round 1 of the whole run first: its layer words, then each
+// sample's x and hot test from one shared-memory load of the layer's
+// (scale, limit) pair, the scale taken times 2**-32 (exact, so x's bits
+// are the plain version's).  About 2 % of samples miss round 1 (a wedge
+// or a layer-0 tail; half of them go on to round 2); a warp that ran each
+// miss where it fell would run the slow paths with one lane of 32 in
+// half its steps.  So a
+// ballot gathers the warp's misses, with their stream and round-1 words,
+// into the warp's queue in shared memory, and a warp whose queue holds
+// 32 works through 32 at once, one a lane: the wedge's exp, the tail's
+// log1p, round 2 and the fallback run on dense lanes (zig_finish).  A
+// sample's value depends on its counters alone, so a value computed in
+// another lane is the same; the queued lane stores it over the run's
+// placeholder, a __syncwarp after the run's store.  Misses past a full
+// queue wait in their lane's mask for the next room (zig_overflow).
 //
 // Built with --fmad=false so float results follow the plain PyTorch
 // version's separately rounded operations (the same CUDA log1p, exp and
@@ -58,13 +68,16 @@ namespace cimba {
 namespace blocks {
 
 constexpr int kThreads = 256;
-// K4's grid (K2 and K3 size theirs from the card, launch_runs)
-constexpr int64_t kMaxBlocks = 132 * 16;
 constexpr int kZigRounds = 2;
 // K2 and K3: consecutive samples a thread draws from one row (kRun)
 constexpr int kRun32 = 8;     // K2 and K3, f32
 constexpr int kRunExp64 = 8;  // K2, f64
 constexpr int kRunNor64 = 4;  // K3, f64: 8 took 76 registers and ran slower
+constexpr int kRunZig = 8;    // K4, both profiles
+// K4: a warp's queue of round-1 misses, and the count it is worked at
+constexpr unsigned kZigQueue = 64;
+constexpr unsigned kZigBatch = kZigQueue < 32 ? kZigQueue : 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxDevices = 64;
 
 struct Streams {
@@ -76,20 +89,11 @@ struct Streams {
   int64_t* new_hi;
 };
 
-// the Threefry words of stream r at counter base_r + off, with the u32
-// carry of the JAX kernels' _block_bits
-__device__ __forceinline__ void bits_at(const Streams& s, int64_t r,
-                                        uint32_t off, uint32_t& b0,
-                                        uint32_t& b1) {
-  const uint32_t lo = uint32_t(s.lo[r]) + off;
-  const uint32_t hi = uint32_t(s.hi[r]) + (lo < off ? 1u : 0u);
-  threefry2x32(uint32_t(s.k0[r]), uint32_t(s.k1[r]), lo, hi, b0, b1);
-}
-
 // One stream's Threefry-2x32 key schedule, held in registers for a run
 // of its counters: block() gives threefry2x32's words (threefry.cuh,
-// which K1 keeps as it is).  With threefry2x32 called for each sample,
-// ptxas gave K2 f64's run of 8 an 8 B stack frame.
+// which K1 keeps as it is), word() those of counter base + off with the
+// u32 carry of the JAX kernels' _block_bits.  With threefry2x32 called
+// for each sample, ptxas gave K2 f64's run of 8 an 8 B stack frame.
 struct ThreefryKey {
   uint32_t k0, k1, a1, a2, a3, a4, a5, b1, b2, b3, b4, b5;
 
@@ -126,6 +130,12 @@ struct ThreefryKey {
     o0 = x0;
     o1 = x1;
   }
+
+  __device__ __forceinline__ void word(uint32_t lo, uint32_t hi, uint32_t off,
+                                       uint32_t& o0, uint32_t& o1) const {
+    const uint32_t c0 = lo + off;
+    block(c0, hi + (c0 < off ? 1u : 0u), o0, o1);
+  }
 };
 
 // uniform01_53 of the profile: f32 takes 24 bits of the high word, f64 a
@@ -142,32 +152,6 @@ __device__ __forceinline__ double log1p_of(double x) { return log1p(x); }
 __device__ __forceinline__ float exp_of(float x) { return expf(x); }
 __device__ __forceinline__ double exp_of(double x) { return exp(x); }
 
-// out[r * n + j] = value(r, j) for every sample, grid-stride; the thread
-// of (r, 0) writes stream r's counter advanced by `consumed` (K4)
-template <typename R, typename F>
-__device__ void for_each_sample(const Streams& s, R* out, int64_t rows,
-                                int64_t n, uint32_t consumed, F value) {
-  const int64_t total = rows * n;
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  const int64_t dr = stride / n, dj = stride % n;
-  int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  int64_t r = i / n, j = i - r * n;
-  for (; i < total; i += stride) {
-    if (j == 0) {
-      const uint32_t lo = uint32_t(s.lo[r]) + consumed;
-      s.new_lo[r] = lo;
-      s.new_hi[r] = uint32_t(s.hi[r]) + (lo < consumed ? 1u : 0u);
-    }
-    out[i] = value(r, uint32_t(j));
-    r += dr;
-    j += dj;
-    if (j >= n) {
-      j -= n;
-      ++r;
-    }
-  }
-}
-
 // 16 bytes of samples, v[0..] to p (16-byte aligned)
 __device__ __forceinline__ void store16(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -177,7 +161,7 @@ __device__ __forceinline__ void store16(double* p, const double* v) {
 }
 
 // out[r, j] = the value of (b0, b1), the Threefry words of stream r at
-// counter base_r + j (the u32 carry of bits_at), for every sample: each
+// counter base_r + j (ThreefryKey::word), for every sample: each
 // thread takes runs of S consecutive samples of one row, grid-stride over
 // the block's rows x ceil(n / S) runs.  A run's words are all drawn
 // before its values are computed (`values`, a functor on N words at once:
@@ -211,11 +195,8 @@ __device__ __forceinline__ void for_each_run(const Streams& s, R* out,
       uint32_t b0[S], b1[S];
       R v[S];
 #pragma unroll
-      for (int i = 0; i < S; ++i) {
-        const uint32_t off = j0 + uint32_t(i);
-        const uint32_t c0 = lo + off;
-        key.block(c0, hi + (c0 < off ? 1u : 0u), b0[i], b1[i]);
-      }
+      for (int i = 0; i < S; ++i)
+        key.word(lo, hi, j0 + uint32_t(i), b0[i], b1[i]);
       values(b0, b1, v);
       if (vec) {
 #pragma unroll
@@ -227,10 +208,9 @@ __device__ __forceinline__ void for_each_run(const Streams& s, R* out,
       }
     } else {
       for (uint32_t off = j0; off < n; ++off) {
-        const uint32_t c0 = lo + off;
         uint32_t b0[1], b1[1];
         R v[1];
-        key.block(c0, hi + (c0 < off ? 1u : 0u), b0[0], b1[0]);
+        key.word(lo, hi, off, b0[0], b1[0]);
         values(b0, b1, v);
         row[off] = v[0];
       }
@@ -389,62 +369,227 @@ normal_kernel(Streams s, R* out, int64_t rows, uint32_t n, bool vec) {
   for_each_run<R, kRun<R, 1>>(s, out, rows, n, vec, Normals<R>());
 }
 
+// K4's layer l: round 1 takes x = R(b1) * w and accepts it where x <
+// lim.  w is the layer's width times 2**-32 (layer 0: the base strip's
+// v / y[255]), lim the width of the layer below (layer 0: r); the pair
+// is one shared-memory load
+template <typename R>
+struct alignas(2 * sizeof(R)) ZigLayer {
+  R w, lim;
+};
+
+// a round-1 miss of K4 in its warp's queue: the stream, the round-1
+// words, the sample's column j and its offset in the output
+struct ZigMiss {
+  uint32_t k0, k1, lo, hi, b0, b1, j;
+  int64_t at;
+};
+
+// K4's tables in shared memory (lay[0].lim is r, where the tail starts)
+template <typename R>
+struct ZigTables {
+  ZigLayer<R> lay[256];
+  R ys[256];
+};
+
+// the wedge's test of a round's x in layer l (1 <= l <= 255): y, from 24
+// bits of b0, under the density at x
+template <typename R>
+__device__ __forceinline__ bool zig_wedge(const ZigTables<R>& z, int l,
+                                          uint32_t b0, R x) {
+  const R u2 = R(b0 >> 8) * R(0x1p-24);
+  const R ylo = z.ys[l];
+  const R y = ylo + u2 * (z.ys[l - 1] - ylo);
+  return y < exp_of(-x);
+}
+
+// the value of a sample that missed round 1 (m: its queue entry): round
+// 1's wedge or tail, then round 2 (its layer word at base + 2n + j, its
+// tail word at base + 3n + j), then the fallback at base + 4n + j.  The
+// tail is the exact memoryless r + Exp(1); tail and fallback take the
+// profile's uniform01_53
+template <typename R>
+__device__ __forceinline__ R zig_finish(const ZigTables<R>& z, uint32_t n,
+                                        const ZigMiss& m) {
+  static_assert(kZigRounds == 2, "zig_finish runs rounds 1 and 2");
+  const ThreefryKey key(m.k0, m.k1);
+  uint32_t b0 = m.b0, b1 = m.b1;
+  int l = int(b0 & 0xFFu);
+  R x = R(b1) * z.lay[l].w;
+  bool tail = l == 0;
+  uint32_t off = n + m.j;
+  if (!tail) {
+    if (zig_wedge(z, l, b0, x)) return x;
+    key.word(m.lo, m.hi, 2 * n + m.j, b0, b1);
+    l = int(b0 & 0xFFu);
+    x = R(b1) * z.lay[l].w;
+    if (x < z.lay[l].lim) return x;
+    tail = l == 0;
+    if (!tail && zig_wedge(z, l, b0, x)) return x;
+    off = (tail ? 3 : 4) * n + m.j;
+  }
+  key.word(m.lo, m.hi, off, b0, b1);
+  const R v = log1p_of(-u53(b0, b1, R(0)));
+  return tail ? z.lay[0].lim - v : -v;
+}
+
+// the warp's last `cnt` queued misses, one a lane: each lane stores its
+// miss's value (over the placeholder its own lane stored before the
+// __syncwarp)
+template <typename R>
+__device__ __forceinline__ void zig_flush(const ZigTables<R>& z, uint32_t n,
+                                          R* out, const ZigMiss* q,
+                                          unsigned& qn, unsigned cnt) {
+  __syncwarp();
+  for (unsigned e = threadIdx.x & 31u; e < cnt; e += 32) {
+    const ZigMiss& m = q[qn - cnt + e];
+    out[m.at] = zig_finish(z, n, m);
+  }
+  __syncwarp();
+  qn -= cnt;
+}
+
+// misses that found the queue full (bit i of `pend`: sample j0 + i of
+// the lane's run, whose output starts at `at0`), after the run's store:
+// the queue is worked empty and they are queued, their round-1 words
+// drawn again, until none is left
+template <typename R>
+__device__ __forceinline__ void zig_overflow(const ZigTables<R>& z,
+                                             uint32_t n, R* out, ZigMiss* q,
+                                             unsigned& qn, unsigned pend,
+                                             const ThreefryKey& key,
+                                             uint32_t lo, uint32_t hi,
+                                             uint32_t j0, int64_t at0) {
+  const unsigned lt = (1u << (threadIdx.x & 31u)) - 1u;
+  while (__any_sync(kFull, pend != 0)) {
+    while (qn > 0) zig_flush(z, n, out, q, qn, qn < 32 ? qn : 32u);
+#pragma unroll 1
+    for (int i = 0; i < kRunZig; ++i) {
+      const bool p = (pend >> i) & 1u;
+      const unsigned bal = __ballot_sync(kFull, p);
+      const unsigned slot = qn + __popc(bal & lt);
+      if (p && slot < kZigQueue) {
+        uint32_t b0, b1;
+        key.word(lo, hi, j0 + uint32_t(i), b0, b1);
+        q[slot] = ZigMiss{key.k0, key.k1, lo, hi, b0, b1, j0 + uint32_t(i),
+                          at0 + i};
+        pend &= ~(1u << i);
+      }
+      qn = qn + __popc(bal) < kZigQueue ? qn + __popc(bal) : kZigQueue;
+    }
+  }
+}
+
 // K4: up to kZigRounds ziggurat rounds, then an exact inversion.  Round
 // k takes its layer word at counter base + 2kn + j and, on a layer-0
 // miss, its tail word at base + (2k+1)n + j; the fallback takes base +
 // 4n + j.  The layer, x and y tests are the JAX kernel's (a full-width
 // u32 convert for x, 24 bits of the low word for y); the tail and the
-// fallback use the profile's uniform01_53.
+// fallback use the profile's uniform01_53.  Each thread takes runs of S
+// samples of a row, grid-stride over rows x ceil(n / S) runs as
+// for_each_run, but the warp steps together (a lane past the last run
+// votes no miss) so that its ballots and its queue see every lane.  The
+// thread of run (r, 0) writes stream r's counter advanced by 5n.  Under
+// launch bounds of kThreads alone ptxas held K4 f64 to 64 registers and
+// spilled; asking for 2 resident blocks an SM lets it take 76 (f32 60)
+// and spill nothing.
 template <typename R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 exp_zig_kernel(Streams s, R* out, const R* xt, const R* yt, int64_t rows,
-               int64_t n, double r_exp, double v_exp) {
-  __shared__ R xs_tab[256];
-  __shared__ R ys_tab[256];
+               uint32_t n, bool vec, double r_exp, double v_exp) {
+  constexpr int S = kRunZig;
+  static_assert(S * sizeof(R) % 16 == 0 && S <= 32, "a run of K4");
+  __shared__ ZigTables<R> z;
+  __shared__ ZigMiss queues[kThreads / 32][kZigQueue];
+  const R r_const = R(r_exp);
   for (int t = threadIdx.x; t < 256; t += blockDim.x) {
-    xs_tab[t] = xt[t];
-    ys_tab[t] = yt[t];
+    const R w = t == 0 ? R(v_exp) / yt[255] : xt[t];
+    z.lay[t].w = w * R(0x1p-32);
+    z.lay[t].lim = t == 0 ? r_const : xt[t - 1];
+    z.ys[t] = yt[t];
   }
   __syncthreads();
-  const R* xs = xs_tab;
-  const R* ys = ys_tab;
-  const R r_const = R(r_exp);
-  const R base_w = R(v_exp) / ys[255];
-  const uint32_t un = uint32_t(n);
-  for_each_sample(
-      s, out, rows, n, uint32_t((2 * kZigRounds + 1) * n),
-      [&](int64_t r, uint32_t j) {
-        for (int k = 0; k < kZigRounds; ++k) {
-          uint32_t b0, b1;
-          bits_at(s, r, 2 * k * un + j, b0, b1);
-          const int layer = int(b0 & 0xFFu);
-          const bool is0 = layer == 0;
-          const R x = R(b1) * R(0x1p-32) * (is0 ? base_w : xs[layer]);
-          const bool hot = x < (is0 ? r_const : xs[layer - 1]);
-          if (hot) return x;
-          if (is0) {  // the exact memoryless tail: r + Exp(1)
-            uint32_t t0, t1;
-            bits_at(s, r, (2 * k + 1) * un + j, t0, t1);
-            return r_const - log1p_of(-u53(t0, t1, R(0)));
-          }
-          const R u2 = R(b0 >> 8) * R(0x1p-24);
-          const R ylo = ys[layer];
-          const R y = ylo + u2 * (ys[layer - 1] - ylo);
-          if (y < exp_of(-x)) return x;
-        }
-        uint32_t f0, f1;
-        bits_at(s, r, 2 * kZigRounds * un + j, f0, f1);
-        return -log1p_of(-u53(f0, f1, R(0)));
-      });
+  const unsigned lt = (1u << (threadIdx.x & 31u)) - 1u;
+  ZigMiss* q = queues[threadIdx.x >> 5];
+  unsigned qn = 0;  // the warp's queued misses, the same in every lane
+  const uint32_t consumed = uint32_t(2 * kZigRounds + 1) * n;
+  const uint32_t runs = (n - 1) / S + 1;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t dr = stride / runs, dk = stride % runs;
+  int64_t r = t / runs;
+  uint32_t k = t % runs;
+  for (;;) {
+    const bool active = r < rows;
+    if (!__any_sync(kFull, active)) break;
+    while (qn >= kZigBatch) zig_flush(z, n, out, q, qn, kZigBatch);
+    uint32_t k0 = 0, k1 = 0, lo = 0, hi = 0;
+    if (active) {
+      k0 = uint32_t(s.k0[r]);
+      k1 = uint32_t(s.k1[r]);
+      lo = uint32_t(s.lo[r]);
+      hi = uint32_t(s.hi[r]);
+      if (k == 0) {
+        const uint32_t nlo = lo + consumed;
+        s.new_lo[r] = nlo;
+        s.new_hi[r] = hi + (nlo < consumed ? 1u : 0u);
+      }
+    }
+    const ThreefryKey key(k0, k1);
+    const uint32_t j0 = k * S;
+    const int64_t at0 = r * int64_t(n) + j0;
+    uint32_t b0[S], b1[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+      key.word(lo, hi, j0 + uint32_t(i), b0[i], b1[i]);
+    R v[S];
+    unsigned pend = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const ZigLayer<R> L = z.lay[b0[i] & 0xFFu];
+      v[i] = R(b1[i]) * L.w;
+      const bool miss = active && j0 + uint32_t(i) < n && !(v[i] < L.lim);
+      const unsigned bal = __ballot_sync(kFull, miss);
+      if (miss) {
+        const unsigned slot = qn + __popc(bal & lt);
+        if (slot < kZigQueue)
+          q[slot] = ZigMiss{k0, k1, lo, hi, b0[i], b1[i], j0 + uint32_t(i),
+                            at0 + i};
+        else
+          pend |= 1u << i;
+      }
+      qn += __popc(bal);  // past kZigQueue only until the run's end
+    }
+    qn = qn < kZigQueue ? qn : kZigQueue;
+    if (active) {
+      R* p = out + at0;
+      if (vec && n - j0 >= uint32_t(S)) {
+#pragma unroll
+        for (int i = 0; i < S; i += 16 / int(sizeof(R))) store16(p + i, v + i);
+      } else {
+#pragma unroll
+        for (int i = 0; i < S; ++i)
+          if (j0 + uint32_t(i) < n) p[i] = v[i];
+      }
+    }
+    if (__any_sync(kFull, pend != 0))
+      zig_overflow(z, n, out, q, qn, pend, key, lo, hi, j0, at0);
+    if (active) {
+      r += dr;
+      k += dk;
+      if (k >= runs) {
+        k -= runs;
+        ++r;
+      }
+    }
+  }
+  while (qn > 0) zig_flush(z, n, out, q, qn, qn < 32 ? qn : 32u);
 }
 
-// K2's or K3's launch: the grid is the card's SMs times the blocks of
-// the kernel that reside on one (looked up once a device)
-template <typename R, int KIND>
-int launch_runs(const Streams& s, R* out, int64_t rows, int64_t n,
-                cudaStream_t st) {
-  static int resident[kMaxDevices];
-  const auto kern = KIND == 0 ? exponential_kernel<R> : normal_kernel<R>;
+// the blocks of `kern` that reside on the card at once: its SMs times the
+// blocks of it that reside on one (looked up once a device)
+template <typename K>
+int resident_blocks(K kern, int (&resident)[kMaxDevices], int& blocks) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -459,22 +604,30 @@ int launch_runs(const Streams& s, R* out, int64_t rows, int64_t n,
     if (sms * per_sm <= 0) return -3;
     resident[dev] = sms * per_sm;
   }
-  constexpr int S = kRun<R, KIND>;
+  blocks = resident[dev];
+  return 0;
+}
+
+// a launch of runs of S samples a thread over rows x ceil(n / S): the
+// grid is the card's resident blocks of `kern` (`resident` its per-device
+// cache), fewer for a small block; go(blocks, vec) launches the kernel
+// with its own arguments, vec where rows of n may be stored as 16-byte
+// vectors
+template <int S, typename R, typename K, typename Go>
+int launch_runs(K kern, int (&resident)[kMaxDevices], int64_t rows,
+                int64_t n, const R* out, Go go) {
+  int most = 0;
+  const int rc = resident_blocks(kern, resident, most);
+  if (rc != 0) return rc;
   const int64_t units = rows * ((n - 1) / S + 1);
   const int64_t want = (units + kThreads - 1) / kThreads;
-  const int blocks = int(want < resident[dev] ? want : resident[dev]);
   const bool vec = n % (16 / sizeof(R)) == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if constexpr (KIND == 0) {
-    exponential_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows,
-                                                       uint32_t(n), vec);
-  } else {
-    normal_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows, uint32_t(n),
-                                                  vec);
-  }
+  go(int(want < most ? want : most), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 (kind 0), K3 (1) or K4 (2)
 template <typename R>
 int launch(int kind, const int64_t* k0, const int64_t* k1,
            const int64_t* lo, const int64_t* hi, int64_t* new_lo,
@@ -483,13 +636,29 @@ int launch(int kind, const int64_t* k0, const int64_t* k1,
   if (rows <= 0 || n <= 0) return -2;
   const Streams s{k0, k1, lo, hi, new_lo, new_hi};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == 0) return launch_runs<R, 0>(s, out, rows, n, st);
-  if (kind == 1) return launch_runs<R, 1>(s, out, rows, n, st);
-  const int64_t want = (rows * n + kThreads - 1) / kThreads;
-  const int blocks = int(want < kMaxBlocks ? want : kMaxBlocks);
-  exp_zig_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, xt, yt, rows, n,
-                                                 r_exp, v_exp);
-  return static_cast<int>(cudaGetLastError());
+  const uint32_t un = uint32_t(n);
+  if (kind == 0) {
+    static int resident[kMaxDevices];
+    return launch_runs<kRun<R, 0>>(
+        exponential_kernel<R>, resident, rows, n, out,
+        [&](int blocks, bool vec) {
+          exponential_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows, un,
+                                                             vec);
+        });
+  }
+  if (kind == 1) {
+    static int resident[kMaxDevices];
+    return launch_runs<kRun<R, 1>>(
+        normal_kernel<R>, resident, rows, n, out, [&](int blocks, bool vec) {
+          normal_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, rows, un, vec);
+        });
+  }
+  static int resident[kMaxDevices];
+  return launch_runs<kRunZig>(
+      exp_zig_kernel<R>, resident, rows, n, out, [&](int blocks, bool vec) {
+        exp_zig_kernel<R><<<blocks, kThreads, 0, st>>>(s, out, xt, yt, rows,
+                                                       un, vec, r_exp, v_exp);
+      });
 }
 
 }  // namespace blocks

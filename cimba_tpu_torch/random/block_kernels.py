@@ -3,9 +3,10 @@
 Counterpart of :mod:`cimba_tpu.random.pallas_kernels`, whose three Pallas
 kernels (``_run`` <- ``exponential_block``, ``normal_block``,
 ``exponential_block_zig``) become the hand-written CUDA kernels of
-``csrc/bulk_samplers.cu``: K2 and K3 draw a run of consecutive samples of
-one row a thread (8 in f32; 8 and 4 in f64) on a grid sized from the
-card, K4 one sample a thread.
+``csrc/bulk_samplers.cu``: each thread draws a run of consecutive samples
+of one row (K2 and K3: 8 in f32, 8 and 4 in f64; K4: 8) on a grid sized
+from the card, and K4's warps gather their rare round-1 misses and work
+through them 32 at a time.
 
 Counter contract: sample j of stream r consumes counter base_r + j, so
 ``exponential_block``/``normal_block`` equal n sequential
@@ -48,6 +49,12 @@ from cimba_tpu_torch.random.distributions import (
     _u53, std_exponential, std_normal)
 
 _ZK = 2  # ziggurat rounds before the fallback; P(no accept) ~ 0.02**_ZK
+#: the paths of a K4 sample, by the code ``_exp_zig_plain`` gives it:
+#: round 1's hot test, wedge or layer-0 tail, the same in round 2 (a
+#: rejected wedge goes on to it), then the fallback; the tails and the
+#: fallback take a log1p (the codes in ``ZIG_INVERTED``)
+ZIG_PATHS = ("hot", "wedge", "tail", "hot2", "wedge2", "tail2", "fallback")
+ZIG_INVERTED = (2, 5, 6)
 
 
 def _check(states: RandomState, n: int, per_sample: int) -> None:
@@ -94,7 +101,7 @@ def normal_block_plain(states: RandomState, n: int):
 
 def _exp_zig_plain(states: RandomState, n: int):
     """K4's block, with per sample the Threefry blocks its value needs
-    (1 to 3) and whether it came from the tail or the fallback."""
+    (1 to 3) and the path it took (int8, an index of ``ZIG_PATHS``)."""
     real = config.real()
     dev = states.key0.device
     xt = torch.tensor(_zt.X_EXP, dtype=real, device=dev)
@@ -108,7 +115,8 @@ def _exp_zig_plain(states: RandomState, n: int):
 
     shape = (states.key0.shape[0], n)
     accepted = torch.zeros(shape, dtype=torch.bool, device=dev)
-    inverted = torch.zeros(shape, dtype=torch.bool, device=dev)
+    path = torch.full(shape, len(ZIG_PATHS) - 1, dtype=torch.int8,
+                      device=dev)
     blocks = torch.ones(shape, dtype=torch.int64, device=dev)
     out = torch.zeros(shape, dtype=real, device=dev)
     for k in range(_ZK):
@@ -130,7 +138,8 @@ def _exp_zig_plain(states: RandomState, n: int):
         is_tail = is0 & ~hot
         take = ~accepted & (ok | is_tail)
         out = torch.where(take, torch.where(is_tail, tail, x), out)
-        inverted |= take & is_tail
+        code = torch.where(is_tail, 2, torch.where(hot, 0, 1)) + 3 * k
+        path = torch.where(take, code.to(torch.int8), path)
         blocks += (take & is_tail).to(torch.int64)
         if k + 1 < _ZK:
             blocks += (~accepted & ~take).to(torch.int64)
@@ -138,7 +147,7 @@ def _exp_zig_plain(states: RandomState, n: int):
     f0, f1 = bits(2 * _ZK * n)
     out = torch.where(accepted, out, -torch.log1p(-_u53(f0, f1, real)))
     blocks += (~accepted).to(torch.int64)
-    return out, blocks, inverted | ~accepted
+    return out, blocks, path
 
 
 def exponential_block_zig_plain(states: RandomState, n: int):
@@ -156,11 +165,14 @@ _TABLES: dict = {}
 
 
 def _launch(name: str, states: RandomState, n: int, per_sample: int,
-            lib=None):
+            lib=None, out=None):
     """One launch of ``cimba_<name>_<f32|f64>`` on the current stream:
     the [R, n] samples and the advanced counters.  ``lib``: another build
     of a sampler source with the same C interface (``chip_smoke.py
-    --ab`` times one against this checkout's, the default)."""
+    --ab`` times one against this checkout's, the default).  ``out``: a
+    contiguous [R, n] tensor of the profile's dtype on the streams'
+    device to write the samples into (a view at any offset), in place of
+    a new one."""
     from cimba_tpu_torch import _build
 
     _check(states, n, per_sample)
@@ -183,7 +195,12 @@ def _launch(name: str, states: RandomState, n: int, per_sample: int,
         _FNS[(name, real, lib)] = fn
     rows = words[0].shape[0]
     dev = words[0].device
-    out = torch.empty((rows, n), dtype=real, device=dev)
+    if out is None:
+        out = torch.empty((rows, n), dtype=real, device=dev)
+    elif (out.shape != (rows, n) or out.dtype != real or out.device != dev
+          or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [{rows}, {n}] {real} "
+                         f"tensor on {dev}")
     lo = torch.empty_like(words[2])
     hi = torch.empty_like(words[3])
     if (real, dev) not in _TABLES:

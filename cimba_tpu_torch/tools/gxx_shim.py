@@ -18,13 +18,18 @@ their plain versions (``random/block_kernels.py``):
   the launchers make (``cudaFuncSetAttribute``, ``cudaGetLastError``,
   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (1 block),
   ``cudaGetDevice``, ``cudaDeviceGetAttribute`` (``SHIM_SMS`` SMs)) as
-  stubs, the warp intrinsics as for a warp of one lane (each thread runs
-  as a warp of its own: ``__activemask()`` its own bit, ``__all_sync(mask,
-  p)`` its own ``p``, ``__ballot_sync`` its own bit where ``p``,
-  ``__syncwarp`` nothing; exact in value where, as in K3's vote, a vote
-  only picks between paths that compute the same value; code that moves
-  values between the lanes of a whole warp, as K2's and K3's f64
-  ``log1p_run`` does, never runs here and is left to the card), and the
+  stubs, the warp intrinsics (``__activemask``, ``__ballot_sync``,
+  ``__any_sync``, ``__all_sync``, ``__syncwarp``, ``__shfl_sync``,
+  ``__shfl_xor_sync``) in two forms: in a kernel launched by
+  ``shim_launch`` each thread runs as a warp of one lane (a vote is its
+  own predicate, a ballot its own bit, a shuffle its own value; exact in
+  value where, as in K3's vote, a vote only picks between paths that
+  compute the same value; code that moves values between the lanes of a
+  whole warp, as K2's and K3's f64 ``log1p_run`` does, never runs there),
+  and in one launched by ``shim_launch_block`` (below) a warp's 32
+  threads exchange their values as on the card, each warp call a turn
+  of the block's fibers (K4's ballots and queue, the peek's shuffles);
+  and the
   intrinsics the engine's headers call as host code,
   each exact: the bit casts, ``__fma_rn``/``__fmaf_rn`` as ``fma``, the
   ``_rn`` conversions by round-to-nearest-even, ``__umul64hi`` through a
@@ -32,17 +37,20 @@ their plain versions (``random/block_kernels.py``):
   ``__popcll`` as the compiler's builtins (1-based lowest set bit, 0 for
   no bit; the count of set bits);
 * the source rewritten (:func:`rewrite`): each launch ``name_kernel<...>
-  <<<grid, threads, smem, stream>>>(args);`` into ``shim_launch(grid,
-  threads, smem, stream, [&] { name_kernel<...>(args); });``, which runs
+  <<<grid, threads, smem, stream>>>(args);`` (or one without template
+  arguments) into ``shim_launch(grid, threads, smem, stream, [&] {
+  name_kernel<...>(args); });``, which runs
   the grid's threads one after another (the generated family's lanes
   share nothing but their own shared-memory columns; nor do K2's and
-  K3's), or, for a kernel whose threads meet at ``__syncthreads()`` (K4
-  loads its tables behind one), ``shim_launch_block``, which runs each
-  block's threads as fibers (``ucontext``) that take turns: one runs at a
-  time, and a ``__syncthreads()`` hands the turn on until all have
-  reached it;
+  K3's), or, for a kernel whose threads meet at ``__syncthreads()`` or
+  in warp calls (K4 loads its tables behind one and gathers its misses
+  by ballots; the peek's groups shuffle), ``shim_launch_block``, which
+  runs each block's threads as fibers (``ucontext``) that take turns:
+  one runs at a time, and a ``__syncthreads()`` or a warp call hands the
+  turn on until all have reached it;
   and the dynamic shared memory ``extern __shared__ ... dyn_smem[];``
-  into a pointer to a zeroed buffer the launch allocates;
+  into a pointer to a zeroed buffer the launch allocates (one for the
+  grid: its blocks run one after another);
 * ``g++ -std=c++17 -O1 -ffp-contract=off -fno-gnu-unique -shared -fPIC``
   (separately rounded float operations, as ``nvcc --fmad=false``; no GNU
   unique symbols, or the ``static`` columns of two instances loaded in
@@ -59,6 +67,8 @@ Usage::
     gxx_shim.chunk(lib, sims, lay, 64)        # in place, CPU tensors
     lib = gxx_shim.load(gxx_shim.build_samplers())
     states, x = gxx_shim.block(lib, "normal_block", states, n)
+    lib = gxx_shim.load(gxx_shim.build_bisect())
+    event = gxx_shim.peek(lib, sims, table, lay)   # K6's peek
 """
 
 from __future__ import annotations
@@ -99,6 +109,7 @@ struct shim_dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local shim_dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
@@ -131,16 +142,6 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   return cudaSuccess;
 }
 
-// each thread runs as a warp of its own: a vote is the lane's own
-// predicate, a ballot its own bit, and no warp is ever whole, so code
-// that moves values between the lanes of a whole warp never runs here
-inline unsigned __activemask() { return 1u << (threadIdx.x & 31u); }
-inline int __all_sync(unsigned, int p) { return p; }
-inline unsigned __ballot_sync(unsigned mask, int p) {
-  return p ? mask & (1u << (threadIdx.x & 31u)) : 0u;
-}
-inline void __syncwarp(unsigned = 0xffffffffu) {}
-
 inline thread_local unsigned char* shim_dyn_smem = nullptr;
 
 // the grid's blocks and each block's threads, one after another
@@ -163,21 +164,118 @@ inline void shim_launch(int grid, int threads, int smem, cudaStream_t,
 
 // the threads of a block launched by shim_launch_block are fibers
 // (ucontext) of the launching thread that take turns: one runs until it
-// ends or reaches __syncthreads(), which hands the turn to the next
-// (round the block, so all have reached it when the turn comes back)
+// ends or reaches __syncthreads() or a warp call, which hands the turn
+// to the next (round the block, so all have reached it when the turn
+// comes back).  A warp call leaves the lane's value under the call's
+// number (its count of warp calls), by the number's parity: when the
+// turn comes back every lane still running has left its value of the
+// same call, and none has yet overwritten the one before
 struct shim_fibers {
   ucontext_t sched;
   std::vector<ucontext_t> ctx;
   std::vector<char> done;
-  int cur = 0;
+  std::vector<unsigned> calls;
+  std::vector<unsigned long long> xval[2];
+  std::vector<unsigned> xtag[2];
+  int cur = 0, threads = 0;
   void (*run)(void*) = nullptr;
   void* arg = nullptr;
 };
 inline thread_local shim_fibers* shim_block = nullptr;
 
+inline void shim_yield() {
+  swapcontext(&shim_block->ctx[shim_block->cur], &shim_block->sched);
+}
+
 inline void __syncthreads() {
   if (shim_block == nullptr) return;  // shim_launch: one thread at a time
-  swapcontext(&shim_block->ctx[shim_block->cur], &shim_block->sched);
+  shim_yield();
+}
+
+// a warp call of a fiber: the values of this call of the warp's lanes
+// (bit l of the result: lane l made it)
+inline unsigned shim_warp_call(unsigned long long v,
+                               unsigned long long (&lanes)[32]) {
+  shim_fibers& b = *shim_block;
+  const int t = b.cur;
+  const unsigned c = b.calls[t]++;
+  b.xval[c & 1][t] = v;
+  b.xtag[c & 1][t] = c;
+  shim_yield();
+  unsigned have = 0;
+  const int base = t & ~31;
+  for (int l = 0; l < 32 && base + l < b.threads; ++l) {
+    if (b.xtag[c & 1][base + l] == c) {
+      lanes[l] = b.xval[c & 1][base + l];
+      have |= 1u << l;
+    }
+  }
+  return have;
+}
+
+template <class T>
+inline unsigned long long shim_bits(T v) {
+  unsigned long long u = 0;
+  std::memcpy(&u, &v, sizeof(T));
+  return u;
+}
+
+template <class T>
+inline T shim_from_bits(unsigned long long u) {
+  T v;
+  std::memcpy(&v, &u, sizeof(T));
+  return v;
+}
+
+// the warp intrinsics.  Launched by shim_launch, each thread runs as a
+// warp of its own: a vote is the lane's own predicate, a ballot its own
+// bit, a shuffle its own value, and no warp is ever whole, so code that
+// moves values between the lanes of a whole warp never runs there.
+// Launched by shim_launch_block, a warp's 32 fibers exchange their
+// values as the card's lanes do (shim_warp_call)
+inline unsigned __activemask() {
+  if (shim_block == nullptr) return 1u << (threadIdx.x & 31u);
+  unsigned m = 0;
+  const int base = int(threadIdx.x) & ~31;
+  for (int l = 0; l < 32 && base + l < shim_block->threads; ++l)
+    if (!shim_block->done[base + l]) m |= 1u << l;
+  return m;
+}
+inline unsigned __ballot_sync(unsigned mask, int p) {
+  if (shim_block == nullptr) return p ? mask & (1u << (threadIdx.x & 31u)) : 0u;
+  unsigned long long v[32];
+  const unsigned have = shim_warp_call(p != 0, v);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l)
+    if ((have >> l & 1u) && v[l]) r |= 1u << l;
+  return r & mask;
+}
+inline int __any_sync(unsigned mask, int p) {
+  return __ballot_sync(mask, p) != 0;
+}
+inline int __all_sync(unsigned mask, int p) {
+  if (shim_block == nullptr) return p;
+  unsigned long long v[32];
+  const unsigned have = shim_warp_call(p != 0, v) & mask;
+  for (int l = 0; l < 32; ++l)
+    if ((have >> l & 1u) && !v[l]) return 0;
+  return 1;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  if (shim_block == nullptr) return;
+  unsigned long long v[32];
+  shim_warp_call(0, v);
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  if (shim_block == nullptr) return v;
+  unsigned long long x[32];
+  const unsigned have = shim_warp_call(shim_bits(v), x);
+  return (have >> (src & 31) & 1u) ? shim_from_bits<T>(x[src & 31]) : v;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T v, int m) {
+  return __shfl_sync(mask, v, int(threadIdx.x & 31u) ^ m);
 }
 
 inline void shim_fiber_main() {
@@ -186,12 +284,16 @@ inline void shim_fiber_main() {
 }
 
 template <class F>
-inline void shim_launch_block(int grid, int threads, int, cudaStream_t,
+inline void shim_launch_block(int grid, int threads, int smem, cudaStream_t,
                               F&& f) {
+  std::vector<unsigned char> buf(size_t(smem > 0 ? smem : 0) + 64, 0);
+  shim_dyn_smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(buf.data()) + 63) & ~uintptr_t(63));
   constexpr size_t stack = size_t(1) << 16;
   std::vector<char> stacks(stack * size_t(threads));
   shim_fibers fb;
   fb.ctx.resize(threads);
+  fb.threads = threads;
   fb.run = [](void* p) { (*static_cast<F*>(p))(); };
   fb.arg = &f;
   shim_block = &fb;
@@ -200,6 +302,11 @@ inline void shim_launch_block(int grid, int threads, int, cudaStream_t,
   for (int b = 0; b < grid; ++b) {
     blockIdx.x = b;
     fb.done.assign(threads, 0);
+    fb.calls.assign(threads, 0);
+    for (int k = 0; k < 2; ++k) {
+      fb.xval[k].assign(threads, 0);
+      fb.xtag[k].assign(threads, ~0u);
+    }
     for (int t = 0; t < threads; ++t) {
       getcontext(&fb.ctx[t]);
       fb.ctx[t].uc_stack.ss_sp = stacks.data() + stack * size_t(t);
@@ -260,7 +367,10 @@ FLAGS = ["-std=c++17", "-O1", "-ffp-contract=off", "-fno-gnu-unique",
          "-shared", "-fPIC", "-w"]
 OUT = _build.BUILD / "shim"
 
-_LAUNCH = re.compile(r"\b(\w+_kernel)<([^;]*?)><<<(.*?)>>>\((.*?)\);", re.S)
+# a launch `name_kernel<targs><<<cfg>>>(args);` (targs hold no parenthesis,
+# so a mention of the kernel earlier in a statement is not taken for it)
+_LAUNCH = re.compile(
+    r"\b(\w+_kernel)(?:<([^;(){}]*?)>)?<<<(.*?)>>>\((.*?)\);", re.S)
 _DYN = re.compile(r"extern __shared__[^;]*?dyn_smem\[\];")
 
 
@@ -277,7 +387,8 @@ def rewrite(src: str, blocking=()) -> str:
     def launch(m):
         name, targs, cfg, args = m.groups()
         how = "shim_launch_block" if name in blocking else "shim_launch"
-        return f"{how}({cfg}, [&] {{ {name}<{targs}>({args}); }});"
+        kernel = name if targs is None else f"{name}<{targs}>"
+        return f"{how}({cfg}, [&] {{ {kernel}({args}); }});"
 
     src = _LAUNCH.sub(launch, src)
     return _DYN.sub("unsigned char* dyn_smem = shim_dyn_smem;", src)
@@ -344,6 +455,17 @@ def build_samplers(source: Optional[str] = None, opt: str = "-O1") -> Path:
                     rewrite(source, blocking=("exp_zig_kernel",)), flags)
 
 
+def build_bisect(source: Optional[str] = None, opt: str = "-O1") -> Path:
+    """The host library of ``csrc/bisect_stages.cu`` (or of ``source``),
+    the peek's blocks launched as fibers whose warps shuffle as on the
+    card; built once per content into ``build/shim/<hash>/lib.so``."""
+    if source is None:
+        source = (_build.CSRC / "bisect_stages.cu").read_text()
+    flags = [f for f in FLAGS if not f.startswith("-O")] + [opt]
+    return _compile("bisect_stages.cc",
+                    rewrite(source, blocking=("peek_kernel",)), flags)
+
+
 def load(path) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
@@ -373,12 +495,14 @@ def chunk(lib: ctypes.CDLL, sims, lay: dict, chunk_steps: int,
     return sims
 
 
-def block(lib: ctypes.CDLL, name: str, states, n: int):
+def block(lib: ctypes.CDLL, name: str, states, n: int, out=None):
     """One call of the host-built sampler ``cimba_<name>_<f32|f64>``
     (``name`` as in ``random.block_kernels``: ``exponential_block``,
     ``normal_block``, ``exponential_block_zig``) on a batch of CPU
     streams, as ``block_kernels`` launches it on the card: ``(advanced
-    states, [R, n] samples)`` in the current profile."""
+    states, [R, n] samples)`` in the current profile; ``out``, a
+    contiguous [R, n] CPU tensor (a view at any offset) to write them
+    into."""
     from cimba_tpu_torch import config
     from cimba_tpu_torch.random import _ziggurat_tables as zt
     from cimba_tpu_torch.random import block_kernels as bk
@@ -395,7 +519,12 @@ def block(lib: ctypes.CDLL, name: str, states, n: int):
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [
         ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
     rows = words[0].shape[0]
-    out = torch.empty((rows, n), dtype=real)
+    if out is None:
+        out = torch.empty((rows, n), dtype=real)
+    elif out.shape != (rows, n) or out.dtype != real or \
+            not out.is_contiguous() or out.is_cuda:
+        raise ValueError(f"out must be a contiguous [{rows}, {n}] {real} "
+                         "CPU tensor")
     lo, hi = torch.empty_like(words[2]), torch.empty_like(words[3])
     xt = torch.tensor(zt.X_EXP, dtype=real)
     yt = torch.tensor(zt.Y_EXP, dtype=real)
@@ -405,3 +534,22 @@ def block(lib: ctypes.CDLL, name: str, states, n: int):
     if rc != 0:
         raise RuntimeError(f"{name}: launch refused (code {rc})")
     return states._replace(ctr_lo=lo, ctr_hi=hi), out
+
+
+def peek(lib: ctypes.CDLL, sims, table, lay: dict):
+    """The host-built peek (``cimba_peek_<f32|f64>``) on a Sim of CPU
+    tensors, as ``tools.bisect_kernels.peek`` launches it on the card:
+    every lane's next event (``eventset.Event``)."""
+    from cimba_tpu_torch.core import loop
+    from cimba_tpu_torch.tools import bisect_kernels as bk
+
+    leaves = bk._checked(sims, table, lay)
+    if leaves[0].is_cuda:
+        raise ValueError("the host-built peek takes a Sim on the CPU")
+    fn, ptrs, out, outs = bk.peek_args(lib, sims, leaves)
+    lanes = leaves[0].shape[0]
+    rc = fn(ptrs, len(leaves), lanes, lay["E"], lay["P"], loop.K_PROC, outs,
+            None)
+    if rc != 0:
+        raise RuntimeError(f"peek: launch refused (code {rc})")
+    return out

@@ -111,9 +111,9 @@ def test_f32_zig_block_matches_jax_kernel_off_the_tails():
         js, ts = _streams(3, rows, wrap=True)
         js2, x = pk.exponential_block_zig(js, n, interpret=True)
         ts2, y = bk.exponential_block_zig(ts, n)
-        _, _, inverted = bk._exp_zig_plain(ts, n)
+        _, _, path = bk._exp_zig_plain(ts, n)
     _same_states(js2, ts2)
-    keep = ~inverted.numpy()
+    keep = ~np.isin(path.numpy(), bk.ZIG_INVERTED)
     assert keep.mean() > 0.99
     np.testing.assert_array_equal(np.asarray(x)[keep], y.numpy()[keep])
     v = y.numpy().astype(np.float64).ravel()

@@ -104,6 +104,75 @@ def test_block_kernels_edge_shapes(card, name, prof, n):
             assert kx.shape == (1, n) and torch.equal(kx, px)
 
 
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+def test_zig_kernel_takes_every_path(card, prof):
+    """K4 over 1000 x 777 samples, where the plain version takes each of
+    its paths (round 1's hot test, wedge and layer-0 tail, the same in
+    round 2, the fallback): one launch, bit for bit."""
+    with config.profile(prof):
+        st = bits.initialize(2026, torch.arange(1000), device=card)
+        before = block_kernels.exponential_block_zig.launches
+        ks, kx = block_kernels.exponential_block_zig(st, 777)
+        px, _, path = block_kernels._exp_zig_plain(st, 777)
+        ps, _ = block_kernels.exponential_block_zig_plain(st, 777)
+        torch.cuda.synchronize()
+    counts = torch.bincount(path.flatten().long(),
+                            minlength=len(block_kernels.ZIG_PATHS))
+    assert int(counts.min()) > 0, counts.tolist()
+    assert block_kernels.exponential_block_zig.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(ks, ps))
+    assert torch.equal(kx, px)
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("rows,n", [(1, 1), (7, 1), (5, 9), (3, 13),
+                                    (33, 31), (2, 4097)])
+def test_zig_kernel_edge_shapes(card, prof, rows, n):
+    """K4 at rows of one sample, odd n, runs that leave the grid's last
+    warp part full, a counter crossing 2**32 in the row, and into an
+    output view one element off 16 bytes (no vector stores): bit for bit
+    the plain version."""
+    real = torch.float32 if prof == "f32" else torch.float64
+    with config.profile(prof):
+        st = bits.initialize(2026, torch.arange(rows), device=card)
+        st = st._replace(ctr_lo=torch.full_like(st.ctr_lo, 2**32 - 2 - n))
+        ps, px = block_kernels.exponential_block_zig_plain(st, n)
+        ks, kx = block_kernels.exponential_block_zig(st, n)
+        base = torch.full((rows * n + 1,), float("nan"), dtype=real,
+                          device=card)
+        vs, vx = block_kernels._launch(
+            "exponential_block_zig", st, n, 2 * block_kernels._ZK + 1,
+            out=base[1:].view(rows, n))
+        torch.cuda.synchronize()
+    for got_s, got_x in ((ks, kx), (vs, vx)):
+        assert all(torch.equal(a, b) for a, b in zip(got_s, ps))
+        assert torch.equal(got_x, px)
+    assert bool(torch.isnan(base[0]))
+
+
+@pytest.mark.parametrize("prof", ["f32", "f64"])
+@pytest.mark.parametrize("model,size,lanes", [
+    ("mm1", 16, 301), ("mmc", 16, 301), ("mmc", 16, 37), ("jobshop", 16, 301),
+    ("awacs", 1000, 301)])
+def test_peek_kernel_planted_cases(card, model, size, lanes, prof):
+    """K6's peek equal to peek_merged bit for bit on the planted cases
+    (bisect_kernels.plant_peek_cases: ties in either table and across
+    them, summed fields, empty lanes, -inf and NaN times), at the start
+    and a few events in, at lane counts that leave the last warp part
+    full; AWACS's 1001 wake rows a lane among them."""
+    with config.profile(prof):
+        st = cuda_bisect.Setup(model, card, lanes=lanes, size=size)
+        s7 = st.plain(st.start, 7)
+        for sims in (st.start, s7, bisect_kernels.plant_peek_cases(st.start),
+                     bisect_kernels.plant_peek_cases(s7)):
+            got = bisect_kernels.peek(sims, st.table, st.lay)
+            want = bisect_kernels.peek_plain(sims)
+            torch.cuda.synchronize()
+            for a, b in zip(want, got):
+                assert a.dtype == b.dtype
+                assert torch.equal(cuda_bisect.bits(a), cuda_bisect.bits(b))
+
+
 def test_nn_scores_kernel_matches_plain(card):
     rng = torch.Generator().manual_seed(7)
     for m in (137, 40_000):
