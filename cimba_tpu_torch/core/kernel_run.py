@@ -43,6 +43,14 @@ on the card one launch of the dwell kernel (:func:`awacs_dwell`), which
 runs the step, the features and the detection MLP of every frozen lane;
 on CPU tensors its plain version, the gathered lanes stepped by the
 plain engine (:func:`make_boundary_step_plain`).
+
+Horizon (parity: ``make_cond``'s ``lim = sim.t_stop if sim.t_stop is not
+None else t_end``).  A Sim that carries the per-lane ``t_stop`` leaf
+passes it to every kernel as the pointer array's last leaf, and each
+lane compares its next event time with its own horizon (:data:`H_LANE`);
+otherwise the kernel takes the scalar ``t_end`` (:data:`H_SCALAR`) or no
+horizon (:data:`H_NONE`).  The mode is a run-time argument, so one
+instance serves all three.
 """
 
 from __future__ import annotations
@@ -334,13 +342,24 @@ def awacs_layout(spec: ModelSpec) -> dict:
                 scoring=spec.blocks[1].scoring)
 
 
-def _check_leaves(leaves, table, lay: dict, real, count):
+def _check_leaves(leaves, table, lay: dict, real, count,
+                  horizon: bool = False):
     """Every leaf of the Sim as the kernel's leaf table has it: its dtype
     (a role, or a generated table's own dtype) and its per-lane shape
-    (dims named in ``lay``, or a generated table's sizes)."""
+    (dims named in ``lay``, or a generated table's sizes).  With
+    ``horizon`` the Sim's last leaf is its ``t_stop``, one time a lane,
+    after the table's."""
+    if horizon:
+        table = tuple(table) + (("t_stop", "T", ()),)
     if len(leaves) != len(table):
         raise ValueError(f"Sim has {len(leaves)} leaves, the kernel takes "
                          f"{len(table)}")
+    from cimba_tpu_torch.core.emit import MAX_LEAVES
+
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(f"Sim has {len(leaves)} leaves (its t_stop "
+                         f"counted), the kernel's pointer array holds "
+                         f"{MAX_LEAVES}")
     dtypes = {"T": real, "I": INDEX, "B": BITS, "?": torch.bool, "C": count}
     lanes = leaves[0].shape[0]
     dev = leaves[0].device
@@ -372,7 +391,8 @@ def _launch(lib_name, entry: str, table, sims: loop.Sim, lay: dict,
     if (real, count) not in ((torch.float32, torch.int32),
                              (torch.float64, torch.int64)):
         raise ValueError(f"no kernel instance for {real}/{count} Sims")
-    lanes = _check_leaves(leaves, table, lay, real, count)
+    lanes = _check_leaves(leaves, table, lay, real, count,
+                          sims.t_stop is not None)
     lib = _build.load(lib_name) if isinstance(lib_name, str) else lib_name
     fn = getattr(lib, f"cimba_{entry}_"
                       f"{'f32' if real == torch.float32 else 'f64'}")
@@ -387,11 +407,27 @@ def _launch(lib_name, entry: str, table, sims: loop.Sim, lay: dict,
         raise RuntimeError(f"{entry} kernel launch failed (code {rc})")
 
 
-def _chunk_args(shape_args, chunk_steps: int, t_end: Optional[float]):
+#: a chunk's horizon (the kernels' ``horizon`` argument): none, the
+#: scalar ``t_end``, or each lane's ``t_stop`` leaf, the pointer array's
+#: last
+H_NONE, H_SCALAR, H_LANE = 0, 1, 2
+
+
+def horizon_mode(sims: Optional[loop.Sim], t_end: Optional[float]) -> int:
+    """The horizon a chunk of ``sims`` keeps: each lane's own where the
+    Sim carries ``t_stop`` (which ``loop.make_cond`` reads in place of
+    ``t_end``), else ``t_end``'s, else none."""
+    if sims is not None and sims.t_stop is not None:
+        return H_LANE
+    return H_NONE if t_end is None else H_SCALAR
+
+
+def _chunk_args(shape_args, chunk_steps: int, t_end: Optional[float],
+                sims: Optional[loop.Sim] = None):
     return ([(ctypes.c_double if isinstance(a, float) else ctypes.c_int, a)
              for a in shape_args]
             + [(ctypes.c_int, chunk_steps),
-               (ctypes.c_int, int(t_end is not None)),
+               (ctypes.c_int, horizon_mode(sims, t_end)),
                (ctypes.c_double,
                 float(t_end) if t_end is not None else 0.0)])
 
@@ -419,12 +455,13 @@ def queue_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
     (:func:`queue_layout`) on a lane-first Sim on the card: every live
     lane advances by up to ``chunk_steps`` events, IN PLACE (the Sim's
     tensors are the kernel's inputs and outputs, as the Pallas call
-    aliases them).  Launches on the current stream without
-    synchronising.  ``queue_chunk.launches`` counts launches, of every
-    family's instances."""
+    aliases them).  A Sim with a ``t_stop`` leaf runs each lane to its own
+    horizon, in place of ``t_end``.  Launches on the current stream
+    without synchronising.  ``queue_chunk.launches`` counts launches, of
+    every family's instances."""
     entry, shape = queue_entry(lay)
     _launch("queue_chunk", entry, queue_leaves(lay["family"], lay["REC"]),
-            sims, lay, _chunk_args(shape, chunk_steps, t_end))
+            sims, lay, _chunk_args(shape, chunk_steps, t_end, sims))
     queue_chunk.launches += 1
     return sims
 
@@ -436,7 +473,7 @@ def awacs_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
     next dispatch is the sensor freezes with ``boundary_pending`` set.
     ``awacs_chunk.launches`` counts launches."""
     _launch("awacs_chunk", "awacs_chunk", AWACS_LEAVES, sims, lay,
-            _chunk_args((lay["E"], lay["P"]), chunk_steps, t_end))
+            _chunk_args((lay["E"], lay["P"]), chunk_steps, t_end, sims))
     awacs_chunk.launches += 1
     return sims
 
@@ -468,7 +505,8 @@ def gen_chunk(sims: loop.Sim, lay: dict, chunk_steps: int,
     from cimba_tpu_torch import _build
 
     _launch(_build.load_gen(lay["header"]), "gen_chunk", lay["table"], sims,
-            lay, _chunk_args((lay["E"], lay["W"]), chunk_steps, t_end))
+            lay, _chunk_args((lay["E"], lay["W"]), chunk_steps, t_end,
+                             sims))
     gen_chunk.launches += 1
     return sims
 
@@ -503,6 +541,10 @@ def generated_kernel_for(spec: ModelSpec, sims: loop.Sim):
     from cimba_tpu_torch.core import emit
     from cimba_tpu_torch.core import trace
 
+    # the horizon leaf is the kernel's run-time argument: one instance
+    # serves a Sim with it and without it (each launch counts it against
+    # the pointer array, _check_leaves)
+    sims = sims._replace(t_stop=None)
     named = trace.named_leaves(sims)
     key = (id(spec), tuple((n, x.dtype, tuple(x.shape[1:]))
                            for n, x in named))

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.overrides
 
@@ -170,18 +171,58 @@ def _broadcast_params(params, lanes: int, device):
     return bc(params)
 
 
+def _lane_column(x, lanes: int, dtype, dev, what: str):
+    """A scalar or a per-lane ``[lanes]`` column as a ``[lanes]`` tensor
+    of ``dtype`` on ``dev`` (a scalar broadcast)."""
+    t = torch.as_tensor(x, device=dev)
+    if t.dim() == 0:
+        t = t.expand(lanes)
+    if tuple(t.shape) != (lanes,):
+        raise ValueError(f"{what} must be a scalar or a [{lanes}] column, "
+                         f"got shape {tuple(t.shape)}")
+    return t.to(dtype).contiguous()
+
+
+def seed_column(seed, lanes: int, device="cuda"):
+    """A seed as ``random.bits.initialize`` takes it: a Python int as
+    given, or each lane's seed (an integer column, numpy ``uint64``
+    included) as an int64 tensor holding the same 64 bits."""
+    if isinstance(seed, int):
+        return seed
+    dev = config.resolve_device(device)
+    if not isinstance(seed, torch.Tensor):
+        a = np.asarray(seed)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        seed = torch.from_numpy(np.array(a, dtype=np.int64, copy=True))
+    if seed.is_floating_point():
+        raise ValueError("a seed column must hold integers")
+    return _lane_column(seed, lanes, torch.int64, dev, "seed")
+
+
 def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
-             device="cuda") -> Sim:
+             t_stop=None, device="cuda") -> Sim:
     """Initial state of the replications ``replications`` (a 1-D integer
     array) under the active dtype profile, every process started at
     ``t0`` but a spawn pool's rows, which stay CREATED (parity:
-    ``jax.vmap(cimba_tpu.core.loop.init_sim)``)."""
+    ``jax.vmap(cimba_tpu.core.loop.init_sim)``).
+
+    ``seed`` is an int or a per-lane integer column: lane l's stream key
+    is ``fmix64(seed[l] + c * replications[l])``, so a column of one
+    value gives the streams of that scalar seed.  ``t_stop`` (a scalar
+    or a per-lane column) gives every lane a horizon, the ``Sim.t_stop``
+    leaf in the TIME dtype, which :func:`make_cond` reads in place of
+    its ``t_end``: ``+inf`` runs to the end, ``-inf`` leaves the lane
+    dead from the start.  ``None`` carries no leaf."""
     dev = config.resolve_device(device)
     real, tdt = config.real(), config.time()
     reps = torch.as_tensor(replications, device=dev).to(torch.int64)
     if reps.dim() != 1:
         raise ValueError("replications must be a 1-D array of indices")
     lanes = reps.shape[0]
+    seed = seed_column(seed, lanes, dev)
+    if t_stop is not None:
+        t_stop = _lane_column(t_stop, lanes, tdt, dev, "t_stop")
     n = spec.n_procs
     # process starts are dense wakes at t0, their seqs the started
     # processes' ranks in pid order (0..P-1 where every process starts);
@@ -276,6 +317,7 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
         err=zeros((lanes,), INDEX),
         n_events=zeros((lanes,), config.count()),
         boundary_pending=zeros((lanes,), torch.bool),
+        t_stop=t_stop,
     )
 
 
@@ -1553,14 +1595,12 @@ def make_cond(spec: ModelSpec, t_end: Optional[float] = None,
     ``cimba_tpu.core.loop.make_cond``).  A lane whose tables are empty
     stays live while a RUNNING process waits on an event (its handle died
     with the set: the next step's scan wakes it with CANCELLED).  With
-    ``defer_boundary`` a lane waiting on a boundary step is not live."""
+    ``defer_boundary`` a lane waiting on a boundary step is not live.  A
+    Sim's ``t_stop`` leaf, where it has one, is each lane's horizon in
+    place of ``t_end``."""
     defer = defer_boundary and bool(spec.boundary_pcs)
 
     def cond(sim: Sim):
-        if sim.t_stop is not None:
-            raise NotImplementedError(
-                "cimba_tpu_torch: per-lane horizons (Sim.t_stop) are not "
-                "ported yet")
         empty = ev.is_empty(sim.events) & ev.wakes_empty(sim.wakes)
         if _may_wait_events(spec, sim):
             stranded = ((sim.procs.await_evt >= 0)
@@ -1571,10 +1611,14 @@ def make_cond(spec: ModelSpec, t_end: Optional[float] = None,
         live = ~sim.done & (sim.err == 0) & ~out_of_work
         if defer:
             live = live & ~sim.boundary_pending
-        if t_end is not None:
+        # a Sim's per-lane horizon stands in for the static t_end: the
+        # same compare on the same TIME values (t_stop = t_end gives the
+        # static run's decisions, +inf no horizon's, -inf a dead lane)
+        lim = sim.t_stop if sim.t_stop is not None else t_end
+        if lim is not None:
             nxt = torch.minimum(ev.min_time(sim.events),
                                 sim.wakes.time.amin(dim=1))
-            live = live & ((nxt <= t_end) | (empty & ~out_of_work))
+            live = live & ((nxt <= lim) | (empty & ~out_of_work))
         return live
 
     return cond
@@ -1606,4 +1650,162 @@ def make_run(spec: ModelSpec, t_end: Optional[float] = None,
 
         return _while(kcond, kbody, (k, sim))[1]
 
+    return run
+
+
+# --- chunked dispatch: runs of any length, refill -----------------------
+
+
+def make_chunk(spec: ModelSpec, t_end: Optional[float] = None,
+               max_steps: int = 512, donate: bool = True):
+    """Build ``chunk(sims) -> (sims, any_live)`` over a lane-first Sim
+    (parity: ``cimba_tpu.core.loop.make_chunk``): every lane advances by
+    at most ``max_steps`` events, and ``any_live`` is a bool tensor on the
+    Sim's device, read by the host only when it wants to
+    (:func:`drive_chunks`).
+
+    On the card a chunk is one launch of the spec's CUDA chunk kernel
+    (``core.kernel_run.kernel_for``), which reads each lane's horizon
+    from the Sim's ``t_stop`` leaf where it has one; for a spec with
+    boundary blocks (AWACS) it is followed by one launch of the boundary
+    round, which steps the lanes the chunk froze at the boundary and
+    leaves the others as they are.  The kernel works in place: with
+    ``donate`` the Sim passed in is the one returned, else a copy is
+    advanced.  On CPU tensors a chunk is the plain engine,
+    ``make_run(spec, t_end, max_steps=max_steps)``, which returns new
+    tensors.  A chunk of a Sim whose lanes are all done changes no
+    leaf, so chunks dispatched past the end are harmless."""
+    if max_steps <= 0:
+        raise ValueError(f"max_steps must be positive, got {max_steps}")
+    plain = make_run(spec, t_end=t_end, max_steps=max_steps)
+    cond = make_cond(spec, t_end)
+    card = {}
+
+    def chunk(sims: Sim):
+        if not sims.clock.is_cuda:
+            sims = plain(sims)
+            return sims, cond(sims).any()
+        from cimba_tpu_torch.core import kernel_run
+
+        if not card:
+            lay, kernel, _ = kernel_run.kernel_for(spec, sims)
+            card.update(lay=lay, kernel=kernel, boundary=(
+                kernel_run.make_boundary_step(spec) if spec.boundary_pcs
+                else None))
+        if not donate:
+            sims = tree.map(
+                lambda x: x.clone(memory_format=torch.contiguous_format),
+                sims)
+        sims = card["kernel"](sims, card["lay"], max_steps, t_end)
+        if card["boundary"] is not None:
+            sims = card["boundary"](sims)
+        return sims, cond(sims).any()
+
+    return chunk
+
+
+def make_refill(spec: ModelSpec):
+    """Build ``refill(sims, mask, reps, seeds, t_stops, params) -> sims``
+    (parity: ``cimba_tpu.core.loop.make_refill``): the lanes where the
+    bool ``[L]`` ``mask`` holds start afresh, as :func:`init_sim` starts
+    replication ``reps[l]`` under ``seeds[l]`` with horizon
+    ``t_stops[l]`` and parameters ``params`` (scalars, or rows with
+    leading axis L); every other lane keeps every leaf bit for bit.  A
+    refilled lane therefore runs as its solo run would.  The Sim must
+    carry the ``t_stop`` leaf (``-inf`` retires a lane); one without it
+    raises.  Returns new tensors on the Sim's device."""
+
+    def refill(sims: Sim, mask, reps, seeds, t_stops, params):
+        if sims.t_stop is None:
+            raise ValueError(
+                "make_refill: the wave carries no per-lane t_stop leaf; "
+                "refill needs a wave built with init_sim(..., t_stop=...)")
+        dev = sims.clock.device
+        fresh = init_sim(spec, seeds, reps, params, t_stop=t_stops,
+                         device=dev)
+        m = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+
+        def sel(a, b):
+            return torch.where(m.reshape((-1,) + (1,) * (a.dim() - 1)),
+                               a, b)
+
+        return tree.map(sel, fresh, sims)
+
+    return refill
+
+
+def make_lanes_live(spec: ModelSpec, t_end: Optional[float] = None):
+    """Build ``live(sims) -> bool [L]``: each lane's :func:`make_cond`
+    liveness, the per-lane readback a refill loop polls between
+    chunks (parity: ``cimba_tpu.core.loop.make_lanes_live``)."""
+    return make_cond(spec, t_end)
+
+
+def drive_chunks(chunk, sims: Sim, *, poll_every: int = 4, on_chunk=None,
+                 on_state=None, on_state_every: int = 0,
+                 max_chunks: Optional[int] = None, n0: int = 0,
+                 on_boundary=None) -> Sim:
+    """Call ``chunk(sims) -> (sims, any_live)`` until no lane is live
+    (parity: ``cimba_tpu.core.loop.drive_chunks``).
+
+    The ``any_live`` flags stay device tensors in a queue, and the host
+    reads the oldest one only once ``poll_every`` are queued, so chunks
+    keep being queued on the card while earlier ones run.  A flag read
+    late lets up to ``poll_every - 1`` chunks run after every lane is
+    done, which change nothing.  ``on_chunk(n)`` is called after each
+    chunk; ``on_state(sims, n)`` every ``on_state_every`` chunks, before
+    the Sim goes into the next chunk (the checkpoint hook); ``n0``
+    offsets the chunk counter (a resumed run counts on);
+    ``max_chunks`` stops after that many chunks, finished or not.
+    ``on_boundary(n, sims)`` may return a replacement Sim (a refill),
+    after which the queued flags, which describe the Sim before it, are
+    dropped."""
+    from collections import deque
+
+    poll_every = max(int(poll_every), 1)
+    pending = deque()
+    n = n0
+    while max_chunks is None or n - n0 < max_chunks:
+        sims, any_live = chunk(sims)
+        n += 1
+        if on_chunk is not None:
+            on_chunk(n)
+        if on_boundary is not None:
+            respliced = on_boundary(n, sims)
+            if respliced is not None:
+                sims = respliced
+                pending.clear()
+                continue
+        if on_state is not None and on_state_every > 0 \
+                and n % on_state_every == 0:
+            on_state(sims, n)
+        pending.append(any_live)
+        if len(pending) >= poll_every and not bool(pending.popleft()):
+            break
+    return sims
+
+
+def make_chunked_run(spec: ModelSpec, t_end: Optional[float] = None,
+                     chunk_steps: int = 512, poll_every: int = 4,
+                     donate: bool = True, on_chunk=None,
+                     max_chunks: Optional[int] = None):
+    """Build ``run(sims) -> sims``: :func:`make_chunk` driven by
+    :func:`drive_chunks` until every lane is done (parity:
+    ``cimba_tpu.core.loop.make_chunked_run``).  The result is the
+    monolithic ``make_run(spec, t_end)``'s, leaf for leaf: a chunk only
+    splits the event loop.  On the card each chunk is one kernel launch
+    in place, on the Sim passed in with ``donate``, else on one copy of
+    it; the chunk is ``run.chunk``."""
+    chunk = make_chunk(spec, t_end=t_end, max_steps=chunk_steps)
+
+    def run(sims: Sim) -> Sim:
+        if not donate and sims.clock.is_cuda:
+            # one copy for the whole run: the chunks work on it in place
+            sims = tree.map(
+                lambda x: x.clone(memory_format=torch.contiguous_format),
+                sims)
+        return drive_chunks(chunk, sims, poll_every=poll_every,
+                            on_chunk=on_chunk, max_chunks=max_chunks)
+
+    run.chunk = chunk
     return run

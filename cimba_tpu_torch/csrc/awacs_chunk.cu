@@ -97,6 +97,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "horizon.cuh"
 #include "nn_row.cuh"
 #include "summary.cuh"
 #include "threefry.cuh"
@@ -149,11 +150,12 @@ enum Leaf {
   D_N, D_W, D_MN, D_MX, D_M1, D_M2, D_M3, D_M4,
   U_DWELLS, U_POS_X, U_POS_Y, U_T_END, U_T_MARK, U_VEL_X, U_VEL_Y,
   DONE, ERR, N_EVENTS, BOUNDARY_PENDING,
-  N_LEAVES
+  N_LEAVES,
+  T_STOP = N_LEAVES  // the per-lane horizon, where the Sim carries one
 };
 
 struct Ptrs {
-  void* p[N_LEAVES];
+  void* p[N_LEAVES + 1];
 };
 
 template <typename R>
@@ -621,7 +623,7 @@ struct Lane {
   // one whose next dispatch is the sensor (pending); the dwell steps any
   // lane that has an event (make_step).
   __device__ __forceinline__ bool step(const Where& w, const Key<R>& k, Row<R> row,
-                       bool has_t_end, R t_hor) {
+                       int horizon, R t_hor) {
     const bool found_w = finite(k.t);
     const bool found_e = finite(e.t);
     bool live;
@@ -631,7 +633,8 @@ struct Lane {
     } else {
       const R nxt = k.t < e.t ? k.t : e.t;
       live = !done && err == 0 && !pending && (found_e || found_w);
-      if (has_t_end) live = live && nxt <= t_hor;
+      live = live && within_horizon(nxt, horizon, t_hor, w.ps.p[T_STOP],
+                                    w.l);
     }
     if (!live) return false;
     const bool wake_first =
@@ -681,7 +684,7 @@ struct Lane {
 
 template <typename R, typename C>
 __device__ __forceinline__ void chunk_lane(const Ptrs& ps, int l, int E, int P,
-                           int chunk_steps, bool has_t_end, R t_hor) {
+                           int chunk_steps, int horizon, R t_hor) {
   Lane<R, C, LT, false> s;
   s.tid = threadIdx.x % LT;
   s.lead = s.tid == 0;
@@ -710,7 +713,7 @@ __device__ __forceinline__ void chunk_lane(const Ptrs& ps, int l, int E, int P,
                                     w.rowP<int32_t>(WK_SEQ)[qq], qq}
                            : no_key<R>();
     }
-    if (!s.step(w, k, row, has_t_end, t_hor) || s.pending) break;
+    if (!s.step(w, k, row, horizon, t_hor) || s.pending) break;
     if (s.fast) {
       Key<R> c = no_key<R>();
 #pragma unroll
@@ -744,9 +747,9 @@ __device__ __forceinline__ void chunk_lane(const Ptrs& ps, int l, int E, int P,
 template <typename R, typename C>
 __global__ void __launch_bounds__(kThreads, kChunkMinBlocks)
 chunk_kernel(const __grid_constant__ Ptrs ps, int lanes, int E, int P,
-             int chunk_steps, bool has_t_end, R t_hor) {
+             int chunk_steps, int horizon, R t_hor) {
   const int l = (blockIdx.x * blockDim.x + threadIdx.x) / LT;
-  if (l < lanes) chunk_lane<R, C>(ps, l, E, P, chunk_steps, has_t_end, t_hor);
+  if (l < lanes) chunk_lane<R, C>(ps, l, E, P, chunk_steps, horizon, t_hor);
 }
 
 // the boundary round: one warp a lane
@@ -773,7 +776,7 @@ dwell_kernel(const __grid_constant__ Ptrs ps, int lanes, int E, int P,
   s.load(w);
   const Key<R> k = group_min<G>(scan_wakes<R>(w, s.tid, G, P), s.mask);
   const int q = k.i < 0 ? 0 : (k.i > P - 1 ? P - 1 : k.i);
-  s.step(w, k, load_row<R>(w, q), false, R(0));
+  s.step(w, k, load_row<R>(w, q), H_NONE, R(0));
   s.pending = false;
   s.store(w);
 }
@@ -797,24 +800,30 @@ int launch_sincos(const R* x, R* c, R* s, int64_t n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the Sim's leaves, and its t_stop after them where it carries one (the
+// dwell does not read it: the horizon is a term of make_cond only)
 inline bool load_ptrs(void* const* leaves, int n_leaves, Ptrs& ps) {
-  if (n_leaves != N_LEAVES) return false;
-  for (int i = 0; i < N_LEAVES; ++i) ps.p[i] = leaves[i];
+  if (n_leaves != N_LEAVES && n_leaves != N_LEAVES + 1) return false;
+  ps.p[T_STOP] = nullptr;
+  for (int i = 0; i < n_leaves; ++i) ps.p[i] = leaves[i];
   return true;
 }
 
 template <typename R, typename C>
 int launch_chunk(void* const* leaves, int n_leaves, int lanes, int event_cap,
-                 int n_procs, int chunk_steps, int has_t_end, double t_end,
+                 int n_procs, int chunk_steps, int horizon, double t_end,
                  void* stream) {
   Ptrs ps;
-  if (!load_ptrs(leaves, n_leaves, ps)) return -1;
+  if (horizon < H_NONE || horizon > H_LANE) return -5;
+  if (!load_ptrs(leaves, n_leaves, ps) ||
+      (n_leaves == N_LEAVES + 1) != (horizon == H_LANE))
+    return -1;
   if (lanes <= 0 || chunk_steps <= 0 || n_procs < 2) return -2;
   constexpr int per_block = kThreads / LT;
   const int blocks = (lanes + per_block - 1) / per_block;
   chunk_kernel<R, C><<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      ps, lanes, event_cap, n_procs, chunk_steps, has_t_end != 0, R(t_end));
+      ps, lanes, event_cap, n_procs, chunk_steps, horizon, R(t_end));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -838,25 +847,26 @@ int launch_dwell(void* const* leaves, int n_leaves, int lanes, int event_cap,
 }  // namespace cimba
 
 // Plain C interface (loaded with ctypes).  leaves: the Sim's device
-// pointers in cimba::awacs::Leaf order; n_procs = targets + 1.  Each
-// launches on ``stream`` without synchronising and returns
-// cudaGetLastError() after the launch (0 = ok), or -1 / -2 for a wrong
-// leaf count / bad shape.
+// pointers in cimba::awacs::Leaf order, with the Sim's t_stop last where
+// it carries one; n_procs = targets + 1.  Each launches on ``stream``
+// without synchronising and returns cudaGetLastError() after the launch
+// (0 = ok), or -1 / -2 / -5 for a wrong leaf count / bad shape / no such
+// horizon (cimba::Horizon: 0 none, 1 t_end, 2 each lane's t_stop).
 extern "C" int cimba_awacs_chunk_f32(void* const* leaves, int n_leaves,
                                      int lanes, int event_cap, int n_procs,
-                                     int chunk_steps, int has_t_end,
+                                     int chunk_steps, int horizon,
                                      double t_end, void* stream) {
   return cimba::awacs::launch_chunk<float, int32_t>(
-      leaves, n_leaves, lanes, event_cap, n_procs, chunk_steps, has_t_end,
+      leaves, n_leaves, lanes, event_cap, n_procs, chunk_steps, horizon,
       t_end, stream);
 }
 
 extern "C" int cimba_awacs_chunk_f64(void* const* leaves, int n_leaves,
                                      int lanes, int event_cap, int n_procs,
-                                     int chunk_steps, int has_t_end,
+                                     int chunk_steps, int horizon,
                                      double t_end, void* stream) {
   return cimba::awacs::launch_chunk<double, int64_t>(
-      leaves, n_leaves, lanes, event_cap, n_procs, chunk_steps, has_t_end,
+      leaves, n_leaves, lanes, event_cap, n_procs, chunk_steps, horizon,
       t_end, stream);
 }
 

@@ -218,6 +218,7 @@
 #include <type_traits>
 
 #include "erfinv.cuh"
+#include "horizon.cuh"
 #include "samplers.cuh"
 #include "summary.cuh"
 #include "threefry.cuh"
@@ -271,7 +272,9 @@ enum Leaf {
 constexpr int N_ACC = A_STARTED - A_N + 1;
 constexpr int DONE = 0, ERR = 1, N_EVENTS = 2, N_TAIL = 4;  // after the user
 // the pointer array's room: a generated family's Sim (tandem's, the
-// widest hand-written one, has U0 + 29 + N_TAIL = 83 leaves)
+// widest hand-written one, has U0 + 29 + N_TAIL = 83 leaves), its t_stop
+// leaf counted where it carries one (core/emit.py refuses a Sim past it,
+// core/kernel_run.py a launch whose t_stop leaf would pass it)
 constexpr int MAX_LEAVES = 128;
 
 // The job shop's Sim has no queue leaves: from Q_ITEMS on come the
@@ -293,8 +296,11 @@ __host__ __device__ constexpr int at(int k) {
   return (!M::RECORD && !M::SHOP && k > A_STARTED) ? k - N_ACC : k;
 }
 
+// one slot past the leaves: run_lane reads the t_stop slot, n_base_leaves,
+// whatever the horizon mode, and a Sim of MAX_LEAVES leaves without one
+// finds it null there
 struct Ptrs {
-  void* p[MAX_LEAVES];
+  void* p[MAX_LEAVES + 1];
 };
 
 // static layout of one lane's tables; per queue its capacity and guards;
@@ -3465,13 +3471,23 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
   row<C, S>(w, tail<S>(N_EVENTS), 1)[0] = s.n_events;
 }
 
+// the pointer array's leaves of the model's Sim, without its t_stop
+template <class M>
+__host__ __device__ constexpr int n_base_leaves() {
+  return at<M>(M::U0 + M::N_USER + N_TAIL);
+}
+
 // Load lane l's state, run up to chunk_steps events while the lane is
 // live (make_cond), and store it back.  Leaves are lane-first; the
-// queues' accumulator rows are [L, NQ].
+// queues' accumulator rows are [L, NQ].  The horizon is H_NONE, the
+// scalar t_end (H_SCALAR) or the lane's t_stop leaf (H_LANE), compared
+// as make_cond compares it: nxt <= lim in the TIME type.  A lane dead at
+// the start stores back what it loaded, so a chunk past the end of a run
+// changes no leaf.
 template <typename R, typename C, class M>
 __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
                                          const Shape& sh, int chunk_steps,
-                                         bool has_t_end, R t_end,
+                                         int horizon, R t_end,
                                          Cold<R, M>& cold,
                                          ColdAcc<R, M>& cold_acc,
                                          ColdQ<M>& cold_q,
@@ -3516,7 +3532,8 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
     }
     const R nxt = t_w < s.t_e ? t_w : s.t_e;
     bool live = !s.done && s.err == 0 && (s.any_e || any_w) &&
-                (!has_t_end || nxt <= t_end);
+                within_horizon(nxt, horizon, t_end,
+                               ps.p[n_base_leaves<M>()], l);
     if constexpr (M::WAITE) {
       // a waiter stranded by a cancel that drained the tables keeps the
       // lane live, the horizon aside (make_cond)
@@ -3548,7 +3565,7 @@ __global__ void __launch_bounds__(
     ModelOf<FAMILY, NS, RECORD, R>::type::template minb<R>())
 chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
              const __grid_constant__ Shape sh, int chunk_steps,
-             bool has_t_end, R t_end) {
+             int horizon, R t_end) {
   using M = typename ModelOf<FAMILY, NS, RECORD, R>::type;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (M::DYN) {
@@ -3556,7 +3573,7 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
     extern __shared__ __align__(16) unsigned char dyn_smem[];
     auto& m = *reinterpret_cast<Smem<R, M>*>(dyn_smem);
     if (l < lanes)
-      run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, m.cold,
+      run_lane<R, C, M>(ps, l, sh, chunk_steps, horizon, t_end, m.cold,
                         m.cold_acc, m.cold_q, m.cold_shop, m.cold_sig,
                         m.ucold, &m.wake, &m.g, &m.await_, &m.mask);
   } else {
@@ -3572,7 +3589,7 @@ chunk_kernel(const __grid_constant__ Ptrs ps, int lanes,
       mk = &mask;
     }
     if (l < lanes)
-      run_lane<R, C, M>(ps, l, sh, chunk_steps, has_t_end, t_end, cold,
+      run_lane<R, C, M>(ps, l, sh, chunk_steps, horizon, t_end, cold,
                         cold_acc, cold_q, cold_shop, cold_sig, ucold,
                         nullptr, nullptr, nullptr, mk);
   }
@@ -3590,9 +3607,12 @@ constexpr int dyn_bytes() {
 
 template <typename R, typename C, int FAMILY, int NS, bool RECORD>
 int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
-           int chunk_steps, int has_t_end, double t_end, void* stream) {
+           int chunk_steps, int horizon, double t_end, void* stream) {
   using M = typename ModelOf<FAMILY, NS, RECORD, R>::type;
-  if (n_leaves != at<M>(M::U0 + M::N_USER + N_TAIL)) return -1;
+  if (horizon < H_NONE || horizon > H_LANE) return -5;
+  if (n_leaves != n_base_leaves<M>() + (horizon == H_LANE ? 1 : 0) ||
+      n_leaves > MAX_LEAVES)
+    return -1;
   if (lanes <= 0 || chunk_steps <= 0) return -2;
   // a generated family's general table has its header's slots
   if constexpr (M::GEN) {
@@ -3612,7 +3632,7 @@ int launch(void* const* leaves, int n_leaves, int lanes, const Shape& sh,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   chunk_kernel<R, C, FAMILY, NS, RECORD><<<blocks, M::THREADS, smem, st>>>(
-      ps, lanes, sh, chunk_steps, has_t_end != 0, R(t_end));
+      ps, lanes, sh, chunk_steps, horizon, R(t_end));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3641,11 +3661,11 @@ int occupancy(int* threads) {
 // mm1.build() and mmc.build(1); (2..4, true) mmc.build(c)
 template <typename R, typename C>
 int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
-             int record, const Shape& sh, int chunk_steps, int has_t_end,
+             int record, const Shape& sh, int chunk_steps, int horizon,
              double t_end, void* stream) {
   const auto go = [&](auto ns, auto rec) {
     return launch<R, C, F_MM, decltype(ns)::value, decltype(rec)::value>(
-        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end, stream);
+        leaves, n_leaves, lanes, sh, chunk_steps, horizon, t_end, stream);
   };
   using T = std::true_type;
   if (!record)
@@ -3667,66 +3687,67 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
 // Plain C interface (loaded with ctypes).  leaves: the Sim's device
 // pointers in jax.tree.leaves order (without the queues.acc leaves when
 // record is 0).  Launches on ``stream`` without synchronising; returns
-// cudaGetLastError() after the launch (0 = ok), or -1 / -2 / -3 for a
-// wrong leaf count / an empty launch / no instance for (n_servers,
-// record).
+// cudaGetLastError() after the launch (0 = ok), or -1 / -2 / -3 / -5 for
+// a wrong leaf count / an empty launch / no instance for (n_servers,
+// record) / no such horizon.  horizon (cimba::Horizon): 0 none, 1 t_end,
+// 2 each lane's t_stop, one more leaf after the Sim's others.
 #define CIMBA_QUEUE_CHUNK(SUFFIX, R, C)                                      \
   extern "C" int cimba_queue_chunk_##SUFFIX(                                 \
       void* const* leaves, int n_leaves, int lanes, int n_servers,          \
       int record, int event_cap, int ring_width, int queue_cap, int front,  \
-      int rear, int n_ilocals, int chunk_steps, int has_t_end, double t_end, \
+      int rear, int n_ilocals, int chunk_steps, int horizon, double t_end,  \
       void* stream) {                                                        \
     const cimba::queue::Shape sh{event_cap,   ring_width, {queue_cap, 0},   \
                                  {front, 0},  {rear, 0},  n_ilocals};       \
     return cimba::queue::dispatch<R, C>(leaves, n_leaves, lanes, n_servers, \
-                                        record, sh, chunk_steps, has_t_end, \
+                                        record, sh, chunk_steps, horizon,   \
                                         t_end, stream);                     \
   }                                                                          \
   /* the M/M/1 instance under its first name, (1 server, no recording) */   \
   extern "C" int cimba_mm1_chunk_##SUFFIX(                                   \
       void* const* leaves, int n_leaves, int lanes, int event_cap,          \
       int ring_width, int queue_cap, int front, int rear, int n_ilocals,    \
-      int chunk_steps, int has_t_end, double t_end, void* stream) {         \
+      int chunk_steps, int horizon, double t_end, void* stream) {           \
     return cimba_queue_chunk_##SUFFIX(leaves, n_leaves, lanes, 1, 0,        \
                                       event_cap, ring_width, queue_cap,     \
                                       front, rear, n_ilocals, chunk_steps,  \
-                                      has_t_end, t_end, stream);            \
+                                      horizon, t_end, stream);              \
   }                                                                          \
   /* mg1.build(): 1 server, recording, lognormal service */                 \
   extern "C" int cimba_mg1_chunk_##SUFFIX(                                   \
       void* const* leaves, int n_leaves, int lanes, int event_cap,          \
       int ring_width, int queue_cap, int front, int rear, int n_ilocals,    \
-      int chunk_steps, int has_t_end, double t_end, void* stream) {         \
+      int chunk_steps, int horizon, double t_end, void* stream) {           \
     const cimba::queue::Shape sh{event_cap,   ring_width, {queue_cap, 0},   \
                                  {front, 0},  {rear, 0},  n_ilocals};       \
     return cimba::queue::launch<R, C, cimba::queue::F_MG1, 1, true>(        \
-        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        leaves, n_leaves, lanes, sh, chunk_steps, horizon, t_end,           \
         stream);                                                             \
   }                                                                          \
   /* tandem.build(): two recording queues, their caps and guards */         \
   extern "C" int cimba_tandem_chunk_##SUFFIX(                                \
       void* const* leaves, int n_leaves, int lanes, int event_cap,          \
       int ring_width, int cap1, int front1, int rear1, int cap2,            \
-      int front2, int rear2, int n_ilocals, int chunk_steps, int has_t_end, \
+      int front2, int rear2, int n_ilocals, int chunk_steps, int horizon,   \
       double t_end, void* stream) {                                          \
     const cimba::queue::Shape sh{event_cap,        ring_width,              \
                                  {cap1, cap2},     {front1, front2},        \
                                  {rear1, rear2},   n_ilocals};              \
     return cimba::queue::launch<R, C, cimba::queue::F_TANDEM, 2, true>(     \
-        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        leaves, n_leaves, lanes, sh, chunk_steps, horizon, t_end,           \
         stream);                                                             \
   }                                                                          \
   /* jobshop.build(): the pool's and buffer's capacities, backlog, b_slow */ \
   extern "C" int cimba_shop_chunk_##SUFFIX(                                  \
       void* const* leaves, int n_leaves, int lanes, int event_cap,          \
       int n_ilocals, double pool_cap, double buf_cap, double backlog,       \
-      double b_slow, int chunk_steps, int has_t_end, double t_end,          \
+      double b_slow, int chunk_steps, int horizon, double t_end,            \
       void* stream) {                                                        \
     const cimba::queue::Shape sh{event_cap, 1,         {0, 0},   {0, 0},    \
                                  {0, 0},    n_ilocals, pool_cap, buf_cap,   \
                                  backlog,   b_slow};                         \
     return cimba::queue::launch<R, C, cimba::queue::F_SHOP, 2, true>(       \
-        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        leaves, n_leaves, lanes, sh, chunk_steps, horizon, t_end,           \
         stream);                                                             \
   }                                                                          \
   /* an instance's resident blocks an SM (its lanes a block in *threads): */ \
@@ -3757,12 +3778,12 @@ int dispatch(void* const* leaves, int n_leaves, int lanes, int n_servers,
 #define CIMBA_GEN_CHUNK(SUFFIX, R, C)                                        \
   extern "C" int cimba_gen_chunk_##SUFFIX(                                   \
       void* const* leaves, int n_leaves, int lanes, int event_cap,          \
-      int ring_width, int chunk_steps, int has_t_end, double t_end,         \
+      int ring_width, int chunk_steps, int horizon, double t_end,           \
       void* stream) {                                                        \
     const cimba::queue::Shape sh{event_cap, ring_width, {0, 0}, {0, 0},     \
                                  {0, 0},    1};                              \
     return cimba::queue::launch<R, C, cimba::queue::F_GEN, 0, false>(       \
-        leaves, n_leaves, lanes, sh, chunk_steps, has_t_end, t_end,         \
+        leaves, n_leaves, lanes, sh, chunk_steps, horizon, t_end,           \
         stream);                                                             \
   }                                                                          \
   /* the dynamic shared memory a block of the instance takes (0: static) */ \

@@ -6,6 +6,8 @@ The JAX package's batched Sim, as a list of numpy leaves in
 back, so a test can stop a run in one package and finish it in the
 other.  Threefry words travel as ``uint32`` on the JAX side and as
 int64 values in ``[0, 2**32)`` here; every other leaf keeps its dtype.
+A Sim's per-lane horizon (``Sim.t_stop``, the last leaf where a Sim has
+one) travels both ways like any other leaf.
 A recording queue's length accumulator (``queues.acc``), a binary
 resource's holder and utilization accumulator (``resources.holder``,
 ``resources.acc``) travel like any other leaf: the spec's template gives
@@ -26,7 +28,8 @@ def sim_from_numpy(leaves, spec: ModelSpec, params=None, *,
                    device="cuda") -> Sim:
     """The port's Sim from the reference's batched Sim leaves (numpy
     arrays in ``jax.tree.leaves`` order, e.g.
-    ``[np.asarray(x) for x in jax.tree.leaves(sims)]``).  ``params`` is
+    ``[np.asarray(x) for x in jax.tree.leaves(sims)]``), the ``t_stop``
+    leaf, the last, included where that Sim carries one.  ``params`` is
     any parameter set the spec's user state accepts, shared or a sweep's
     (leading axis the lane count): it only shapes the template the leaves
     are checked against."""
@@ -36,6 +39,9 @@ def sim_from_numpy(leaves, spec: ModelSpec, params=None, *,
     with config.profile(prof):
         tmpl = init_sim(spec, 0, torch.arange(1), _one_lane(params, lanes),
                         device="cpu")
+        if len(leaves) == len(tree.leaves(tmpl)) + 1:
+            # the reference's Sim carries a per-lane horizon: its last leaf
+            tmpl = tmpl._replace(t_stop=torch.zeros(1, dtype=config.time()))
     want = tree.leaves(tmpl)
     if len(leaves) != len(want):
         raise ValueError(f"{len(leaves)} leaves given, spec {spec.name!r} "

@@ -481,8 +481,10 @@ def chunk(lib: ctypes.CDLL, sims, lay: dict, chunk_steps: int,
     if leaves[0].is_cuda:
         raise ValueError("the host-built instance takes a Sim on the CPU")
     real, count = sims.clock.dtype, sims.n_events.dtype
-    lanes = kernel_run._check_leaves(leaves, lay["table"], lay, real, count)
-    args = kernel_run._chunk_args((lay["E"], lay["W"]), chunk_steps, t_end)
+    lanes = kernel_run._check_leaves(leaves, lay["table"], lay, real, count,
+                                     sims.t_stop is not None)
+    args = kernel_run._chunk_args((lay["E"], lay["W"]), chunk_steps, t_end,
+                                  sims)
     fn = getattr(lib, "cimba_gen_chunk_"
                       f"{'f32' if real == torch.float32 else 'f64'}")
     fn.restype = ctypes.c_int

@@ -106,9 +106,11 @@ def test_unported_features_raise():
     # spawn pools too: their rows are declared, CREATED until api.spawn
     pt = m.process("s", entry=m.block(blk), count=3, start=False)
     assert not pt.start and pt.count == 3
-    # per-lane horizons (Sim.t_stop) are not
-    spec = m.build()
-    s = tloop.init_sim(spec, 1, torch.arange(2), device="cpu")
-    s = s._replace(t_stop=torch.full((2,), 5.0, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="per-lane horizons"):
-        tloop.make_cond(spec)(s)
+    # per-lane horizons (Sim.t_stop) too: make_cond reads the leaf in
+    # place of t_end (tests/test_torch_horizon.py holds them)
+    m.build()
+    spec, _ = tmm1.build()
+    s = tloop.init_sim(spec, 1, torch.arange(2), tmm1.params(5),
+                       t_stop=torch.tensor([5.0, -float("inf")]),
+                       device="cpu")
+    assert tloop.make_cond(spec)(s).tolist() == [True, False]

@@ -39,7 +39,9 @@ def test_importing_every_module_loads_no_jax():
                 "stats.timeseries", "tools.bisect_kernels",
                 "tools.cuda_bisect", "tools.cuda_event_bisect",
                 "examples.tut_2_park", "examples.tut_0_hello",
-                "examples.spawn_shop", "tools.usergen"):
+                "examples.spawn_shop", "tools.usergen", "runner.checkpoint",
+                "examples.checkpointed_run", "examples.large_r_stream",
+                "examples.mm1_experiment", "examples.tut_5_awacs"):
         assert f"cimba_tpu_torch.{mod}" in res["mods"]
 
 
