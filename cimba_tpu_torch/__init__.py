@@ -19,4 +19,6 @@ CPU.
 
 from cimba_tpu_torch import config
 
+__version__ = "0.1.0"
+
 __all__ = ["config"]

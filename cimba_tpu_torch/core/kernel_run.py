@@ -376,6 +376,22 @@ def _check_leaves(leaves, table, lay: dict, real, count,
     return lanes
 
 
+def refuse_observed(sims: Optional[loop.Sim]) -> None:
+    """The kernel-path contract (the reference's): a Sim carrying the
+    flight recorder's ring or the metrics registry is refused by every
+    CUDA chunk kernel, loudly — the ring and the registry are never
+    dropped, and the run never moves to the plain engine on its own."""
+    from cimba_tpu_torch.obs import metrics as obs_metrics
+    from cimba_tpu_torch.obs import trace as obs_trace
+
+    if sims is None:
+        return
+    if sims.trace is not None:
+        raise RuntimeError(obs_trace.KERNEL_REFUSAL)
+    if sims.metrics is not None:
+        raise RuntimeError(obs_metrics.KERNEL_REFUSAL)
+
+
 def _launch(lib_name, entry: str, table, sims: loop.Sim, lay: dict,
             args) -> None:
     """One launch of ``cimba_<entry>_<f32|f64>`` of ``csrc/<lib_name>.cu``
@@ -384,6 +400,7 @@ def _launch(lib_name, entry: str, table, sims: loop.Sim, lay: dict,
     pairs."""
     from cimba_tpu_torch import _build
 
+    refuse_observed(sims)
     leaves = tree.leaves(sims)
     if not leaves[0].is_cuda:
         raise ValueError(f"{entry} takes a Sim on a CUDA device")
@@ -541,6 +558,7 @@ def generated_kernel_for(spec: ModelSpec, sims: loop.Sim):
     from cimba_tpu_torch.core import emit
     from cimba_tpu_torch.core import trace
 
+    refuse_observed(sims)
     # the horizon leaf is the kernel's run-time argument: one instance
     # serves a Sim with it and without it (each launch counts it against
     # the pointer array, _check_leaves)
@@ -569,6 +587,19 @@ def _hand_written(spec: ModelSpec):
     return None
 
 
+def load_library(kernel, lay: dict):
+    """The built library a chunk wrapper (``queue_chunk``,
+    ``awacs_chunk`` or ``gen_chunk``) launches for ``lay``, compiled
+    first where this checkout has not built it (the build-or-load leg of
+    ``obs.prof``'s report)."""
+    from cimba_tpu_torch import _build
+
+    if kernel is gen_chunk:
+        return _build.load_gen(lay["header"])
+    return _build.load("awacs_chunk" if kernel is awacs_chunk
+                       else "queue_chunk")
+
+
 class NeedsSim(NotImplementedError):
     """:func:`kernel_for` of a spec whose kernel is generated, without a
     Sim to trace it on."""
@@ -579,7 +610,9 @@ def kernel_for(spec: ModelSpec, sims: Optional[loop.Sim] = None):
     kernel: a hand-written family's where the spec is one, else the
     generated family's for ``sims`` (:func:`generated_kernel_for`;
     :class:`NeedsSim` without a Sim to trace, NotImplementedError for a
-    spec it cannot take)."""
+    spec it cannot take).  A Sim carrying the flight recorder's ring or
+    the metrics registry raises (:func:`refuse_observed`)."""
+    refuse_observed(sims)
     hand = _hand_written(spec)
     if hand is not None:
         return hand

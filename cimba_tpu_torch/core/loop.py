@@ -65,8 +65,11 @@ from cimba_tpu_torch.core import ix
 from cimba_tpu_torch.core import process as pr
 from cimba_tpu_torch.core import trace as _trace
 from cimba_tpu_torch.core.model import ModelSpec
+from cimba_tpu_torch.obs import metrics as obs_metrics
+from cimba_tpu_torch.obs import trace as obs_trace
 from cimba_tpu_torch.random import bits as rb
 from cimba_tpu_torch.stats import timeseries as ts
+from cimba_tpu_torch.utils import logger as _logger
 
 K_PROC = 0
 K_TIMER = 1
@@ -213,7 +216,10 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
     or a per-lane column) gives every lane a horizon, the ``Sim.t_stop``
     leaf in the TIME dtype, which :func:`make_cond` reads in place of
     its ``t_end``: ``+inf`` runs to the end, ``-inf`` leaves the lane
-    dead from the start.  ``None`` carries no leaf."""
+    dead from the start.  ``None`` carries no leaf.  With the flight
+    recorder or the metrics registry on (``obs.trace.enable``,
+    ``obs.metrics.enable``) the Sim carries a ring or a registry a lane
+    (``Sim.trace``, ``Sim.metrics``), in the reference's field order."""
     dev = config.resolve_device(device)
     real, tdt = config.real(), config.time()
     reps = torch.as_tensor(replications, device=dev).to(torch.int64)
@@ -317,6 +323,12 @@ def init_sim(spec: ModelSpec, seed, replications, params=None, t0=0.0, *,
         err=zeros((lanes,), INDEX),
         n_events=zeros((lanes,), config.count()),
         boundary_pending=zeros((lanes,), torch.bool),
+        # observability state: off (the default) carries no tensors
+        trace=(obs_trace.create(lanes, dev, tdt) if obs_trace.enabled()
+               else None),
+        metrics=(obs_metrics.create(N_KINDS + len(spec.user_handlers),
+                                    len(spec.queues), (lanes,), dev)
+                 if obs_metrics.enabled() else None),
         t_stop=t_stop,
     )
 
@@ -1083,6 +1095,9 @@ def _make_apply(spec: ModelSpec):
             procs=sim.procs._replace(
                 got=ix.put(sim.procs.got, p, item, ok_get)),
         )
+        # the queue-length high-water mark, gated by the same ok as the
+        # size write
+        sim = obs_metrics.on_queue_len(sim, qid, size + dsz, ok)
         sim = _guard_signal(sim, rear, pred=ok_get, spec=spec)
         sim = _guard_signal(sim, front, pred=ok, spec=spec)
         sim = _schedule_wake(sim, fused & ok, p, pr.SUCCESS,
@@ -1483,7 +1498,8 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
             m = (pc == j) & need
             if not bool(m.any()):
                 continue
-            s_j, c_j = blk(sim, p, sig)
+            with _logger.lanes(m):  # a log line a lane the block ran for
+                s_j, c_j = blk(sim, p, sig)
             c_j = pr.normalize(c_j, lanes, pc.device, real)
             masks.append(m)
             outs.append(s_j)
@@ -1537,7 +1553,9 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
         carry = (sim, sig.to(INDEX), ~gate,
                  torch.zeros_like(sig, dtype=INDEX), use_pend0)
         sim, _, _, n, _ = _while(cond, body, carry)
-        return _set_err(sim, n >= MAX_CHAIN, ERR_CHAIN_RUNAWAY)
+        sim = _set_err(sim, n >= MAX_CHAIN, ERR_CHAIN_RUNAWAY)
+        # n == 0 exactly where the resume was gated off: not counted
+        return obs_metrics.on_resume(sim, n, use_pend0)
 
     def step(sim: Sim) -> Sim:
         event, take_e, take_w = ev.peek_merged(
@@ -1548,6 +1566,11 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
             boundary = proceed & (event.kind <= K_TIMER) & at_boundary(pc_t)
             proceed = proceed & ~boundary
             sim = sim._replace(boundary_pending=boundary)
+        if sim.metrics is not None:
+            # the event set's occupancy before the pop: the high-water
+            # gauge of how close the lane came to an overflow
+            occupancy = (torch.isfinite(sim.events.time).sum(dim=1)
+                         + torch.isfinite(sim.wakes.time).sum(dim=1))
         es2, wk2 = ev.consume_merged(sim.events, sim.wakes, take_e, take_w,
                                      proceed)
         sim = sim._replace(
@@ -1556,6 +1579,13 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
             clock=torch.where(proceed, event.time, sim.clock),
             n_events=sim.n_events + proceed.to(sim.n_events.dtype),
         )
+        # the dispatch site of the flight recorder and the registry (each
+        # returns sim itself where the Sim carries none)
+        sim = obs_trace.emit(sim, event.time, event.subj, event.kind,
+                             event.arg, proceed)
+        if sim.metrics is not None:
+            sim = obs_metrics.on_dispatch(sim, event.kind, occupancy,
+                                          proceed)
         if _may_wait_events(spec, sim):
             # the event's waiters wake before its action runs; the stale
             # arm may arm wakes on an empty pop, so "out of events" is
@@ -1583,7 +1613,8 @@ def make_step(spec: ModelSpec, defer_boundary: bool = False):
         for k, fn in enumerate(handlers):
             gate = proceed & (kind == N_KINDS + k)
             if bool(gate.any()):
-                sim = _where(gate, fn(sim, subj, event.arg), sim)
+                with _logger.lanes(gate):
+                    sim = _where(gate, fn(sim, subj, event.arg), sim)
         return sim
 
     return step
@@ -1657,7 +1688,8 @@ def make_run(spec: ModelSpec, t_end: Optional[float] = None,
 
 
 def make_chunk(spec: ModelSpec, t_end: Optional[float] = None,
-               max_steps: int = 512, donate: bool = True):
+               max_steps: int = 512, donate: bool = True,
+               audit: bool = False):
     """Build ``chunk(sims) -> (sims, any_live)`` over a lane-first Sim
     (parity: ``cimba_tpu.core.loop.make_chunk``): every lane advances by
     at most ``max_steps`` events, and ``any_live`` is a bool tensor on the
@@ -1674,7 +1706,13 @@ def make_chunk(spec: ModelSpec, t_end: Optional[float] = None,
     advanced.  On CPU tensors a chunk is the plain engine,
     ``make_run(spec, t_end, max_steps=max_steps)``, which returns new
     tensors.  A chunk of a Sim whose lanes are all done changes no
-    leaf, so chunks dispatched past the end are harmless."""
+    leaf, so chunks dispatched past the end are harmless.
+
+    ``audit=True`` (the determinism audit) returns a third output, the
+    carry-class digest vector of the Sim after the chunk
+    (:func:`cimba_tpu_torch.obs.audit.sim_digest`, computed on the Sim's
+    device), which :func:`drive_chunks` hands to ``on_digest``.  Off (the
+    default), the chunk computes no digest."""
     if max_steps <= 0:
         raise ValueError(f"max_steps must be positive, got {max_steps}")
     plain = make_run(spec, t_end=t_end, max_steps=max_steps)
@@ -1701,7 +1739,15 @@ def make_chunk(spec: ModelSpec, t_end: Optional[float] = None,
             sims = card["boundary"](sims)
         return sims, cond(sims).any()
 
-    return chunk
+    if not audit:
+        return chunk
+    from cimba_tpu_torch.obs import audit as obs_audit
+
+    def audited(sims: Sim):
+        sims, any_live = chunk(sims)
+        return sims, any_live, obs_audit.sim_digest(sims)
+
+    return audited
 
 
 def make_refill(spec: ModelSpec):
@@ -1744,7 +1790,7 @@ def make_lanes_live(spec: ModelSpec, t_end: Optional[float] = None):
 def drive_chunks(chunk, sims: Sim, *, poll_every: int = 4, on_chunk=None,
                  on_state=None, on_state_every: int = 0,
                  max_chunks: Optional[int] = None, n0: int = 0,
-                 on_boundary=None) -> Sim:
+                 on_digest=None, on_boundary=None) -> Sim:
     """Call ``chunk(sims) -> (sims, any_live)`` until no lane is live
     (parity: ``cimba_tpu.core.loop.drive_chunks``).
 
@@ -1757,6 +1803,10 @@ def drive_chunks(chunk, sims: Sim, *, poll_every: int = 4, on_chunk=None,
     the Sim goes into the next chunk (the checkpoint hook); ``n0``
     offsets the chunk counter (a resumed run counts on);
     ``max_chunks`` stops after that many chunks, finished or not.
+    ``on_digest(n, vec)`` is called after each chunk of an audited chunk
+    (``make_chunk(..., audit=True)``) with its digest vector, still a
+    tensor on the Sim's device; chunks past the end append too (their
+    digests repeat the settled state).
     ``on_boundary(n, sims)`` may return a replacement Sim (a refill),
     after which the queued flags, which describe the Sim before it, are
     dropped."""
@@ -1766,8 +1816,11 @@ def drive_chunks(chunk, sims: Sim, *, poll_every: int = 4, on_chunk=None,
     pending = deque()
     n = n0
     while max_chunks is None or n - n0 < max_chunks:
-        sims, any_live = chunk(sims)
+        out = chunk(sims)
+        sims, any_live = out[0], out[1]
         n += 1
+        if on_digest is not None and len(out) > 2:
+            on_digest(n, out[2])
         if on_chunk is not None:
             on_chunk(n)
         if on_boundary is not None:

@@ -321,6 +321,9 @@ class Model:
                 prios.append(pt.prio)
                 started.append(pt.start)
                 names.append(pt.name if pt.count == 1 else f"{pt.name}[{k}]")
+        from cimba_tpu_torch.utils import logger as _logger
+
+        _logger.names_set(names)  # log lines render name(pid)
         return ModelSpec(
             name=self.name,
             blocks=list(self._blocks),

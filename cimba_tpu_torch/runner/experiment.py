@@ -26,6 +26,16 @@ a chunked run, checkpointed at chunk boundaries and resumable
 lanes, each folded into pooled statistics and freed before the next; and
 a run that doubles ``event_cap`` after an event-table overflow.  Each
 gives the monolithic run's trajectories bit for bit.
+
+Observability (parity: the reference's runner): ``run_experiment(...,
+with_report=True)`` also returns an ``obs.prof.RunReport`` (the build,
+load and execute legs timed apart, the card's memory statistics, the
+pooled metrics snapshot), and ``profile_dir`` runs the execute leg under
+``torch.profiler``; ``run_experiment_stream(..., audit=...)`` digests
+the lane state after every chunk and returns a run card
+(``obs.audit``).  The flight recorder and the metrics registry run on
+the plain engine: on the card the runners go through the CUDA chunk
+kernel, which refuses them (the reference's kernel-path contract).
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ from cimba_tpu_torch.core import loop as _loop
 from cimba_tpu_torch.core.loop import (Sim, drive_chunks, init_sim,
                                        make_chunk, make_run)
 from cimba_tpu_torch.core.model import ModelSpec
+from cimba_tpu_torch.obs import metrics as obs_metrics
+from cimba_tpu_torch.obs import trace as obs_trace
 from cimba_tpu_torch.stats import summary as sm
 
 
@@ -64,10 +76,25 @@ def _result(sims: Sim, launches: int = 0, rounds: int = 0):
                             launches=launches, boundary_rounds=rounds)
 
 
+def _refuse_observed(dev, route: str) -> None:
+    """On the card a runner goes through the CUDA chunk kernel, which
+    carries neither the flight recorder nor the metrics registry: with
+    either enabled it raises, naming the route (the reference's
+    kernel-path contract), rather than dropping them or running the
+    plain engine in its place."""
+    if dev.type != "cuda":
+        return
+    for mod in (obs_trace, obs_metrics):
+        if mod.enabled():
+            raise RuntimeError(f"{route} on the card runs the CUDA chunk "
+                               f"kernel: {mod.KERNEL_REFUSAL}")
+
+
 def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
                    seed: int = 0, t_end: Optional[float] = None,
                    device="cuda", chunk_steps: int = 512,
-                   max_chunks: int = 10_000) -> ExperimentResult:
+                   max_chunks: int = 10_000, with_report: bool = False,
+                   profile_dir: Optional[str] = None):
     """Run ``n_replications`` independent replications of ``spec``.
 
     ``params`` holds scalars (shared) or arrays with leading axis
@@ -79,16 +106,54 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
     ``models.mg1.build()``, ``models.tandem.build()``,
     ``models.jobshop.build(...)`` and ``models.awacs.build(n)``,
     generated from the blocks for any other spec; a spec the generator
-    cannot take raises there, naming what it uses)."""
+    cannot take raises there, naming what it uses).
+
+    ``with_report=True`` returns ``(ExperimentResult, obs.prof.RunReport)``:
+    the kernel's build (for a generated spec, its trace and emit), the
+    library's nvcc build or load and the run timed apart, the card's
+    ``torch.cuda.memory_stats`` and, where the metrics registry is on
+    (the plain engine, ``device="cpu"``), its pooled snapshot.
+    ``profile_dir`` runs the execute leg under ``torch.profiler`` and
+    writes its Chrome trace there.  With the flight recorder or the
+    registry on, a run on the card raises (:func:`_refuse_observed`)."""
+    from cimba_tpu_torch.obs import prof
+
     dev = config.resolve_device(device)
+    _refuse_observed(dev, "run_experiment")
     sims = init_sim(spec, seed, torch.arange(n_replications), params,
                     device=dev)
+    build = load = None
     if dev.type != "cuda":
-        return _result(make_run(spec, t_end=t_end)(sims))
-    run = kernel_run.make_kernel_run(spec, t_end=t_end,
-                                     chunk_steps=chunk_steps,
-                                     max_chunks=max_chunks)
-    return _result(run(sims), run.launches, run.boundary_rounds)
+        run = make_run(spec, t_end=t_end)
+    else:
+        run = kernel_run.make_kernel_run(spec, t_end=t_end,
+                                         chunk_steps=chunk_steps,
+                                         max_chunks=max_chunks)
+        got = {}
+
+        def build():
+            got["lay"], got["kernel"], _ = kernel_run.kernel_for(spec, sims)
+
+        def load():
+            kernel_run.load_library(got["kernel"], got["lay"])
+
+    if with_report:
+        out, timings = prof.profiled_call(run, sims, build=build,
+                                          load=load, device=dev,
+                                          profile_dir=profile_dir)
+    else:
+        out = run(sims)
+    result = _result(out, getattr(run, "launches", 0),
+                     getattr(run, "boundary_rounds", 0))
+    if not with_report:
+        return result
+    snap = None
+    if out.metrics is not None:
+        snap = obs_metrics.snapshot(obs_metrics.pool(out.metrics), spec)
+    return result, prof.build_report(
+        timings, n_replications=n_replications,
+        n_failed=int(result.n_failed), total_events=int(result.total_events),
+        metrics=snap, profile_dir=profile_dir, device=dev)
 
 
 class StreamResult(NamedTuple):
@@ -102,15 +167,14 @@ class StreamResult(NamedTuple):
     total_events: torch.Tensor   # i64 dispatched events, all waves
     n_waves: int
     n_regrows: int               # waves run again at a doubled event_cap
-    metrics: Any = None          # the registry is not ported: always None
-    audit: Any = None            # the audit plane is not ported: None
+    metrics: Any = None          # the pooled registry, where it is on
+    audit: Any = None            # the run card, with audit on
 
 
 def _not_ported(**kw) -> None:
     """Refuse an argument whose module the port does not have yet, by
     name, rather than ignore it."""
     where = {"mesh": "multi-GPU runs (make_mesh, make_sharded_experiment)",
-             "audit": "the audit plane (obs/audit.py)",
              "telemetry": "telemetry (obs/telemetry.py)",
              "schedule": "tuned schedules (tune/)",
              "program_cache": "the program cache of the serve layer "
@@ -237,6 +301,7 @@ def run_experiment_chunked(spec: ModelSpec, params: Any,
 
     _not_ported(mesh=mesh, telemetry=telemetry)
     dev = config.resolve_device(device)
+    _refuse_observed(dev, "run_experiment_chunked")
     reps = torch.arange(n_replications)
     seeds = _seed_column(seed, n_replications, dev)
     tag = None
@@ -291,12 +356,32 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
     ``t_end`` rides as each lane's ``t_stop`` (no leaf without one).
     With ``max_regrows`` a wave that overflows its event table runs again
     at a doubled ``event_cap``, which later waves keep.  ``on_wave(n,
-    lanes_done)`` after each wave, ``on_chunk(n)`` after each chunk."""
+    lanes_done)`` after each wave, ``on_chunk(n)`` after each chunk.
+    With the metrics registry on (the plain engine, ``device="cpu"``)
+    each wave's pooled registry folds into ``StreamResult.metrics``.
+
+    ``audit`` (the determinism audit): ``None`` defers to the
+    ``CIMBA_AUDIT`` environment knob (unset: off, and the chunks are the
+    unaudited ones); ``True``, a directory or an ``obs.audit.Audit``
+    digest the lane state after every chunk on its device (on the card,
+    each K1 launch is followed by the digest), one trail row a chunk
+    (wave, chunk, class digests; a regrown wave's first attempt's rows
+    stay, then the regrown run's), and ``StreamResult.audit`` carries the
+    run card: spec fingerprint, seed schedule, environment, geometry,
+    trail and :func:`obs.audit.stream_result_digest`, written to the
+    Audit's ``out_dir`` when it has one.  Auditing changes no result
+    bit."""
     import dataclasses
 
+    from cimba_tpu_torch.obs import audit as obs_audit
+
     _not_ported(mesh=mesh, telemetry=telemetry, program_cache=program_cache,
-                audit=audit, schedule=schedule)
+                schedule=schedule)
     dev = config.resolve_device(device)
+    _refuse_observed(dev, "run_experiment_stream")
+    aud = obs_audit.resolve(audit)
+    spec0 = spec  # a regrow replaces spec; the card cites the original
+    with_metrics = obs_metrics.enabled()
     R = int(n_replications)
     if R <= 0:
         raise ValueError(f"n_replications must be positive, got {R}")
@@ -314,12 +399,18 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
         pw = _slice_params(params, R, lo, n)
         seeds = _seed_column(seed, n, dev)
         t_stops = None if t_end is None else _horizon_column(t_end, n, dev)
+        on_digest = None
+        if aud is not None:
+            def on_digest(c, d, _w=n_waves):
+                aud.on_chunk(_w, c, d)
         while True:
             sims = init_sim(spec, seeds, reps, pw, t_stop=t_stops,
                             device=dev)
             sims = drive_chunks(
-                make_chunk(spec, max_steps=chunk_steps), sims,
-                poll_every=poll_every, on_chunk=on_chunk)
+                make_chunk(spec, max_steps=chunk_steps,
+                           audit=aud is not None), sims,
+                poll_every=poll_every, on_chunk=on_chunk,
+                on_digest=on_digest)
             if n_regrows >= max_regrows or not bool(
                     (sims.err == _loop.ERR_EVENT_OVERFLOW).any()):
                 break
@@ -328,29 +419,59 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
             spec = dataclasses.replace(spec, event_cap=2 * spec.event_cap)
             n_regrows += 1
             sims = None
-        acc = _fold(acc, sims, summary_path)
+        acc = _fold(acc, sims, summary_path, with_metrics)
         sims = None
         n_waves += 1
         lo += n
         if on_wave is not None:
             on_wave(n_waves, lo)
-    return StreamResult(summary=acc[0], n_failed=acc[1],
-                        total_events=acc[2], n_waves=n_waves,
-                        n_regrows=n_regrows)
+    result = StreamResult(summary=acc[0], n_failed=acc[1],
+                          total_events=acc[2], n_waves=n_waves,
+                          n_regrows=n_regrows,
+                          metrics=acc[3] if with_metrics else None)
+    if aud is not None:
+        card = aud.finalize(
+            "stream", spec=spec0, seed_schedule={"seed": int(seed)},
+            geometry={"R": R, "wave_size": wave_size,
+                      "chunk_steps": chunk_steps, "poll_every": poll_every,
+                      "t_end": t_end, "profile": config.active_profile(),
+                      "with_metrics": with_metrics, "mesh": None,
+                      "n_waves": n_waves, "n_regrows": n_regrows},
+            result_digest=obs_audit.stream_result_digest(result),
+            device=dev)
+        result = result._replace(audit=card)
+    return result
 
 
-def _fold(acc, sims: Sim, summary_path):
+def _fold(acc, sims: Sim, summary_path, with_metrics: bool = False):
     """The wave fold: ``(merge(acc, merge_tree(summary_path(sims))),
-    n_failed + ..., total_events + ...)``, counts in int64 (parity: the
-    reference's ``serve.cache`` fold program)."""
+    n_failed + ..., total_events + ...[, merge(metrics, pool(...))])``,
+    counts in int64 (parity: the reference's ``serve.cache`` fold
+    program)."""
+    if (sims.metrics is None) == with_metrics:
+        raise RuntimeError(
+            "run_experiment_stream: obs.metrics was "
+            f"{'enabled' if with_metrics else 'disabled'} when the stream "
+            "started but flipped mid-stream — the flag binds for the whole "
+            "stream")
     pooled = sm.merge_tree(summary_path(sims))
+    dev = pooled.n.device
     if acc is None:
-        acc = (sm.empty((), pooled.n.device, pooled.n.dtype),
-               torch.zeros((), dtype=torch.int64, device=pooled.n.device),
-               torch.zeros((), dtype=torch.int64, device=pooled.n.device))
-    return (sm.merge(acc[0], pooled),
-            acc[1] + (sims.err != 0).sum(dtype=torch.int64),
-            acc[2] + sims.n_events.sum(dtype=torch.int64))
+        acc = (sm.empty((), dev, pooled.n.dtype),
+               torch.zeros((), dtype=torch.int64, device=dev),
+               torch.zeros((), dtype=torch.int64, device=dev))
+        if with_metrics:
+            m = sims.metrics
+            acc = acc + (obs_metrics.create(
+                m.dispatch_by_kind.shape[1], m.queue_hwm.shape[1], (), dev,
+                count=m.guard_retries.dtype),)
+    out = (sm.merge(acc[0], pooled),
+           acc[1] + (sims.err != 0).sum(dtype=torch.int64),
+           acc[2] + sims.n_events.sum(dtype=torch.int64))
+    if with_metrics:
+        out = out + (obs_metrics.merge(acc[3],
+                                       obs_metrics.pool(sims.metrics)),)
+    return out
 
 
 def pooled_summary(batched: sm.Summary) -> sm.Summary:

@@ -95,9 +95,10 @@ def torch_lib():
     from cimba_tpu_torch.core import process as cmd
     from cimba_tpu_torch.core.model import Model
     from cimba_tpu_torch.stats import summary as sm
+    from cimba_tpu_torch.utils import dbc, logger
 
     return types.SimpleNamespace(
-        Model=Model, api=api, cmd=cmd, cr=cr,
+        Model=Model, api=api, cmd=cmd, cr=cr, logger=logger, dbc=dbc,
         zeros_i=lambda: torch.zeros((), dtype=torch.int32),
         real=lambda v: torch.tensor(v, dtype=config.real()),
         where=torch.where, empty=lambda: sm.empty((), "cpu"), add=sm.add,
@@ -1108,6 +1109,55 @@ def wait_event_spec(lib):
                                cmd.hold(0.1, next_pc=s_go.pc))
 
     m.process("sched", entry=s_go, count=3)
+    return m.build()
+
+
+def fail_spec(lib):
+    """The failure semantics of the logger and the assertion tiers: a
+    ``checker`` that counts its wakes at exponential intervals of mean 1
+    and fails its lane by ``dbc.assert_always`` at its fifth; an
+    ``errer`` that waits an exponential of mean 2 and calls
+    ``logger.error``; a ``fataler`` that waits one of mean 3 and calls
+    ``logger.fatal``.  Whichever comes first fails the lane with
+    ``ERR_USER`` and freezes it, so every lane ends failed.  Traced for
+    the generated chunk kernel with the error and fatal levels on, the
+    two calls keep the failure flag, drop their lines and warn."""
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    logger, dbc = lib.logger, lib.dbc
+    m = Model("failgen", n_ilocals=1, event_cap=8)
+
+    @m.block
+    def c_tick(sim, p, sig):
+        n = api.local_i(sim, p, 0)
+        sim = api.add_local_i(sim, p, 0, 1)
+        sim = dbc.assert_always(sim, n < 4)
+        sim, dt = api.draw(sim, cr.exponential, 1.0)
+        return sim, cmd.hold(dt, next_pc=c_tick.pc)
+
+    @m.block
+    def e_wait(sim, p, sig):
+        sim, dt = api.draw(sim, cr.exponential, 2.0)
+        return sim, cmd.hold(dt, next_pc=e_boom.pc)
+
+    @m.block
+    def e_boom(sim, p, sig):
+        sim = logger.error(sim, p, "boom at t={0}", api.clock(sim))
+        return sim, cmd.exit_()
+
+    @m.block
+    def f_wait(sim, p, sig):
+        sim, dt = api.draw(sim, cr.exponential, 3.0)
+        return sim, cmd.hold(dt, next_pc=f_die.pc)
+
+    @m.block
+    def f_die(sim, p, sig):
+        sim = logger.fatal(sim, p, "unrecoverable n={0}",
+                           api.local_i(sim, p, 0))
+        return sim, cmd.exit_()
+
+    m.process("checker", entry=c_tick)
+    m.process("errer", entry=e_wait)
+    m.process("fataler", entry=f_wait)
     return m.build()
 
 

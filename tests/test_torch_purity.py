@@ -41,7 +41,11 @@ def test_importing_every_module_loads_no_jax():
                 "examples.tut_2_park", "examples.tut_0_hello",
                 "examples.spawn_shop", "tools.usergen", "runner.checkpoint",
                 "examples.checkpointed_run", "examples.large_r_stream",
-                "examples.mm1_experiment", "examples.tut_5_awacs"):
+                "examples.mm1_experiment", "examples.tut_5_awacs",
+                "utils.seed", "utils.dbc", "utils.logger", "utils.debug",
+                "stats.dataset", "obs.trace", "obs.metrics", "obs.export",
+                "obs.prof", "obs.audit", "tools.audit_diff",
+                "examples.tut_1_mm1"):
         assert f"cimba_tpu_torch.{mod}" in res["mods"]
 
 
