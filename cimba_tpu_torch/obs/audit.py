@@ -42,7 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "AUDIT_ENV", "CARD_FORMAT", "CLASS_NAMES",
-    "Audit", "resolve", "sim_digest", "format_digests",
+    "Audit", "resolve", "sim_digest", "combine_digests", "format_digests",
     "result_digest", "stream_result_digest",
     "run_card", "card_digest", "write_run_card", "load_run_card",
     "diff_trails", "diff_cards", "environment",
@@ -211,6 +211,20 @@ def sim_digest(sims, lane_offset: int = 0):
         return torch.zeros(len(CLASS_NAMES), dtype=torch.int64, device=dev)
     h = rb.fmix64(torch.cat(parts) ^ keys)
     return _sum_u64(h, lens)
+
+
+def combine_digests(vecs):
+    """The digest vector of a Sim whose lanes are split over shards:
+    each shard's :func:`sim_digest` at its global lane offset, summed mod
+    2**64 class by class (exact: the halves of every class summed apart),
+    equal to the digest of the gathered Sim."""
+    import torch
+
+    if len(vecs) == 1:
+        return vecs[0]
+    k = len(vecs)
+    h = torch.stack(list(vecs)).t().reshape(-1)
+    return _sum_u64(h, [k] * len(CLASS_NAMES))
 
 
 def format_digests(vec) -> Dict[str, str]:
@@ -543,13 +557,15 @@ def run_card(kind: str, *, spec=None, geometry: Optional[dict] = None,
              seed_schedule: Optional[dict] = None,
              digest_trail: Optional[List[dict]] = None,
              result_digest: Optional[str] = None,
+             cells: Optional[List[dict]] = None,
              label: Optional[str] = None, device="cpu") -> dict:
     """Assemble one run card (omitted blocks are left out) and stamp its
     content digest.  ``spec`` is a ModelSpec (hashed by
     :func:`spec_block`) or a dict; ``device`` the run's, for the env
-    block.  The reference's blocks of the layers the port does not have
-    yet (telemetry, tuned schedules, program keys, sweep cells) are not
-    written."""
+    block.  ``cells`` is a sweep card's per-cell block (label, seed list,
+    replications, stop round and each cell's :func:`result_digest`).
+    The reference's blocks of the layers the port does not have yet
+    (telemetry, tuned schedules, program keys) are not written."""
     card: dict = {"format": CARD_FORMAT, "kind": str(kind),
                   "created_unix": time.time(),
                   "env": environment(device)}
@@ -560,7 +576,8 @@ def run_card(kind: str, *, spec=None, geometry: Optional[dict] = None,
     for name, block in (("seed_schedule", seed_schedule),
                         ("geometry", geometry),
                         ("digest_trail", digest_trail),
-                        ("result_digest", result_digest)):
+                        ("result_digest", result_digest),
+                        ("cells", cells)):
         if block is not None:
             card[name] = block
     card["card_digest"] = card_digest(card)

@@ -179,12 +179,20 @@ def merge(a: Metrics, b: Metrics) -> Metrics:
         chain_hist=a.chain_hist + b.chain_hist)
 
 
-def pool_across(m: Metrics, axis_name: str) -> Metrics:
-    """Pooling across a mesh axis (the reference's ``psum``/``pmax``
-    leg) needs multi-GPU runs, which the port does not have yet."""
-    raise NotImplementedError(
-        "pool_across: multi-GPU runs (make_mesh, make_sharded_experiment) "
-        "are not ported to cimba_tpu_torch yet")
+def pool_across(shards, axis_name: str = "rep") -> Metrics:
+    """Pool the shards' lane-pooled registries across the mesh's
+    ``axis_name`` (parity: the reference's ``psum``/``pmax`` leg inside
+    ``shard_map``): each moved to the first shard's device, counters and
+    histogram bins summed, the high-water gauges maxed, in shard order
+    (``runner.experiment.make_sharded_experiment``)."""
+    shards = list(shards)
+    if not shards:
+        raise ValueError(f"pool_across({axis_name!r}): no shards to pool")
+    dev = shards[0].dispatch_by_kind.device
+    out = Metrics(*[x.to(dev) for x in shards[0]])
+    for m in shards[1:]:
+        out = merge(out, Metrics(*[x.to(dev) for x in m]))
+    return out
 
 
 def snapshot(m: Metrics, spec=None, regrows: Optional[int] = None) -> dict:

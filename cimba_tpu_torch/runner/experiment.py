@@ -94,7 +94,7 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
                    seed: int = 0, t_end: Optional[float] = None,
                    device="cuda", chunk_steps: int = 512,
                    max_chunks: int = 10_000, with_report: bool = False,
-                   profile_dir: Optional[str] = None):
+                   profile_dir: Optional[str] = None, mesh=None):
     """Run ``n_replications`` independent replications of ``spec``.
 
     ``params`` holds scalars (shared) or arrays with leading axis
@@ -115,9 +115,39 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
     (the plain engine, ``device="cpu"``), its pooled snapshot.
     ``profile_dir`` runs the execute leg under ``torch.profiler`` and
     writes its Chrome trace there.  With the flight recorder or the
-    registry on, a run on the card raises (:func:`_refuse_observed`)."""
+    registry on, a run on the card raises (:func:`_refuse_observed`).
+
+    ``mesh`` (:func:`make_mesh`) shards the replications over its
+    devices, shard k lanes ``[k * R / n, (k + 1) * R / n)``; every chunk
+    of ``chunk_steps`` events is queued on every shard before a liveness
+    flag is read, and the shards are gathered on the mesh's first device
+    in lane order: every lane's leaves are the unsharded run's, bit for
+    bit.  ``n_replications`` must divide evenly over the shards.  Under a
+    mesh ``boundary_rounds`` counts the dwell launches on the card, and
+    the report's execute leg holds the kernel's build and load."""
     from cimba_tpu_torch.obs import prof
 
+    if mesh is not None:
+        dev = _mesh_device(mesh, device)
+        _refuse_observed(dev, "run_experiment(mesh=)")
+        mesh.bounds(int(n_replications))
+        dwell0 = kernel_run.awacs_dwell.launches
+
+        def run_mesh():
+            return _mesh_run(spec, params, n_replications, mesh, dev,
+                             seed=seed, t_end=t_end, chunk_steps=chunk_steps,
+                             max_chunks=max_chunks)
+
+        if with_report:
+            (shards, launches), timings = prof.profiled_call(
+                run_mesh, device=dev, profile_dir=profile_dir)
+        else:
+            shards, launches = run_mesh()
+        out = _gather(shards, dev)
+        result = _result(out, launches,
+                         kernel_run.awacs_dwell.launches - dwell0)
+        return _with_report(result, out, spec, n_replications, timings,
+                            profile_dir, dev) if with_report else result
     dev = config.resolve_device(device)
     _refuse_observed(dev, "run_experiment")
     sims = init_sim(spec, seed, torch.arange(n_replications), params,
@@ -147,6 +177,16 @@ def run_experiment(spec: ModelSpec, params: Any, n_replications: int, *,
                      getattr(run, "boundary_rounds", 0))
     if not with_report:
         return result
+    return _with_report(result, out, spec, n_replications, timings,
+                        profile_dir, dev)
+
+
+def _with_report(result, out: Sim, spec, n_replications, timings,
+                 profile_dir, dev):
+    """``(result, RunReport)`` of a run's timings, with the pooled
+    metrics snapshot where the registry is on."""
+    from cimba_tpu_torch.obs import prof
+
     snap = None
     if out.metrics is not None:
         snap = obs_metrics.snapshot(obs_metrics.pool(out.metrics), spec)
@@ -174,8 +214,7 @@ class StreamResult(NamedTuple):
 def _not_ported(**kw) -> None:
     """Refuse an argument whose module the port does not have yet, by
     name, rather than ignore it."""
-    where = {"mesh": "multi-GPU runs (make_mesh, make_sharded_experiment)",
-             "telemetry": "telemetry (obs/telemetry.py)",
+    where = {"telemetry": "telemetry (obs/telemetry.py)",
              "schedule": "tuned schedules (tune/)",
              "program_cache": "the program cache of the serve layer "
                               "(serve/cache.py)"}
@@ -228,6 +267,248 @@ def _slice_params(params: Any, n_total: int, lo: int, n: int):
     return sl(params)
 
 
+# --- the replication mesh ------------------------------------------------
+
+#: the mesh's one axis: replications
+REP_AXIS = "rep"
+
+
+class Mesh(NamedTuple):
+    """A 1-D replication mesh (parity: the reference's ``Mesh`` over
+    ``REP_AXIS``): ``devices[k]`` holds shard k, lanes ``[k * R / n, (k +
+    1) * R / n)`` of an R-lane batch, with their seeds, replication ids,
+    horizons and parameter rows.  One process drives every shard: each
+    chunk is queued on every shard's device before any liveness flag is
+    read, so several cards work at once.  A device may appear more than
+    once (two shards on one card, or ``n`` virtual shards on the CPU)."""
+
+    devices: tuple
+    axis_names: tuple = (REP_AXIS,)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def bounds(self, n: int, what: str = "n_replications") -> list:
+        """Each shard's ``(lo, hi)`` lanes of an ``n``-lane batch; raises
+        unless ``n`` divides evenly over the shards."""
+        k = self.size
+        if n % k:
+            raise ValueError(f"{what}={n} must divide evenly over {k} "
+                             "devices")
+        m = n // k
+        return [(i * m, (i + 1) * m) for i in range(k)]
+
+
+def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
+    """A 1-D replication mesh (parity:
+    ``cimba_tpu.runner.experiment.make_mesh``).  On ``device="cuda"``
+    the first ``n_devices`` cards (all of them by default), raising
+    beyond ``torch.cuda.device_count()``; on ``device="cpu"`` ``n_devices``
+    virtual shards on the CPU (1 by default), the counterpart of the
+    reference's forced host-platform device count."""
+    dev = config.resolve_device(device)
+    if dev.type == "cuda":
+        avail = torch.cuda.device_count()
+        n = avail if n_devices is None else int(n_devices)
+        if not 1 <= n <= avail:
+            raise ValueError(f"make_mesh: {n} devices asked for, "
+                             f"{avail} CUDA devices available")
+        return Mesh(tuple(torch.device("cuda", i) for i in range(n)))
+    n = 1 if n_devices is None else int(n_devices)
+    if n < 1:
+        raise ValueError(f"make_mesh: n_devices must be positive, got {n}")
+    return Mesh((torch.device("cpu"),) * n)
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The device type a run under ``mesh`` uses (the caller's
+    ``device``, resolved: no card raises unless ``device="cpu"``), held
+    against the mesh's devices; the mesh's first device, where the
+    shards' results are gathered."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh= expects a Mesh (runner.experiment.make_mesh),"
+                        f" got {type(mesh).__name__}")
+    dev = config.resolve_device(device)
+    devs = [torch.device(d) for d in mesh.devices]
+    if not devs or any(d.type != dev.type for d in devs):
+        raise ValueError(f"mesh devices {[str(d) for d in devs]} are not "
+                         f"all of the run's device type {dev.type!r}")
+    return devs[0]
+
+
+def _run_mesh(mesh, device):
+    """``(mesh, dev)`` for a run: the caller's mesh and its first device
+    (:func:`_mesh_device`), or without one a mesh of the one device
+    ``device`` resolves to, so every runner drives its lanes one way."""
+    if mesh is None:
+        dev = config.resolve_device(device)
+        return Mesh((dev,)), dev
+    return mesh, _mesh_device(mesh, device)
+
+
+def _shard_init(spec: ModelSpec, mesh: Mesh, seeds, reps, t_stops, params,
+                n_total: int, n: int):
+    """The shards of the ``n``-lane batch whose lanes take ``reps``,
+    ``seeds`` and ``t_stops`` (columns of ``n``, or ``t_stops`` None)
+    and rows ``[0, n)`` of ``params`` (leading axis ``n_total`` where
+    swept): a tuple of Sims, shard k on ``mesh.devices[k]``."""
+    out = []
+    for d, (lo, hi) in zip(mesh.devices, mesh.bounds(n)):
+        d = torch.device(d)
+        out.append(init_sim(
+            spec, seeds[lo:hi].to(d), reps[lo:hi],
+            _slice_params(params, n_total, lo, hi - lo),
+            t_stop=None if t_stops is None else t_stops[lo:hi].to(d),
+            device=d))
+    return tuple(out)
+
+
+def _gather(shards, dev: torch.device):
+    """The shards' Sims (or any trees of one structure) as one, lanes in
+    shard order, on ``dev``; a lone shard is returned as it is."""
+    if len(shards) == 1:
+        return tree.map(lambda x: x.to(dev), shards[0])
+    return tree.map(lambda *xs: torch.cat([x.to(dev) for x in xs]),
+                    *shards)
+
+
+def _split(sims, mesh: Mesh):
+    """A whole Sim's lanes as the mesh's shards (copies: a chunk works on
+    a shard in place); on a one-shard mesh the Sim itself, which is the
+    run's own."""
+    if mesh.size == 1:
+        return (tree.map(lambda x: x.to(torch.device(mesh.devices[0])),
+                         sims),)
+    n = int(sims.clock.shape[0])
+    return tuple(tree.map(lambda x, lo=lo, hi=hi, d=d: x[lo:hi].to(
+        torch.device(d), copy=True), sims)
+        for d, (lo, hi) in zip(mesh.devices, mesh.bounds(n)))
+
+
+def _mesh_chunk(chunk, mesh: Mesh, dev: torch.device, audit: bool = False):
+    """``chunk`` (``make_chunk``'s, unaudited) over the shards: every
+    shard's chunk queued, then one ``any_live`` flag on ``dev`` (read
+    later by ``drive_chunks``).  With ``audit`` a third output, the
+    digest of the whole batch: each shard's ``sim_digest`` at its global
+    lane offset, summed mod 2**64 (the digest of the gathered Sim)."""
+    def run(shards):
+        outs = [chunk(s) for s in shards]
+        new = tuple(o[0] for o in outs)
+        flag = (outs[0][1] if len(outs) == 1 else
+                torch.stack([o[1].to(dev) for o in outs]).any())
+        if not audit:
+            return new, flag
+        from cimba_tpu_torch.obs import audit as obs_audit
+
+        off, vecs = 0, []
+        for s in new:
+            vecs.append(obs_audit.sim_digest(s, lane_offset=off).to(dev))
+            off += int(s.clock.shape[0])
+        return new, flag, obs_audit.combine_digests(vecs)
+
+    return run
+
+
+def _drive(spec: ModelSpec, mesh: Mesh, dev, seeds, reps, t_stops, params,
+           n_total: int, *, sims=None, t_end=None, chunk_steps: int = 512,
+           poll_every: int = 4, max_chunks: Optional[int] = None,
+           on_chunk=None, on_state=None, on_state_every: int = 0,
+           n0: int = 0, on_digest=None, audit: bool = False):
+    """The chunked drive every runner shares: the lanes (their
+    ``seeds``, ``reps`` and ``t_stops`` columns and ``params`` rows, as
+    :func:`_shard_init` takes them, or a whole Sim ``sims`` to resume)
+    split over the mesh's shards and driven to their end through
+    ``make_chunk`` (``drive_chunks``); ``on_state`` gets the gathered
+    Sim.  Returns ``(shards, chunk launches)``, the launches on the card
+    read off the chunk wrapper's counter."""
+    shards = (_split(sims, mesh) if sims is not None else _shard_init(
+        spec, mesh, seeds, reps, t_stops, params, n_total,
+        int(reps.shape[0])))
+    kernel = (kernel_run.kernel_for(spec, shards[0])[1] if dev.type == "cuda"
+              else None)
+    before = kernel.launches if kernel is not None else 0
+    chunk = _mesh_chunk(make_chunk(spec, t_end=t_end, max_steps=chunk_steps),
+                        mesh, dev, audit)
+    state = None
+    if on_state is not None:
+        def state(s, n):
+            on_state(_gather(s, dev), n)
+    shards = drive_chunks(chunk, shards, poll_every=poll_every,
+                          on_chunk=on_chunk, on_state=state,
+                          on_state_every=on_state_every, n0=n0,
+                          max_chunks=max_chunks, on_digest=on_digest)
+    return shards, (kernel.launches - before if kernel is not None else 0)
+
+
+def _mesh_run(spec: ModelSpec, params, n_replications: int, mesh: Mesh,
+              dev, *, seed, t_end, chunk_steps: int, max_chunks: int):
+    """Every shard of an ``n_replications``-lane run driven to its end;
+    returns ``(shards, launches)``.  Raises where lanes are still live
+    after ``max_chunks`` chunks (a partial run would corrupt
+    statistics)."""
+    R = int(n_replications)
+    shards, launches = _drive(spec, mesh, dev, _seed_column(seed, R, dev),
+                              torch.arange(R), None, params, R, t_end=t_end,
+                              chunk_steps=chunk_steps, max_chunks=max_chunks)
+    cond = _loop.make_cond(spec, t_end)
+    if any(bool(cond(s).any()) for s in shards):
+        raise RuntimeError(
+            f"run_experiment(mesh=): lanes still live after {max_chunks} "
+            f"chunks of {chunk_steps} events — raise chunk_steps/max_chunks")
+    return shards, launches
+
+
+def make_sharded_experiment(spec: ModelSpec, n_replications: int, mesh: Mesh,
+                            *, summary_path=default_summary_path,
+                            t_end: Optional[float] = None, device="cuda",
+                            chunk_steps: int = 512, max_chunks: int = 10_000):
+    """The multi-device experiment step (parity:
+    ``cimba_tpu.runner.experiment.make_sharded_experiment``): run every
+    shard's replications, then pool.  Returns ``fn(params, seed=0) ->
+    (pooled Summary, n_failed, total_events)``, all on the mesh's first
+    device.  Each shard's ``merge_tree(summary_path(lanes))`` is moved
+    there, the partials are stacked in shard order and merged by
+    ``merge_tree`` (the reference's ``all_gather`` and merge); the
+    counters are sums (its ``psum``).
+
+    With the metrics registry on (``obs.metrics.enable()``) when the
+    experiment is built, the return gains a fourth element: the registry
+    pooled over lanes and shards (:func:`obs.metrics.pool_across`).  The
+    flag binds here; flipping it before a call raises.  The registry runs
+    on the plain engine only: on the card it raises, naming the route."""
+    dev = _mesh_device(mesh, device)
+    R = int(n_replications)
+    mesh.bounds(R)
+    with_metrics = obs_metrics.enabled()
+    _refuse_observed(dev, "make_sharded_experiment")
+
+    def experiment(params, seed=0):
+        if obs_metrics.enabled() != with_metrics:
+            raise RuntimeError(
+                "make_sharded_experiment: obs.metrics was "
+                f"{'enabled' if with_metrics else 'disabled'} when this "
+                "experiment was built but flipped before the first call — "
+                "the flag binds at build time; rebuild the experiment after "
+                "changing it")
+        _refuse_observed(dev, "make_sharded_experiment")
+        shards, _ = _mesh_run(spec, params, R, mesh, dev, seed=seed,
+                              t_end=t_end, chunk_steps=chunk_steps,
+                              max_chunks=max_chunks)
+        parts = [sm.merge_tree(summary_path(s)) for s in shards]
+        pooled = sm.merge_tree(tree.map(
+            lambda *xs: torch.stack([x.to(dev) for x in xs]), *parts))
+        n_failed = sum((s.err != 0).sum(dtype=torch.int32).to(dev)
+                       for s in shards)
+        events = sum(s.n_events.sum().to(dev) for s in shards)
+        if with_metrics:
+            return pooled, n_failed, events, obs_metrics.pool_across(
+                [obs_metrics.pool(s.metrics) for s in shards], REP_AXIS)
+        return pooled, n_failed, events
+
+    return experiment
+
+
 def run_experiment_regrow(spec: ModelSpec, params: Any, n_replications: int,
                           *, seed: int = 0, t_end: Optional[float] = None,
                           max_regrows: int = 4, device="cuda",
@@ -239,17 +520,17 @@ def run_experiment_regrow(spec: ModelSpec, params: Any, n_replications: int,
     ``cimba_tpu.runner.experiment.run_experiment_regrow``).  Every lane
     runs again: streams come from (seed, replication), so a healthy lane
     reproduces bit for bit at any capacity.  On the card a grown generated
-    spec is emitted and built anew (a new header).  Returns ``(result,
-    final_spec, n_regrows)``; raises RuntimeError when the overflow
-    outlasts ``max_regrows`` doublings."""
+    spec is emitted and built anew (a new header).  ``mesh`` shards every
+    run (:func:`run_experiment`).  Returns ``(result, final_spec,
+    n_regrows)``; raises RuntimeError when the overflow outlasts
+    ``max_regrows`` doublings."""
     import dataclasses
 
-    _not_ported(mesh=mesh)
     for n_regrows in range(max_regrows + 1):
         result = run_experiment(spec, params, n_replications, seed=seed,
                                 t_end=t_end, device=device,
                                 chunk_steps=chunk_steps,
-                                max_chunks=max_chunks)
+                                max_chunks=max_chunks, mesh=mesh)
         if not bool((result.sims.err == _loop.ERR_EVENT_OVERFLOW).any()):
             return result, spec, n_regrows
         if n_regrows < max_regrows:
@@ -294,13 +575,16 @@ def run_experiment_chunked(spec: ModelSpec, params: Any,
     the spec, seed, horizon and parameters); ``resume`` starts from the
     checkpoint there when there is one, and the resumed run ends bit for
     bit as the uninterrupted one; a checkpoint of another run raises.
-    ``launches`` counts chunk kernel launches (0 on the CPU)."""
+    ``launches`` counts chunk kernel launches (0 on the CPU).  ``mesh``
+    shards the lanes (:func:`run_experiment`); a checkpoint holds the
+    gathered Sim, and a resume splits it over the mesh again."""
     import os
 
     from cimba_tpu_torch.runner import checkpoint as ckpt
 
-    _not_ported(mesh=mesh, telemetry=telemetry)
-    dev = config.resolve_device(device)
+    _not_ported(telemetry=telemetry)
+    mesh, dev = _run_mesh(mesh, device)
+    mesh.bounds(int(n_replications))
     _refuse_observed(dev, "run_experiment_chunked")
     reps = torch.arange(n_replications)
     seeds = _seed_column(seed, n_replications, dev)
@@ -313,24 +597,18 @@ def run_experiment_chunked(spec: ModelSpec, params: Any,
         sims, n0 = ckpt.restore_resumable(
             checkpoint_path, _sim_shapes(spec, seeds, params, n_replications),
             tag=tag, device=dev)
-    if sims is None:
-        sims = init_sim(spec, seeds, reps, params, device=dev)
     on_state = None
     if checkpoint_path and checkpoint_every:
         def on_state(s, n):
             ckpt.save_resumable(checkpoint_path, s, tag=tag, progress=n)
 
-    # the wrapper whose count the chunks add to (none on the CPU)
-    kernel = (kernel_run.kernel_for(spec, sims)[1] if sims.clock.is_cuda
-              else None)
-    before = kernel.launches if kernel is not None else 0
     # the Sim is the run's own: the chunks advance it in place
-    sims = drive_chunks(make_chunk(spec, t_end=t_end, max_steps=chunk_steps),
-                        sims, poll_every=poll_every, on_chunk=on_chunk,
-                        on_state=on_state, on_state_every=checkpoint_every,
-                        n0=n0)
-    return _result(sims, kernel.launches - before if kernel is not None
-                   else 0)
+    shards, launches = _drive(
+        spec, mesh, dev, seeds, reps, None, params, n_replications,
+        sims=sims, t_end=t_end, chunk_steps=chunk_steps,
+        poll_every=poll_every, on_chunk=on_chunk, on_state=on_state,
+        on_state_every=checkpoint_every, n0=n0)
+    return _result(_gather(shards, dev), launches)
 
 
 def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
@@ -370,14 +648,24 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
     run card: spec fingerprint, seed schedule, environment, geometry,
     trail and :func:`obs.audit.stream_result_digest`, written to the
     Audit's ``out_dir`` when it has one.  Auditing changes no result
-    bit."""
+    bit.
+
+    ``mesh`` shards each wave over its devices (:func:`run_experiment`):
+    every wave's shards are gathered on the mesh's first device and
+    folded there as one wave, so the stream is bitwise the unsharded
+    stream; ``wave_size`` and ``n_replications`` must divide evenly over
+    the shards.  An audited chunk's digest is the gathered wave's: each
+    shard's at its lane offset, summed mod 2**64.
+
+    ``summary_path`` is checked before any wave runs
+    (:func:`preflight_summary_path`)."""
     import dataclasses
 
     from cimba_tpu_torch.obs import audit as obs_audit
 
-    _not_ported(mesh=mesh, telemetry=telemetry, program_cache=program_cache,
+    _not_ported(telemetry=telemetry, program_cache=program_cache,
                 schedule=schedule)
-    dev = config.resolve_device(device)
+    shards_mesh, dev = _run_mesh(mesh, device)
     _refuse_observed(dev, "run_experiment_stream")
     aud = obs_audit.resolve(audit)
     spec0 = spec  # a regrow replaces spec; the card cites the original
@@ -389,8 +677,11 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
         wave_size = R
     if wave_size <= 0:
         raise ValueError(f"wave_size must be positive, got {wave_size}")
+    shards_mesh.bounds(wave_size, "wave_size")
+    shards_mesh.bounds(R)
     chunk_steps = 512 if chunk_steps is None else chunk_steps
-    acc = None
+    preflight_summary_path(spec, summary_path, params, R, wave_size, dev)
+    acc = stream_acc(spec, with_metrics, dev)
     n_waves = n_regrows = 0
     lo = 0
     while lo < R:
@@ -404,13 +695,10 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
             def on_digest(c, d, _w=n_waves):
                 aud.on_chunk(_w, c, d)
         while True:
-            sims = init_sim(spec, seeds, reps, pw, t_stop=t_stops,
-                            device=dev)
-            sims = drive_chunks(
-                make_chunk(spec, max_steps=chunk_steps,
-                           audit=aud is not None), sims,
-                poll_every=poll_every, on_chunk=on_chunk,
-                on_digest=on_digest)
+            sims = _run_wave(spec, shards_mesh, dev, seeds, reps, t_stops, pw, n,
+                             chunk_steps=chunk_steps, poll_every=poll_every,
+                             on_chunk=on_chunk, on_digest=on_digest,
+                             audit=aud is not None)
             if n_regrows >= max_regrows or not bool(
                     (sims.err == _loop.ERR_EVENT_OVERFLOW).any()):
                 break
@@ -435,7 +723,8 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
             geometry={"R": R, "wave_size": wave_size,
                       "chunk_steps": chunk_steps, "poll_every": poll_every,
                       "t_end": t_end, "profile": config.active_profile(),
-                      "with_metrics": with_metrics, "mesh": None,
+                      "with_metrics": with_metrics,
+                      "mesh": mesh_descriptor(mesh),
                       "n_waves": n_waves, "n_regrows": n_regrows},
             result_digest=obs_audit.stream_result_digest(result),
             device=dev)
@@ -443,11 +732,77 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
     return result
 
 
+def mesh_descriptor(mesh) -> Optional[dict]:
+    """A run card's ``mesh`` geometry: the axis, the shard count and each
+    shard's device, or None without a mesh."""
+    if mesh is None:
+        return None
+    return {"axis": mesh.axis_names[0], "size": mesh.size,
+            "devices": [str(d) for d in mesh.devices]}
+
+
+def _run_wave(spec: ModelSpec, mesh: Mesh, dev, seeds, reps, t_stops,
+              params, n: int, *, chunk_steps: int, poll_every: int,
+              on_chunk=None, on_digest=None, audit: bool = False) -> Sim:
+    """One wave of ``n`` lanes (their ``seeds``, ``reps`` and ``t_stops``
+    columns, ``params`` rows of ``n`` or shared) driven to its end
+    through ``make_chunk``, sharded over ``mesh`` (:func:`_run_mesh`'s)
+    and gathered on ``dev`` in lane order."""
+    shards, _ = _drive(spec, mesh, dev, seeds, reps, t_stops, params, n,
+                       chunk_steps=chunk_steps, poll_every=poll_every,
+                       on_chunk=on_chunk, on_digest=on_digest, audit=audit)
+    return _gather(shards, dev)
+
+
+def stream_acc(spec: ModelSpec, with_metrics: bool, device="cuda"):
+    """A zeroed accumulator for :func:`_fold`: ``(Summary, n_failed i64,
+    total_events i64[, Metrics])`` on ``device`` (parity: the
+    reference's ``serve.cache.stream_acc``).  A stream and each cell of a
+    sweep start from it."""
+    dev = config.resolve_device(device)
+    acc = (sm.empty((), dev),
+           torch.zeros((), dtype=torch.int64, device=dev),
+           torch.zeros((), dtype=torch.int64, device=dev))
+    if with_metrics:
+        acc = acc + (obs_metrics.create(
+            _loop.N_KINDS + len(spec.user_handlers), len(spec.queues), (),
+            dev),)
+    return acc
+
+
+def preflight_summary_path(spec: ModelSpec, summary_path, params,
+                           n_total: int, n_first: int, device="cuda") -> None:
+    """Fail before any wave runs when ``summary_path`` does not give one
+    Summary a lane on this model's Sim (parity: the reference's
+    ``serve.cache.preflight_summary_path``): the path is applied to a
+    two-lane Sim of the first wave's rows on the CPU, and anything but a
+    Summary of ``[2]`` leaves raises ValueError naming the knob, not a
+    KeyError from inside the fold after a wave of work."""
+    n = min(2, int(n_first))
+    try:
+        s = summary_path(init_sim(
+            spec, _seed_column(0, n, "cpu"), torch.arange(n),
+            _slice_params(params, n_total, 0, n), device="cpu"))
+        if not isinstance(s, sm.Summary) or any(
+                tuple(x.shape) != (n,) for x in s):
+            raise TypeError(f"got {type(s).__name__} "
+                            f"{[tuple(getattr(x, 'shape', ())) for x in s]}"
+                            if isinstance(s, tuple) else
+                            f"got {type(s).__name__}")
+    except Exception as e:
+        raise ValueError(
+            "run_experiment_stream: summary_path failed on this model's Sim "
+            f"structure ({e!r}) — pass summary_path= pointing at a "
+            "statistic this model records, one Summary a lane") from e
+
+
 def _fold(acc, sims: Sim, summary_path, with_metrics: bool = False):
     """The wave fold: ``(merge(acc, merge_tree(summary_path(sims))),
     n_failed + ..., total_events + ...[, merge(metrics, pool(...))])``,
     counts in int64 (parity: the reference's ``serve.cache`` fold
-    program)."""
+    program), ``acc`` from :func:`stream_acc`.  The stream and the sweep
+    engine fold through this one function, so a sweep cell folds exactly
+    as a direct stream call does."""
     if (sims.metrics is None) == with_metrics:
         raise RuntimeError(
             "run_experiment_stream: obs.metrics was "
@@ -455,16 +810,6 @@ def _fold(acc, sims: Sim, summary_path, with_metrics: bool = False):
             "started but flipped mid-stream — the flag binds for the whole "
             "stream")
     pooled = sm.merge_tree(summary_path(sims))
-    dev = pooled.n.device
-    if acc is None:
-        acc = (sm.empty((), dev, pooled.n.dtype),
-               torch.zeros((), dtype=torch.int64, device=dev),
-               torch.zeros((), dtype=torch.int64, device=dev))
-        if with_metrics:
-            m = sims.metrics
-            acc = acc + (obs_metrics.create(
-                m.dispatch_by_kind.shape[1], m.queue_hwm.shape[1], (), dev,
-                count=m.guard_retries.dtype),)
     out = (sm.merge(acc[0], pooled),
            acc[1] + (sims.err != 0).sum(dtype=torch.int64),
            acc[2] + sims.n_events.sum(dtype=torch.int64))

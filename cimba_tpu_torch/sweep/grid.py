@@ -9,8 +9,8 @@ leading axis ``n_cells * reps_per_cell`` in cell-major order, each leaf
 a CPU tensor of the dtype its row gave (``np.float64`` leaves stay f64,
 ``np.int32`` ones i32), equal value for value to the reference's.
 
-Host-side bookkeeping only; the sweep engine (``sweep/engine.py``,
-``adaptive.py``) is not ported yet.
+Host-side bookkeeping; the sweep engine (``sweep/engine.py``) runs the
+cells.
 """
 
 from __future__ import annotations

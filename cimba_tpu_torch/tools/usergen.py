@@ -1161,6 +1161,34 @@ def fail_spec(lib):
     return m.build()
 
 
+def sweep_spec(lib):
+    """The reference sweep tests' one-block model (``tests/test_sweep.py``,
+    ``_sweep_spec``): one process draws an exponential of mean
+    ``step_mean`` and holds it, each draw a sample of the ``wait``
+    summary, until ``n_steps`` samples; the run's parameters are
+    ``(step_mean, n_steps)``, a sweep grid's row.  Every lane ends, by
+    ``api.stop``."""
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    m = Model("tinysweep", event_cap=1, guard_cap=2)
+
+    @m.user_state
+    def ui(params):
+        step_mean, n_steps = params
+        return {"step_mean": lib.real_of(step_mean),
+                "n_steps": lib.i32(n_steps), "wait": lib.empty()}
+
+    @m.block
+    def work(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, sim.user["step_mean"])
+        wait = lib.add(sim.user["wait"], t)
+        sim = api.set_user(sim, {**sim.user, "wait": wait})
+        sim = api.stop(sim, wait.n >= lib.real_of(sim.user["n_steps"]))
+        return sim, cmd.hold(t, next_pc=work.pc)
+
+    m.process("w", entry=work)
+    return m.build()
+
+
 def wait_process_spec(lib, joins: bool = False):
     """The reference's scripted ``cmd.wait_process`` models
     (``tests/test_toolkit.py``).  Without ``joins``,

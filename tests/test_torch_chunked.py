@@ -154,7 +154,9 @@ def test_wave_param_slicing_mg1_sweep():
 
 def test_chunked_refuses_what_is_not_ported():
     spec, _ = tmm1.build(record=False)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is ported (runner.experiment.make_mesh): a value that is not
+    # a Mesh is refused by name
+    with pytest.raises(TypeError, match="mesh"):
         tex.run_experiment_chunked(spec, tmm1.params(4), 4, mesh=object(),
                                    device="cpu")
     with pytest.raises(ValueError, match="max_steps"):

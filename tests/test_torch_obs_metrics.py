@@ -9,8 +9,8 @@ pooled counters equal the per-lane sums and the gauges the per-lane
 maxima, ``events_dispatched`` equals ``n_events``, ``merge`` does not
 depend on order, and a stream's wave-by-wave fold
 (``run_experiment_stream(...).metrics``) equals the pool of the
-monolithic run's lanes.  ``pool_across`` needs multi-GPU runs and
-raises; a Sim with a registry is refused by a kernel build.
+monolithic run's lanes.  ``pool_across`` pools the shards' registries
+as their lanes pool; a Sim with a registry is refused by a kernel build.
 """
 
 import functools
@@ -136,8 +136,18 @@ def test_stream_folds_the_registry(obs_off):
 
 
 def test_pool_across_and_kernel_refusal(obs_off):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        om.pool_across(None, "rep")
+    # pool_across is ported with the mesh: the shards' registries pool
+    # as their lanes would (sums and maxima)
+    with pytest.raises(ValueError, match="no shards"):
+        om.pool_across([], "rep")
+    a = om.create(3, 2, (4,), "cpu")
+    a = a._replace(dispatch_by_kind=torch.arange(12).reshape(4, 3).to(
+        a.dispatch_by_kind.dtype), queue_hwm=torch.tensor(
+        [[1, 5], [2, 0], [7, 1], [0, 3]], dtype=a.queue_hwm.dtype))
+    whole = om.pool(a)
+    parts = [om.pool(om.Metrics(*[x[i:i + 2] for x in a])) for i in (0, 2)]
+    for x, y in zip(om.pool_across(parts, "rep"), whole):
+        assert torch.equal(x, y)
     om.enable()
     spec = mm1.build(record=False)[0]
     s = loop.init_sim(spec, 1, torch.arange(2), mm1.params(5), device="cpu")

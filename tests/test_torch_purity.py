@@ -45,7 +45,8 @@ def test_importing_every_module_loads_no_jax():
                 "utils.seed", "utils.dbc", "utils.logger", "utils.debug",
                 "stats.dataset", "obs.trace", "obs.metrics", "obs.export",
                 "obs.prof", "obs.audit", "tools.audit_diff",
-                "examples.tut_1_mm1"):
+                "examples.tut_1_mm1", "sweep.engine", "sweep.adaptive",
+                "runner.dryrun", "examples.mg1_sweep"):
         assert f"cimba_tpu_torch.{mod}" in res["mods"]
 
 

@@ -109,5 +109,5 @@ def test_runaway_model_raises():
     with pytest.raises(RuntimeError, match="overflow persists after 2"):
         tex.run_experiment_regrow(spec, (), 2, seed=1, t_end=20.0,
                                   max_regrows=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tex.run_experiment_regrow(spec, (), 2, mesh=object(), device="cpu")

@@ -150,10 +150,15 @@ def test_stream_regrows_a_wave():
 
 def test_stream_refuses_what_is_not_ported():
     spec, _ = tmm1.build(record=False)
-    for kw in ("mesh", "telemetry", "program_cache", "schedule"):
+    for kw in ("telemetry", "program_cache", "schedule"):
         with pytest.raises(NotImplementedError, match=kw):
             tex.run_experiment_stream(spec, tmm1.params(4), 4,
                                       device="cpu", **{kw: {}})
+    # mesh= is ported (runner.experiment.make_mesh): a value that is not
+    # a Mesh is refused by name
+    with pytest.raises(TypeError, match="mesh"):
+        tex.run_experiment_stream(spec, tmm1.params(4), 4, device="cpu",
+                                  mesh={})
     # audit= is ported (obs.audit): a value it cannot take is refused
     with pytest.raises(TypeError, match="audit="):
         tex.run_experiment_stream(spec, tmm1.params(4), 4, device="cpu",
