@@ -86,3 +86,47 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+# --- environment knobs ---------------------------------------------------
+
+#: the ``CIMBA_*`` knobs the port reads, with their defaults (parity: the
+#: reference's ``config.ENV_KNOBS``, the serve layer's part).  Every read
+#: goes through :func:`env_raw`, so this table is what the package
+#: consults.  ``CIMBA_DEVICE_SCHED`` and ``CIMBA_QOS`` are read so that
+#: ``=1`` raises, naming the module the port does not have yet.
+ENV_KNOBS = {
+    "CIMBA_REFILL": dict(
+        default="",
+        doc="=1: Service(refill=None) recycles dead lanes at chunk "
+            "boundaries (serve/service.py, continuous refill)"),
+    "CIMBA_WAVE_FUSE": dict(
+        default="",
+        doc="=1: Service(fuse=None) packs shape-compatible distinct specs "
+            "into one fused wave (core/fuse.py)"),
+    "CIMBA_PROGRAM_CACHE_CAP": dict(
+        default="64",
+        doc="the bounded program cache's default capacity "
+            "(serve/cache.py)"),
+    "CIMBA_DEVICE_SCHED": dict(
+        default="",
+        doc="=1: the preemptive device scheduler (serve/device.py), not "
+            "ported: raises"),
+    "CIMBA_QOS": dict(
+        default="",
+        doc="=1: the multi-tenant QoS plane (qos/), not ported: raises"),
+}
+
+
+def env_raw(name: str, default=None) -> str:
+    """One registered ``CIMBA_*`` environment knob's raw value (parity:
+    ``cimba_tpu.config.env_raw``): ``default=None`` uses the registered
+    default; an unregistered name raises KeyError."""
+    import os
+
+    knob = ENV_KNOBS.get(name)
+    if knob is None:
+        raise KeyError(f"{name} is not a registered CIMBA_* environment "
+                       "knob of cimba_tpu_torch.config.ENV_KNOBS")
+    return os.environ.get(name, knob["default"] if default is None
+                          else default)

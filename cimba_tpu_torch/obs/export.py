@@ -84,11 +84,16 @@ def dump_chrome_trace(path: str, sims, spec=None) -> dict:
 
 
 def dump_service_trace(path: str, service) -> dict:
-    """A service's request-lifecycle trace needs the serve layer, which
-    the port does not have yet."""
-    raise NotImplementedError(
-        "dump_service_trace: the serve layer (serve/) is not ported to "
-        "cimba_tpu_torch yet")
+    """Export a ``serve.Service``'s request-lifecycle trace (one complete
+    span a request and the queue-depth counter tracks, the schema of
+    :func:`chrome_trace`, the service's stats in ``otherData.service``)
+    to ``path`` after validating it; returns the dict written (parity:
+    ``cimba_tpu.obs.export.dump_service_trace``)."""
+    doc = service.chrome_trace()
+    validate_chrome_trace(doc)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return doc
 
 
 def validate_chrome_trace(doc: dict) -> None:

@@ -12,12 +12,12 @@ The arms, on an ``n_devices`` mesh:
   event count and pooled statistics match the sharded experiment's;
 * the kernel arm: mm1's chunks sharded (K1 on the card), every lane's
   event count and clock equal to the unsharded run's, in f32;
+* the serve arm: three threaded clients of a ``serve.Service`` over the
+  mesh (two compatible requests packed into one sharded wave, a third
+  with another seed), each bitwise its direct mesh stream through the
+  shared program cache;
 * the AWACS arm: the AWACS chunks and their boundary rounds (the dwell,
   K5 fused, on the card) sharded, held the same way.
-
-The reference's serve arm (requests packed into shared sharded waves)
-needs the serve layer, which is not ported: the summary line says
-``serve-mesh: not ported``.
 
 On ``device="cuda"`` the mesh is ``make_mesh(n_devices)`` (one card a
 shard) unless ``mesh=`` gives another (two shards on one card, say); on
@@ -54,12 +54,13 @@ def run_dryrun(n_devices: int, device="cuda", mesh=None) -> dict:
     out = {"events": int(events), "mean": mean,
            "stream_mesh_events": _stream_mesh(mesh, n_devices, spec, reps,
                                               int(events), pooled, device),
-           "serve_mesh_events": None,
+           "serve_mesh_events": _serve_mesh(mesh, n_devices, spec, device),
            "kernel_mesh_events": _kernel_mesh(mesh, n_devices, device),
            "awacs_mesh_events": _awacs_mesh(mesh, n_devices, device)}
     print(f"dryrun_multichip OK: {n_devices} devices, {out['events']} events, "
           f"mean wait {mean:.3f}, stream-mesh events "
-          f"{out['stream_mesh_events']}, serve-mesh: not ported, "
+          f"{out['stream_mesh_events']}, serve-mesh events "
+          f"{out['serve_mesh_events']}, "
           f"kernel-mesh events {out['kernel_mesh_events']}, "
           f"awacs-boundary-mesh events {out['awacs_mesh_events']}",
           flush=True)
@@ -110,6 +111,53 @@ def _stream_mesh(mesh, n_devices, spec, n_reps, mono_events, mono_pooled,
     assert abs(m_st - m_mono) <= 1e-9 * abs(m_mono), (m_st, m_mono)
     assert st.n_waves == n_reps // (8 * n_devices), st.n_waves
     return int(st.total_events)
+
+
+#: the serve arm's requests: (label, mm1 objects, seed), 8 replications a
+#: shard each (the reference's ``_dryrun_serve_mesh`` cases)
+SERVE_CASES = (("a", 40, 1), ("b", 60, 1), ("c", 40, 4))
+
+
+def _serve_mesh(mesh, n_devices, spec, device) -> int:
+    """Three threaded clients of a service over the mesh (parity: the
+    reference's ``_dryrun_serve_mesh``): "a" and "b" pack into one
+    sharded wave, "c" another seed; each result bitwise its direct mesh
+    stream through the same program cache.  Returns the served events."""
+    import threading
+
+    import torch
+
+    from cimba_tpu_torch import serve, tree
+    from cimba_tpu_torch.models import mm1
+    from cimba_tpu_torch.runner import experiment as ex
+
+    cache = serve.ProgramCache()
+    per_req = 8 * n_devices
+    out = {}
+    with serve.Service(max_wave=4 * per_req, mesh=mesh, cache=cache,
+                       device=device) as svc:
+        def client(label, n, seed):
+            out[label] = svc.submit(serve.Request(
+                spec, mm1.params(n), per_req, seed=seed, wave_size=per_req,
+                chunk_steps=32, label=label)).result(600)
+
+        ts = [threading.Thread(target=client, args=c) for c in SERVE_CASES]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    total = 0
+    for label, n, seed in SERVE_CASES:
+        direct = ex.run_experiment_stream(
+            spec, mm1.params(n), per_req, wave_size=per_req, chunk_steps=32,
+            seed=seed, mesh=mesh, program_cache=cache, device=device)
+        res = out[label]
+        assert int(res.n_failed) == 0, f"serve-mesh {label} failures"
+        for x, y in zip(tree.leaves((res.summary, res.total_events)),
+                        tree.leaves((direct.summary, direct.total_events))):
+            assert torch.equal(x.cpu(), y.cpu()), f"serve-mesh {label}"
+        total += int(res.total_events)
+    return total
 
 
 def _model_mesh(mesh, n_devices: int, build, params, label, device) -> int:

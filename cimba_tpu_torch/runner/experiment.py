@@ -215,9 +215,7 @@ def _not_ported(**kw) -> None:
     """Refuse an argument whose module the port does not have yet, by
     name, rather than ignore it."""
     where = {"telemetry": "telemetry (obs/telemetry.py)",
-             "schedule": "tuned schedules (tune/)",
-             "program_cache": "the program cache of the serve layer "
-                              "(serve/cache.py)"}
+             "schedule": "tuned schedules (tune/)"}
     for name, value in kw.items():
         if value is not None:
             raise NotImplementedError(
@@ -414,14 +412,16 @@ def _drive(spec: ModelSpec, mesh: Mesh, dev, seeds, reps, t_stops, params,
            n_total: int, *, sims=None, t_end=None, chunk_steps: int = 512,
            poll_every: int = 4, max_chunks: Optional[int] = None,
            on_chunk=None, on_state=None, on_state_every: int = 0,
-           n0: int = 0, on_digest=None, audit: bool = False):
-    """The chunked drive every runner shares: the lanes (their
-    ``seeds``, ``reps`` and ``t_stops`` columns and ``params`` rows, as
-    :func:`_shard_init` takes them, or a whole Sim ``sims`` to resume)
-    split over the mesh's shards and driven to their end through
-    ``make_chunk`` (``drive_chunks``); ``on_state`` gets the gathered
-    Sim.  Returns ``(shards, chunk launches)``, the launches on the card
-    read off the chunk wrapper's counter."""
+           n0: int = 0):
+    """The chunked drive of ``run_experiment(mesh=)`` and
+    ``run_experiment_chunked``: the lanes (their ``seeds``, ``reps`` and
+    ``t_stops`` columns and ``params`` rows, as :func:`_shard_init` takes
+    them, or a whole Sim ``sims`` to resume) split over the mesh's shards
+    and driven to their end through ``make_chunk`` (``drive_chunks``);
+    ``on_state`` gets the gathered Sim.  Returns ``(shards, chunk
+    launches)``, the launches on the card read off the chunk wrapper's
+    counter.  The stream's and the sweep's waves run the same chunk
+    through the program cache (:func:`_run_wave`)."""
     shards = (_split(sims, mesh) if sims is not None else _shard_init(
         spec, mesh, seeds, reps, t_stops, params, n_total,
         int(reps.shape[0])))
@@ -429,7 +429,7 @@ def _drive(spec: ModelSpec, mesh: Mesh, dev, seeds, reps, t_stops, params,
               else None)
     before = kernel.launches if kernel is not None else 0
     chunk = _mesh_chunk(make_chunk(spec, t_end=t_end, max_steps=chunk_steps),
-                        mesh, dev, audit)
+                        mesh, dev)
     state = None
     if on_state is not None:
         def state(s, n):
@@ -437,7 +437,7 @@ def _drive(spec: ModelSpec, mesh: Mesh, dev, seeds, reps, t_stops, params,
     shards = drive_chunks(chunk, shards, poll_every=poll_every,
                           on_chunk=on_chunk, on_state=state,
                           on_state_every=on_state_every, n0=n0,
-                          max_chunks=max_chunks, on_digest=on_digest)
+                          max_chunks=max_chunks)
     return shards, (kernel.launches - before if kernel is not None else 0)
 
 
@@ -658,13 +658,21 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
     shard's at its lane offset, summed mod 2**64.
 
     ``summary_path`` is checked before any wave runs
-    (:func:`preflight_summary_path`)."""
+    (:func:`preflight_summary_path`).
+
+    ``program_cache`` (a ``serve.ProgramCache`` or a plain dict; a fresh
+    ``ProgramCache`` when None): pass the same mapping to repeated calls,
+    and to a ``serve.Service``, to share the wave's programs (the init,
+    the chunk with its built K1, the fold), keyed by what they bake in
+    (``serve.cache.program_key``).  Seed, ``t_end`` and parameter values
+    are lane data: calls differing only in them build nothing new."""
     import dataclasses
 
     from cimba_tpu_torch.obs import audit as obs_audit
 
-    _not_ported(telemetry=telemetry, program_cache=program_cache,
-                schedule=schedule)
+    from cimba_tpu_torch.serve import cache as pcache
+
+    _not_ported(telemetry=telemetry, schedule=schedule)
     shards_mesh, dev = _run_mesh(mesh, device)
     _refuse_observed(dev, "run_experiment_stream")
     aud = obs_audit.resolve(audit)
@@ -680,7 +688,11 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
     shards_mesh.bounds(wave_size, "wave_size")
     shards_mesh.bounds(R)
     chunk_steps = 512 if chunk_steps is None else chunk_steps
-    preflight_summary_path(spec, summary_path, params, R, wave_size, dev)
+    programs = (program_cache if program_cache is not None
+                else pcache.ProgramCache())
+    pcache.preflight(programs, spec, summary_path, params, R, wave_size,
+                     with_metrics, dev)
+    fold = pcache.get_fold(programs, with_metrics, summary_path)
     acc = stream_acc(spec, with_metrics, dev)
     n_waves = n_regrows = 0
     lo = 0
@@ -695,7 +707,9 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
             def on_digest(c, d, _w=n_waves):
                 aud.on_chunk(_w, c, d)
         while True:
-            sims = _run_wave(spec, shards_mesh, dev, seeds, reps, t_stops, pw, n,
+            # a regrow's spec has its own fingerprint, so its own programs
+            sims = _run_wave(spec, shards_mesh, dev, seeds, reps, t_stops, pw,
+                             programs=programs, with_metrics=with_metrics,
                              chunk_steps=chunk_steps, poll_every=poll_every,
                              on_chunk=on_chunk, on_digest=on_digest,
                              audit=aud is not None)
@@ -707,7 +721,7 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
             spec = dataclasses.replace(spec, event_cap=2 * spec.event_cap)
             n_regrows += 1
             sims = None
-        acc = _fold(acc, sims, summary_path, with_metrics)
+        acc = fold(acc, sims)
         sims = None
         n_waves += 1
         lo += n
@@ -742,16 +756,136 @@ def mesh_descriptor(mesh) -> Optional[dict]:
 
 
 def _run_wave(spec: ModelSpec, mesh: Mesh, dev, seeds, reps, t_stops,
-              params, n: int, *, chunk_steps: int, poll_every: int,
-              on_chunk=None, on_digest=None, audit: bool = False) -> Sim:
-    """One wave of ``n`` lanes (their ``seeds``, ``reps`` and ``t_stops``
-    columns, ``params`` rows of ``n`` or shared) driven to its end
-    through ``make_chunk``, sharded over ``mesh`` (:func:`_run_mesh`'s)
-    and gathered on ``dev`` in lane order."""
-    shards, _ = _drive(spec, mesh, dev, seeds, reps, t_stops, params, n,
-                       chunk_steps=chunk_steps, poll_every=poll_every,
-                       on_chunk=on_chunk, on_digest=on_digest, audit=audit)
+              params, *, programs, with_metrics: bool, chunk_steps: int,
+              poll_every: int, on_chunk=None, on_digest=None,
+              audit: bool = False) -> Sim:
+    """One wave (its ``seeds``, ``reps`` and ``t_stops`` columns,
+    ``params`` rows or shared) driven to its end through the init and the
+    chunk of ``programs`` (a ``serve.ProgramCache`` or a dict,
+    ``serve.cache.get_programs``), sharded over ``mesh``
+    (:func:`_run_mesh`'s) and gathered on ``dev`` in lane order."""
+    from cimba_tpu_torch.serve import cache as pcache
+
+    init, chunk = pcache.get_programs(programs, spec, mesh=mesh,
+                                      chunk_steps=chunk_steps,
+                                      with_metrics=with_metrics, audit=audit)
+    shards = drive_chunks(chunk, init(reps, seeds, t_stops, params),
+                          poll_every=poll_every, on_chunk=on_chunk,
+                          on_digest=on_digest)
     return _gather(shards, dev)
+
+
+# --- the wave programs a serve.ProgramCache holds -------------------------
+
+
+def _init_program(spec: ModelSpec, mesh: Mesh):
+    """``init(reps, seeds, t_stops, params) -> shards`` (parity: the
+    reference's ``_init_program``): the lanes of the ``[n]`` ``reps``,
+    ``seeds`` and ``t_stops`` columns (``t_stops`` None: no ``t_stop``
+    leaf) and ``params`` rows of ``n`` (or shared), split over ``mesh``'s
+    shards (:func:`_shard_init`).  Seeds and horizons are lane data, so
+    one init serves every (seed, horizon) mix."""
+    def init(reps, seeds, t_stops, params):
+        n = int(reps.shape[0])
+        return _shard_init(spec, mesh, seeds, reps, t_stops, params, n, n)
+
+    return init
+
+
+def _chunk_program(spec: ModelSpec, mesh: Mesh, dev, chunk_steps: int,
+                   audit: bool = False):
+    """``chunk(shards) -> (shards, any_live[, digest])``: ``make_chunk``
+    with no static horizon (each lane's ``t_stop`` leaf is its own) over
+    the mesh's shards (:func:`_mesh_chunk`); on the card one K1 launch a
+    shard, in place, the K1 library built and loaded at its first
+    call."""
+    return _mesh_chunk(make_chunk(spec, max_steps=chunk_steps), mesh, dev,
+                       audit)
+
+
+def _live_program(spec: ModelSpec, mesh: Mesh):
+    """``live(shards) -> bool [L]`` on the first shard's device: each
+    lane's liveness (``core.loop.make_lanes_live``), in lane order (the
+    reference's ``_live_program``).  It reads the wave and changes
+    nothing."""
+    cond = _loop.make_lanes_live(spec)
+    dev = torch.device(mesh.devices[0])
+
+    def live(shards):
+        outs = [cond(s) for s in shards]
+        return outs[0] if len(outs) == 1 else torch.cat(
+            [o.to(dev) for o in outs])
+
+    return live
+
+
+def _split_columns(mesh: Mesh, shards, cols, params):
+    """Each shard's slice of ``[L]`` lane columns and ``params`` rows of
+    ``L``: ``[(shard, cols_k, params_k)]``, the columns on the shard's
+    device."""
+    L = int(cols[0].shape[0])
+    out = []
+    for s, (lo, hi) in zip(shards, mesh.bounds(L)):
+        d = s.clock.device
+        out.append((s, tuple(c[lo:hi].to(d) for c in cols),
+                    _slice_params(params, L, lo, hi - lo)))
+    return out
+
+
+def _refill_program(spec: ModelSpec, mesh: Mesh):
+    """``refill(shards, mask, reps, seeds, t_stops, params) -> shards``
+    (the reference's ``_refill_program``): ``core.loop.make_refill`` on
+    each shard's lanes, so the masked lanes start afresh as their rows
+    say and every other lane keeps its leaves bit for bit."""
+    refill = _loop.make_refill(spec)
+
+    def run(shards, mask, reps, seeds, t_stops, params):
+        return tuple(refill(s, m, r, sd, ts, p) for s, (m, r, sd, ts), p in
+                     _split_columns(mesh, shards,
+                                    (mask, reps, seeds, t_stops), params))
+
+    return run
+
+
+def _fused_init_program(fused, mesh: Mesh):
+    """The fused twin of :func:`_init_program`: ``init(reps, seeds,
+    t_stops, sids, params) -> shards``, each lane born as its member's
+    (``core.fuse.make_fused_init``, selected by the ``sids`` spec-id
+    column).  Fused waves always carry the horizon column."""
+    from cimba_tpu_torch.core.fuse import make_fused_init
+
+    finit = make_fused_init(fused)
+
+    def init(reps, seeds, t_stops, sids, params):
+        n = int(reps.shape[0])
+        out = []
+        for d, (lo, hi) in zip(mesh.devices, mesh.bounds(n)):
+            d = torch.device(d)
+            out.append(finit(reps[lo:hi], seeds[lo:hi].to(d),
+                             t_stops[lo:hi].to(d), sids[lo:hi].to(d),
+                             _slice_params(params, n, lo, hi - lo),
+                             device=d))
+        return tuple(out)
+
+    return init
+
+
+def _fused_refill_program(fused, mesh: Mesh):
+    """The fused twin of :func:`_refill_program`: ``refill(shards, mask,
+    reps, seeds, t_stops, sids, params) -> shards``
+    (``core.fuse.make_fused_refill``): one splice serves every member of
+    the wave's roster."""
+    from cimba_tpu_torch.core.fuse import make_fused_refill
+
+    refill = make_fused_refill(fused)
+
+    def run(shards, mask, reps, seeds, t_stops, sids, params):
+        return tuple(refill(s, m, r, sd, ts, si, p)
+                     for s, (m, r, sd, ts, si), p in _split_columns(
+                         mesh, shards, (mask, reps, seeds, t_stops, sids),
+                         params))
+
+    return run
 
 
 def stream_acc(spec: ModelSpec, with_metrics: bool, device="cuda"):

@@ -29,12 +29,16 @@ Two dispatch modes, one schedule:
   (cell, round) seed schedule does not depend on the stopping pattern or
   the packing, so an adaptive run reproduces bit for bit.
 
+* **serve-backed** (``service=``): each (cell, round) is submitted as a
+  ``serve.Request`` with its own seed and horizon, so sweep traffic packs
+  into the service's shared waves beside live requests, and each cell's
+  result is bitwise the direct mode's fixed-R result.
+  :func:`run_fused_sweeps` runs several sweeps of distinct specs through
+  one fuse-enabled service, so their cells share fused waves.
+
 Waves that cannot fill (``pad_waves=True``, or a mesh's shard count)
 are padded with dead lanes (``t_stop=-inf``), which dispatch no event and
 sit past the last slot, so they never join a fold.
-
-The serve-backed sweep (``service=``) and :func:`run_fused_sweeps` need
-the serve layer, which the port does not have yet: they raise.
 """
 
 from __future__ import annotations
@@ -161,6 +165,21 @@ def _stack_summaries(accs):
                         zip(*[a[0] for a in accs])])
 
 
+def _serve_merge(acc, summary, n_failed, total_events, metrics=None):
+    """One served (cell, round) result merged into the cell's accumulator
+    (parity: the reference's ``_serve_merge``): ``merge(empty, s)`` is
+    exact, so a fixed-R cell is bitwise what the service delivered, which
+    is bitwise the direct stream call."""
+    from cimba_tpu_torch.obs import metrics as obs_metrics
+    from cimba_tpu_torch.stats import summary as sm
+
+    out = (sm.merge(acc[0], summary), acc[1] + n_failed,
+           acc[2] + total_events)
+    if metrics is not None:
+        out = out + (obs_metrics.merge(acc[3], metrics),)
+    return out
+
+
 def _wave_shape(total: int, unit: int, pad_waves: bool, max_wave: int):
     """The lanes one physical wave runs: a multiple of the mesh's shard
     count; with ``pad_waves`` also rounded up to the next power-of-two
@@ -189,7 +208,8 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
               redistribute: bool = True, program_cache=None, service=None,
               on_round: Optional[Callable] = None,
               on_chunk: Optional[Callable] = None, telemetry=None,
-              audit=None, device="cuda") -> SweepResult:
+              audit=None, serve_timeout: float = 600.0,
+              device="cuda") -> SweepResult:
     """Run a scenario grid: ``reps_per_cell`` replications a cell (a
     round, with ``stop``), folded into each cell's pooled summary
     (parity: ``cimba_tpu.sweep.run_sweep`` in direct mode).
@@ -218,9 +238,15 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     direct stream call.
 
     ``device`` is the card unless the caller asks for the CPU; on the
-    card every chunk is one launch of the spec's K1.  ``service=``,
-    ``program_cache=`` and ``telemetry=`` raise: their modules are not
-    ported."""
+    card every chunk is one launch of the spec's K1.  ``program_cache``
+    (a ``serve.ProgramCache``) shares the waves' programs with other
+    calls.  ``service=`` (a ``serve.Service``) submits each (cell, round)
+    as a request there (``wave_size=min(cell_wave, reps)``, labelled
+    ``grid:cell:r<round>``, each result awaited up to ``serve_timeout``
+    seconds) and merges the results into the cells: its device and mesh
+    are the service's (``mesh=`` and ``program_cache=`` with it raise),
+    and ``occupancy["serve"]`` holds the service's counter deltas.
+    ``telemetry=`` raises: its module is not ported."""
     import torch
 
     from cimba_tpu_torch import config, tree
@@ -228,11 +254,7 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     from cimba_tpu_torch.obs import metrics as obs_metrics
     from cimba_tpu_torch.runner import experiment as ex
 
-    if service is not None:
-        raise NotImplementedError(
-            "service=: the serve-backed sweep needs the serve layer "
-            "(serve/service.py), which is not ported to cimba_tpu_torch yet")
-    ex._not_ported(program_cache=program_cache, telemetry=telemetry)
+    ex._not_ported(telemetry=telemetry)
     C = grid.n_cells
     R0 = int(reps_per_cell)
     if R0 <= 0:
@@ -246,7 +268,14 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
         raise ValueError(
             f"cell_wave={cell_wave} exceeds max_wave={max_wave} — a slot "
             "could never fit one physical wave")
-    shards_mesh, dev = ex._run_mesh(mesh, device)
+    if service is not None:
+        if mesh is not None or program_cache is not None:
+            raise ValueError(
+                "serve-backed sweeps dispatch through the service's own "
+                "mesh and program cache — don't pass mesh=/program_cache=")
+        shards_mesh, dev = service._mesh, service.device
+    else:
+        shards_mesh, dev = ex._run_mesh(mesh, device)
     unit = shards_mesh.size
     if unit > 1 and (cell_wave % unit or max_wave % unit):
         raise ValueError(
@@ -263,6 +292,12 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     ex.preflight_summary_path(spec, summary_path, rows[0], R0,
                               min(cell_wave, R0), dev)
     launches0 = _chunk_launches()
+    serve_stats0 = service.stats() if service is not None else None
+    if service is None:
+        from cimba_tpu_torch.serve import cache as pcache
+
+        programs = (program_cache if program_cache is not None
+                    else pcache.ProgramCache())
 
     t0 = time.perf_counter()
     occ = {"waves": 0, "lanes_live": 0, "lanes_padded": 0,
@@ -317,7 +352,8 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
                   tree.map(lambda *xs: torch.cat(xs), *pws_c))
             sims = ex._run_wave(spec, shards_mesh, dev, column(seeds_c),
                                 column(reps_c), None if ts_c is None
-                                else column(ts_c), pw, live + pad,
+                                else column(ts_c), pw, programs=programs,
+                                with_metrics=with_metrics,
                                 chunk_steps=chunk_steps,
                                 poll_every=poll_every, on_chunk=on_chunk)
             # the slot-keyed fold, in (cell, lo) order: each cell's slot
@@ -335,6 +371,21 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
             occ["lanes_padded"] += pad
             for ci, _, _, _ in wslots:
                 occ["slots_by_cell"][ci] += 1
+
+    def dispatch_serve(jobs, round_):
+        from cimba_tpu_torch.serve.service import Request
+
+        handles = [(ci, service.submit(Request(
+            spec, rows[ci], reps, seed=sd, t_end=t_end,
+            chunk_steps=chunk_steps, wave_size=min(cell_wave, reps),
+            summary_path=summary_path,
+            label=f"{grid.name}:{grid.cell_label(ci)}:r{round_}")))
+            for ci, sd, reps in jobs]
+        for ci, h in handles:
+            res = h.result(serve_timeout)
+            accs[ci] = _serve_merge(accs[ci], res.summary, res.n_failed,
+                                    res.total_events,
+                                    res.metrics if with_metrics else None)
 
     aud = obs_audit.resolve(audit)
     seed_log: list = [[] for _ in range(C)]
@@ -354,7 +405,10 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
                 for c in live_cells]
         for c, sd, _ in jobs:
             seed_log[c].append(int(sd))
-        dispatch(jobs)
+        if service is None:
+            dispatch(jobs)
+        else:
+            dispatch_serve(jobs, n_rounds)
         for c, _, n in jobs:
             n_reps[c] += n
         n_rounds += 1
@@ -378,6 +432,10 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     lanes = occ["lanes_live"] + occ["lanes_padded"]
     occ["padding_waste_frac"] = (occ["lanes_padded"] / lanes if lanes
                                  else 0.0)
+    if serve_stats0 is not None:
+        s1 = service.stats()
+        occ["serve"] = {k: s1[k] - serve_stats0[k] for k in (
+            "batches", "waves", "lanes_dispatched", "lanes_padded")}
     audit_card = None
     if aud is not None:
         cells_blk = [
@@ -396,7 +454,8 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
                       "with_metrics": with_metrics,
                       "adaptive": stop is not None,
                       "redistribute": bool(redistribute),
-                      "n_rounds": n_rounds, "serve_backed": False,
+                      "n_rounds": n_rounds,
+                      "serve_backed": service is not None,
                       "mesh": ex.mesh_descriptor(mesh)},
             cells=cells_blk, device=dev)
     return SweepResult(
@@ -418,11 +477,55 @@ def _chunk_launches() -> int:
             + kr.gen_chunk.launches)
 
 
-def run_fused_sweeps(points, **kw) -> list:
-    """Several sweeps of distinct models through one fuse-enabled
-    service (parity: ``cimba_tpu.sweep.run_fused_sweeps``): it needs the
-    serve layer and cross-spec wave fusion, which are not ported."""
-    raise NotImplementedError(
-        "run_fused_sweeps: the serve layer (serve/service.py) and its "
-        "cross-spec wave fusion (core/fuse.py) are not ported to "
-        "cimba_tpu_torch yet")
+def run_fused_sweeps(points, *, reps_per_cell: int, seed: int = 0,
+                     service=None, fuse_max_specs: Optional[int] = None,
+                     max_wave: int = 4096, serve_timeout: float = 600.0,
+                     **kw) -> list:
+    """Several sweeps of distinct models through one fuse-enabled service
+    (parity: ``cimba_tpu.sweep.run_fused_sweeps``), so their cells pack
+    into cross-spec fused waves.  ``points`` is a sequence of ``(spec,
+    grid)``; each runs as a serve-backed :func:`run_sweep` with the same
+    ``reps_per_cell``, ``seed`` and ``**kw``, in a thread of its own,
+    against one ``serve.Service(fuse=True)`` (on ``kw``'s ``device``, the
+    card by default).  Returns the SweepResults in ``points`` order, each
+    cell bitwise its direct fixed-R twin's.  ``service=`` reuses a
+    caller's service (its ``fuse`` setting governs)."""
+    import threading
+
+    points = list(points)
+    if not points:
+        return []
+    owned = service is None
+    if owned:
+        from cimba_tpu_torch.serve.service import Service
+
+        service = Service(max_wave=max_wave, fuse=True,
+                          fuse_max_specs=fuse_max_specs,
+                          device=kw.get("device", "cuda"))
+    results: list = [None] * len(points)
+    errors: list = [None] * len(points)
+
+    def one(i, spec, grid):
+        try:
+            results[i] = run_sweep(spec, grid, reps_per_cell=reps_per_cell,
+                                   seed=seed, service=service,
+                                   serve_timeout=serve_timeout,
+                                   max_wave=max_wave, **kw)
+        except BaseException as e:  # raised again on the caller's thread
+            errors[i] = e
+
+    try:
+        threads = [threading.Thread(target=one, args=(i, s, g), daemon=True,
+                                    name=f"fused-sweep-{i}")
+                   for i, (s, g) in enumerate(points)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        if owned:
+            service.shutdown(wait=True)
+    for e in errors:
+        if e is not None:
+            raise e
+    return results

@@ -1189,6 +1189,29 @@ def sweep_spec(lib):
     return m.build()
 
 
+def fuse_spec(lib, i: int, t_stop: float = 12.0):
+    """Member ``i`` of the reference's wave-fusion class
+    (``tests/test_fuse.py``, ``_fz_spec``; ``bench.py``'s
+    ``bench_serve_fused``): one process holding ``0.5 + 0.25 i`` until its
+    clock passes ``t_stop``, then exiting.  Members differ only in the
+    hold, a trace-time constant, so they share one fusion shape and each
+    is a model of its own."""
+    # the block closes over functions, not modules, so the spec has a
+    # value fingerprint (serve.cache.fusion_order_key orders by it)
+    clock, select, exit_, hold = (lib.api.clock, lib.cmd.select,
+                                  lib.cmd.exit_, lib.cmd.hold)
+    step = 0.5 + 0.25 * i
+    m = lib.Model(f"fz{i}", event_cap=1, guard_cap=2)
+
+    @m.block
+    def work(sim, p, sig):
+        done = clock(sim) > t_stop
+        return sim, select(done, exit_(), hold(step, next_pc=work.pc))
+
+    m.process("w", entry=work)
+    return m.build()
+
+
 def wait_process_spec(lib, joins: bool = False):
     """The reference's scripted ``cmd.wait_process`` models
     (``tests/test_toolkit.py``).  Without ``joins``,

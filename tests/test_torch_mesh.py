@@ -255,10 +255,23 @@ def test_dryrun_eight_shards_meets_the_golden_mean():
     assert int(events) == 28995
 
 
+@functools.lru_cache(maxsize=None)
+def ref_serve_mesh_events(n_devices):
+    """The reference's serve-arm requests as direct streams (the serve
+    arm holds each served result bitwise to the direct stream)."""
+    spec, _ = jmm1.build()
+    per_req = 8 * n_devices
+    return sum(int(jex.run_experiment_stream(
+        spec, jmm1.params(n), per_req, wave_size=per_req, chunk_steps=32,
+        seed=seed).total_events) for _, n, seed in dryrun.SERVE_CASES)
+
+
 def test_dryrun_runs_every_arm():
     # every arm at 2 shards: the stream, kernel and AWACS arms are each
     # bitwise their unsharded runs at 4 shards above
     out = dryrun.run_dryrun(2, device="cpu")
     assert out["stream_mesh_events"] == out["events"]
-    assert out["serve_mesh_events"] is None
+    # the serve arm: its events are the reference's
+    # _dryrun_serve_mesh cases run as direct streams
+    assert out["serve_mesh_events"] == ref_serve_mesh_events(2)
     assert out["kernel_mesh_events"] > 0 and out["awacs_mesh_events"] > 0

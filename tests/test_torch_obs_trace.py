@@ -125,8 +125,14 @@ def test_dump_and_validate(obs_off, tmp_path):
         export.validate_chrome_trace(bad)
     with pytest.raises(ValueError, match="top-level"):
         export.validate_chrome_trace({"traceEvents": []})
-    with pytest.raises(NotImplementedError, match="serve"):
-        export.dump_service_trace(str(tmp_path / "s.json"), None)
+    # a service's request-lifecycle trace (the serve layer): an
+    # idle service's trace validates and carries its stats
+    from cimba_tpu_torch import serve
+
+    with serve.Service(device="cpu") as svc:
+        sdoc = export.dump_service_trace(str(tmp_path / "s.json"), svc)
+    assert (tmp_path / "s.json").exists()
+    assert sdoc["otherData"]["service"]["submitted"] == 0
 
 
 def test_disabled_recorder_carries_nothing(obs_off):

@@ -46,7 +46,9 @@ def test_importing_every_module_loads_no_jax():
                 "stats.dataset", "obs.trace", "obs.metrics", "obs.export",
                 "obs.prof", "obs.audit", "tools.audit_diff",
                 "examples.tut_1_mm1", "sweep.engine", "sweep.adaptive",
-                "runner.dryrun", "examples.mg1_sweep"):
+                "runner.dryrun", "examples.mg1_sweep", "serve",
+                "serve.sched", "serve.cache", "serve.service",
+                "serve.client", "core.fuse", "examples.serve_mm1"):
         assert f"cimba_tpu_torch.{mod}" in res["mods"]
 
 

@@ -150,10 +150,20 @@ def test_stream_regrows_a_wave():
 
 def test_stream_refuses_what_is_not_ported():
     spec, _ = tmm1.build(record=False)
-    for kw in ("telemetry", "program_cache", "schedule"):
+    for kw in ("telemetry", "schedule"):
         with pytest.raises(NotImplementedError, match=kw):
             tex.run_experiment_stream(spec, tmm1.params(4), 4,
                                       device="cpu", **{kw: {}})
+    # program_cache= is ported (serve.cache): a plain dict holds the
+    # programs as a ProgramCache does, and a second call reuses them
+    cache = {}
+    a = tex.run_experiment_stream(spec, tmm1.params(4), 4, device="cpu",
+                                  program_cache=cache)
+    n = len(cache)
+    b = tex.run_experiment_stream(spec, tmm1.params(4), 4, seed=3,
+                                  device="cpu", program_cache=cache)
+    assert n >= 3 and len(cache) == n
+    assert int(a.n_failed) == int(b.n_failed) == 0
     # mesh= is ported (runner.experiment.make_mesh): a value that is not
     # a Mesh is refused by name
     with pytest.raises(TypeError, match="mesh"):

@@ -331,17 +331,34 @@ def test_run_sweep_validates_arguments(monkeypatch):
 
 
 def test_unported_paths_raise_naming_their_modules():
-    spec, g = tiny("f64"), grid((1.0,))
-    with pytest.raises(NotImplementedError, match="serve"):
+    # telemetry= still raises, naming its module; the serve-backed sweep,
+    # program_cache= and run_fused_sweeps are ported (the serve layer):
+    # each is bitwise the direct engine's fixed-R run
+    from cimba_tpu_torch import serve
+
+    spec, g = tiny("f64"), grid((1.0, 2.5))
+    with pytest.raises(NotImplementedError, match="obs/telemetry.py"):
         sweep.run_sweep(spec, g, reps_per_cell=2, device="cpu",
-                        service=object())
-    for kw, mod in (("program_cache", "serve/cache.py"),
-                    ("telemetry", "obs/telemetry.py")):
-        with pytest.raises(NotImplementedError, match=mod):
-            sweep.run_sweep(spec, g, reps_per_cell=2, device="cpu",
-                            **{kw: {}})
-    with pytest.raises(NotImplementedError, match="serve"):
-        sweep.run_fused_sweeps([(spec, g)], reps_per_cell=2)
+                        telemetry={})
+    args = ("f64", (1.0, 2.5), 12, 6, 5, 4, 16, 8)
+    want = port_sweep(*args)
+    with serve.Service(max_wave=16, device="cpu") as svc:
+        with pytest.raises(ValueError, match="mesh=/program_cache="):
+            port_sweep(*args, service=svc, program_cache={})
+        got = port_sweep(*args, service=svc)
+    cached = port_sweep(*args, program_cache={})
+    fused = sweep.run_fused_sweeps(
+        [(spec, grid((1.0, 2.5)))], reps_per_cell=6, seed=5, cell_wave=4,
+        max_wave=16, chunk_steps=8, device="cpu")[0]
+    for res in (got, cached, fused):
+        for x, y in zip(tree.leaves((res.summaries,
+                                     torch.as_tensor(res.n_failed),
+                                     torch.as_tensor(res.total_events))),
+                        tree.leaves((want.summaries,
+                                     torch.as_tensor(want.n_failed),
+                                     torch.as_tensor(want.total_events)))):
+            assert torch.equal(x, y)
+    assert got.occupancy["serve"]["batches"] >= 1
     assert set(sweep.__all__) == set(jsweep.__all__)
 
 
