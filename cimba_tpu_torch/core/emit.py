@@ -32,7 +32,12 @@ the interface the hand-written families have:
   ``wait_event`` (the kernel compiles the waits' rules, and keeps each
   process's awaited pid or handle, only where it may);
 * the launch bounds, the block's lanes and whether its shared columns
-  take dynamic shared memory (:func:`smem_plan`, ``DYN``).
+  take dynamic shared memory (:func:`smem_plan`, ``DYN``);
+* ``BOUNDARY`` and ``boundary(pc)``, the spec's boundary blocks
+  (``Model.boundary_block``): each is a stub, never traced, since the
+  kernel freezes a lane whose next dispatch resumes a process there and
+  the host's boundary round runs the block with torch
+  (``kernel_run.make_boundary_step``), so its body may use any torch op.
 
 Each node is one ``const`` local of the C++ type of its dtype; an op casts
 its operands to the dtype torch computes it in, a Python number is rounded
@@ -148,9 +153,7 @@ class _Layout:
 def check_spec(spec: ModelSpec) -> None:
     """Refuse what the generated family cannot hold, before tracing."""
     why = None
-    if spec.boundary_pcs:
-        why = "boundary blocks (the dwell kernel is AWACS's own)"
-    elif spec.n_guards > MAX_GUARDS:
+    if spec.n_guards > MAX_GUARDS:
         why = f"{spec.n_guards} guards (at most {MAX_GUARDS})"
     elif spec.n_procs > MAX_PROCS:
         why = f"{spec.n_procs} processes (at most {MAX_PROCS})"
@@ -710,8 +713,10 @@ def emit(spec: ModelSpec, sims) -> str:
     lay = _Layout(spec, sims)
     real = lay.real
     R = _ctype(real, "the Sim's clock")
+    bpcs = sorted(set(spec.boundary_pcs))
+    # the boundary blocks run on the host (their stubs below)
     blocks = [tr.trace_block(spec, pc, sims) for pc in
-              range(len(spec.blocks))]
+              range(len(spec.blocks)) if pc not in bpcs]
     handlers = [tr.trace_handler(spec, k, sims) for k in
                 range(len(spec.user_handlers))]
     preds = [tr.trace_predicate(spec, c.id, sims) for c in spec.conditions]
@@ -863,6 +868,12 @@ def emit(spec: ModelSpec, sims) -> str:
                   f"{_ternary('i', [c.guard for c in spec.conditions])}; }}"),
         "  " + cx(f"observes(int c, int g) {{ return {observes}; }}",
                   ret="bool"),
+        f"  // boundary blocks (pcs {bpcs or 'none'}): the host's round "
+        "runs them",
+        f"  static constexpr bool BOUNDARY = {str(bool(bpcs)).lower()};",
+        "  " + cx("boundary(int pc) { return "
+                  + (" || ".join(f"pc == {b}" for b in bpcs) or "false")
+                  + "; }", ret="bool"),
         f"  // spawn pools: "
         + (", ".join(f"type {t} {pt.name!r} pids [{pt.first_pid}, "
                      f"{pt.first_pid + pt.count})"
@@ -937,13 +948,25 @@ def emit(spec: ModelSpec, sims) -> str:
     for ir in handlers:
         out.append(f"    if constexpr (K == {ir.pc}) hdl{ir.pc}(s, w, p, sig);")
     out.append("  }")
+    for pc in bpcs:
+        out += [f"  // block {pc} {getattr(spec.blocks[pc], '__name__', pc)!r}"
+                ": a boundary block, run by the host's round; the kernel "
+                "reaches",
+                "  // its stub only mid-chain, where the lane has failed "
+                "(ERR_BOUNDARY)",
+                "  template <class S>",
+                f"  __device__ __forceinline__ static Cmd<typename S::R> "
+                f"blk{pc}(S& s, const Where& w, int p, int32_t sig) {{",
+                "    using R = typename S::R;",
+                "    return Cmd<R>{C_EXIT, R(0), R(0), 0, 0};", "  }"]
     out += ["  template <class S>",
             "  __device__ static Cmd<typename S::R> block(S& s, const Where& "
             "w, int p, int b, int32_t sig) {",
             "    switch (b) {"]
-    for ir in blocks[:-1]:
-        out.append(f"      case {ir.pc}: return blk{ir.pc}(s, w, p, sig);")
-    out += [f"      default: return blk{blocks[-1].pc}(s, w, p, sig);",
+    pcs = range(len(spec.blocks))
+    for pc in pcs[:-1]:
+        out.append(f"      case {pc}: return blk{pc}(s, w, p, sig);")
+    out += [f"      default: return blk{pcs[-1]}(s, w, p, sig);",
             "    }", "  }", "};"]
     prof = "F32" if real == torch.float32 else "F64"
     head = [
@@ -967,8 +990,9 @@ def header_hash(text: str) -> str:
 
 def op_counts(spec: ModelSpec, sims, weights=None) -> Dict[object, int]:
     """Live float and integer ops of each block's IR (pc -> count) and of
-    each user handler's (``("h", k)`` -> count): the least the generated
-    kernel computes a dispatch of that block or handler, for the bound
+    each user handler's (``("h", k)`` -> count; a boundary block, which
+    the host's round runs, has none): the least the generated kernel
+    computes a dispatch of that block or handler, for the bound
     (draws counted by their samplers elsewhere).  An op counts
     ``weights.get(op, 1)`` (a library function's operations), a division
     by a Python number one multiply.  A write by a traced pid counts as
@@ -978,8 +1002,9 @@ def op_counts(spec: ModelSpec, sims, weights=None) -> Dict[object, int]:
     weights = weights or {}
     counts = {}
     lay = _Layout(spec, sims)
+    # a boundary block runs on the host, never in the kernel
     irs = [(pc, tr.trace_block(spec, pc, sims))
-           for pc in range(len(spec.blocks))]
+           for pc in range(len(spec.blocks)) if pc not in spec.boundary_pcs]
     irs += [(("h", k), tr.trace_handler(spec, k, sims))
             for k in range(len(spec.user_handlers))]
     for pc, ir in irs:

@@ -42,7 +42,11 @@ defer off) to exactly the frozen lanes and clears the flag
 on the card one launch of the dwell kernel (:func:`awacs_dwell`), which
 runs the step, the features and the detection MLP of every frozen lane;
 on CPU tensors its plain version, the gathered lanes stepped by the
-plain engine (:func:`make_boundary_step_plain`).
+plain engine (:func:`make_boundary_step_plain`).  For any other spec
+(a generated family's boundary blocks) the round is that plain step on
+the Sim's own device, in place on the card: the reference's round is
+plain XLA too, a boundary block being bulk array work the chunk kernel
+does not trace.
 
 Horizon (parity: ``make_cond``'s ``lim = sim.t_stop if sim.t_stop is not
 None else t_end``).  A Sim that carries the per-lane ``t_stop`` leaf
@@ -645,24 +649,45 @@ def make_boundary_step_plain(spec: ModelSpec):
     return apply
 
 
+def boundary_in_place(spec: ModelSpec):
+    """``apply(sims) -> sims``: the boundary round of a generated
+    family's spec on the card, the plain engine's step
+    (``loop.make_step``, defer off) on the gathered lanes with
+    ``boundary_pending`` set, scattered back IN PLACE into the Sim's own
+    tensors (as the chunk kernels and the dwell work), the flag cleared.
+    Reading which lanes are frozen is one host sync; a Sim with none is
+    left as it is."""
+    step = loop.make_step(spec)
+
+    def apply(sims: loop.Sim) -> loop.Sim:
+        idx = sims.boundary_pending.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            return sims
+        frozen = tree.map(lambda x: x.index_select(0, idx), sims)
+        stepped = step(frozen._replace(
+            boundary_pending=torch.zeros_like(frozen.boundary_pending)))
+        tree.map(lambda x, y: x.index_copy_(0, idx, y), sims, stepped)
+        return sims
+
+    return apply
+
+
 def make_boundary_step(spec: ModelSpec):
     """``apply(sims) -> sims``: the boundary round, one ordinary engine
     step on exactly the lanes with ``boundary_pending`` set, which it
     clears.  On the card it is one launch of the spec's dwell kernel
-    (:func:`awacs_dwell`, AWACS only), IN PLACE; a Sim of another spec
-    with boundary blocks raises there.  On CPU tensors it is the plain
-    version, :func:`make_boundary_step_plain`."""
+    (:func:`awacs_dwell`) for AWACS, and for any other spec the plain
+    step on the card (:func:`boundary_in_place`), each IN PLACE.  On CPU
+    tensors it is the plain version, :func:`make_boundary_step_plain`."""
     plain = make_boundary_step_plain(spec)
     lay = awacs_layout(spec) if _is_awacs(spec) else None
+    on_card = boundary_in_place(spec) if lay is None else None
 
     def apply(sims: loop.Sim) -> loop.Sim:
         if not sims.clock.is_cuda:
             return plain(sims)
         if lay is None:
-            raise NotImplementedError(
-                f"spec {spec.name!r}: a CUDA boundary round (dwell kernel) "
-                "exists for models.awacs.build(n) only (ROADMAP.md, queue "
-                "B)")
+            return on_card(sims)
         return awacs_dwell(sims, lay)
 
     return apply
@@ -677,8 +702,9 @@ def make_kernel_run(spec: ModelSpec, t_end: Optional[float] = None,
     engine.  After a call, ``run.launches`` is the number of chunk
     launches it made (read off the kernel wrapper's counter) and
     ``run.boundary_rounds`` the number of boundary rounds, each one
-    launch of the dwell kernel on the card (counted where it launches,
-    :func:`awacs_dwell`).
+    launch of the dwell kernel on the card for AWACS (counted where it
+    launches, :func:`awacs_dwell`), the plain step on the card for any
+    other spec (:func:`boundary_in_place`).
 
     The liveness check between chunks is ``loop.make_cond``: a lane of a
     spec that waits on events stays live while a RUNNING process waits on

@@ -69,7 +69,12 @@
 //           event_reprioritize, pattern_cancel and the readers ev_valid,
 //           ev_time, ev_prio, pattern_count, pattern_find), priority_set,
 //           the priority queue's pq_cancel<Q> and pq_reprioritize<Q> and
-//           the object queue's queue_position<Q>.
+//           the object queue's queue_position<Q>; the boundary protocol
+//           (M::BOUNDARY, M::boundary(pc)): a dispatch of kind K_PROC
+//           or K_TIMER whose subject sits at a boundary block freezes
+//           the lane with boundary_pending set (no pop, no clock, no
+//           count), the host's round runs the block between chunks, and
+//           a block reached mid-chain fails the lane (ERR_BOUNDARY).
 //           Past the register limits (M::BIG, M::GBIG, which the
 //           emitter decides) a generated family keeps each
 //           process's wake and packed word in shared-memory columns
@@ -243,7 +248,7 @@ constexpr int NO_PEND = -1, SUCCESS = 0, PREEMPTED = -1, STOPPED = -3,
               CANCELLED = -4, RUNNING = 1, FINISHED = 2;
 constexpr int K_TIMER = 1, N_KINDS = 2;
 constexpr int ERR_EVENT_OVERFLOW = 1, ERR_CHAIN_RUNAWAY = 3, ERR_USER = 4,
-              ERR_BAD_RELEASE = 5;
+              ERR_BAD_RELEASE = 5, ERR_BOUNDARY = 6;
 constexpr int32_t I32_MIN = INT32_MIN, I32_MAX = INT32_MAX;
 
 // model families (the kernel's template argument; each has its C entry
@@ -270,7 +275,8 @@ enum Leaf {
   U0
 };
 constexpr int N_ACC = A_STARTED - A_N + 1;
-constexpr int DONE = 0, ERR = 1, N_EVENTS = 2, N_TAIL = 4;  // after the user
+constexpr int DONE = 0, ERR = 1, N_EVENTS = 2, BOUNDARY_PENDING = 3,
+              N_TAIL = 4;  // after the user
 // the pointer array's room: a generated family's Sim (tandem's, the
 // widest hand-written one, has U0 + 29 + N_TAIL = 83 leaves), its t_stop
 // leaf counted where it carries one (core/emit.py refuses a Sim past it,
@@ -694,6 +700,15 @@ struct Masks<Wm, true, true> {
   Wm em, pm;
 };
 
+// a lane's boundary_pending flag, in a family with boundary blocks (a
+// base of State, empty where it has none)
+template <bool ON>
+struct Frozen {};
+template <>
+struct Frozen<true> {
+  bool frozen;
+};
+
 // One lane's working state: the hot part in registers, the cold part in
 // the block's shared memory.
 template <typename R_, typename C_, class M_>
@@ -701,7 +716,8 @@ struct State
     : Awaits<std::conditional_t<M_::BIG, Col<int32_t, M_::THREADS>,
                                 int32_t[M_::NP]>,
              M_::WAITP, M_::WAITE>,
-      Masks<Col<uint32_t, M_::THREADS>, M_::EMASK, M_::PMASK> {
+      Masks<Col<uint32_t, M_::THREADS>, M_::EMASK, M_::PMASK>,
+      Frozen<M_::BOUNDARY> {
   using R = R_;
   using C = C_;
   using M = M_;
@@ -2699,6 +2715,11 @@ struct Family {
   static constexpr int ECAP = 0;
   static constexpr int NK = 0, NV = 0, NC = 0, NPQ = 0, PQW = 1;
   static constexpr int NR = 0, NH = 0;  // resources, user handlers
+  // a generated family's boundary blocks (Model.boundary_block): a lane
+  // whose next dispatch resumes a process at one freezes with
+  // boundary_pending set, for the host's boundary round
+  static constexpr bool BOUNDARY = false;
+  __host__ __device__ static constexpr bool boundary(int) { return false; }
   using UCold = NoUCold;
 };
 
@@ -3015,6 +3036,12 @@ __device__ __forceinline__ Cmd<typename S::R> run_block(
   using M = typename S::M;
   const int b = get(s, F_PC, p);  // clamped to a block when loaded
   if constexpr (M::GEN) {
+    // boundary blocks are entered by dispatch only (the step freezes the
+    // lane there): reaching one mid-chain fails the lane, and its stub
+    // exits (loop.make_step's defer_boundary)
+    if constexpr (M::BOUNDARY) {
+      if (M::boundary(b)) set_err(s, ERR_BOUNDARY);
+    }
     return M::block(s, w, p, b, sig);
   } else {
     R t = R(0);
@@ -3122,6 +3149,29 @@ __device__ __forceinline__ void step(S& s, const Where& w,
     const int32_t p_e = row<int32_t, S>(w, EV_PRIO, E)[s.slot_e];
     const int32_t s_e = row<int32_t, S>(w, EV_SEQ, E)[s.slot_e];
     wake_first = p_w > p_e || (p_w == p_e && s_w < s_e);
+  }
+  if constexpr (S::M::BOUNDARY) {
+    // the boundary defer: an event of kind K_PROC or K_TIMER whose
+    // subject sits at a boundary block is peeked, not consumed; the lane
+    // freezes for the host's boundary round (no pop, no clock, no count,
+    // no waiter scan)
+    int32_t bs = pid_w, bk = 0;  // a wake: its process, kind K_PROC
+    if (!wake_first) {
+      bs = row<int32_t, S>(w, EV_SUBJ, E)[s.slot_e];
+      bk = row<int32_t, S>(w, EV_KIND, E)[s.slot_e];
+    }
+    // the subject's pc, an out-of-range subject read as the nearest
+    // process's (make_step's clamp), each word read at a compile-time
+    // index: nvcc gave the last process's pc for this read through
+    // pick() at a run-time index (sm_90a, CUDA 12.8)
+    int32_t bpc = get(s, F_PC, 0);
+#pragma unroll
+    for (int q = 1; q < S::NP; ++q)
+      if (bs >= q) bpc = get(s, F_PC, q);
+    if (bk <= K_TIMER && S::M::boundary(bpc)) {
+      s.frozen = true;
+      return;
+    }
   }
   int32_t subj, arg;
   int32_t kind = 0;  // K_PROC; a table event's own where handlers exist
@@ -3366,6 +3416,8 @@ __device__ __forceinline__ void load(S& s, const Where& w) {
   s.done = row<bool, S>(w, tail<S>(DONE), 1)[0];
   s.err = row<int32_t, S>(w, tail<S>(ERR), 1)[0];
   s.n_events = row<C, S>(w, tail<S>(N_EVENTS), 1)[0];
+  if constexpr (M::BOUNDARY)
+    s.frozen = row<bool, S>(w, tail<S>(BOUNDARY_PENDING), 1)[0];
 }
 
 // the fields a chunk can change (the packed ones where they were
@@ -3469,6 +3521,8 @@ __device__ __forceinline__ void store(const S& s, const Where& w) {
   row<bool, S>(w, tail<S>(DONE), 1)[0] = s.done;
   row<int32_t, S>(w, tail<S>(ERR), 1)[0] = s.err;
   row<C, S>(w, tail<S>(N_EVENTS), 1)[0] = s.n_events;
+  if constexpr (M::BOUNDARY)
+    row<bool, S>(w, tail<S>(BOUNDARY_PENDING), 1)[0] = s.frozen;
 }
 
 // the pointer array's leaves of the model's Sim, without its t_stop
@@ -3539,6 +3593,9 @@ __device__ __forceinline__ void run_lane(const Ptrs& ps, int l,
       // lane live, the horizon aside (make_cond)
       if (!s.done && s.err == 0 && !(s.any_e || any_w)) live = stranded(s);
     }
+    // a lane frozen at a boundary block waits for the host's round
+    // (make_cond with defer_boundary)
+    if constexpr (M::BOUNDARY) live = live && !s.frozen;
     if (!live) break;
     step(s, Where{ps, sh, opaque(l)}, t_w);
   }

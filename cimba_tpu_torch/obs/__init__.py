@@ -16,6 +16,13 @@ determinism audit.
 * :mod:`~cimba_tpu_torch.obs.audit` — chunk-boundary digests, run cards
   and divergence localization.
 
+Host-side: :mod:`~cimba_tpu_torch.obs.telemetry` (the serving control
+plane's time series, request-scoped spans and health) and
+:mod:`~cimba_tpu_torch.obs.expose` (``/metrics`` Prometheus text,
+``/healthz``, ``/varz`` over HTTP).  Every integration point defaults to
+``telemetry=None``, and None means no threads, no span objects and
+bitwise-unchanged results.
+
 Both the recorder and the registry are switched by module flags read at
 ``init_sim`` (off: the Sim carries ``None`` and the hooks compute
 nothing).  Kernel-path contract (the reference's): a Sim carrying
@@ -26,5 +33,6 @@ engine, on the card or the CPU.
 
 from cimba_tpu_torch.obs import metrics, trace  # noqa: F401
 
-# export, prof and audit are imported by their callers (they pull in
-# json and the runner surface; the engine only needs trace and metrics)
+# export, prof, audit, telemetry and expose are imported by their callers
+# (they pull in json, http and the runner surface; the engine only needs
+# trace and metrics)

@@ -558,14 +558,17 @@ def run_card(kind: str, *, spec=None, geometry: Optional[dict] = None,
              digest_trail: Optional[List[dict]] = None,
              result_digest: Optional[str] = None,
              cells: Optional[List[dict]] = None,
+             telemetry: Optional[dict] = None,
              label: Optional[str] = None, device="cpu") -> dict:
     """Assemble one run card (omitted blocks are left out) and stamp its
     content digest.  ``spec`` is a ModelSpec (hashed by
     :func:`spec_block`) or a dict; ``device`` the run's, for the env
     block.  ``cells`` is a sweep card's per-cell block (label, seed list,
-    replications, stop round and each cell's :func:`result_digest`).
-    The reference's blocks of the layers the port does not have yet
-    (telemetry, tuned schedules, program keys) are not written."""
+    replications, stop round and each cell's :func:`result_digest`);
+    ``telemetry`` a telemetry plane's ``snapshot()`` (ticks, heartbeat
+    ages, span counters), where the run had one.  The reference's blocks
+    of the layers the port does not have yet (tuned schedules, program
+    keys) are not written."""
     card: dict = {"format": CARD_FORMAT, "kind": str(kind),
                   "created_unix": time.time(),
                   "env": environment(device)}
@@ -577,7 +580,7 @@ def run_card(kind: str, *, spec=None, geometry: Optional[dict] = None,
                         ("geometry", geometry),
                         ("digest_trail", digest_trail),
                         ("result_digest", result_digest),
-                        ("cells", cells)):
+                        ("cells", cells), ("telemetry", telemetry)):
         if block is not None:
             card[name] = block
     card["card_digest"] = card_digest(card)

@@ -214,8 +214,7 @@ class StreamResult(NamedTuple):
 def _not_ported(**kw) -> None:
     """Refuse an argument whose module the port does not have yet, by
     name, rather than ignore it."""
-    where = {"telemetry": "telemetry (obs/telemetry.py)",
-             "schedule": "tuned schedules (tune/)"}
+    where = {"schedule": "tuned schedules (tune/)"}
     for name, value in kw.items():
         if value is not None:
             raise NotImplementedError(
@@ -553,6 +552,29 @@ def _sim_shapes(spec: ModelSpec, seeds, params, n: int):
                                           dtype=x.dtype, device="meta"), one)
 
 
+def _tel_hooks(telemetry, kind: str, on_wave, on_chunk):
+    """The ``on_wave``/``on_chunk`` progress hooks as telemetry ticks
+    (parity: the reference's ``_tel_hooks``): with a
+    :class:`~cimba_tpu_torch.obs.telemetry.Telemetry` plane each wave and
+    chunk boundary ticks its counter and refreshes the liveness heartbeat,
+    THEN calls the user's hook.  ``telemetry=None`` returns the hooks
+    untouched: no wrapper closures, nothing on the drive loop."""
+    if telemetry is None:
+        return on_wave, on_chunk
+
+    def wave_hook(n_waves, lanes_done, _u=on_wave):
+        telemetry.tick(f"{kind}.wave")
+        if _u is not None:
+            _u(n_waves, lanes_done)
+
+    def chunk_hook(n, _u=on_chunk):
+        telemetry.tick(f"{kind}.chunk")
+        if _u is not None:
+            _u(n)
+
+    return wave_hook, chunk_hook
+
+
 def run_experiment_chunked(spec: ModelSpec, params: Any,
                            n_replications: int, *, seed: int = 0,
                            t_end: Optional[float] = None,
@@ -577,12 +599,14 @@ def run_experiment_chunked(spec: ModelSpec, params: Any,
     bit as the uninterrupted one; a checkpoint of another run raises.
     ``launches`` counts chunk kernel launches (0 on the CPU).  ``mesh``
     shards the lanes (:func:`run_experiment`); a checkpoint holds the
-    gathered Sim, and a resume splits it over the mesh again."""
+    gathered Sim, and a resume splits it over the mesh again.
+    ``telemetry`` (an ``obs.telemetry.Telemetry``) ticks
+    ``chunked.chunk`` after every chunk (:func:`_tel_hooks`)."""
     import os
 
     from cimba_tpu_torch.runner import checkpoint as ckpt
 
-    _not_ported(telemetry=telemetry)
+    _, on_chunk = _tel_hooks(telemetry, "chunked", None, on_chunk)
     mesh, dev = _run_mesh(mesh, device)
     mesh.bounds(int(n_replications))
     _refuse_observed(dev, "run_experiment_chunked")
@@ -665,14 +689,20 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
     and to a ``serve.Service``, to share the wave's programs (the init,
     the chunk with its built K1, the fold), keyed by what they bake in
     (``serve.cache.program_key``).  Seed, ``t_end`` and parameter values
-    are lane data: calls differing only in them build nothing new."""
+    are lane data: calls differing only in them build nothing new.
+
+    ``telemetry`` (an ``obs.telemetry.Telemetry``): each wave and chunk
+    ticks ``stream.wave`` and ``stream.chunk`` (:func:`_tel_hooks`), and
+    with its span recorder on one "stream" trace covers the call, a
+    "wave" event a wave; the run card records its ``snapshot()``.  All
+    host-side: no result bit changes."""
     import dataclasses
 
     from cimba_tpu_torch.obs import audit as obs_audit
 
     from cimba_tpu_torch.serve import cache as pcache
 
-    _not_ported(telemetry=telemetry, schedule=schedule)
+    _not_ported(schedule=schedule)
     shards_mesh, dev = _run_mesh(mesh, device)
     _refuse_observed(dev, "run_experiment_stream")
     aud = obs_audit.resolve(audit)
@@ -694,39 +724,58 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
                      with_metrics, dev)
     fold = pcache.get_fold(programs, with_metrics, summary_path)
     acc = stream_acc(spec, with_metrics, dev)
+    on_wave, on_chunk = _tel_hooks(telemetry, "stream", on_wave, on_chunk)
+    rec = telemetry.spans if telemetry is not None else None
+    trace = None
+    if rec is not None:
+        trace = rec.new_trace()
+        rec.start(trace, "stream", spec=spec.name, R=R, wave_size=wave_size)
     n_waves = n_regrows = 0
     lo = 0
-    while lo < R:
-        n = min(wave_size, R - lo)
-        reps = torch.arange(lo, lo + n)
-        pw = _slice_params(params, R, lo, n)
-        seeds = _seed_column(seed, n, dev)
-        t_stops = None if t_end is None else _horizon_column(t_end, n, dev)
-        on_digest = None
-        if aud is not None:
-            def on_digest(c, d, _w=n_waves):
-                aud.on_chunk(_w, c, d)
-        while True:
-            # a regrow's spec has its own fingerprint, so its own programs
-            sims = _run_wave(spec, shards_mesh, dev, seeds, reps, t_stops, pw,
-                             programs=programs, with_metrics=with_metrics,
-                             chunk_steps=chunk_steps, poll_every=poll_every,
-                             on_chunk=on_chunk, on_digest=on_digest,
-                             audit=aud is not None)
-            if n_regrows >= max_regrows or not bool(
-                    (sims.err == _loop.ERR_EVENT_OVERFLOW).any()):
-                break
-            # the wave again at a doubled cap; the failed wave is freed
-            # before the new init
-            spec = dataclasses.replace(spec, event_cap=2 * spec.event_cap)
-            n_regrows += 1
+    try:
+        while lo < R:
+            n = min(wave_size, R - lo)
+            reps = torch.arange(lo, lo + n)
+            pw = _slice_params(params, R, lo, n)
+            seeds = _seed_column(seed, n, dev)
+            t_stops = (None if t_end is None
+                       else _horizon_column(t_end, n, dev))
+            on_digest = None
+            if aud is not None:
+                def on_digest(c, d, _w=n_waves):
+                    aud.on_chunk(_w, c, d)
+            while True:
+                # a regrow's spec has its own fingerprint, so its own
+                # programs
+                sims = _run_wave(spec, shards_mesh, dev, seeds, reps,
+                                 t_stops, pw, programs=programs,
+                                 with_metrics=with_metrics,
+                                 chunk_steps=chunk_steps,
+                                 poll_every=poll_every, on_chunk=on_chunk,
+                                 on_digest=on_digest, audit=aud is not None)
+                if n_regrows >= max_regrows or not bool(
+                        (sims.err == _loop.ERR_EVENT_OVERFLOW).any()):
+                    break
+                # the wave again at a doubled cap; the failed wave is freed
+                # before the new init
+                spec = dataclasses.replace(spec,
+                                           event_cap=2 * spec.event_cap)
+                n_regrows += 1
+                sims = None
+            acc = fold(acc, sims)
             sims = None
-        acc = fold(acc, sims)
-        sims = None
-        n_waves += 1
-        lo += n
-        if on_wave is not None:
-            on_wave(n_waves, lo)
+            n_waves += 1
+            lo += n
+            if rec is not None:
+                rec.event(trace, "wave", n=n_waves, lanes_done=lo)
+            if on_wave is not None:
+                on_wave(n_waves, lo)
+    except BaseException:
+        if rec is not None:
+            rec.end_trace(trace, "error")
+        raise
+    if rec is not None:
+        rec.end_trace(trace, "completed", n_waves=n_waves)
     result = StreamResult(summary=acc[0], n_failed=acc[1],
                           total_events=acc[2], n_waves=n_waves,
                           n_regrows=n_regrows,
@@ -741,6 +790,8 @@ def run_experiment_stream(spec: ModelSpec, params: Any, n_replications: int,
                       "mesh": mesh_descriptor(mesh),
                       "n_waves": n_waves, "n_regrows": n_regrows},
             result_digest=obs_audit.stream_result_digest(result),
+            telemetry=(telemetry.snapshot() if telemetry is not None
+                       else None),
             device=dev)
         result = result._replace(audit=card)
     return result

@@ -32,12 +32,18 @@ splices queued requests into them (``core.loop.make_refill``);
 (``core.fuse``), whose K1 on the card is the generated instance of the
 merged block table.
 
+``telemetry=`` (an ``obs.telemetry.Telemetry``) attaches the host-side
+telemetry plane: the service's ``stats()`` sampled into its registry,
+the dispatcher's heartbeats, per-chunk ticks, request latencies, and with
+its span recorder on a span tree a request (request, queue, wave, and
+admit, chunk, fold, digest and deliver events), which ``chrome_trace()``
+splices into each request's track.  ``None`` costs nothing.
+
 Not ported, each raising and naming its module: the preemptive device
 scheduler (``device_sched``, ``serve/device.py``), the QoS plane
-(``qos``, ``tenants``, ``qos/``), the telemetry plane (``telemetry``,
-``obs/telemetry.py``) and tuned schedules (``tune/``: ``chunk_steps=None``
-is 1024 and ``fuse_max_specs=None`` is 4, the reference's untuned
-defaults).
+(``qos``, ``tenants``, ``qos/``) and tuned schedules (``tune/``:
+``chunk_steps=None`` is 1024 and ``fuse_max_specs=None`` is 4, the
+reference's untuned defaults).
 """
 
 from __future__ import annotations
@@ -72,7 +78,6 @@ _NOT_PORTED = {
     "device_sched": "the preemptive device scheduler (serve/device.py)",
     "qos": "the multi-tenant QoS plane (qos/)",
     "tenants": "the multi-tenant QoS plane (qos/)",
-    "telemetry": "the telemetry plane (obs/telemetry.py)",
 }
 
 
@@ -153,9 +158,11 @@ class Request:
     ``obs.audit.stream_result_digest`` the result should have; a mismatch
     counts ``digest_mismatches`` and the result is delivered all the
     same.  ``chunk_steps=None`` is 1024.  ``pack`` (the reference's packed
-    XLA carry, a TPU-only lever) is accepted and changes nothing.  The
-    reference's ``trace_context`` (telemetry) and ``tenant`` (QoS) wait
-    with their modules."""
+    XLA carry, a TPU-only lever) is accepted and changes nothing.
+    ``trace_context`` (``{"id": trace id, "parent": span id}``) grafts
+    the request's span tree under a remote one (a fleet's router) where
+    the service has a telemetry plane recording spans; it keys nothing.
+    The reference's ``tenant`` (QoS) waits with its module."""
 
     spec: Any
     params: Any
@@ -170,6 +177,7 @@ class Request:
     deadline: Optional[float] = None
     label: Optional[str] = None
     expect_digest: Optional[str] = None
+    trace_context: Optional[dict] = None
 
     def __post_init__(self):
         if self.summary_path is None:
@@ -192,7 +200,8 @@ class _Entry:
         "with_metrics", "next_lo", "acc", "n_waves", "retries", "solo",
         "cancelled", "in_flight", "submit_t", "first_dispatch_t",
         "deadline_at", "done", "result", "exc", "result_digest",
-        "finish_t", "fuse_cls", "spec_fp",
+        "finish_t", "fuse_cls", "spec_fp", "trace", "span_root",
+        "span_queue", "span_wave",
     )
 
     def __init__(self, request, seq, cls, eff_wave, with_metrics):
@@ -223,6 +232,12 @@ class _Entry:
         # None unless fusion is on, the spec can fuse and its roster took it
         self.fuse_cls = None
         self.spec_fp = None
+        # the telemetry span state: all None without a plane recording
+        # spans (nothing allocated on the submit path)
+        self.trace = None
+        self.span_root = None
+        self.span_queue = None
+        self.span_wave = None
 
 
 class ResultHandle:
@@ -356,9 +371,10 @@ class Service:
     ``CIMBA_WAVE_FUSE`` knob) packs shape-compatible distinct specs into
     one fused wave; each fusion class's roster binds the first
     ``fuse_max_specs`` (default 4) distinct specs it sees, for the
-    service's life.
+    service's life.  ``telemetry`` attaches an
+    ``obs.telemetry.Telemetry`` plane (the module's docstring).
 
-    ``device_sched``, ``qos``, ``tenants`` and ``telemetry`` (and the
+    ``device_sched``, ``qos`` and ``tenants`` (and the
     ``CIMBA_DEVICE_SCHED=1``/``CIMBA_QOS=1`` knobs) raise: their modules
     are not ported (nor are their own knobs, ``waves_per_device``,
     ``preempt_quantum``, ``mem_fraction``, ``mem_budget_bytes`` and
@@ -380,8 +396,6 @@ class Service:
         from cimba_tpu_torch import config
         from cimba_tpu_torch.runner import experiment as ex
 
-        if telemetry is not None:
-            _refuse("telemetry")
         if tenants is not None:
             _refuse("tenants")
         if (bool(device_sched) if device_sched is not None
@@ -459,6 +473,11 @@ class Service:
         self._ttfw_sum = 0.0
         self._ttfw_max = 0.0
         self._ttfw_n = 0
+        # the telemetry plane: None (the default) costs nothing, no
+        # sampler thread, no span object on the submit path
+        self._tel = telemetry
+        self._tel_name = (telemetry.attach_service(self, name)
+                          if telemetry is not None else None)
         self._thread = threading.Thread(target=self._loop, name=name,
                                         daemon=True)
         self._thread.start()
@@ -527,6 +546,26 @@ class Service:
             if self.fuse:
                 self._bind_fusion(entry, fuse_cls)
             self._outstanding += 1
+        rec = self._tel.spans if self._tel is not None else None
+        if rec is not None:
+            # the span tree's root and queue span exist before the entry
+            # is published: once put() returns, the dispatcher may finish
+            # the request, and a span started after that would outlive
+            # its ended trace.  A trace_context grafts the tree under a
+            # remote parent
+            ctx = request.trace_context
+            remote_parent = None
+            if ctx is not None and ctx.get("id"):
+                remote_parent = (str(ctx["parent"]) if ctx.get("parent")
+                                 else None)
+                entry.trace = rec.adopt_trace(str(ctx["id"]), remote_parent)
+            else:
+                entry.trace = rec.new_trace()
+            entry.span_root = rec.start(
+                entry.trace, "request", parent=remote_parent, seq=entry.seq,
+                label=entry.label, service=self._tel_name, lanes=R)
+            entry.span_queue = rec.start(entry.trace, "queue",
+                                         parent=entry.span_root)
         try:
             self._queue.put(entry, block=block, timeout=timeout)
         except (QueueFull, ServiceClosed):
@@ -534,9 +573,15 @@ class Service:
                 self._outstanding -= 1
                 self._counters["rejected"] += 1
                 self._drained.notify_all()
+            if rec is not None:
+                rec.end_trace(entry.trace, "rejected")
             raise
         with self._lock:
             self._counters["admitted"] += 1
+        if rec is not None:
+            # an instant only: safe after put even if the request has
+            # completed (an event never reopens a trace)
+            rec.event(entry.trace, "admit", parent=entry.span_root)
         return ResultHandle(self, entry)
 
     def drain(self, timeout: Optional[float] = None) -> bool:
@@ -569,6 +614,10 @@ class Service:
             self._stop = True
         self._queue.kick()
         self._thread.join(timeout)
+        if self._tel is not None:
+            # a last stats sample, then the plane drops its collector and
+            # reference (idempotent)
+            self._tel.detach_service(self)
 
     def __enter__(self):
         return self
@@ -654,10 +703,24 @@ class Service:
         by class, and each wave's live and padded lanes) as a Chrome-trace
         dict that ``obs.export.validate_chrome_trace`` takes: one complete
         ``X`` span a request on its own pid track, the service's stats in
-        ``otherData.service``."""
+        ``otherData.service``.  With a telemetry plane recording spans,
+        each request's track also carries its queue and wave spans and its
+        chunk, fold and deliver events, one tid a phase."""
         with self._lock:
             spans = list(self._spans)
             depths = list(self._depth_samples)
+        children: dict = {}
+        if self._tel is not None and self._tel.spans is not None:
+            # the root "request" span is the service's own X span below
+            trace_pid = {s["trace"]: s["seq"] for s in spans
+                         if s.get("trace") is not None}
+            tids = {"queue": 1, "wave": 2, "chunk": 3, "fold": 3,
+                    "admit": 3, "deliver": 3}
+            for e in self._tel.spans.chrome_events(
+                    self._t0, pid_of=trace_pid.get,
+                    tid_of=lambda n: tids.get(n, 4)):
+                if e["name"] != "request":
+                    children.setdefault(e["pid"], []).append(e)
         events, meta = [], []
         for s in spans:
             name = s["label"] or f"request {s['seq']}"
@@ -669,6 +732,10 @@ class Service:
                 "args": {"outcome": s["outcome"], "lanes": s["lanes"],
                          "time_to_first_wave_s": s["ttfw"],
                          "retries": s["retries"]}})
+            # the children right after their root, by time: each starts
+            # at or after the submit, so the track stays time-ordered
+            events.extend(sorted(children.pop(s["seq"], ()),
+                                 key=lambda e: e["ts"]))
             meta.append({"name": "process_name", "ph": "M", "pid": s["seq"],
                          "args": {"name": name}})
         # a live depth sample closes the counter tracks, and gives an idle
@@ -757,7 +824,7 @@ class Service:
                 "seq": entry.seq, "label": entry.label,
                 "submit": entry.submit_t, "end": now, "outcome": outcome,
                 "lanes": entry.request.n_replications, "ttfw": ttfw,
-                "retries": entry.retries})
+                "retries": entry.retries, "trace": entry.trace})
             if ttfw is not None:
                 self._ttfw_sum += ttfw
                 self._ttfw_max = max(self._ttfw_max, ttfw)
@@ -765,6 +832,17 @@ class Service:
             self._outstanding -= 1
             entry.done.set()
             self._drained.notify_all()
+        tel = self._tel
+        if tel is not None:
+            tel.observe_request(self._tel_name, outcome,
+                                now - entry.submit_t, ttfw)
+            if entry.trace is not None:
+                rec = tel.spans
+                rec.event(entry.trace, "deliver", parent=entry.span_root,
+                          outcome=outcome)
+                # closes any open queue or wave span first: a cancelled,
+                # expired or failed request still gives one whole tree
+                rec.end_trace(entry.trace, outcome, retries=entry.retries)
 
     def _eff_fuse_max(self) -> int:
         return (self._fuse_max_specs if self._fuse_max_specs is not None
@@ -813,6 +891,10 @@ class Service:
 
     def _dispatch_loop(self) -> None:
         while True:
+            if self._tel is not None:
+                # liveness: a beat a queue poll (and a chunk, through the
+                # chunk hook), which /healthz judges a stall against
+                self._tel.heartbeat(f"serve.{self._tel_name}.dispatch")
             entry = self._queue.pop_ready(timeout=0.25)
             with self._lock:
                 stopping = self._stop
@@ -940,8 +1022,55 @@ class Service:
             self._occupancy[k] = self._occupancy.get(k, 0) + 1
             self._depth_samples.append((time.monotonic(), self._queue.depth(),
                                         self._class_sample(), total, padded))
+            batch_no = self._counters["batches"]
+        self._wave_spans(members, batch=batch_no, members=len(members),
+                         lanes=total, padded=padded)
         fused = self._fused_bundle(lead.fuse_cls) if needs_fuse else None
         return slots, members, fused
+
+    def _wave_spans(self, entries, **attrs) -> None:
+        """Each entry's queue span ended and a wave span started, where
+        the service records spans."""
+        rec = self._tel.spans if self._tel is not None else None
+        if rec is None:
+            return
+        for e in entries:
+            if e.trace is None:
+                continue
+            if e.span_queue is not None:
+                rec.end(e.span_queue)
+                e.span_queue = None
+            e.span_wave = rec.start(e.trace, "wave", parent=e.span_root,
+                                    **attrs)
+
+    def _span_end_wave(self, e: _Entry, **attrs) -> None:
+        if e.trace is not None and e.span_wave is not None:
+            self._tel.spans.end(e.span_wave, **attrs)
+            e.span_wave = None
+
+    def _span_requeue(self, e: _Entry, **attrs) -> None:
+        if e.trace is not None:
+            e.span_queue = self._tel.spans.start(
+                e.trace, "queue", parent=e.span_root, **attrs)
+
+    def _chunk_hook(self, lead: _Entry):
+        """The service's ``on_chunk``, with a telemetry plane a tick (and
+        heartbeat) a chunk and, recording spans, a "chunk" event on the
+        lead's wave span first."""
+        tel, user = self._tel, self._on_chunk
+        if tel is None:
+            return user
+        src = f"serve.{self._tel_name}.chunk"
+        rec = tel.spans
+
+        def on_chunk(n):
+            tel.tick(src)
+            if rec is not None and lead.span_wave is not None:
+                rec.event(lead.trace, "chunk", parent=lead.span_wave, n=n)
+            if user is not None:
+                user(n)
+
+        return on_chunk
 
     def _check_class(self, lead: _Entry) -> None:
         """The program class froze into the request's class at submit; a
@@ -1074,7 +1203,8 @@ class Service:
             return None
 
         return drive_chunks(chunk_j, shards, poll_every=self.poll_every,
-                            on_chunk=self._on_chunk, on_boundary=on_boundary)
+                            on_chunk=self._chunk_hook(lead),
+                            on_boundary=on_boundary)
 
     @staticmethod
     def _row0(req):
@@ -1117,7 +1247,7 @@ class Service:
 
             sims = drive_chunks(wave.chunk_j, sims,
                                 poll_every=self.poll_every,
-                                on_chunk=self._on_chunk,
+                                on_chunk=self._chunk_hook(lead),
                                 on_boundary=on_boundary)
             # every lane is dead: fold and deliver what retired during the
             # last (unpolled) chunks
@@ -1270,6 +1400,8 @@ class Service:
         wave.L = total + pad
         with self._lock:
             self._free_lanes = len(wave.free)
+        self._wave_spans(members, batch=wave.batch_no, members=len(members),
+                         lanes=total, padded=pad, refill=True)
         return wave
 
     def _init_refill_wave(self, wave: _RefillWave):
@@ -1322,6 +1454,9 @@ class Service:
         e.acc = fold(e.acc, sl)
         e.n_waves += 1
         e.next_lo = s.lo + s.n
+        if e.trace is not None:
+            self._tel.spans.event(e.trace, "fold", parent=e.span_wave,
+                                  lo=s.lo, n=s.n)
 
     def _refill_boundary(self, wave: _RefillWave, n: int, sims,
                          final: bool = False):
@@ -1355,6 +1490,7 @@ class Service:
             with self._lock:
                 self._counters["refill_retirements"] += 1
                 e.in_flight = False
+            self._span_end_wave(e, outcome="ok")
             if e.next_lo >= e.request.n_replications:
                 if not final:
                     with self._lock:
@@ -1363,6 +1499,7 @@ class Service:
             elif e.cancelled:
                 self._finish(e, exc=Cancelled(e.label), outcome="cancelled")
             else:
+                self._span_requeue(e, requeue=True)
                 self._queue.requeue(e)
 
         # 2) reclaim: cancelled / deadline-expired requests' lanes become
@@ -1381,6 +1518,8 @@ class Service:
             with self._lock:
                 e.in_flight = False
                 self._counters["lanes_reclaimed"] += s.n
+            self._span_end_wave(e, outcome="cancelled" if e.cancelled
+                                else "deadline")
             if e.cancelled:
                 self._finish(e, exc=Cancelled(e.label), outcome="cancelled")
             else:
@@ -1417,6 +1556,22 @@ class Service:
                     self._counters["waves"] += 1
                     self._counters["lanes_dispatched"] += m
             wave.free = free_sorted
+            rec = self._tel.spans if self._tel is not None else None
+            for s in admitted:
+                e = s.entry
+                if rec is None or e.trace is None:
+                    continue
+                if e.span_queue is not None:
+                    rec.end(e.span_queue)
+                    e.span_queue = None
+                # the admission's own "refill" span, then its wave span
+                sp = rec.start(e.trace, "refill", parent=e.span_root,
+                               boundary=n, batch=wave.batch_no, lanes=s.n,
+                               lo=s.lo)
+                e.span_wave = rec.start(e.trace, "wave", parent=e.span_root,
+                                        batch=wave.batch_no, refill=True,
+                                        lanes=s.n)
+                rec.end(sp)
             for s in admitted:
                 self._preflight(s.entry, s.n)
 
@@ -1475,6 +1630,9 @@ class Service:
             entry.n_waves += 1
             entry.next_lo = lo + n
             off += n
+            if entry.trace is not None:
+                self._tel.spans.event(entry.trace, "fold",
+                                      parent=entry.span_wave, lo=lo, n=n)
 
     def _complete_members(self, members) -> None:
         """After a wave's folds: finish the requests that are whole,
@@ -1482,15 +1640,18 @@ class Service:
         for entry in members:
             with self._lock:
                 entry.in_flight = False
+            self._span_end_wave(entry, outcome="ok")
             if entry.next_lo >= entry.request.n_replications:
                 self._finish_completed(entry)
             else:
+                self._span_requeue(entry, requeue=True)
                 self._queue.requeue(entry)
 
     def _finish_completed(self, entry: _Entry) -> None:
         """Deliver a whole request's StreamResult (the direct call's
         shape), its digest checked against ``expect_digest`` where the
-        request carries one."""
+        request carries one, and recorded on its span tree where the
+        service records spans."""
         from cimba_tpu_torch.runner.experiment import StreamResult
 
         acc = entry.acc
@@ -1499,14 +1660,23 @@ class Service:
                               n_regrows=0,
                               metrics=acc[3] if entry.with_metrics else None)
         expect = entry.request.expect_digest
-        if expect is not None:
+        rec = self._tel.spans if self._tel is not None else None
+        spans_on = rec is not None and entry.trace is not None
+        if expect is not None or spans_on:
             from cimba_tpu_torch.obs import audit
 
             dig = audit.stream_result_digest(result)
             entry.result_digest = dig
-            if expect != dig:
+            if spans_on:
+                rec.event(entry.trace, "digest", parent=entry.span_root,
+                          digest=dig)
+            if expect is not None and expect != dig:
                 with self._lock:
                     self._counters["digest_mismatches"] += 1
+                if spans_on:
+                    rec.event(entry.trace, "digest_mismatch",
+                              parent=entry.span_root, expected=expect,
+                              got=dig)
         self._finish(entry, result=result, outcome="completed")
 
     def _batch_failed(self, members, exc: Exception) -> None:
@@ -1522,6 +1692,8 @@ class Service:
         for entry in members:
             with self._lock:
                 entry.in_flight = False
+            self._span_end_wave(entry, outcome="error",
+                                error=type(exc).__name__)
             if entry.next_lo >= entry.request.n_replications:
                 # its slots all folded before the failure: deliver it
                 self._finish_completed(entry)
@@ -1542,5 +1714,6 @@ class Service:
             else:
                 with self._lock:
                     self._counters["retries"] += 1
+                self._span_requeue(entry, retry=entry.retries, backoff=True)
                 self._queue.requeue(entry, delay=self.backoff.delay(
                     max(entry.retries, 1)))

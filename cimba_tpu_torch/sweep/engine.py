@@ -246,7 +246,10 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     seconds) and merges the results into the cells: its device and mesh
     are the service's (``mesh=`` and ``program_cache=`` with it raise),
     and ``occupancy["serve"]`` holds the service's counter deltas.
-    ``telemetry=`` raises: its module is not ported."""
+    ``telemetry`` (an ``obs.telemetry.Telemetry``) ticks ``sweep.chunk``
+    and ``sweep.round``, and with its span recorder on one "sweep" trace
+    holds a "round" span a round; the run card records its
+    ``snapshot()``.  Host-side only: no result bit changes."""
     import torch
 
     from cimba_tpu_torch import config, tree
@@ -254,7 +257,6 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     from cimba_tpu_torch.obs import metrics as obs_metrics
     from cimba_tpu_torch.runner import experiment as ex
 
-    ex._not_ported(telemetry=telemetry)
     C = grid.n_cells
     R0 = int(reps_per_cell)
     if R0 <= 0:
@@ -291,6 +293,7 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     with_metrics = obs_metrics.enabled()
     ex.preflight_summary_path(spec, summary_path, rows[0], R0,
                               min(cell_wave, R0), dev)
+    _, on_chunk = ex._tel_hooks(telemetry, "sweep", None, on_chunk)
     launches0 = _chunk_launches()
     serve_stats0 = service.stats() if service is not None else None
     if service is None:
@@ -395,31 +398,55 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
     n_rounds = 0
     total_rounds = 1 if stop is None else int(max_rounds)
     rep_cap = max(R0, max_wave)
-    while n_rounds < total_rounds and live.any():
-        live_cells = np.flatnonzero(live)
-        if stop is not None and redistribute:
-            reps_r = min(max(R0, R0 * C // len(live_cells)), rep_cap)
-        else:
-            reps_r = R0
-        jobs = [(int(c), round_seed(seed, int(c), n_rounds), reps_r)
-                for c in live_cells]
-        for c, sd, _ in jobs:
-            seed_log[c].append(int(sd))
-        if service is None:
-            dispatch(jobs)
-        else:
-            dispatch_serve(jobs, n_rounds)
-        for c, _, n in jobs:
-            n_reps[c] += n
-        n_rounds += 1
-        if stop is not None:
-            met_now = stop.met(_stack_summaries(accs), n_reps)
-            stop_round[np.flatnonzero(live & met_now)] = n_rounds - 1
-            live &= ~met_now
-        else:
-            live[:] = False
-        if on_round is not None:
-            on_round(n_rounds, int(live.sum()), int(n_reps.sum()))
+    rec = telemetry.spans if telemetry is not None else None
+    trace = root = None
+    if rec is not None:
+        trace = rec.new_trace()
+        root = rec.start(trace, "sweep", grid=grid.name, n_cells=C,
+                         adaptive=stop is not None,
+                         serve_backed=service is not None)
+    try:
+        while n_rounds < total_rounds and live.any():
+            live_cells = np.flatnonzero(live)
+            if stop is not None and redistribute:
+                reps_r = min(max(R0, R0 * C // len(live_cells)), rep_cap)
+            else:
+                reps_r = R0
+            jobs = [(int(c), round_seed(seed, int(c), n_rounds), reps_r)
+                    for c in live_cells]
+            for c, sd, _ in jobs:
+                seed_log[c].append(int(sd))
+            span_round = None
+            if rec is not None:
+                span_round = rec.start(trace, "round", parent=root,
+                                       round=n_rounds,
+                                       n_live=len(live_cells),
+                                       reps_per_cell=reps_r)
+            if service is None:
+                dispatch(jobs)
+            else:
+                dispatch_serve(jobs, n_rounds)
+            for c, _, n in jobs:
+                n_reps[c] += n
+            n_rounds += 1
+            if stop is not None:
+                met_now = stop.met(_stack_summaries(accs), n_reps)
+                stop_round[np.flatnonzero(live & met_now)] = n_rounds - 1
+                live &= ~met_now
+            else:
+                live[:] = False
+            if span_round is not None:
+                rec.end(span_round, outcome="ok", still_live=int(live.sum()))
+            if telemetry is not None:
+                telemetry.tick("sweep.round")
+            if on_round is not None:
+                on_round(n_rounds, int(live.sum()), int(n_reps.sum()))
+    except BaseException:
+        if rec is not None:
+            rec.end_trace(trace, "error")
+        raise
+    if rec is not None:
+        rec.end_trace(trace, "completed", rounds=n_rounds)
 
     confidence = 0.95 if stop is None else stop.confidence
     summaries = _stack_summaries(accs)
@@ -457,7 +484,9 @@ def run_sweep(spec, grid: SweepGrid, *, reps_per_cell: int,
                       "n_rounds": n_rounds,
                       "serve_backed": service is not None,
                       "mesh": ex.mesh_descriptor(mesh)},
-            cells=cells_blk, device=dev)
+            cells=cells_blk, telemetry=(telemetry.snapshot() if telemetry
+                                        is not None else None),
+            device=dev)
     return SweepResult(
         grid=grid, summaries=summaries, n_reps=n_reps,
         n_failed=np.asarray([int(a[1]) for a in accs], np.int64),

@@ -74,6 +74,19 @@ and on some seeds a priority queue of two whose third put blocks until
 ``queue_position`` of an object queue read into a local.  Every lane
 ends: each process exits.
 
+``build(seed, lib, boundary=True)`` makes a model with a boundary block
+(``Model.boundary_block``): a producer puts items into an object queue
+(fused ``put_hold``, or a plain ``put`` and a hold), one or two consumers
+take them (``get_hold``, or a plain ``get`` and a hold of a lognormal
+service) and fold each item's wait into a summary; a ``calibrator``
+holds for a period of 9 to 11 and resumes into a block that reads the
+queue's length and the clock, folds them into the user leaf ``cal``
+through ``tanh`` (an op the generated kernel's tracer refuses, so the
+block is never traced: the host's boundary round runs it), counts
+itself in ``cal_n`` and holds again.  Nothing stops it: such a model
+runs to a horizon.  :func:`midchain_spec` is the reference's model
+whose boundary block is reached mid-chain, by a jump.
+
 On the card a spec built here takes the generated chunk kernel
 (``core/kernel_run.generated_kernel_for``), which the tests and
 ``chip_smoke.py`` hold against the plain engine.
@@ -104,7 +117,7 @@ def torch_lib():
         where=torch.where, empty=lambda: sm.empty((), "cpu"), add=sm.add,
         floor=torch.floor, i32=lambda x: x.to(torch.int32),
         real_of=lambda x: x.to(config.real()),
-        select_sim=_torch_select_sim)
+        select_sim=_torch_select_sim, tanh=torch.tanh)
 
 
 def _torch_select_sim(pred, a, b):
@@ -123,10 +136,12 @@ TIMEOUT, INTERRUPTED = -5, -2
 
 
 def build(seed: int, lib, timers: bool = False, resources: bool = False,
-          spawn: bool = False, waits: bool = False):
+          spawn: bool = False, waits: bool = False, boundary: bool = False):
     """One random spec; returns ``(spec, n_items)`` (``n_items`` None for
-    a ``resources`` or a ``waits`` spec; the door's arrivals for a
-    ``spawn`` one)."""
+    a ``resources``, a ``waits`` or a ``boundary`` spec; the door's
+    arrivals for a ``spawn`` one)."""
+    if boundary:
+        return _build_boundary(seed, lib), None
     if resources:
         return _build_resources(seed, lib), None
     if waits:
@@ -345,6 +360,77 @@ def build(seed: int, lib, timers: bool = False, resources: bool = False,
     spec = m.build()
     box.append(spec)
     return spec, n_items
+
+
+def _build_boundary(seed: int, lib):
+    """The ``boundary=True`` family (see the module's docstring); takes
+    ``lib.tanh``."""
+    rng = random.Random(seed)
+    Model, api, cmd, cr = lib.Model, lib.api, lib.cmd, lib.cr
+    arr_mean = rng.uniform(0.8, 1.6)
+    srv_mean = rng.uniform(0.4, 1.2)
+    n_cons = rng.randint(1, 2)
+    fused = rng.random() < 0.5
+    period = rng.uniform(9.0, 11.0)
+    m = Model(f"usergenb{seed}", event_cap=4, guard_cap=4)
+    q = m.objectqueue("q", capacity=rng.randint(4, 16),
+                      record=rng.random() < 0.5)
+
+    @m.user_state
+    def init(params):
+        return {"w": lib.empty(), "cal": lib.real(0.0),
+                "cal_n": lib.zeros_i()}
+
+    @m.block
+    def produce(sim, p, sig):
+        sim, t = api.draw(sim, cr.exponential, arr_mean)
+        if fused:
+            return sim, cmd.put_hold(q.id, api.clock(sim), t,
+                                     next_pc=produce.pc)
+        sim = api.set_local_f(sim, p, 0, t)
+        return sim, cmd.put(q.id, api.clock(sim), next_pc=p_wait.pc)
+
+    @m.block
+    def p_wait(sim, p, sig):
+        return sim, cmd.hold(api.local_f(sim, p, 0), next_pc=produce.pc)
+
+    @m.block
+    def c_get(sim, p, sig):
+        if fused:
+            sim, t = api.draw(sim, cr.exponential, srv_mean)
+            return sim, cmd.get_hold(q.id, t, next_pc=c_rec.pc)
+        return sim, cmd.get(q.id, next_pc=c_svc.pc)
+
+    @m.block
+    def c_svc(sim, p, sig):
+        sim, t = api.draw(sim, cr.lognormal, -0.7, 0.5)
+        return sim, cmd.hold(t, next_pc=c_rec.pc)
+
+    @m.block
+    def c_rec(sim, p, sig):
+        u = sim.user
+        sim = api.set_user(sim, {**u, "w": lib.add(
+            u["w"], api.clock(sim) - api.got(sim, p))})
+        return sim, cmd.jump(c_get.pc)
+
+    # --- the calibrator: bulk work between chunks, on the host ----------
+    @m.block
+    def k_start(sim, p, sig):
+        return sim, cmd.hold(period, next_pc=k_cal.pc)
+
+    @m.boundary_block
+    def k_cal(sim, p, sig):
+        u = sim.user
+        x = (lib.real_of(api.queue_length(sim, q)) * 0.25
+             - api.clock(sim) * 1e-3)
+        sim = api.set_user(sim, {**u, "cal": u["cal"] * 0.5 + lib.tanh(x),
+                                 "cal_n": u["cal_n"] + 1})
+        return sim, cmd.hold(period, next_pc=k_cal.pc)
+
+    m.process("producer", entry=produce)
+    m.process("consumer", entry=c_get, count=n_cons)
+    m.process("calibrator", entry=k_start)
+    return m.build()
 
 
 def _build_resources(seed: int, lib):
@@ -1109,6 +1195,36 @@ def wait_event_spec(lib):
                                cmd.hold(0.1, next_pc=s_go.pc))
 
     m.process("sched", entry=s_go, count=3)
+    return m.build()
+
+
+def midchain_spec(lib):
+    """The reference's model of a boundary block reached mid-chain
+    (``tests/test_pallas_run.py``,
+    ``test_boundary_block_mid_chain_entry_fails_loudly``): one process
+    enters at the boundary block ``heavy``, which adds 1 to ``acc``,
+    stops the lane once ``acc`` passes 2 and holds 1 into ``go``, which
+    jumps back into ``heavy``.  The plain engine runs it to its stop;
+    the kernel path (a chunk defers boundary dispatches) fails every lane
+    with ``ERR_BOUNDARY`` at the jump."""
+    Model, api, cmd = lib.Model, lib.api, lib.cmd
+    m = Model("bad_boundary", event_cap=4)
+
+    @m.user_state
+    def init(params):
+        return {"acc": lib.real(0.0)}
+
+    @m.block
+    def go(sim, p, sig):
+        return sim, cmd.jump(heavy.pc)
+
+    @m.boundary_block
+    def heavy(sim, p, sig):
+        sim = api.set_user(sim, {**sim.user, "acc": sim.user["acc"] + 1.0})
+        sim = api.stop(sim, sim.user["acc"] > 2.0)
+        return sim, cmd.hold(1.0, next_pc=go.pc)
+
+    m.process("w", entry=heavy)
     return m.build()
 
 

@@ -131,10 +131,15 @@ def test_chained_entry_into_boundary_block_fails_the_lane():
 
 
 def test_kernels_refuse_other_specs():
-    # another spec with a boundary block: no dwell kernel, and the
-    # generated family takes none
-    with pytest.raises(NotImplementedError, match="boundary blocks"):
-        kernel_run.make_kernel_run(_jumpy())
+    # another spec with a boundary block: no dwell kernel, but the
+    # generated family takes it (the block a stub in its header), and the
+    # host loop's deferred chunks fail the jump's mid-chain entry
+    spec = _jumpy()
+    run = kernel_run.make_kernel_run(spec, chunk_steps=4)
+    s0 = tloop.init_sim(spec, 1, torch.arange(2), device="cpu")
+    assert run(s0).err.tolist() == [tloop.ERR_BOUNDARY] * 2
+    lay = kernel_run.generated_kernel_for(spec, s0)[0]
+    assert "static constexpr bool BOUNDARY = true;" in lay["header"]
     aw, _ = awacs.build(8)
     mm, _ = mm1.build(record=False)
     with pytest.raises(NotImplementedError):

@@ -299,9 +299,13 @@ def test_awacs_heading_trig_matches_torch(card, dt):
 
 
 def test_boundary_round_on_card_refuses_other_specs(card):
-    """A CUDA Sim of a spec with boundary blocks but no dwell kernel."""
+    """A CUDA Sim of a spec with boundary blocks but no dwell kernel: the
+    card's round no longer refuses it; it is the plain round on the card
+    (``kernel_run.boundary_in_place``), in place, equal to the plain
+    version's on the same frozen lanes, leaf for leaf."""
     from cimba_tpu_torch.core import process as cmd
     from cimba_tpu_torch.core.model import Model
+    from cimba_tpu_torch.tools import usergen
 
     m = Model("jumpy")
 
@@ -310,10 +314,91 @@ def test_boundary_round_on_card_refuses_other_specs(card):
         return sim, cmd.hold(1.0, next_pc=dwell.pc)
 
     m.process("p", entry=dwell)
-    spec = m.build()
-    s0 = loop.init_sim(spec, 1, torch.arange(2), device=card)
-    with pytest.raises(NotImplementedError, match="dwell"):
-        kernel_run.make_boundary_step(spec)(s0)
+    for spec in (m.build(), usergen.build(2026, usergen.torch_lib(),
+                                          boundary=True)[0]):
+        s0 = loop.init_sim(spec, 1, torch.arange(64), device=card)
+        s = loop.make_run(spec, t_end=25.0, max_steps=37,
+                          defer_boundary=True)(s0)
+        assert bool(s.boundary_pending.any())
+        want = kernel_run.make_boundary_step_plain(spec)(s)
+        got = clone = tree.map(lambda x: x.clone(), s)
+        got = kernel_run.make_boundary_step(spec)(clone)
+        assert got is clone  # in place
+        torch.cuda.synchronize()
+        for x, y in zip(tree.leaves(want), tree.leaves(got)):
+            assert torch.equal(x, y)
+        assert not bool(got.boundary_pending.any())
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_generated_boundary_spec_matches_plain_engine(card, prof):
+    """The generated K1 of a usergen boundary spec with its rounds on the
+    card (``make_kernel_run``) against the plain engine on the card to
+    t=35, and the mid-chain spec's lanes failed with ERR_BOUNDARY."""
+    from cimba_tpu_torch.tools import usergen
+
+    lib = usergen.torch_lib()
+    with config.profile(prof):
+        spec = usergen.build(2026, lib, boundary=True)[0]
+        s0 = loop.init_sim(spec, 2026, torch.arange(512), device=card)
+        run = kernel_run.make_kernel_run(spec, t_end=35.0, chunk_steps=64)
+        before = kernel_run.gen_chunk.launches
+        got = run(s0)
+        want = loop.make_run(spec, t_end=35.0)(s0)
+        torch.cuda.synchronize()
+        assert kernel_run.gen_chunk.launches > before
+        # a period of 10.79: three calibrations a lane, each lane frozen
+        # only there (chunks of 64 reach each freeze in one chunk)
+        assert 3 <= run.boundary_rounds <= 10
+        # one chunk at a time against the plain engine's deferred chunk
+        lay, wrapper, _ = kernel_run.generated_kernel_for(spec, s0)
+        for k in (5, 64):
+            a = wrapper(tree.map(lambda x: x.clone(), s0), lay, k)
+            b = loop.make_run(spec, max_steps=k, defer_boundary=True)(s0)
+            assert interop.diff_leaves(interop.sim_to_numpy(b),
+                                       interop.sim_to_numpy(a), 0.0) == []
+        bad = interop.diff_leaves(interop.sim_to_numpy(want),
+                                  interop.sim_to_numpy(got), 0.0)
+        assert bad == [], bad[:4]
+        mid = usergen.midchain_spec(lib)
+        m0 = loop.init_sim(mid, 3, torch.arange(64), device=card)
+        out = kernel_run.make_kernel_run(mid, chunk_steps=16)(m0)
+        assert bool((out.err == loop.ERR_BOUNDARY).all())
+
+
+def test_boundary_spec_through_stream_sweep_and_service(card):
+    """The usergen boundary spec on the card through the stream (each
+    wave's chunks K1 and the plain round, ``loop.make_chunk``), a sweep
+    cell and an unfused ``Service``: each bitwise the direct stream, and
+    the stream's events the monolithic run's."""
+    from cimba_tpu_torch import serve, sweep
+    from cimba_tpu_torch.obs import audit
+    from cimba_tpu_torch.runner import experiment
+    from cimba_tpu_torch.tools import usergen
+
+    spec = usergen.build(2026, usergen.torch_lib(), boundary=True)[0]
+    kw = dict(t_end=25.0, chunk_steps=64, summary_path=lambda s:
+              s.user["w"])
+    st = experiment.run_experiment_stream(spec, (), 256, wave_size=128,
+                                          seed=5, device=card, **kw)
+    mono = experiment.run_experiment(spec, (), 256, seed=5, t_end=25.0,
+                                     device=card)
+    assert int(st.total_events) == int(mono.total_events)
+    assert int(st.n_failed) == 0
+    assert mono.boundary_rounds >= 2 or card.type != "cuda"
+    g = sweep.SweepGrid({"k": (0,)}, lambda k: (), name="b")
+    sw = sweep.run_sweep(spec, g, reps_per_cell=256, seed=5, cell_wave=128,
+                         max_wave=256, device=card, **kw)
+    one = experiment.run_experiment_stream(
+        spec, (), 256, wave_size=128, seed=sweep.round_seed(5, 0, 0),
+        device=card, **kw)
+    for x, y in zip(tree.leaves(sw.summaries), tree.leaves(one.summary)):
+        assert torch.equal(x[0], y)
+    with serve.Service(max_wave=256, device=card) as svc:
+        got = svc.submit(serve.Request(spec, (), 256, seed=5, wave_size=128,
+                                       **kw)).result(300)
+    assert audit.stream_result_digest(got) == \
+        audit.stream_result_digest(st)
 
 
 def _queue_spec(name):

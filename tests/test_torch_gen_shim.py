@@ -30,6 +30,21 @@ priority queues):
 * a full priority queue (a put pends on the rear guard, the get's signal
   retries it), in the ``tools/usergen.py`` timers spec.
 
+The boundary protocol (``usergen.build(2026, lib, boundary=True)``, a
+calibrator whose hold resumes into a boundary block, and
+``usergen.midchain_spec``): the host-built kernel freezes a lane at a
+boundary dispatch and the plain round (``kernel_run.
+make_boundary_step_plain``) steps it between chunks; K = 1, 7 and 64
+events and then to the end, each chunk against the plain engine's
+deferred chunk (``make_run(..., defer_boundary=True)``) from the same
+state, and the end against ``make_run`` with no defer; then planted
+states: a table event tied in time with the calibrator's boundary wake
+(the wake first on some lanes, the event on others), a timer aimed at
+the calibrator while it holds into its boundary block (frozen by the
+table arm) and a user-kind event aimed at it (not frozen: its resume
+reaches the block and fails the lane), and the mid-chain spec, whose
+lanes all fail with ``ERR_BOUNDARY``.
+
 The host stand-ins of ``__ffs``, ``__ffsll``, ``__popc`` and ``__popcll``
 (and the shim's other bit intrinsics) are held against Python's integers.
 Every test skips where there is no ``g++``; torch runs on one thread.
@@ -68,6 +83,11 @@ CELLS = {
     "usergent5": (lambda: usergen.build(5, usergen.torch_lib(),
                                         timers=True)[0],
                   lambda: None, 11, None),
+    "boundary": (lambda: usergen.build(2026, usergen.torch_lib(),
+                                       boundary=True)[0],
+                 lambda: None, 2026, 35.0),
+    "midchain": (lambda: usergen.midchain_spec(usergen.torch_lib()),
+                 lambda: None, 3, None),
 }
 K_TIMER, SIG_JOCKEY = 1, 101
 
@@ -294,6 +314,133 @@ def test_usergen_timers_spec_matches_plain_engine(built):
     end = _held(built, "usergent5", "f64", _start("usergent5", "f64"),
                 (1, 7, 24), to_end=False)
     assert int(end.err.ne(0).sum()) == 0
+
+
+def _held_boundary(built, name, prof, s, ks, to_end=True):
+    """:func:`_held` for a spec with boundary blocks: each chunk by the
+    host-built kernel against the plain engine's deferred chunk from the
+    same state, then the plain round on the frozen lanes (the card's
+    round of a generated spec is that step); to the end, then against
+    ``make_run`` with no defer.  Returns (last state, rounds)."""
+    spec, lay, lib = built[name, prof]
+    t_end = CELLS[name][3]
+    start, rounds = s, 0
+    with config.profile(prof):
+        cond = loop.make_cond(spec, t_end, defer_boundary=True)
+        step = kernel_run.make_boundary_step_plain(spec)
+
+        def one(s, k):
+            ker = gxx_shim.chunk(lib, _clone(s), lay, k, t_end)
+            pla = loop.make_run(spec, t_end=t_end, max_steps=k,
+                                defer_boundary=True)(s)
+            bad = _diff(pla, ker, RTOL[prof])
+            assert bad == [], (name, prof, k, [
+                (lay["table"][i][0], w) for i, w in bad[:4]])
+            return pla
+
+        for k in ks:
+            s = one(s, k)
+            if bool(s.boundary_pending.any()):
+                s, rounds = step(s), rounds + 1
+        while to_end and bool((cond(s) | s.boundary_pending).any()):
+            s = one(s, 64)
+            if bool(s.boundary_pending.any()):
+                s, rounds = step(s), rounds + 1
+        if to_end:
+            bad = _diff(loop.make_run(spec, t_end=t_end)(start), s,
+                        RTOL[prof])
+            assert bad == [], (name, prof, "end", [
+                (lay["table"][i][0], w) for i, w in bad[:4]])
+    return s, rounds
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_boundary_spec_matches_plain_engine(built, prof):
+    """The calibrator's boundary block: frozen lanes, plain rounds, the
+    run to t=35 equal to the plain engine's with no defer."""
+    end, rounds = _held_boundary(built, "boundary", prof,
+                                 _start("boundary", prof), (1, 7, 64))
+    assert int(end.err.ne(0).sum()) == 0 and rounds >= 3
+    assert bool((end.user["cal_n"] == 3).all())
+
+
+def _calibrator(spec):
+    return spec.n_procs - 1, spec.boundary_pcs[0]
+
+
+def plant_boundary_tie(s, spec):
+    """A timer of the producer (pid 0) at the calibrator's boundary wake
+    time, its priority above the wake's (0) on odd lanes, equal with a
+    later seq on even ones: the event dispatches first, then the wake
+    freezes the lane; or the wake freezes it first."""
+    cal, _ = _calibrator(spec)
+    t = s.wakes.time[:, cal].clone()
+    ev = s.events
+    time_, prio, seq, kind, subj, arg = (ev.time.clone(), ev.prio.clone(),
+                                         ev.seq.clone(), ev.kind.clone(),
+                                         ev.subj.clone(), ev.arg.clone())
+    odd = _lanes(s, 2, 1)
+    time_[:, 0], kind[:, 0], subj[:, 0], arg[:, 0] = t, K_TIMER, 0, -5
+    prio[:, 0] = torch.where(odd, 1, 0).to(prio.dtype)
+    seq[:, 0] = 10_000
+    return s._replace(events=ev._replace(
+        time=time_, prio=prio, seq=seq, kind=kind, subj=subj, arg=arg,
+        next_seq=torch.full_like(ev.next_seq, 10_001)))
+
+
+def plant_boundary_timer(s, spec):
+    """An event aimed at the calibrator, which holds into its boundary
+    block, before its wake: a timer (kind 1, frozen by the table arm) on
+    even lanes; kind 5, past the spec's handlers, on odd ones (not
+    frozen: it clips to a resume that reaches the block mid-dispatch and
+    fails the lane)."""
+    cal, _ = _calibrator(spec)
+    rows = [(1, 0.0, 0, 10_000, K_TIMER, cal, -5)]
+    s = _table(s, rows)
+    s = _table(s, [(1, 0.0, 0, 10_000, 5, cal, 0)], _lanes(s, 2, 1))
+    t = s.clock + 0.25 * (s.wakes.time[:, cal] - s.clock)
+    ev = s.events
+    time_ = ev.time.clone()
+    time_[:, 1] = t
+    return s._replace(events=ev._replace(
+        time=time_, next_seq=torch.full_like(ev.next_seq, 10_001)))
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+@pytest.mark.parametrize("plant", ["tie", "timer"])
+def test_boundary_planted_match_plain_engine(built, plant, prof):
+    spec, _, _ = built["boundary", prof]
+    cal, bpc = _calibrator(spec)
+    s = _start("boundary", prof)
+    with config.profile(prof):  # the calibrator holds into its block
+        s = loop.make_run(spec, max_steps=8, defer_boundary=True)(s)
+    assert bool((s.procs.pc[:, cal] == bpc).all())
+    fn = plant_boundary_tie if plant == "tie" else plant_boundary_timer
+    end, rounds = _held_boundary(built, "boundary", prof, fn(s, spec),
+                                 (1, 1, 7, 24), to_end=False)
+    assert rounds >= 1
+    if plant == "timer":
+        odd = _lanes(end, 2, 1)
+        assert bool((end.err[odd] == loop.ERR_BOUNDARY).all())
+        assert bool((end.err[~odd] == 0).all())
+
+
+@pytest.mark.parametrize("prof", ["f64", "f32"])
+def test_midchain_boundary_entry_fails_every_lane(built, prof):
+    """The reference's mid-chain spec: the kernel (and the plain
+    engine's deferred chunks) fail every lane with ERR_BOUNDARY; with no
+    defer it runs clean."""
+    end, rounds = _held_boundary(built, "midchain", prof,
+                                 _start("midchain", prof), (1, 7),
+                                 to_end=False)
+    end, _ = _held_boundary(built, "midchain", prof, end, (64,),
+                            to_end=False)
+    assert rounds == 1
+    assert bool((end.err == loop.ERR_BOUNDARY).all())
+    spec = built["midchain", prof][0]
+    with config.profile(prof):
+        clean = loop.make_run(spec)(_start("midchain", prof))
+    assert int(clean.err.ne(0).sum()) == 0
 
 
 SHIM_TEST = r"""

@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
                 "examples.tut_1_mm1", "sweep.engine", "sweep.adaptive",
                 "runner.dryrun", "examples.mg1_sweep", "serve",
                 "serve.sched", "serve.cache", "serve.service",
-                "serve.client", "core.fuse", "examples.serve_mm1"):
+                "serve.client", "core.fuse", "examples.serve_mm1",
+                "obs.telemetry", "obs.expose", "tools.metrics_dump"):
         assert f"cimba_tpu_torch.{mod}" in res["mods"]
 
 
@@ -58,6 +59,29 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+
+
+def test_telemetry_plane_imports_only_the_stdlib():
+    """The telemetry plane and its exposition server import the standard
+    library at module level (the reference's rule: nothing there can
+    perturb a run, and the operator tool stays light); torch only inside
+    ``build_info``."""
+    pkg = ROOT / "cimba_tpu_torch"
+    for name in ("obs/telemetry.py", "obs/expose.py",
+                 "tools/metrics_dump.py"):
+        tree_ = ast.parse((pkg / name).read_text())
+        top = [n for n in tree_.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        mods = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import)
+                for a in n.names}
+        mods |= {n.module.split(".")[0] for n in top
+                 if isinstance(n, ast.ImportFrom) and n.module}
+        assert mods <= set(sys.stdlib_module_names) | {
+            "__future__", "cimba_tpu_torch"}, (name, mods)
+        for n in top:
+            if isinstance(n, ast.ImportFrom) and n.module.startswith(
+                    "cimba_tpu_torch"):
+                assert n.module == "cimba_tpu_torch.obs.telemetry", name
 
 
 def test_no_import_statement_names_jax():

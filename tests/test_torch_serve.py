@@ -594,10 +594,21 @@ def test_stats_keys_are_the_reference_keys(tiny, shared_cache, services):
 def test_unported_modules_raise_naming_themselves(tiny, monkeypatch):
     for kw, mod in (({"device_sched": True}, "serve/device.py"),
                     ({"qos": True}, "qos/"),
-                    ({"tenants": object()}, "qos/"),
-                    ({"telemetry": object()}, "obs/telemetry.py")):
+                    ({"tenants": object()}, "qos/")):
         with pytest.raises(NotImplementedError, match=mod):
             serve.Service(device="cpu", **kw)
+    # telemetry= is ported (obs/telemetry.py): the plane attaches the
+    # service, scrapes its stats and detaches it at shutdown
+    from cimba_tpu_torch.obs import telemetry as tm
+
+    tel = tm.Telemetry(interval=0)
+    with serve.Service(device="cpu", telemetry=tel) as svc:
+        assert list(tel.healthz()["services"]) == [svc.name]
+        tel.sample()
+        assert tel.registry.get_sample("cimba_serve_requests_submitted_total",
+                                       service=svc.name) == 0.0
+    assert tel.healthz()["services"] == {}
+    tel.close()
     for env, mod in (("CIMBA_DEVICE_SCHED", "serve/device.py"),
                      ("CIMBA_QOS", "qos/")):
         monkeypatch.setenv(env, "1")

@@ -150,10 +150,23 @@ def test_stream_regrows_a_wave():
 
 def test_stream_refuses_what_is_not_ported():
     spec, _ = tmm1.build(record=False)
-    for kw in ("telemetry", "schedule"):
-        with pytest.raises(NotImplementedError, match=kw):
-            tex.run_experiment_stream(spec, tmm1.params(4), 4,
-                                      device="cpu", **{kw: {}})
+    with pytest.raises(NotImplementedError, match="schedule"):
+        tex.run_experiment_stream(spec, tmm1.params(4), 4, device="cpu",
+                                  schedule={})
+    # telemetry= is ported (obs/telemetry.py): a plane ticks each wave
+    # and chunk, and the result is the one without it
+    from cimba_tpu_torch.obs import telemetry as tm
+
+    tel = tm.Telemetry(interval=0)
+    on = tex.run_experiment_stream(spec, tmm1.params(4), 4, wave_size=2,
+                                   device="cpu", telemetry=tel)
+    off = tex.run_experiment_stream(spec, tmm1.params(4), 4, wave_size=2,
+                                    device="cpu")
+    assert tel.registry.get_sample(tm.METRIC_PREFIX + "ticks_total",
+                                   source="stream.wave") == 2.0
+    for x, y in zip(on.summary, off.summary):
+        assert torch.equal(x, y)
+    tel.close()
     # program_cache= is ported (serve.cache): a plain dict holds the
     # programs as a ProgramCache does, and a second call reuses them
     cache = {}

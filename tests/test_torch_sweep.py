@@ -331,17 +331,21 @@ def test_run_sweep_validates_arguments(monkeypatch):
 
 
 def test_unported_paths_raise_naming_their_modules():
-    # telemetry= still raises, naming its module; the serve-backed sweep,
-    # program_cache= and run_fused_sweeps are ported (the serve layer):
-    # each is bitwise the direct engine's fixed-R run
+    # telemetry= (obs/telemetry.py), the serve-backed sweep,
+    # program_cache= and run_fused_sweeps are ported: each is bitwise the
+    # direct engine's fixed-R run
     from cimba_tpu_torch import serve
+    from cimba_tpu_torch.obs import telemetry as tm
 
     spec, g = tiny("f64"), grid((1.0, 2.5))
-    with pytest.raises(NotImplementedError, match="obs/telemetry.py"):
-        sweep.run_sweep(spec, g, reps_per_cell=2, device="cpu",
-                        telemetry={})
     args = ("f64", (1.0, 2.5), 12, 6, 5, 4, 16, 8)
     want = port_sweep(*args)
+    tel = tm.Telemetry(interval=0, spans=True)
+    ticked = port_sweep(*args, telemetry=tel)
+    assert tel.registry.get_sample(tm.METRIC_PREFIX + "ticks_total",
+                                   source="sweep.round") == 1.0
+    assert tel.spans.open_count() == 0
+    tel.close()
     with serve.Service(max_wave=16, device="cpu") as svc:
         with pytest.raises(ValueError, match="mesh=/program_cache="):
             port_sweep(*args, service=svc, program_cache={})
@@ -350,7 +354,7 @@ def test_unported_paths_raise_naming_their_modules():
     fused = sweep.run_fused_sweeps(
         [(spec, grid((1.0, 2.5)))], reps_per_cell=6, seed=5, cell_wave=4,
         max_wave=16, chunk_steps=8, device="cpu")[0]
-    for res in (got, cached, fused):
+    for res in (got, cached, fused, ticked):
         for x, y in zip(tree.leaves((res.summaries,
                                      torch.as_tensor(res.n_failed),
                                      torch.as_tensor(res.total_events))),
